@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of the Coded Federated Learning system.
+
+A second package beside `repro` (the JAX reference, which it never
+imports).  It mirrors `repro`'s layout module for module and runs the
+paper's §IV experiment end to end on an NVIDIA H100: plan
+(`core.redundancy`, `plan.solver`), encode (`core.encoding`, kernel
+`kernels.encode`), train (`api.Session` over `api.UncodedFL` /
+`api.CodedFL`, per-epoch kernel `kernels.round_grad`) and report
+(`api.report`).
+
+Entry points run on `cuda` unless the caller passes `device="cpu"`; with
+no CUDA device and no device asked for they raise instead of falling
+back.  `python -m repro_torch.quickstart` is the counterpart of
+`examples/quickstart.py`.
+"""

@@ -1,0 +1,69 @@
+"""Carry the reference's state into the port.
+
+The functions take the values of the JAX package (`repro`) as NumPy
+arrays and plain fields and return the port's objects, so the parity
+tests run both packages on identical operands: the same data, fleet,
+plan and encoded parity.  Nothing of `repro` is imported here — callers
+convert with `np.asarray` and pass the fields.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.api.strategy import TrainData
+from repro_torch.core.cfl import CFLState
+from repro_torch.core.delay_model import DeviceDelayParams
+from repro_torch.core.redundancy import RedundancyPlan
+from repro_torch.sim.network import FleetSpec
+
+
+def _f32(arr, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(arr, dtype=np.float32), device=device)
+
+
+def train_data(xs, ys, beta_true, device) -> TrainData:
+    """`TrainData` from (n, ell, d) features, (n, ell) labels, (d,) truth."""
+    return TrainData(xs=_f32(xs, device), ys=_f32(ys, device),
+                     beta_true=_f32(beta_true, device))
+
+
+def delay_params(a, mu, tau, p) -> DeviceDelayParams:
+    """`DeviceDelayParams` from the four (n,) parameter arrays."""
+    return DeviceDelayParams(a=np.array(a, dtype=np.float64),
+                             mu=np.array(mu, dtype=np.float64),
+                             tau=np.array(tau, dtype=np.float64),
+                             p=np.array(p, dtype=np.float64))
+
+
+def fleet_spec(edge: DeviceDelayParams, server: DeviceDelayParams,
+               mac_rates, link_rates, packet_bits: float, d: int,
+               nu_comp: float, nu_link: float) -> FleetSpec:
+    """`FleetSpec` from its fields (edge/server built with `delay_params`)."""
+    return FleetSpec(edge=edge, server=server,
+                     mac_rates=np.array(mac_rates, dtype=np.float64),
+                     link_rates=np.array(link_rates, dtype=np.float64),
+                     packet_bits=float(packet_bits), d=int(d),
+                     nu_comp=float(nu_comp), nu_link=float(nu_link))
+
+
+def redundancy_plan(loads, c: int, t_star: float, p_return,
+                    expected_agg: float,
+                    loads_cap_total: int) -> RedundancyPlan:
+    """`RedundancyPlan` from its fields."""
+    return RedundancyPlan(loads=np.array(loads, dtype=np.int64), c=int(c),
+                          t_star=float(t_star),
+                          p_return=np.array(p_return, dtype=np.float64),
+                          expected_agg=float(expected_agg),
+                          loads_cap_total=int(loads_cap_total))
+
+
+def cfl_state(plan: RedundancyPlan, weights, load_mask, x_parity, y_parity,
+              edge: DeviceDelayParams, server: DeviceDelayParams,
+              device) -> CFLState:
+    """`CFLState` from the reference's (n, ell) weights and load mask and
+    its (c, d) / (c,) composite parity, placed on `device`."""
+    return CFLState(plan=plan, weights=_f32(weights, device),
+                    load_mask=_f32(load_mask, device),
+                    x_parity=_f32(x_parity, device),
+                    y_parity=_f32(y_parity, device), edge=edge, server=server)
