@@ -6,19 +6,38 @@ Run from the root of a checkout on a machine with one CUDA card (built for
 an H100, sm_90a).  Phases, each printed as it finishes:
 
   1. the card (`nvidia-smi` name and power limit), torch and CUDA versions;
-  2. build both kernels from `src/repro_torch/kernels/csrc/` (one `nvcc`
-     per source, started together);
+  2. build every kernel source in `src/repro_torch/kernels/csrc/` (one
+     `nvcc` per source, started together);
   3. hold each kernel against its plain PyTorch version on the card at
-     the main path's shapes: the round gradient at (5632, 500) with random
-     weights and at (7200, 500) with w = None (rtol 1e-3 / atol 1e-6, and
-     two launches bit-identical), the encode at (2016, 300, 501)
-     (2e-4 * max|ref|);
+     the main paths' shapes: the flat round gradient at (5632, 500) with
+     random weights and at (7200, 500) with w = None (rtol 1e-3 / atol
+     1e-6, and two launches bit-identical), the encode at (2016, 300, 501)
+     (2e-4 * max|ref|); the coded round gradient at 7200 + 2016 rows of
+     500 with zero-weight rows, per-row (of order 1) and scalar parity
+     weights, the parity stream alone (systematic weights 0), and an
+     empty parity block (which runs the flat kernel), and the tier-masked
+     one at (5632, 500) for T = 3 and T = 8 — each held, with the plain
+     version, against the float64 expression within rtol 1e-3 plus
+     1e-6 x the magnitude of the summed terms (the bound
+     `tests/test_torch_cuda.py` holds the flat kernel to), relaunches
+     bit-identical, and the tier kernel at T = 1 with an all-ones mask
+     `torch.equal` to the flat kernel;
   4. the main path: `repro_torch.quickstart.run` — the §IV plan, the
      encode through the kernel, 600 uncoded and 600 coded epochs — with
      the launch counters set to 0 just before it and read just after;
   5. the same coded run on the reference gradient path (no kernel),
      whose NMSE trace must agree within rtol 1e-4;
-  6. time each kernel, its plain version and the one PyTorch call that
+  6. the StochasticCodedFL path: noise multiplier 0.5, parity sampling
+     rho = 0.8, fixed_c = 2016, planned by the port's planner at
+     srv_weight 0.64, encoded through the encode kernel, 600 epochs on
+     the coded kernel (the counters set to 0 just before, read just
+     after: 600 coded launches, 0 flat, 24 encode); the same run on the
+     reference gradient path within rtol 1e-4, clocks identical;
+  7. the HierarchicalCFL path over the §IV CodedFL state at T = 3: 600
+     epochs on the tier-masked kernel (600 launches, 0 flat), the
+     reference gradient path within rtol 1e-4; then T = 1, whose NMSE
+     trace must be bit-equal to phase 4's coded trace;
+  8. time each kernel, its plain version and the one PyTorch call that
      computes the same product: CUDA events around a run of back-to-back
      calls that rotate over copies of the operands larger than the L2
      together (so each call finds its operands cold), enqueued while a
@@ -34,8 +53,10 @@ rest of the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -58,6 +79,14 @@ SEC4_T_STAR = 11.9641
 SEC4_LOADS = [300, 300, 186, 123, 300, 300, 127, 300, 0, 0, 0, 300, 300,
               300, 300, 288, 300, 300, 300, 0, 300, 300, 300, 300]
 MIN_GAIN = 3.0
+# The StochasticCodedFL configuration driven in phase 6 (the strategy of
+# benchmarks/fig_schemes.py's scfl_session on the quickstart's fleet) and
+# its plan's loads at the planner's default eps_rel = 1e-3
+# (t* = 17.01867 s; tests/test_torch_schemes.py).
+SCFL_SIGMA, SCFL_RHO, SCFL_SRV_WEIGHT = 0.5, 0.8, 0.64
+SEC4_SCFL_LOADS = [300, 300, 268, 300, 300, 300, 193, 300, 0, 300, 0, 300,
+                   300, 300, 300, 300, 300, 300, 300, 0, 300, 300, 300, 300]
+HIER_TIERS = 3
 L2_BYTES = 50 * 2**20
 TIMING_REPEATS = 15   # timed runs per call; the median is kept
 TIMING_CALLS = 40     # back-to-back calls per timed run
@@ -78,6 +107,37 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def held_to_float64(name: str, got, plain, x, y, w, beta,
+                    masks=None) -> float:
+    """Hold the kernel's result `got` and the plain version's `plain`
+    against the float64 expression within rtol 1e-3 + 1e-6 * S, S the
+    magnitude of the summed terms, (|w| |mask| (|X||beta| + |y|)) @ |X|
+    (masks=None: one flat gradient, else (T, M) tier masks).  Prints both
+    and returns max |got - plain|."""
+    x64, y64, b64 = x.double(), y.double(), beta.double()
+    w64 = torch.ones_like(y64) if w is None else w.double()
+    ms = torch.ones((1, x.shape[0]), dtype=torch.float64, device=x.device) \
+        if masks is None else masks.double()
+    exact = ((x64 @ b64 - y64) * w64 * ms) @ x64
+    scale = ((w64.abs() * ms.abs()) * (x64.abs() @ b64.abs() + y64.abs())) \
+        @ x64.abs()
+    bound = 1e-3 * exact.abs() + 1e-6 * scale
+    worst = {}
+    for label, g in (("kernel", got), ("plain", plain)):
+        worst[label] = float(((g.double().reshape(exact.shape) - exact).abs()
+                              / bound).max())
+    err = float((got - plain).abs().max())
+    elementwise = torch.allclose(got, plain, rtol=1e-3, atol=1e-6)
+    phase(f"check {name}: max_abs_err vs plain {err:.3e} (|ref| max "
+          f"{float(exact.abs().max()):.3e}); worst element at "
+          f"{worst['kernel']:.3f} (kernel) and {worst['plain']:.3f} "
+          f"(plain) of the float64 bound; element-wise allclose to plain "
+          f"(rtol 1e-3, atol 1e-6) {elementwise}")
+    check(worst["kernel"] <= 1.0 and worst["plain"] <= 1.0,
+          f"{name} outside its float64 bound")
+    return err
 
 
 def time_ms(fn, copies: list[tuple]) -> float:
@@ -132,11 +192,13 @@ def main() -> int:
     from repro_torch.core.redundancy import _fleet_with_server
     from repro_torch.core.returns import optimal_loads
     from repro_torch.device import resolve_device
+    from repro_torch.fleet import FleetTopology, HierarchicalCFL, HierState
     from repro_torch.kernels import build
     from repro_torch.kernels.encode import ops as enc_ops
     from repro_torch.kernels.encode import ref as enc_ref
     from repro_torch.kernels.round_grad import ops as rg_ops
     from repro_torch.kernels.round_grad import ref as rg_ref
+    from repro_torch.schemes import StochasticCodedFL
 
     t_start = time.perf_counter()
     dev = resolve_device("cuda")  # also pins float32 products to full fp32
@@ -152,9 +214,14 @@ def main() -> int:
     phase(f"build: {time.perf_counter() - t0:.2f} s wall for "
           + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in built.items()))
     for name, info in built.items():
+        entry = "?"
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                phase(f"  ptxas {name}: {line.strip()}")
+            fn = re.search(r"entry function '.*?\d+([a-z_]+_kernel)"
+                           r"(?:ILi(\d+)E)?", line)
+            if fn:  # the kernel (and tier-count instance) reported next
+                entry = fn[1] + (f"<{fn[2]}>" if fn[2] else "")
+            elif "registers" in line or "spill" in line:
+                phase(f"  ptxas {name} {entry}: {line.strip()}")
 
     # -- 3. kernels against their plain versions -------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -200,6 +267,83 @@ def main() -> int:
           f"bound 2e-4*max|ref| = {bound:.3e}, allclose {ok}")
     check(ok, "encode disagrees with its plain version")
     errs["encode"] = err
+
+    # the coded kernel: 7200 systematic + 2016 parity rows (the SCFL main
+    # path's dense layout), per-row and scalar parity weights, the parity
+    # stream alone (systematic weights 0), and c = 0.  The per-row parity
+    # weights are the Bernoulli mask over rho, of order 1 like the
+    # systematic ones, so a dropped or misplaced parity row shows.
+    m, c_par, d = 7200, 2016, 500
+    x = torch.randn((m, d), generator=gen, device=dev)
+    y = torch.randn((m,), generator=gen, device=dev)
+    w = (torch.rand((m,), generator=gen, device=dev) < 0.85).float()
+    xp = torch.randn((c_par, d), generator=gen, device=dev)
+    yp = torch.randn((c_par,), generator=gen, device=dev)
+    wp = (torch.rand((c_par,), generator=gen, device=dev) < SCFL_RHO) \
+        .float() / SCFL_RHO
+    beta = torch.randn((d,), generator=gen, device=dev)
+    coded_inputs = (x, y, w, xp, yp, wp, beta)
+    for label, w_sys, w_par in (
+            ("rows", w, wp),
+            ("scalar", w, torch.tensor(0.37, device=dev)),
+            ("rows, parity alone", torch.zeros_like(w), wp)):
+        before = (rg_ops.COUNTER.launches, rg_ops.CODED_COUNTER.launches)
+        got = rg_ops.coded_round_gradient(x, y, w_sys, xp, yp, w_par, beta)
+        again = rg_ops.coded_round_gradient(x, y, w_sys, xp, yp, w_par,
+                                            beta)
+        plain = rg_ref.coded_round_gradient(x, y, w_sys, xp, yp, w_par,
+                                            beta)
+        torch.cuda.synchronize()
+        check((rg_ops.COUNTER.launches, rg_ops.CODED_COUNTER.launches)
+              == (before[0], before[1] + 2), "coded kernel launch count")
+        err = held_to_float64(
+            f"coded_round_grad ({m} + {c_par}, {d}) w_par={label}", got,
+            plain, torch.cat([x, xp]), torch.cat([y, yp]),
+            torch.cat([w_sys, torch.broadcast_to(w_par, (c_par,))]), beta)
+        phase(f"  bit-identical relaunch {torch.equal(got, again)}")
+        check(torch.equal(got, again), "coded kernel not deterministic")
+        errs.setdefault("coded_round_grad", err)
+    empty = torch.zeros((0, d), device=dev)
+    before = (rg_ops.COUNTER.launches, rg_ops.CODED_COUNTER.launches)
+    got = rg_ops.coded_round_gradient(x, y, w, empty, empty[:, 0], 1.0,
+                                      beta)
+    flat = rg_ops.masked_round_gradient(x, y, w, beta)
+    torch.cuda.synchronize()
+    check((rg_ops.COUNTER.launches, rg_ops.CODED_COUNTER.launches)
+          == (before[0] + 2, before[1]), "c = 0 must run the flat kernel")
+    check(torch.equal(got, flat), "c = 0 differs from the flat kernel")
+    phase("check coded_round_grad c = 0: ran the flat kernel, equal to it")
+
+    # the tier kernel at the packed §IV layout, T = 3 and T = 8, and T = 1
+    m = 5632
+    x, y, w = x[:m].contiguous(), y[:m].contiguous(), w[:m].contiguous()
+    tier_inputs = {}
+    for nt in (HIER_TIERS, 8):
+        tier_of = torch.randint(0, nt, (m,), generator=gen, device=dev)
+        masks = (torch.arange(nt, device=dev)[:, None]
+                 == tier_of[None, :]).float()
+        tier_inputs[nt] = (x, y, w, masks, beta)
+        before = rg_ops.TIER_COUNTER.launches
+        got = rg_ops.tier_masked_round_gradient(x, y, w, masks, beta)
+        again = rg_ops.tier_masked_round_gradient(x, y, w, masks, beta)
+        plain = rg_ref.tier_masked_round_gradient(x, y, w, masks, beta)
+        torch.cuda.synchronize()
+        check(rg_ops.TIER_COUNTER.launches == before + 2,
+              "tier kernel launch count")
+        err = held_to_float64(f"tier_round_grad ({m}, {d}) T={nt}", got,
+                              plain, x, y, w, beta, masks=masks)
+        phase(f"  bit-identical relaunch {torch.equal(got, again)}")
+        check(torch.equal(got, again), "tier kernel not deterministic")
+        if nt == HIER_TIERS:
+            errs["tier_round_grad"] = err
+    for label, wt in (("w", w), ("w=None", None)):
+        one = rg_ops.tier_masked_round_gradient(
+            x, y, wt, torch.ones((1, m), device=dev), beta)
+        flat = rg_ops.masked_round_gradient(x, y, wt, beta)
+        torch.cuda.synchronize()
+        phase(f"check tier_round_grad T=1 ({label}) torch.equal to the "
+              f"flat kernel: {torch.equal(one[0], flat)}")
+        check(torch.equal(one[0], flat), "T = 1 tier kernel != flat kernel")
 
     # -- 4. the main path ------------------------------------------------
     rg_ops.COUNTER.reset()
@@ -254,7 +398,124 @@ def main() -> int:
           "fused and reference coded traces disagree")
     check(np.array_equal(res_r.times, res_c.times), "clocks differ")
 
-    # -- 6. timing -------------------------------------------------------
+    def reset_counters():
+        for counter in (rg_ops.COUNTER, rg_ops.CODED_COUNTER,
+                        rg_ops.TIER_COUNTER, enc_ops.COUNTER):
+            counter.reset()
+
+    def read_counters() -> dict:
+        return {"round_grad": rg_ops.COUNTER.launches,
+                "coded_round_grad": rg_ops.CODED_COUNTER.launches,
+                "tier_round_grad": rg_ops.TIER_COUNTER.launches,
+                "encode": enc_ops.COUNTER.launches}
+
+    def check_against_reference(label, fused, ref):
+        rel = float(np.max(np.abs(ref.nmse - fused.nmse) / np.abs(ref.nmse)))
+        same_clock = bool(np.array_equal(ref.times, fused.times))
+        phase(f"{label}: fused vs reference max rel NMSE diff {rel:.3e} "
+              f"(bound 1e-4); times identical {same_clock}")
+        check(np.allclose(fused.nmse, ref.nmse, rtol=1e-4, atol=0.0),
+              f"{label}: fused and reference traces disagree")
+        check(same_clock, f"{label}: clocks differ")
+
+    def check_trace(rep):
+        check(rep.nmse.shape == (601,)
+              and bool(np.all(np.isfinite(rep.nmse))),
+              f"{rep.label}: NMSE trace not finite or wrong shape")
+        check(rep.nmse[600] < rep.nmse[300] < rep.nmse[0],
+              f"{rep.label}: NMSE trace does not descend")
+
+    # -- 6. the StochasticCodedFL path -----------------------------------
+    data = out["data"]
+    scfl = StochasticCodedFL(key=1, fixed_c=quickstart.FIXED_C,
+                             noise_multiplier=SCFL_SIGMA,
+                             sample_frac=SCFL_RHO,
+                             include_upload_delay=False)
+    reset_counters()
+    t0 = time.perf_counter()
+    scfl_sess = Session(scfl, fleet, quickstart.LR, 600, device=dev)
+    scfl_state = scfl_sess.plan(data)
+    torch.cuda.synchronize()
+    scfl_plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_s = scfl_sess.run(data, rng=np.random.default_rng(0),
+                          state=scfl_state)
+    torch.cuda.synchronize()
+    scfl_run_s = time.perf_counter() - t0
+    scfl_launches = read_counters()
+    splan = scfl_state.plan
+    phase(f"scfl: plan+encode {scfl_plan_s:.4f} s, 600 epochs "
+          f"{scfl_run_s:.4f} s wall; plan c={splan.c} t*={splan.t_star!r} "
+          f"srv_weight={scfl_state.srv_weight!r} "
+          f"loads={splan.loads.tolist()}")
+    phase(f"scfl: final NMSE {res_s.final_nmse():.3e} at "
+          f"{res_s.times[-1]:.1f} s simulated; NMSE rises in "
+          f"{int(np.sum(np.diff(res_s.nmse) > 0))} of 600 epochs")
+    phase(f"scfl launches: {scfl_launches}")
+    check(splan.c == 2016, "scfl plan c != 2016")
+    check(scfl_state.srv_weight == SCFL_SRV_WEIGHT, "scfl srv_weight")
+    host_loads, _ = optimal_loads(
+        _fleet_with_server(fleet.edge, fleet.server),
+        np.concatenate([np.full(24, 300), [2016]]), splan.t_star)
+    check(host_loads[:-1].tolist() == splan.loads.tolist(),
+          "scfl loads differ from the float64 host argmax at t*")
+    check(splan.loads.tolist() == SEC4_SCFL_LOADS, "scfl plan loads differ")
+    check("sys_x" not in scfl.device_state(scfl_state, data),
+          "the §IV SCFL plan should take the dense fused layout")
+    check_trace(res_s)
+    check(scfl_launches == {"round_grad": 0, "coded_round_grad": 600,
+                            "tier_round_grad": 0, "encode": 24},
+          f"unexpected scfl launch counts {scfl_launches}")
+    before = read_counters()
+    res_sr = Session(dataclasses.replace(scfl, grad_path="reference"),
+                     fleet, quickstart.LR, 600, device=dev).run(
+        data, rng=np.random.default_rng(0), state=scfl_state)
+    check(read_counters() == before, "the reference path launched a kernel")
+    check_against_reference("scfl", res_s, res_sr)
+
+    # -- 7. the HierarchicalCFL path -------------------------------------
+    # phase 4's coded strategy (fused), over its plan and encoded state
+    coded = CodedFL(key=1, fixed_c=plan.c, include_upload_delay=False,
+                    use_kernel=True, redundancy_plan=plan)
+    reports = {}
+    for nt in (HIER_TIERS, 1):
+        topo = FleetTopology.uniform(24, nt)
+        hier = HierarchicalCFL(coded, topo)
+        reset_counters()
+        t0 = time.perf_counter()
+        reports[nt] = Session(hier, fleet, quickstart.LR, 600,
+                              device=dev).run(
+            data, rng=np.random.default_rng(0),
+            state=HierState(out["state"], topo))
+        torch.cuda.synchronize()
+        hier_s = time.perf_counter() - t0
+        counts = read_counters()
+        phase(f"hierarchical T={nt}: 600 epochs {hier_s:.4f} s wall; final "
+              f"NMSE {reports[nt].final_nmse():.3e}; launches {counts}")
+        check_trace(reports[nt])
+        check(counts == {"round_grad": 0, "coded_round_grad": 0,
+                         "tier_round_grad": 600, "encode": 0},
+              f"unexpected hierarchical launch counts {counts}")
+        if nt == HIER_TIERS:
+            hier_launches, hier_run_s = counts, hier_s
+            before = read_counters()
+            res_hr = Session(
+                HierarchicalCFL(dataclasses.replace(
+                    coded, use_kernel=False, grad_path="reference"),
+                    topo), fleet, quickstart.LR, 600, device=dev).run(
+                data, rng=np.random.default_rng(0),
+                state=HierState(out["state"], topo))
+            check(read_counters() == before,
+                  "the reference path launched a kernel")
+            check_against_reference(f"hierarchical T={nt}", reports[nt],
+                                    res_hr)
+    single_equal = bool(np.array_equal(reports[1].nmse, res_c.nmse))
+    phase(f"hierarchical T=1 NMSE trace bit-equal to the flat coded trace "
+          f"of phase 4: {single_equal}")
+    check(single_equal, "T = 1 hierarchical trace differs from the flat one")
+    check(np.array_equal(reports[1].times, res_c.times), "T = 1 clocks")
+
+    # -- 8. timing -------------------------------------------------------
     records = []
     for label in ("coded", "uncoded"):
         x, y, w, beta = rg_inputs[label]
@@ -291,6 +552,52 @@ def main() -> int:
           f"G @ (w X) {enc_lib!r} ms, bound {enc_bound!r} ms "
           f"(flops {enc_flops})")
 
+    # the coded kernel at the SCFL path's shapes: 7200 + 2016 rows of 500
+    x, y, w, xp, yp, wp, beta = coded_inputs
+    m, c_par, d = x.shape[0], xp.shape[0], x.shape[1]
+    cold = cold_copies(coded_inputs)
+    coded_ms = time_ms(rg_ops.coded_round_gradient, cold)
+    coded_warm = time_ms(rg_ops.coded_round_gradient, [coded_inputs])
+    coded_plain = time_ms(rg_ref.coded_round_gradient, cold)
+    del cold
+    coef_s = ((x @ beta - y) * w).contiguous()
+    coef_p = ((xp @ beta - yp) * wp).contiguous()
+    coded_lib = time_ms(lambda cs, xs_, cp, xp_: cs @ xs_ + cp @ xp_,
+                        cold_copies((coef_s, x, coef_p, xp)))
+    coded_bytes = 4 * ((m + c_par) * d + 2 * (m + c_par) + 2 * d)
+    coded_flops = 4 * (m + c_par) * d + 3 * (m + c_par)
+    coded_bound = 1e3 * max(coded_bytes / HBM_BYTES_PER_S,
+                            coded_flops / FP32_FLOPS_PER_S)
+    phase(f"time coded_round_grad ({m} + {c_par}, {d}): kernel "
+          f"{coded_ms!r} ms (L2 warm {coded_warm!r} ms), plain "
+          f"{coded_plain!r} ms, library coef_s @ X + coef_p @ X_par "
+          f"{coded_lib!r} ms, bound {coded_bound!r} ms "
+          f"(bytes {coded_bytes})")
+
+    # the tier kernel at the hierarchical path's shapes: (5632, 500), T = 3
+    x, y, w, masks, beta = tier_inputs[HIER_TIERS]
+    m, d, nt = x.shape[0], x.shape[1], masks.shape[0]
+    cold = cold_copies(tier_inputs[HIER_TIERS])
+    tier_ms = time_ms(rg_ops.tier_masked_round_gradient, cold)
+    tier_warm = time_ms(rg_ops.tier_masked_round_gradient,
+                        [tier_inputs[HIER_TIERS]])
+    tier_plain = time_ms(rg_ref.tier_masked_round_gradient, cold)
+    del cold
+    coef_masks = (((x @ beta - y) * w)[None, :] * masks).contiguous()
+    tier_lib = time_ms(torch.matmul, cold_copies((coef_masks, x)))
+    tier_bytes = 4 * (m * d + 2 * m + nt * m + d + nt * d)
+    tier_flops = 2 * m * d + 2 * nt * m * d + 2 * m + nt * m
+    tier_bound = 1e3 * max(tier_bytes / HBM_BYTES_PER_S,
+                           tier_flops / FP32_FLOPS_PER_S)
+    tier_shape = [m, d, nt]
+    phase(f"time tier_round_grad ({m}, {d}) T={nt}: kernel {tier_ms!r} ms "
+          f"(L2 warm {tier_warm!r} ms), plain {tier_plain!r} ms, library "
+          f"(coef * masks) @ X {tier_lib!r} ms, bound {tier_bound!r} ms "
+          f"(bytes {tier_bytes})")
+    phase(f"new paths' host seconds: scfl plan+encode {scfl_plan_s:.4f}, "
+          f"scfl 600 epochs {scfl_run_s:.4f}, hierarchical T={HIER_TIERS} "
+          f"600 epochs {hier_run_s:.4f}")
+
     label, m, d, ms, warm, plain, lib, bound_ms = records[0]
     kernels = [
         {"name": "masked_round_gradient", "route": "cuda",
@@ -307,6 +614,24 @@ def main() -> int:
          "ms": enc_ms, "plain_ms": enc_plain, "bound_ms": enc_bound,
          "bound_by": "operations", "library_ms": enc_lib,
          "ms_l2_warm": enc_warm, "shape": [c, ell, d1]},
+        {"name": "coded_round_gradient", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/round_grad.cu",
+         "replaces": "src/repro/kernels/round_grad/round_grad.py:134",
+         "launches": scfl_launches["coded_round_grad"],
+         "max_abs_err": errs["coded_round_grad"], "ms": coded_ms,
+         "plain_ms": coded_plain, "bound_ms": coded_bound,
+         "bound_by": "bytes", "library_ms": coded_lib,
+         "ms_l2_warm": coded_warm,
+         "shape": [coded_inputs[0].shape[0], coded_inputs[3].shape[0],
+                   coded_inputs[0].shape[1]]},
+        {"name": "tier_masked_round_gradient", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/round_grad.cu",
+         "replaces": "src/repro/kernels/round_grad/round_grad.py:190",
+         "launches": hier_launches["tier_round_grad"],
+         "max_abs_err": errs["tier_round_grad"], "ms": tier_ms,
+         "plain_ms": tier_plain, "bound_ms": tier_bound,
+         "bound_by": "bytes", "library_ms": tier_lib,
+         "ms_l2_warm": tier_warm, "shape": tier_shape},
     ]
     phase(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

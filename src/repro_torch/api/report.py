@@ -27,8 +27,9 @@ class TraceReport:
     label:           human-readable run tag ("uncoded", "cfl", ...)
     setup_time:      one-time setup wall time (parity upload / data sharing)
     uplink_bits_total: total bits moved device -> server over the whole run
-    extras:          strategy-specific scalar diagnostics (the reference's
-                     schemes fill it; the §IV strategies leave it empty)
+    extras:          strategy-specific diagnostics from the optional
+                     `report_extras(state)` hook (StochasticCodedFL's noise
+                     knobs, HierarchicalCFL's tiers); empty without it
     beta:            final model iterate (model_dim,), or None
     """
 

@@ -99,6 +99,8 @@ class Session:
         dev = self.strategy.device_state(state, data)
         nmse_trace, beta = self._train(state, dev, sched, data)
         times = sched.t0 + np.concatenate([[0.0], np.cumsum(sched.durations)])
+        # optional hook: strategy knobs and diagnostics for the report
+        extras_fn = getattr(self.strategy, "report_extras", None)
         return TraceReport(
             times=times,
             nmse=nmse_trace,
@@ -107,6 +109,7 @@ class Session:
             setup_time=sched.setup_time,
             uplink_bits_total=self.strategy.uplink_bits(
                 state, self.fleet, self.epochs),
+            extras=dict(extras_fn(state)) if extras_fn is not None else {},
             beta=beta)
 
     def _train(self, state, dev, sched: EpochSchedule,

@@ -137,6 +137,20 @@ class Strategy(Protocol):
         """Total device->server bits for a run of `epochs` epochs."""
         ...
 
+    # Optional hooks (looked up with getattr, not part of the protocol):
+    #   * report_extras(state) -> dict: knobs and diagnostics copied onto
+    #     TraceReport.extras;
+    #   * plan_with(fleet, data, plan) -> state: `plan` with a pre-solved
+    #     redundancy plan (None: solve);
+    #   * tiered_contributions(state, dev, beta, arrivals, tier_masks) ->
+    #     ((T, d) tier partials, optional (d,) server term): the
+    #     hierarchical form of `round_contributions` that
+    #     `fleet.HierarchicalCFL` consumes.  Each partial is the
+    #     full-width masked gemv (`aggregation.tier_reduce`), and the
+    #     server term (parity gradients) bypasses the tiers, so
+    #     `cross_tier_combine(partials) + server` equals
+    #     `round_contributions` bit for bit for one all-ones tier.
+
 
 # ---------------------------------------------------------------------------
 # Uncoded synchronous FL
@@ -178,6 +192,12 @@ class UncodedFL:
         return aggregation.round_gradient(
             dev["x"], dev["y"], beta,
             path=aggregation.resolve_grad_path(self.grad_path))
+
+    def tiered_contributions(self, state, dev, beta, arrivals, tier_masks):
+        # (T, d) tier partials of the full gradient; no server-side term
+        return aggregation.tiered_round_gradient(
+            dev["x"], dev["y"], beta, None, tier_masks,
+            path=aggregation.resolve_grad_path(self.grad_path)), None
 
     def uplink_bits(self, state: UncodedState, fleet: "FleetSpec",
                     epochs: int) -> float:
@@ -224,10 +244,15 @@ class CodedFL:
     def plan(self, fleet: "FleetSpec", data: TrainData) -> cfl.CFLState:
         """Solve the redundancy plan (unless `redundancy_plan` is given)
         and run the one-time encode on the data's device."""
+        return self.plan_with(fleet, data, self.redundancy_plan)
+
+    def plan_with(self, fleet: "FleetSpec", data: TrainData,
+                  plan: Optional[RedundancyPlan]) -> cfl.CFLState:
+        """`plan` with the redundancy solve already done (None: solve)."""
         return cfl.setup(self.key, data.xs, data.ys, fleet.edge, fleet.server,
                          fixed_c=self.fixed_c, c_up=self.c_up,
                          generator=self.generator, use_kernel=self.use_kernel,
-                         plan=self.redundancy_plan)
+                         plan=plan)
 
     def sample_epochs(self, state: cfl.CFLState, fleet: "FleetSpec",
                       epochs: int, rng: np.random.Generator) -> EpochSchedule:
@@ -282,6 +307,30 @@ class CodedFL:
         g_par = aggregation.parity_gradient(
             dev["x_parity"], dev["y_parity"], beta)
         return g_sys + arrivals["parity_ok"] * g_par
+
+    def tiered_contributions(self, state, dev, beta, arrivals, tier_masks):
+        # systematic partials reduce per edge tier; the parity gradient is
+        # computed AT the server, so it rides as the server-side term and
+        # bypasses the tier stage
+        if self._grad_path() == aggregation.FUSED:
+            x, y, w0, client = aggregation.fused_sys_block(dev)
+            masks = aggregation.fused_tier_masks(dev, tier_masks)
+            w = w0 * arrivals["received"][client]
+            partials = aggregation.tiered_round_gradient(
+                x, y, beta, w, masks, path=aggregation.FUSED)
+            if state.c == 0:
+                return partials, None
+            g_par = aggregation.gram_parity_gradient(
+                dev["par_gram"], dev["par_gramy"], beta, dev["par_c"])
+            return partials, arrivals["parity_ok"] * g_par
+        resid = dev["x"] @ beta - dev["y"]
+        w = dev["w_sys"] * arrivals["received"][dev["row_client"]]
+        partials = aggregation.tier_reduce(resid * w, dev["x"], tier_masks)
+        if state.c == 0:
+            return partials, None
+        g_par = aggregation.parity_gradient(
+            dev["x_parity"], dev["y_parity"], beta)
+        return partials, arrivals["parity_ok"] * g_par
 
     def uplink_bits(self, state: cfl.CFLState, fleet: "FleetSpec",
                     epochs: int) -> float:

@@ -12,11 +12,20 @@ runs).  Two gradient sources arrive at the server each epoch:
 
   REFERENCE — the two-pass torch expressions (residual, then the weighted
     back-contraction), the oracle the fused path is held against;
-  FUSED     — one pass over X: on a CUDA tensor `round_gradient` launches
-    the hand-written kernel `kernels.round_grad`; on a CPU tensor the
-    kernel wrapper computes its plain version.  Strategies feed it the
-    packed systematic rows and Gram-folded parity of
-    `core.cfl.fused_coded_device_state`.
+  FUSED     — one pass over X: on a CUDA tensor `round_gradient`,
+    `coded_round_gradient` and `tiered_round_gradient` launch the
+    hand-written kernels of `kernels.round_grad` (flat, coded, tier-
+    masked); on a CPU tensor the kernel wrappers compute their plain
+    versions.  Strategies feed them the packed systematic rows and
+    Gram-folded parity of `core.cfl.fused_coded_device_state`.
+
+The hierarchical (edge -> cloud) form of the round gradient is a
+per-tier reduce and a cross-tier combine: `tier_reduce` computes each
+tier partial as the full-width masked gemv, tiers in sequence, so a
+masked-out row adds an exact 0 and each partial is the flat contraction
+restricted to its tier; `cross_tier_combine` sums the T partials in
+order and is the identity at T = 1, so a single-tier fleet is bit-equal
+to the flat path.
 """
 from __future__ import annotations
 
@@ -52,6 +61,66 @@ def round_gradient(x: torch.Tensor, y: torch.Tensor, beta: torch.Tensor,
     if w is None:
         return resid @ x
     return (resid * w) @ x
+
+
+def coded_round_gradient(x: torch.Tensor, y: torch.Tensor,
+                         w: torch.Tensor | None, x_par: torch.Tensor,
+                         y_par: torch.Tensor, w_par,
+                         beta: torch.Tensor,
+                         path: str = REFERENCE) -> torch.Tensor:
+    """Systematic + parity round gradient with per-row parity weights
+    (Eq. 18's 1/(c*rho) normalization folded into w_par, which may be a
+    scalar).  The fused path is one launch over both row streams on the
+    card (the flat kernel when the parity block is empty)."""
+    if path == FUSED:
+        return rg_ops.coded_round_gradient(x, y, w, x_par, y_par, w_par,
+                                           beta)
+    g_sys = round_gradient(x, y, beta, w=w)
+    g_par = ((x_par @ beta - y_par) * w_par) @ x_par
+    return g_sys + g_par
+
+
+def tiered_round_gradient(x: torch.Tensor, y: torch.Tensor,
+                          beta: torch.Tensor, w: torch.Tensor | None,
+                          tier_masks: torch.Tensor,
+                          path: str = REFERENCE) -> torch.Tensor:
+    """(T, d) tier partials of the masked round gradient — the fleet
+    layer's edge stage.  Reference path: the residual once, then
+    `tier_reduce`; fused path: one pass over X shared by all tiers on
+    the card, bit-equal to the flat kernel at T = 1."""
+    if path == FUSED:
+        return rg_ops.tier_masked_round_gradient(x, y, w, tier_masks, beta)
+    resid = x @ beta - y
+    contrib = resid if w is None else resid * w
+    return tier_reduce(contrib, x, tier_masks)
+
+
+def tier_reduce(contrib: torch.Tensor, x: torch.Tensor,
+                tier_masks: torch.Tensor) -> torch.Tensor:
+    """(T, m) row masks x (m,) contrib x (m, d) x -> (T, d) tier partials,
+    each the full-width masked gemv (contrib * mask_t) @ x, tier after
+    tier: with 0/1 masks each partial equals the flat contraction with
+    the other tiers' terms replaced by exact zeros."""
+    return torch.stack([(contrib * mask) @ x for mask in tier_masks])
+
+
+def cross_tier_combine(tier_partials: torch.Tensor) -> torch.Tensor:
+    """(T, d) tier partials -> (d,) server aggregate: a sequential T-term
+    sum in tier order, the only reassociation the hierarchy adds.  T == 1
+    is the identity."""
+    acc = tier_partials[0]
+    for t in range(1, tier_partials.shape[0]):
+        acc = acc + tier_partials[t]
+    return acc
+
+
+def fused_tier_masks(dev: dict, tier_masks: torch.Tensor) -> torch.Tensor:
+    """(T, m) tier row masks gathered to the fused layout's rows: the
+    packed layout selects its support columns, the dense one keeps the
+    full-width masks."""
+    if "sys_rows" in dev:
+        return tier_masks.index_select(1, dev["sys_rows"])
+    return tier_masks
 
 
 def parity_gram(x_par: torch.Tensor, y_par: torch.Tensor):

@@ -85,7 +85,8 @@ def packed_row_indices(load_flat: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return idx, valid
 
 
-def fused_coded_device_state(state, data) -> dict:
+def fused_coded_device_state(state, data, parity_rows: bool = False
+                             ) -> dict:
     """Per-run operands of the FUSED gradient path: systematic rows packed
     to the plan's support (zero-load rows dropped, the count
     bucket-padded at weight 0) and the parity block folded to its Gram
@@ -93,7 +94,12 @@ def fused_coded_device_state(state, data) -> dict:
 
     When the padded support is dense (>= PACK_DENSE_FRAC * m rows) the
     dict keeps the full rows under "x"/"y"/"row_client" with the load mask
-    as "sys_w" (consume through `aggregation.fused_sys_block`)."""
+    as "sys_w" (consume through `aggregation.fused_sys_block`).
+
+    parity_rows: ship the raw parity rows ("x_parity"/"y_parity") in
+    place of the Gram factors, for schemes whose per-round parity masks
+    need the rows themselves (StochasticCodedFL at sample_frac < 1).
+    The reference computes the factors there too and never reads them."""
     n, ell = data.n, data.ell
     dev_ = data.xs.device
     x = data.xs.reshape(data.m, data.d)
@@ -113,11 +119,16 @@ def fused_coded_device_state(state, data) -> dict:
                "sys_client": row_client.index_select(0, tidx),
                "sys_rows": tidx}
     if state.c > 0:
-        gram, gramy = aggregation.parity_gram(state.x_parity, state.y_parity)
-        dev["par_gram"] = gram
-        dev["par_gramy"] = gramy
         dev["par_c"] = torch.tensor(float(state.c), dtype=x.dtype,
                                     device=dev_)
+        if parity_rows:
+            dev["x_parity"] = state.x_parity
+            dev["y_parity"] = state.y_parity
+        else:
+            gram, gramy = aggregation.parity_gram(state.x_parity,
+                                                  state.y_parity)
+            dev["par_gram"] = gram
+            dev["par_gramy"] = gramy
     return dev
 
 

@@ -3,8 +3,8 @@
 The functions take the values of the JAX package (`repro`) as NumPy
 arrays and plain fields and return the port's objects, so the parity
 tests run both packages on identical operands: the same data, fleet,
-plan and encoded parity.  Nothing of `repro` is imported here — callers
-convert with `np.asarray` and pass the fields.
+plan, encoded (and noised) parity and topology.  Nothing of `repro` is
+imported here — callers convert with `np.asarray` and pass the fields.
 """
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ from repro_torch.api.strategy import TrainData
 from repro_torch.core.cfl import CFLState
 from repro_torch.core.delay_model import DeviceDelayParams
 from repro_torch.core.redundancy import RedundancyPlan
+from repro_torch.fleet.topology import FleetTopology
+from repro_torch.schemes.stochastic import StochasticState
 from repro_torch.sim.network import FleetSpec
 
 
@@ -67,3 +69,24 @@ def cfl_state(plan: RedundancyPlan, weights, load_mask, x_parity, y_parity,
                     load_mask=_f32(load_mask, device),
                     x_parity=_f32(x_parity, device),
                     y_parity=_f32(y_parity, device), edge=edge, server=server)
+
+
+def stochastic_state(plan: RedundancyPlan, load_mask, x_parity, y_parity,
+                     edge: DeviceDelayParams, server: DeviceDelayParams,
+                     noise_scale_x: float, noise_scale_y: float,
+                     srv_weight: float, device) -> StochasticState:
+    """`StochasticState` from the reference's (n, ell) load mask, its
+    noised (c, d) / (c,) composite parity and its float64 noise scales
+    and server weight, placed on `device`."""
+    return StochasticState(plan=plan, load_mask=_f32(load_mask, device),
+                           x_parity=_f32(x_parity, device),
+                           y_parity=_f32(y_parity, device), edge=edge,
+                           server=server, noise_scale_x=float(noise_scale_x),
+                           noise_scale_y=float(noise_scale_y),
+                           srv_weight=float(srv_weight))
+
+
+def fleet_topology(tier_of, sample_frac) -> FleetTopology:
+    """`FleetTopology` from the (n,) tier ids and (T,) participation."""
+    return FleetTopology(tier_of=np.array(tier_of, dtype=np.int32),
+                         sample_frac=np.array(sample_frac, dtype=np.float64))

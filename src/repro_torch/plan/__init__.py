@@ -2,11 +2,23 @@
 
 `solve_redundancy_batched` evaluates the `(t_grid, n, L)` expected-return
 tensor in torch and plans a batch of fleets per call; `PlanRequest`
-describes one fleet and parity budget.  Single-fleet callers use the shim
-`core.redundancy.solve_redundancy`.
+describes one fleet and parity budget, with the stochastic-CFL server
+discount `srv_weight` (`effective_srv_weight`).  Single-fleet callers use
+the shim `core.redundancy.solve_redundancy`.
 """
+import numpy as np
+
 from .solver import (GRID_POINTS, MAX_DOUBLINGS, MAX_ROUNDS, PlanRequest,
                      solve_redundancy_batched)
 
 __all__ = ["PlanRequest", "solve_redundancy_batched", "GRID_POINTS",
-           "MAX_ROUNDS", "MAX_DOUBLINGS"]
+           "MAX_ROUNDS", "MAX_DOUBLINGS", "effective_srv_weight"]
+
+
+def effective_srv_weight(noise_multiplier, sample_frac):
+    """The stochastic-CFL server discount rho / (1 + sigma^2), float64 and
+    vectorized: a parity row sampled with probability rho whose gradient
+    carries noise power sigma^2 relative to signal is worth that many
+    clean rows of expected-return value (`PlanRequest.srv_weight`)."""
+    nm = np.asarray(noise_multiplier, dtype=np.float64)
+    return np.asarray(sample_frac, dtype=np.float64) / (1.0 + nm * nm)

@@ -18,9 +18,13 @@ bracket; the final load/aggregate extraction runs in float64 (see
 `_solve_grid`).  Return probabilities are re-evaluated on the host with
 `core.delay_model.total_cdf`, as the reference does.
 
-Only the base CFL objective is ported: `PlanRequest` raises
-`NotImplementedError` for the scheme objectives (`srv_weight != 1`,
-`edge_chunks > 1`, `mec_comm=True`).  The `while_loop`s of the reference
+The objective takes the base CFL form and the stochastic-CFL server
+discount `srv_weight` (a `(B,)` input: a parity row counts `srv_weight`
+rows of value in the aggregate, while the server's completion
+probability is still evaluated at the full row load; 1.0 multiplies
+exactly, so it is the base objective bit for bit).  `PlanRequest` raises
+`NotImplementedError` for the other scheme objectives (`edge_chunks > 1`,
+`mec_comm=True`).  The `while_loop`s of the reference
 become Python loops whose conditions read one boolean from the device per
 iteration — planning is one-time set-up, not the per-epoch hot loop.
 """
@@ -56,9 +60,10 @@ class PlanRequest:
     c_up:       max parity rows the server may receive (default: m)
     fixed_c:    force the coding redundancy (delta-sweep mode)
     t_hi:       optional initial deadline bracket override
-    srv_weight, edge_chunks, mec_comm: the scheme objectives of the
-                reference; only their base values (1.0, 1, False) are
-                ported so far
+    srv_weight: effective rows per parity row in the aggregate return,
+                in [0, 1] (the stochastic-CFL discount; 1.0 = base CFL)
+    edge_chunks, mec_comm: the other scheme objectives of the reference;
+                only their base values (1, False) are ported so far
     """
 
     edge: DeviceDelayParams
@@ -74,11 +79,14 @@ class PlanRequest:
     def __post_init__(self):
         object.__setattr__(
             self, "data_sizes", np.asarray(self.data_sizes, dtype=np.int64))
-        if float(self.srv_weight) != 1.0 or int(self.edge_chunks) != 1 \
-                or self.mec_comm:
+        if not (0.0 <= float(self.srv_weight) <= 1.0):
+            raise ValueError(
+                f"srv_weight must be in [0, 1], got {self.srv_weight}")
+        if int(self.edge_chunks) != 1 or self.mec_comm:
             raise NotImplementedError(
-                "repro_torch plans the base CFL objective only: srv_weight, "
-                "edge_chunks and mec_comm arrive with the schemes")
+                "repro_torch plans the base and srv_weight objectives only: "
+                "edge_chunks and mec_comm arrive with LowLatencyCFL and "
+                "CodedFedL")
         if self.server.n != 1:
             raise ValueError("server params must describe exactly one device")
         if float(self.server.tau[0]) != 0.0:
@@ -115,12 +123,13 @@ def _shifted_exp_cdf(gamma: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
         torch.zeros((), dtype=s.dtype, device=s.device))
 
 
-def _solve_grid(a, mu, tau, p, srv_a, srv_mu, caps, srv_cap, target, t_hi0,
-                eps_rel, ell_e, ell_s, ks_search, ks_extract, mask_search,
-                mask_extract, frac, search_f32=True):
+def _solve_grid(a, mu, tau, p, srv_a, srv_mu, srv_w, caps, srv_cap, target,
+                t_hi0, eps_rel, ell_e, ell_s, ks_search, ks_extract,
+                mask_search, mask_extract, frac, search_f32=True):
     """Batched grid solve.  All tensors float64 except integer caps.
 
     a/mu/tau/p: (B, n) edge delay params    srv_a/srv_mu: (B,) server params
+    srv_w: (B,) server return weights (1.0 = base CFL objective)
     caps: (B, n) load caps                  srv_cap: (B,) parity budgets
     target: (B,) aggregate-return targets   t_hi0: (B,) initial brackets
     eps_rel: python float                   frac: (T,) refinement fractions
@@ -143,6 +152,7 @@ def _solve_grid(a, mu, tau, p, srv_a, srv_mu, caps, srv_cap, target, t_hi0,
         """Expected-return evaluators closing over params cast to `dtype`."""
         a_, mu_, tau_, p_ = (t.to(dtype) for t in (a, mu, tau, p))
         srv_a_, srv_mu_ = srv_a.to(dtype), srv_mu.to(dtype)
+        srv_w_ = srv_w.to(dtype)
         ell_e_, ell_s_, ks_ = (t.to(dtype) for t in (ell_e, ell_s, ks))
         one = torch.ones((), dtype=dtype, device=a.device)
         neg_inf = torch.full((), float("-inf"), dtype=dtype, device=a.device)
@@ -188,12 +198,15 @@ def _solve_grid(a, mu, tau, p, srv_a, srv_mu, caps, srv_cap, target, t_hi0,
             return torch.where(load_ok[:, None], ell_e_ * mix, neg_inf)
 
         def server_returns(t):
-            """Masked server E[R(t; ell)].  (B, T') -> (B, T', Ls)."""
+            """Masked weighted server E[R(t; ell)].  (B, T') -> (B, T', Ls).
+
+            srv_w discounts every parity row's value (1.0: exact)."""
             s = t[:, :, None] - s_shift[:, None, :]
             cdf = _shifted_exp_cdf(s_gamma[:, None], s)
             cdf = torch.where(ell_s_ > 0.0, cdf,
                               (t[:, :, None] >= 0.0).to(dtype))
-            return torch.where(s_ok[:, None], ell_s_ * cdf, neg_inf)
+            return torch.where(s_ok[:, None],
+                               srv_w_[:, None, None] * ell_s_ * cdf, neg_inf)
 
         def best_agg(t):
             """Aggregate best return.  t: (B, T') -> (B, T')."""
@@ -331,6 +344,7 @@ def solve_redundancy_batched(requests: Sequence[PlanRequest],
                          for r in grp]).astype(np.int64)
         srv_a = np.array([r.server.a[0] for r in grp])
         srv_mu = np.array([r.server.mu[0] for r in grp])
+        srv_w = np.array([float(r.srv_weight) for r in grp])
         srv_cap = np.array([r.server_cap for r in grp], dtype=np.int64)
         target = np.array([float(r.m) for r in grp])
         t_hi0 = np.array([r.t_hi if r.t_hi is not None else r.default_t_hi()
@@ -353,7 +367,7 @@ def solve_redundancy_batched(requests: Sequence[PlanRequest],
 
         out = _solve_grid(
             f64(a), f64(mu), f64(tau), f64(p), f64(srv_a), f64(srv_mu),
-            torch.as_tensor(caps, device=dev),
+            f64(srv_w), torch.as_tensor(caps, device=dev),
             torch.as_tensor(srv_cap, device=dev), f64(target), f64(t_hi0),
             float(eps_rel),
             torch.arange(l_edge, dtype=torch.float64, device=dev),

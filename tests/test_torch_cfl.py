@@ -88,6 +88,19 @@ def test_fused_device_state_layouts(layout):
                                    err_msg=key)
 
 
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_fused_device_state_parity_rows(layout):
+    """parity_rows=True ships the raw parity rows in place of the Gram
+    factors, which the reference computes there but never reads."""
+    jstate, jdata, tstate, tdata, _ = _states(LAYOUTS[layout])
+    want = j_cfl.fused_coded_device_state(jstate, jdata, parity_rows=True)
+    got = t_cfl.fused_coded_device_state(tstate, tdata, parity_rows=True)
+    assert set(got) == set(want) - {"par_gram", "par_gramy"}
+    for key in got:
+        np.testing.assert_array_equal(got[key].numpy(),
+                                      np.asarray(want[key]), err_msg=key)
+
+
 def test_coded_device_state_and_accounting():
     jstate, jdata, tstate, tdata, tf = _states(LAYOUTS["packed"])
     want = j_cfl.coded_device_state(jstate, jdata)

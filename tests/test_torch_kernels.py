@@ -1,14 +1,18 @@
-"""Plain paths of the port's two kernels against the JAX package's Pallas
-kernels (interpret mode) and their jnp oracles, on the CPU.
+"""Plain paths of the port's kernels against the JAX package's Pallas
+kernels (interpret mode) and their jnp oracles, on the CPU: the flat,
+coded and tier-masked round gradients and the parity encode.
 
 On a CPU tensor each kernel wrapper computes its plain PyTorch version,
 so these tests hold the arithmetic the CUDA kernels are checked against
 on the card (`tests/test_torch_cuda.py`, `chip_smoke.py`).
 
 Bounds are the reference's own:
-  * round gradient: rtol 1e-3 / atol 1e-6, the round-gradient bound of
-    the reference's fleet-layer contract — float32 sums over up to ~1000
-    rows taken in another order than the interpreted Pallas grid;
+  * round gradients (flat, coded, each tier partial): rtol 1e-3 /
+    atol 1e-6, the round-gradient bound of the reference's fleet-layer
+    contract — float32 sums over up to ~1000 rows taken in another order
+    than the interpreted Pallas grid;
+  * the tier-masked plain path at T = 1 with an all-ones mask:
+    bit-equal to the flat plain path (the single-tier contract);
   * encode: rtol 2e-4 and atol 2e-4 * max|ref| (`tests/test_kernels.py`)
     — a float32 contraction over L, tiled differently.
 """
@@ -75,6 +79,99 @@ def test_round_grad_plain_matches_pallas(m, d, weights):
                                    err_msg=name)
 
 
+# ragged m and c, an empty parity block (the flat kernel runs), scalar and
+# per-row parity weights, and w = None on the systematic rows
+@pytest.mark.parametrize("m,c,d", [(1, 1, 1), (7, 3, 5), (130, 0, 33),
+                                   (300, 77, 41), (1030, 250, 24)])
+@pytest.mark.parametrize("w_par", ["rows", "scalar"])
+@pytest.mark.parametrize("weights", ["zero_rows", "none"])
+def test_coded_round_grad_plain_matches_pallas(m, c, d, w_par, weights):
+    x, y, w, beta = _rg_inputs(m, d, weights, seed=m + 7 * c + d)
+    xp, yp, wp, _ = _rg_inputs(c, d, "zero_rows", seed=c + 11 * d)
+    if w_par == "scalar":
+        wp = np.float32(0.37)
+    jw = jnp.ones(m, jnp.float32) if w is None else jnp.asarray(w)
+    jargs = (jnp.asarray(x), jnp.asarray(y), jw, jnp.asarray(xp),
+             jnp.asarray(yp), jnp.asarray(wp), jnp.asarray(beta))
+    want_kernel = np.asarray(j_rg_ops.coded_round_gradient(
+        *jargs, force_interpret=True))
+    want_ref = np.asarray(j_rg_ref.coded_round_gradient(*jargs))
+    tx, ty, txp, typ, tb = (torch.from_numpy(a) for a in (x, y, xp, yp,
+                                                          beta))
+    tw = None if w is None else torch.from_numpy(w)
+    twp = torch.tensor(wp) if w_par == "scalar" else torch.from_numpy(wp)
+    got = {
+        "ref": t_rg_ref.coded_round_gradient(tx, ty, tw, txp, typ, twp, tb),
+        "ops": t_rg_ops.coded_round_gradient(tx, ty, tw, txp, typ, twp, tb),
+        "fused": aggregation.coded_round_gradient(
+            tx, ty, tw, txp, typ, twp, tb, path=aggregation.FUSED),
+        "reference": aggregation.coded_round_gradient(
+            tx, ty, tw, txp, typ, twp, tb, path=aggregation.REFERENCE),
+    }
+    for name, g in got.items():
+        assert g.shape == (d,) and g.dtype == torch.float32, name
+        np.testing.assert_allclose(g.numpy(), want_kernel, **RG_TOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(g.numpy(), want_ref, **RG_TOL,
+                                   err_msg=name)
+
+
+def _tier_masks(m, t, seed, gated):
+    rng = np.random.default_rng(seed)
+    tier_of = rng.integers(0, t, m)
+    masks = (np.arange(t)[:, None] == tier_of[None, :]).astype(np.float32)
+    if gated:  # inverse-probability participation gates
+        masks = masks * (rng.uniform(size=m) < 0.6) / np.float32(0.6)
+    return masks.astype(np.float32)
+
+
+@pytest.mark.parametrize("m,d", [(7, 5), (130, 33), (1030, 24)])
+@pytest.mark.parametrize("t,gated", [(1, False), (3, False), (3, True)])
+@pytest.mark.parametrize("weights", ["random", "none"])
+def test_tier_round_grad_plain_matches_pallas(m, d, t, gated, weights):
+    x, y, w, beta = _rg_inputs(m, d, weights, seed=3 * m + d + t)
+    masks = _tier_masks(m, t, seed=m + t, gated=gated)
+    jw = None if w is None else jnp.asarray(w)
+    jx, jy, jm, jb = (jnp.asarray(a) for a in (x, y, masks, beta))
+    want_kernel = np.asarray(j_rg_ops.tier_masked_round_gradient(
+        jx, jy, jw, jm, jb, force_interpret=True))
+    want_ref = np.asarray(j_rg_ref.tier_masked_round_gradient(
+        jx, jy, jnp.ones(m, jnp.float32) if w is None else jw, jm, jb))
+    tx, ty, tm, tb = (torch.from_numpy(a) for a in (x, y, masks, beta))
+    tw = None if w is None else torch.from_numpy(w)
+    got = {
+        "ref": t_rg_ref.tier_masked_round_gradient(tx, ty, tw, tm, tb),
+        "ops": t_rg_ops.tier_masked_round_gradient(tx, ty, tw, tm, tb),
+        "fused": aggregation.tiered_round_gradient(
+            tx, ty, tb, tw, tm, path=aggregation.FUSED),
+        "reference": aggregation.tiered_round_gradient(
+            tx, ty, tb, tw, tm, path=aggregation.REFERENCE),
+    }
+    for name, g in got.items():
+        assert g.shape == (t, d) and g.dtype == torch.float32, name
+        np.testing.assert_allclose(g.numpy(), want_kernel, **RG_TOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(g.numpy(), want_ref, **RG_TOL,
+                                   err_msg=name)
+    # the cloud stage: the tiers summed in order, the reference's combine
+    from repro.core import aggregation as j_agg
+    np.testing.assert_allclose(
+        aggregation.cross_tier_combine(got["ops"]).numpy(),
+        np.asarray(j_agg.cross_tier_combine(jnp.asarray(want_kernel))),
+        **RG_TOL)
+
+
+@pytest.mark.parametrize("weights", ["random", "none"])
+def test_single_tier_plain_path_is_the_flat_one(weights):
+    x, y, w, beta = (None if a is None else torch.from_numpy(a)
+                     for a in _rg_inputs(130, 33, weights, seed=9))
+    ones = torch.ones((1, 130))
+    tiered = t_rg_ops.tier_masked_round_gradient(x, y, w, ones, beta)
+    assert torch.equal(tiered[0], t_rg_ops.masked_round_gradient(x, y, w,
+                                                                 beta))
+    assert torch.equal(aggregation.cross_tier_combine(tiered), tiered[0])
+
+
 def test_round_grad_zero_weight_rows_drop_out():
     """Rows at weight 0 contribute nothing: the packed layout's padding
     contract.  Equal to the same gradient over the kept rows alone."""
@@ -89,13 +186,17 @@ def test_round_grad_zero_weight_rows_drop_out():
 
 
 def test_plain_paths_launch_no_kernel():
-    """CPU tensors never touch the launch counter."""
-    before = (t_rg_ops.COUNTER.launches, t_enc_ops.COUNTER.launches)
+    """CPU tensors never touch the launch counters."""
+    counters = (t_rg_ops.COUNTER, t_rg_ops.CODED_COUNTER,
+                t_rg_ops.TIER_COUNTER, t_enc_ops.COUNTER)
+    before = [k.launches for k in counters]
     x, y, w, beta = (torch.from_numpy(a) for a in
                      _rg_inputs(16, 4, "random", seed=1))
     t_rg_ops.masked_round_gradient(x, y, w, beta)
+    t_rg_ops.coded_round_gradient(x, y, w, x[:5], y[:5], 0.5, beta)
+    t_rg_ops.tier_masked_round_gradient(x, y, w, torch.ones(2, 16), beta)
     t_enc_ops.encode_parity(torch.ones(3, 16), w, x)
-    assert (t_rg_ops.COUNTER.launches, t_enc_ops.COUNTER.launches) == before
+    assert [k.launches for k in counters] == before
 
 
 def _encode_bound(want):

@@ -142,12 +142,15 @@ def test_infeasible_request_raises():
             device="cpu")
 
 
-@pytest.mark.parametrize("kw", [{"srv_weight": 0.5}, {"edge_chunks": 2},
-                                {"mec_comm": True}])
+@pytest.mark.parametrize("kw", [{"edge_chunks": 2, "srv_weight": 0.5},
+                                {"edge_chunks": 2}, {"mec_comm": True}])
 def test_scheme_objectives_not_ported_yet(kw):
+    """edge_chunks and mec_comm still raise, with or without srv_weight;
+    srv_weight alone is ported (tests/test_torch_schemes.py)."""
     edge, server = _random_fleet(TParams, np.random.default_rng(0), 3)
     with pytest.raises(NotImplementedError):
         PlanRequest(edge, server, np.full(3, 10), **kw)
+    PlanRequest(edge, server, np.full(3, 10), srv_weight=0.5)
 
 
 def test_plan_request_validates_server():

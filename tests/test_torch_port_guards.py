@@ -17,9 +17,13 @@ import torch
 
 from repro_torch import api, device
 from repro_torch.core.redundancy import solve_redundancy
+from repro_torch.fleet import FleetTopology, HierarchicalCFL
 from repro_torch.kernels import build, common
 from repro_torch.kernels.encode import ops as enc_ops
 from repro_torch.kernels.round_grad import ops as rg_ops
+from repro_torch.kernels.round_grad import ref as rg_ref
+from repro_torch.plan import PlanRequest, solve_redundancy_batched
+from repro_torch.schemes import StochasticCodedFL
 from repro_torch.sim.network import paper_fleet
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -75,6 +79,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         api.TrainData.linreg(0, 4, 8, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         solve_redundancy(fleet.edge, fleet.server, np.full(4, 8), fixed_c=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_redundancy_batched([PlanRequest(
+            fleet.edge, fleet.server, np.full(4, 8), fixed_c=4,
+            srv_weight=0.64)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.Session(StochasticCodedFL(key=0, sample_frac=0.8), fleet,
+                    lr=0.1, epochs=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.Session(HierarchicalCFL(api.UncodedFL(),
+                                    FleetTopology.uniform(4, 2)), fleet,
+                    lr=0.1, epochs=2)
     # the CPU is used only when asked for
     assert device.resolve_device("cpu") == torch.device("cpu")
     assert api.Session(api.UncodedFL(), fleet, lr=0.1, epochs=2,
@@ -123,6 +138,69 @@ def test_dispatch_raises_when_the_build_fails(monkeypatch, tmp_path, ops,
         ops._dispatch(torch.device("cuda"))
     with pytest.raises(ValueError):
         ops._dispatch(torch.device("meta"))
+
+
+def _rg_operands(m=20, d=6):
+    g = torch.Generator().manual_seed(0)
+    return (torch.randn((m, d), generator=g), torch.randn((m,), generator=g),
+            torch.rand((m,), generator=g), torch.randn((d,), generator=g))
+
+
+# each round-gradient wrapper: (call on (x, y, w, beta), its C entry point,
+# its launch counter)
+RG_WRAPPERS = {
+    "masked": (lambda x, y, w, b: rg_ops.masked_round_gradient(x, y, w, b),
+               "rg_masked_round_gradient", "COUNTER"),
+    "coded": (lambda x, y, w, b: rg_ops.coded_round_gradient(
+        x, y, w, x[:5], y[:5], 0.5, b),
+        "rg_coded_round_gradient", "CODED_COUNTER"),
+    "tier": (lambda x, y, w, b: rg_ops.tier_masked_round_gradient(
+        x, y, w, torch.ones((3, x.shape[0])), b),
+        "rg_tier_round_gradient", "TIER_COUNTER"),
+}
+RG_COUNTERS = ("COUNTER", "CODED_COUNTER", "TIER_COUNTER")
+
+
+@pytest.mark.parametrize("name", sorted(RG_WRAPPERS))
+def test_kernel_route_never_computes_the_plain_version(monkeypatch, name):
+    """Where `_dispatch` hands back a library (a CUDA tensor), each wrapper
+    calls its own C entry point once, bumps only its own counter and
+    never reaches a plain version; a failed launch raises and does not
+    count."""
+    call, entry, counter = RG_WRAPPERS[name]
+    lib = mock.MagicMock()
+    lib.rg_max_d.return_value = 5810
+    lib.rg_num_ctas.side_effect = lambda m: -(-m // 16)
+    getattr(lib, entry).return_value = 0
+    monkeypatch.setattr(rg_ops, "_dispatch", lambda device: lib)
+    monkeypatch.setattr(rg_ops, "_stream", lambda device: 0)
+
+    def plain(*args):
+        raise AssertionError("the plain version ran on the kernel route")
+
+    for fn in ("masked_round_gradient", "coded_round_gradient",
+               "tier_masked_round_gradient"):
+        monkeypatch.setattr(rg_ref, fn, plain)
+    before = {k: getattr(rg_ops, k).launches for k in RG_COUNTERS}
+    call(*_rg_operands())
+    assert getattr(lib, entry).call_count == 1
+    bumped = {k for k in RG_COUNTERS
+              if getattr(rg_ops, k).launches != before[k]}
+    assert bumped == {counter}
+    assert getattr(rg_ops, counter).launches == before[counter] + 1
+    getattr(lib, entry).return_value = 700  # a CUDA error code
+    with pytest.raises(RuntimeError, match="launch failed"):
+        call(*_rg_operands())
+    assert getattr(rg_ops, counter).launches == before[counter] + 1
+
+
+@pytest.mark.parametrize("name", sorted(RG_WRAPPERS))
+def test_wrappers_raise_on_other_devices(name):
+    """A tensor on neither the CPU nor a CUDA device raises: no wrapper
+    computes a plain version for it."""
+    call = RG_WRAPPERS[name][0]
+    with pytest.raises(ValueError, match="no round_grad kernel"):
+        call(*(t.to("meta") for t in _rg_operands()))
 
 
 def test_library_path_tracks_source_and_flags(monkeypatch):
