@@ -21,7 +21,14 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      1e-6 x the magnitude of the summed terms (the bound
      `tests/test_torch_cuda.py` holds the flat kernel to), relaunches
      bit-identical, and the tier kernel at T = 1 with an all-ones mask
-     `torch.equal` to the flat kernel;
+     `torch.equal` to the flat kernel; the in-kernel-generator encode at
+     X = I, w = 1 (c = 2016, ell = 300, a key of `split_keys`), which
+     returns G itself: Rademacher `torch.equal` to the plain
+     `prng.generator_values`, normal within rtol 1e-6 / atol 1e-7; at
+     (2016, 300, 501) and at an odd c * ell, both kinds, within 2e-4 *
+     max|ref|, relaunches bit-identical; the least-squares gradient at
+     (2016, 500) within the float64 bound, relaunches bit-identical and
+     `torch.equal` to the flat kernel at w = None;
   4. the main path: `repro_torch.quickstart.run` — the §IV plan, the
      encode through the kernel, 600 uncoded and 600 coded epochs — with
      the launch counters set to 0 just before it and read just after;
@@ -37,14 +44,35 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      epochs on the tier-masked kernel (600 launches, 0 flat), the
      reference gradient path within rtol 1e-4; then T = 1, whose NMSE
      trace must be bit-equal to phase 4's coded trace;
-  8. time each kernel, its plain version and the one PyTorch call that
+  8. the fleet path at the §IV width: `fleet.encode_fleet_tiered` over
+     the quickstart's data and Eq.-17 weights (24 x 300 x 500, c = 2016)
+     at phase 7's T = 3 (the counters set to 0 just before, read just
+     after: exactly 24 in-kernel-generator encode launches, no other
+     kernel), held against the plain composite; one tier `torch.equal`
+     to the flat `encode_fleet_prng`, T = 3 within rtol 1e-5 / atol
+     1e-6 of it;
+  9. the fleet path at fleet scale, as `benchmarks/perf_fleet.py` runs
+     it: `solve_fleet` on `mega_fleet(100_000, d=32)` with shards of 4-16
+     points, c_up 4096, eps_rel 1e-2 (loads within caps, the return
+     target met); the tiered encode of 256 clients x 8 x 32 at c = 128,
+     T = 4, against the flat one (256 launches each); `sample_tier_rounds`
+     at n = 10 000 and 100 000 under a 512-client round budget, 16 tiers,
+     48 epochs, its wall-time ratio at most 3.0;
+ 10. the legacy path: 600 epochs of `core.cfl.epoch_gradient(...,
+     use_kernel=True)` -> `gd_update` -> `nmse` over phase 4's CodedFL
+     state and its schedule's arrival masks (exactly 600 least-squares
+     gradient launches, no other kernel), the same loop without the
+     kernel within rtol 1e-4;
+ 11. time each kernel, its plain version and the one PyTorch call that
      computes the same product: CUDA events around a run of back-to-back
      calls that rotate over copies of the operands larger than the L2
      together (so each call finds its operands cold), enqueued while a
      sleep kernel holds the stream (so the host's enqueue cost stays
      outside the timed span), the median over repeats of the mean per
      call; and each kernel again on one copy, warm in L2, as the epoch
-     loop finds its operands.
+     loop finds its operands.  No PyTorch call generates threefry, so
+     the in-kernel-generator encode's library time is `G @ (w X)` on a
+     materialized G: it excludes the generation.
 
 Any failed check raises, so the exit code is non-zero.  The line before
 the last is the kernels' JSON record; the last line is
@@ -87,6 +115,19 @@ SCFL_SIGMA, SCFL_RHO, SCFL_SRV_WEIGHT = 0.5, 0.8, 0.64
 SEC4_SCFL_LOADS = [300, 300, 268, 300, 300, 300, 193, 300, 0, 300, 0, 300,
                    300, 300, 300, 300, 300, 300, 300, 0, 300, 300, 300, 300]
 HIER_TIERS = 3
+# the fleet layer: the fleet key of phases 3 and 8, and the scales of
+# benchmarks/perf_fleet.py (phase 9)
+FLEET_KEY_SEED = 1
+FLEET_N, FLEET_D, POINTS_LO, POINTS_HI = 100_000, 32, 4, 16
+FLEET_C_UP, FLEET_EPS_REL = 4096, 1e-2
+ENC_CLIENTS, ENC_TIERS, ENC_ELL, ENC_C = 256, 4, 8, 128
+SAMPLE_BUDGET, SAMPLE_TIERS, SAMPLE_EPOCHS, GROWTH_CEIL = 512, 16, 48, 3.0
+# INT32 rate of the H100 SXM: 64 integer lanes per SM, 132 SMs, 1.98 GHz
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# integer operations of one threefry2x32 hash with its counter pairing
+# (20 rounds of add, funnel shift and xor, five key injections)
+HASH_INT_OPS = 80
+PRNG_COLS_PER_CTA = 512  # csrc/encode.cu kBD: each CTA's output columns
 L2_BYTES = 50 * 2**20
 TIMING_REPEATS = 15   # timed runs per call; the median is kept
 TIMING_CALLS = 40     # back-to-back calls per timed run
@@ -140,36 +181,43 @@ def held_to_float64(name: str, got, plain, x, y, w, beta,
     return err
 
 
-def time_ms(fn, copies: list[tuple]) -> float:
+def time_ms(fn, copies: list[tuple], calls: int = TIMING_CALLS) -> float:
     """Device time of one `fn(*operands)` call in ms.
 
-    Call i takes `copies[i % len(copies)]`: one copy stays warm in L2,
-    copies larger than the L2 together leave each call's operands cold.
-    Each timed run enqueues `TIMING_CALLS` calls behind a sleep kernel and
+    Call i (counted across runs) takes `copies[i % len(copies)]`: one
+    copy stays warm in L2, copies larger than the L2 together leave each
+    call's operands cold.
+    Each timed run enqueues `calls` calls behind a sleep kernel and
     brackets them with CUDA events; if the sleep ended before the host
     finished enqueuing, the device may have waited on the host, so the run
     is repeated with a longer sleep.  Returns the median over
-    `TIMING_REPEATS` runs of the run's time over its calls."""
+    `TIMING_REPEATS` runs of the run's time over its calls.  A function
+    that enqueues hundreds of launches per call takes fewer calls per
+    run, so that the hold covers the host's enqueue."""
     for i in range(2 * len(copies)):  # warm-up
         fn(*copies[i % len(copies)])
-    cycles, samples = SLEEP_CYCLES, []
+    cycles, samples, k = SLEEP_CYCLES, [], 0
     while len(samples) < TIMING_REPEATS:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         torch.cuda._sleep(cycles)
         start.record()
-        for i in range(TIMING_CALLS):
-            fn(*copies[i % len(copies)])
+        t0 = time.perf_counter()
+        for _ in range(calls):  # the rotation goes on across runs
+            fn(*copies[k % len(copies)])
+            k += 1
+        enqueue_s = time.perf_counter() - t0
         end.record()
         drained = start.query()  # the device reached the run already
         end.synchronize()
         if drained:
             cycles *= 2
             check(cycles <= 2**30, "the host cannot enqueue the timed run "
-                  "within a 0.5 s hold of the stream")
+                  f"within a 0.5 s hold of the stream (last enqueue of "
+                  f"{calls} calls took {enqueue_s:.3f} s)")
             continue
-        samples.append(start.elapsed_time(end) / TIMING_CALLS)
+        samples.append(start.elapsed_time(end) / calls)
     return statistics.median(samples)
 
 
@@ -181,6 +229,308 @@ def cold_copies(operands: tuple) -> list[tuple]:
     n = -(-2 * L2_BYTES // size) + 1
     return [tuple(None if t is None else t.clone() for t in operands)
             for _ in range(n)]
+
+def allclose_report(got, want, rtol: float, atol: float) -> tuple:
+    """(max |got - want|, allclose(got, want, rtol, atol))."""
+    return (float((got - want).abs().max()),
+            bool(torch.allclose(got, want, rtol=rtol, atol=atol)))
+
+
+def check_prng_kernel(dev, gen, errs: dict) -> tuple:
+    """Phase 3's checks of the in-kernel-generator encode (kernel 3);
+    returns (key, w, x) at (2016, 300, 501) for the timing phase."""
+    from repro_torch.kernels.encode import ops as enc_ops
+    from repro_torch.kernels.encode import prng
+    from repro_torch.kernels.encode import ref as enc_ref
+
+    c, ell, d1 = 2016, 300, 501
+    key = prng.split_keys(prng.prng_key(FLEET_KEY_SEED), 24)[0]
+    ones, eye = torch.ones(ell, device=dev), torch.eye(ell, device=dev)
+    for kind in prng.KINDS:  # X = I, w = 1: the kernel returns G
+        got = enc_ops.encode_parity_prng(key, ones, eye, c, kind)
+        want = prng.generator_values(key, c, ell, kind, device=dev)
+        torch.cuda.synchronize()
+        err, close = allclose_report(got, want, 1e-6, 1e-7)
+        equal = torch.equal(got, want)
+        share = float((got == want).float().mean())
+        phase(f"check encode_prng G ({c}, {ell}) {kind} via X = I: "
+              f"max_abs_err {err:.3e}, bit-equal share {share:.6f}, "
+              f"torch.equal {equal}, within rtol 1e-6 / atol 1e-7 {close}")
+        check(equal if kind == "bernoulli" else close,
+              f"encode_prng {kind} generator differs from the plain one")
+    w = torch.rand((ell,), generator=gen, device=dev)
+    x = torch.randn((ell, d1), generator=gen, device=dev)
+    odd = (torch.rand((299,), generator=gen, device=dev),
+           torch.randn((299, 33), generator=gen, device=dev))
+    for (cc, ww, xx) in ((c, w, x), (2017, *odd)):  # 2017 * 299 is odd
+        for kind in prng.KINDS:
+            got = enc_ops.encode_parity_prng(key, ww, xx, cc, kind)
+            again = enc_ops.encode_parity_prng(key, ww, xx, cc, kind)
+            want = enc_ref.encode_parity_prng(key, ww, xx, cc, kind)
+            torch.cuda.synchronize()
+            bound = 2e-4 * float(want.abs().max())
+            err, ok = allclose_report(got, want, 2e-4, bound)
+            phase(f"check encode_prng ({cc}, {xx.shape[0]}, {xx.shape[1]}) "
+                  f"{kind}: max_abs_err {err:.3e} bound 2e-4*max|ref| = "
+                  f"{bound:.3e}, allclose {ok}; bit-identical relaunch "
+                  f"{torch.equal(got, again)}")
+            check(ok, f"encode_prng {kind} disagrees with its plain version")
+            check(torch.equal(got, again), "encode_prng not deterministic")
+            if cc == c:
+                errs[f"encode_prng_{kind}"] = err
+    return key, w, x
+
+
+def check_lsq_kernel(dev, gen, errs: dict) -> tuple:
+    """Phase 3's checks of the least-squares gradient (kernel 6) at the
+    §IV parity block; returns (a, y, beta) for the timing phase."""
+    from repro_torch.kernels.coded_grad import ops as cg_ops
+    from repro_torch.kernels.coded_grad import ref as cg_ref
+    from repro_torch.kernels.round_grad import ops as rg_ops
+
+    m, d = 2016, 500
+    a = torch.randn((m, d), generator=gen, device=dev)
+    y = torch.randn((m,), generator=gen, device=dev)
+    beta = torch.randn((d,), generator=gen, device=dev)
+    got = cg_ops.lsq_gradient(a, y, beta)
+    again = cg_ops.lsq_gradient(a, y, beta)
+    plain = cg_ref.lsq_gradient(a, y, beta)
+    flat = rg_ops.masked_round_gradient(a, y, None, beta)
+    torch.cuda.synchronize()
+    errs["lsq_gradient"] = held_to_float64(f"lsq_gradient ({m}, {d})", got,
+                                           plain, a, y, None, beta)
+    phase(f"  bit-identical relaunch {torch.equal(got, again)}; "
+          f"torch.equal to the flat kernel at w = None "
+          f"{torch.equal(got, flat)}")
+    check(torch.equal(got, again), "lsq_gradient not deterministic")
+    check(torch.equal(got, flat), "lsq_gradient differs from the flat kernel")
+    return a, y, beta
+
+
+def plain_composite(key, xs, ys, weights, c: int) -> tuple:
+    """The fleet composite [X~ | y~] (c, d+1) of the plain in-kernel-
+    generator encode, client by client in order, and S, the element-wise
+    sum over clients of |G_i diag(w_i) [X_i | y_i]|: the magnitude of the
+    summed terms, which scales the rounding of any reassociated sum."""
+    from repro_torch.kernels.encode import prng
+    from repro_torch.kernels.encode import ref as enc_ref
+
+    keys = prng.split_keys(key, xs.shape[0])
+    xa = torch.cat([xs, ys[..., None]], dim=-1)
+    acc = torch.zeros((c, xa.shape[2]), device=xs.device)
+    scale = torch.zeros_like(acc)
+    for i in range(xs.shape[0]):
+        p = enc_ref.encode_parity_prng(keys[i], weights[i], xa[i], c)
+        acc, scale = acc + p, scale + p.abs()
+    return acc, scale
+
+
+def check_tiered_against_flat(label: str, tiered, flat, scale) -> None:
+    """A T-tier composite against the flat one: within rtol 1e-5 plus an
+    atol of 1e-6 * S.  The two sum the same client parities in another
+    order, so they differ by float32 rounding that scales with S, the
+    magnitude of the summed terms (24 terms in order: at most about
+    1.4e-6 * S); at the §IV width (|entries| ~ 1e3) an element-wise atol
+    of 1e-6 alone fails at cancelled entries.  Prints both."""
+    err, elementwise = allclose_report(tiered, flat, 1e-5, 1e-6)
+    worst = float(((tiered - flat).abs()
+                   / (1e-5 * flat.abs() + 1e-6 * scale)).max())
+    phase(f"{label}: tiered vs flat max_abs_err {err:.3e}, worst element at "
+          f"{worst:.3f} of rtol 1e-5 + 1e-6 * S; element-wise rtol 1e-5 / "
+          f"atol 1e-6 {elementwise}")
+    check(worst <= 1.0, f"{label}: tiered encode outside its bound")
+
+
+def fleet_width_phase(out, reset_counters, read_counters) -> dict:
+    """Phase 8: the tiered in-kernel-generator encode of the quickstart's
+    data at T = 3, the flat encode and T = 1."""
+    from repro_torch.fleet import FleetTopology, encode_fleet_tiered
+    from repro_torch.kernels.encode import ops as enc_ops
+    from repro_torch.kernels.encode import prng
+
+    data, state = out["data"], out["state"]
+    xs, ys, weights, c = data.xs, data.ys, state.weights, state.c
+    key = prng.prng_key(FLEET_KEY_SEED)
+    reset_counters()
+    t0 = time.perf_counter()
+    x_t, y_t = encode_fleet_tiered(key, xs, ys, weights, c,
+                                   FleetTopology.uniform(data.n, HIER_TIERS))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counters()
+    check(counts == {**dict.fromkeys(counts, 0), "encode_prng": data.n},
+          f"unexpected fleet-path launch counts {counts}")
+    x_f, y_f = enc_ops.encode_fleet_prng(key, xs, ys, weights, c)
+    x_1, y_1 = encode_fleet_tiered(key, xs, ys, weights, c,
+                                   FleetTopology.uniform(data.n, 1))
+    acc, scale = plain_composite(key, xs, ys, weights, c)
+    torch.cuda.synchronize()
+    flat = torch.cat([x_f, y_f[:, None]], dim=1)
+    bound = 2e-4 * float(acc.abs().max())
+    err, ok = allclose_report(flat, acc, 2e-4, bound)
+    one_equal = torch.equal(x_1, x_f) and torch.equal(y_1, y_f)
+    phase(f"fleet path (§IV width, {data.n} x {data.ell} x {data.d}, c={c}, "
+          f"T={HIER_TIERS}): {seconds:.4f} s wall; launches {counts}")
+    phase(f"fleet path: flat encode vs plain composite max_abs_err {err:.3e} "
+          f"bound 2e-4*max|ref| = {bound:.3e}, allclose {ok}; T=1 torch.equal "
+          f"to the flat encode {one_equal}")
+    check(tuple(x_t.shape) == (c, data.d) and tuple(y_t.shape) == (c,)
+          and bool(torch.isfinite(x_t).all() & torch.isfinite(y_t).all()),
+          "tiered parity not finite or of the wrong shape")
+    check(ok, "the flat in-kernel-generator encode disagrees with plain")
+    check(one_equal, "T = 1 tiered encode differs from the flat one")
+    check_tiered_against_flat(f"fleet path T={HIER_TIERS}",
+                              torch.cat([x_t, y_t[:, None]], dim=1), flat,
+                              scale)
+    return {"launches": counts["encode_prng"], "seconds": seconds,
+            "err": err}
+
+
+def fleet_scale_phase(dev, reset_counters, read_counters) -> dict:
+    """Phase 9: `solve_fleet`, the tiered encode and round scheduling at
+    the scales of benchmarks/perf_fleet.py."""
+    from repro_torch.fleet import (FleetTopology, encode_fleet_tiered,
+                                   sample_tier_rounds, solve_fleet)
+    from repro_torch.kernels.encode import ops as enc_ops
+    from repro_torch.kernels.encode import prng
+    from repro_torch.plan import PlanRequest
+    from repro_torch.sim.network import mega_fleet
+
+    fleet = mega_fleet(FLEET_N, d=FLEET_D, seed=0)
+    sizes = np.random.default_rng(1).integers(POINTS_LO, POINTS_HI + 1,
+                                              size=FLEET_N)
+    req = PlanRequest(edge=fleet.edge, server=fleet.server,
+                      data_sizes=sizes, c_up=FLEET_C_UP)
+    reset_counters()
+    t0 = time.perf_counter()
+    plan = solve_fleet(req, eps_rel=FLEET_EPS_REL, device=dev)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    check(set(read_counters().values()) == {0},
+          "the fleet planner launched a hand-written kernel")
+    phase(f"solve_fleet n={FLEET_N}: {plan_s:.4f} s wall; t*={plan.t_star!r} "
+          f"c={plan.c} expected_agg={plan.expected_agg!r} (target {req.m}); "
+          f"loads {np.bincount(plan.loads).tolist()} (count per load)")
+    check(plan.loads.shape == (FLEET_N,) and bool(np.all(plan.loads >= 0))
+          and bool(np.all(plan.loads <= sizes)), "plan exceeds device caps")
+    check(plan.expected_agg >= req.m * (1.0 - 1e-6),
+          "plan misses the return target")
+    check(np.isfinite(plan.t_star) and 0 <= plan.c <= FLEET_C_UP,
+          "fleet plan t* or c out of range")
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xs = torch.randn((ENC_CLIENTS, ENC_ELL, FLEET_D), generator=gen,
+                     device=dev)
+    ys = torch.randn((ENC_CLIENTS, ENC_ELL), generator=gen, device=dev)
+    w = torch.rand((ENC_CLIENTS, ENC_ELL), generator=gen, device=dev) + 0.5
+    key = prng.prng_key(3)
+    topo = FleetTopology.uniform(ENC_CLIENTS, ENC_TIERS)
+    encodes = {}
+    for label, fn in (("tiered", lambda: encode_fleet_tiered(
+            key, xs, ys, w, ENC_C, topo)),
+            ("flat", lambda: enc_ops.encode_fleet_prng(key, xs, ys, w,
+                                                       ENC_C))):
+        reset_counters()
+        t0 = time.perf_counter()
+        encodes[label] = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counters()
+        phase(f"fleet-scale {label} encode ({ENC_CLIENTS} x {ENC_ELL} x "
+              f"{FLEET_D}, c={ENC_C}): {secs:.4f} s wall; launches {counts}")
+        check(counts == {**dict.fromkeys(counts, 0),
+                         "encode_prng": ENC_CLIENTS},
+              f"unexpected fleet-scale encode launch counts {counts}")
+        encodes[label + "_s"] = secs
+    acc, scale = plain_composite(key, xs, ys, w, ENC_C)
+    flat = torch.cat([encodes["flat"][0], encodes["flat"][1][:, None]], 1)
+    bound = 2e-4 * float(acc.abs().max())
+    err, ok = allclose_report(flat, acc, 2e-4, bound)
+    phase(f"fleet-scale flat encode vs plain composite max_abs_err "
+          f"{err:.3e} bound 2e-4*max|ref| = {bound:.3e}, allclose {ok}")
+    check(ok, "the fleet-scale flat encode disagrees with plain")
+    check_tiered_against_flat(
+        f"fleet-scale T={ENC_TIERS}",
+        torch.cat([encodes["tiered"][0], encodes["tiered"][1][:, None]], 1),
+        flat, scale)
+
+    def schedule(n: int) -> float:
+        fl = mega_fleet(n, d=FLEET_D, seed=0)
+        rng = np.random.default_rng(2)
+        loads = rng.integers(POINTS_LO, POINTS_HI + 1, size=n)
+        tp = FleetTopology.uniform(n, SAMPLE_TIERS) \
+            .with_round_budget(SAMPLE_BUDGET)
+        best = np.inf
+        for _ in range(2):  # best of two: the check is a ratio of walls
+            t0 = time.perf_counter()
+            stats = sample_tier_rounds(tp, fl.edge, loads, SAMPLE_EPOCHS,
+                                       rng)
+            best = min(best, time.perf_counter() - t0)
+        check(stats.total_participants < 4 * SAMPLE_BUDGET * SAMPLE_EPOCHS,
+              f"round budget not honoured: {stats.total_participants}")
+        check(bool(np.all(np.isfinite(stats.durations))),
+              "round durations not finite")
+        return best
+
+    small_s, large_s = schedule(FLEET_N // 10), schedule(FLEET_N)
+    growth = large_s / max(small_s, 1e-9)
+    phase(f"sample_tier_rounds (budget {SAMPLE_BUDGET}, {SAMPLE_TIERS} "
+          f"tiers, {SAMPLE_EPOCHS} epochs): n={FLEET_N // 10} {small_s:.6f} "
+          f"s, n={FLEET_N} {large_s:.6f} s, wall ratio {growth:.3f} "
+          f"(ceiling {GROWTH_CEIL})")
+    check(growth <= GROWTH_CEIL, f"round scheduling grew {growth:.2f}x")
+    return {"plan_s": plan_s, "tiered_s": encodes["tiered_s"],
+            "flat_s": encodes["flat_s"], "small_s": small_s,
+            "large_s": large_s, "growth": growth}
+
+
+def legacy_phase(out, dev, reset_counters, read_counters) -> dict:
+    """Phase 10: the legacy per-epoch loop over phase 4's CodedFL state."""
+    from repro_torch import quickstart
+    from repro_torch.api import CodedFL
+    from repro_torch.core import aggregation, cfl
+
+    state, data, plan = out["state"], out["data"], out["plan"]
+    sched = CodedFL(key=1, fixed_c=plan.c, include_upload_delay=False,
+                    redundancy_plan=plan).sample_epochs(
+        state, out["fleet"], 600, np.random.default_rng(0))
+    received = torch.as_tensor(sched.arrivals["received"], device=dev)
+    parity_ok = torch.as_tensor(sched.arrivals["parity_ok"], device=dev)
+    lr = torch.tensor(quickstart.LR, dtype=torch.float32, device=dev)
+
+    def run(use_kernel: bool) -> np.ndarray:
+        beta = torch.zeros(data.d, device=dev)
+        trace = torch.empty(601, device=dev)
+        trace[0] = aggregation.nmse(beta, data.beta_true)
+        for e in range(600):
+            g = cfl.epoch_gradient(state, data.xs, data.ys, beta,
+                                   received[e], parity_ok[e],
+                                   use_kernel=use_kernel)
+            beta = aggregation.gd_update(beta, g, lr, data.m)
+            trace[e + 1] = aggregation.nmse(beta, data.beta_true)
+        return trace.cpu().numpy()  # the run's one sync
+
+    reset_counters()
+    t0 = time.perf_counter()
+    fused = run(True)
+    seconds = time.perf_counter() - t0
+    counts = read_counters()
+    t0 = time.perf_counter()
+    plain = run(False)
+    plain_s = time.perf_counter() - t0
+    check(read_counters() == counts, "the plain legacy loop launched a kernel")
+    rel = float(np.max(np.abs(fused - plain) / np.abs(plain)))
+    phase(f"legacy path: 600 epochs {seconds:.4f} s wall (plain "
+          f"{plain_s:.4f} s); final NMSE {fused[-1]:.3e}; launches {counts}; "
+          f"kernel vs plain max rel NMSE diff {rel:.3e} (bound 1e-4)")
+    check(counts == {**dict.fromkeys(counts, 0), "lsq_gradient": 600},
+          f"unexpected legacy launch counts {counts}")
+    check(bool(np.all(np.isfinite(fused))) and fused.shape == (601,),
+          "legacy NMSE trace not finite or wrong shape")
+    check(fused[600] < fused[300] < fused[0], "legacy trace does not descend")
+    check(np.allclose(fused, plain, rtol=1e-4, atol=0.0),
+          "legacy kernel and plain traces disagree")
+    return {"launches": counts["lsq_gradient"], "seconds": seconds}
 
 
 def main() -> int:
@@ -194,7 +544,10 @@ def main() -> int:
     from repro_torch.device import resolve_device
     from repro_torch.fleet import FleetTopology, HierarchicalCFL, HierState
     from repro_torch.kernels import build
+    from repro_torch.kernels.coded_grad import ops as cg_ops
+    from repro_torch.kernels.coded_grad import ref as cg_ref
     from repro_torch.kernels.encode import ops as enc_ops
+    from repro_torch.kernels.encode import prng
     from repro_torch.kernels.encode import ref as enc_ref
     from repro_torch.kernels.round_grad import ops as rg_ops
     from repro_torch.kernels.round_grad import ref as rg_ref
@@ -344,16 +697,34 @@ def main() -> int:
         phase(f"check tier_round_grad T=1 ({label}) torch.equal to the "
               f"flat kernel: {torch.equal(one[0], flat)}")
         check(torch.equal(one[0], flat), "T = 1 tier kernel != flat kernel")
+    # the in-kernel-generator encode and the least-squares gradient
+    prng_inputs = check_prng_kernel(dev, gen, errs)
+    lsq_inputs = check_lsq_kernel(dev, gen, errs)
+
+    counters = {"round_grad": rg_ops.COUNTER,
+                "coded_round_grad": rg_ops.CODED_COUNTER,
+                "tier_round_grad": rg_ops.TIER_COUNTER,
+                "encode": enc_ops.COUNTER,
+                "encode_prng": enc_ops.PRNG_COUNTER,
+                "lsq_gradient": cg_ops.COUNTER}
+
+    def reset_counters():
+        for counter in counters.values():
+            counter.reset()
+
+    def read_counters() -> dict:
+        return {k: counter.launches for k, counter in counters.items()}
+
+    def expect(**launched) -> dict:
+        return {**dict.fromkeys(counters, 0), **launched}
 
     # -- 4. the main path ------------------------------------------------
-    rg_ops.COUNTER.reset()
-    enc_ops.COUNTER.reset()
+    reset_counters()
     t0 = time.perf_counter()
     out = quickstart.run(epochs=600, device=dev)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {"round_grad": rg_ops.COUNTER.launches,
-                "encode": enc_ops.COUNTER.launches}
+    launches = read_counters()
     plan, res_u, res_c = out["plan"], out["uncoded"], out["coded"]
     gain = coding_gain(res_u, res_c, quickstart.TARGET)
     phase(f"main path: {main_s:.2f} s wall; plan c={plan.c} "
@@ -379,17 +750,16 @@ def main() -> int:
         check(rep.nmse.shape == (601,) and bool(np.all(np.isfinite(rep.nmse))),
               f"{rep.label}: NMSE trace not finite or wrong shape")
     check(gain >= MIN_GAIN, f"coding gain {gain:.3f} below {MIN_GAIN}")
-    check(launches == {"round_grad": 1200, "encode": 24},
+    check(launches == expect(round_grad=1200, encode=24),
           f"unexpected launch counts {launches}")
 
     # -- 5. the same coded run on the reference gradient path ------------
     strategy = CodedFL(key=1, fixed_c=plan.c, include_upload_delay=False,
                        redundancy_plan=plan, grad_path="reference")
-    before = rg_ops.COUNTER.launches
+    before = read_counters()
     res_r = Session(strategy, fleet, quickstart.LR, 600, device=dev).run(
         out["data"], rng=np.random.default_rng(0), state=out["state"])
-    check(rg_ops.COUNTER.launches == before,
-          "the reference path launched the round-gradient kernel")
+    check(read_counters() == before, "the reference path launched a kernel")
     rel = float(np.max(np.abs(res_r.nmse - res_c.nmse) / np.abs(res_r.nmse)))
     phase(f"fused vs reference coded trace: max rel NMSE diff {rel:.3e} "
           f"(bound 1e-4); times identical "
@@ -397,17 +767,6 @@ def main() -> int:
     check(np.allclose(res_c.nmse, res_r.nmse, rtol=1e-4, atol=0.0),
           "fused and reference coded traces disagree")
     check(np.array_equal(res_r.times, res_c.times), "clocks differ")
-
-    def reset_counters():
-        for counter in (rg_ops.COUNTER, rg_ops.CODED_COUNTER,
-                        rg_ops.TIER_COUNTER, enc_ops.COUNTER):
-            counter.reset()
-
-    def read_counters() -> dict:
-        return {"round_grad": rg_ops.COUNTER.launches,
-                "coded_round_grad": rg_ops.CODED_COUNTER.launches,
-                "tier_round_grad": rg_ops.TIER_COUNTER.launches,
-                "encode": enc_ops.COUNTER.launches}
 
     def check_against_reference(label, fused, ref):
         rel = float(np.max(np.abs(ref.nmse - fused.nmse) / np.abs(ref.nmse)))
@@ -463,8 +822,7 @@ def main() -> int:
     check("sys_x" not in scfl.device_state(scfl_state, data),
           "the §IV SCFL plan should take the dense fused layout")
     check_trace(res_s)
-    check(scfl_launches == {"round_grad": 0, "coded_round_grad": 600,
-                            "tier_round_grad": 0, "encode": 24},
+    check(scfl_launches == expect(coded_round_grad=600, encode=24),
           f"unexpected scfl launch counts {scfl_launches}")
     before = read_counters()
     res_sr = Session(dataclasses.replace(scfl, grad_path="reference"),
@@ -493,8 +851,7 @@ def main() -> int:
         phase(f"hierarchical T={nt}: 600 epochs {hier_s:.4f} s wall; final "
               f"NMSE {reports[nt].final_nmse():.3e}; launches {counts}")
         check_trace(reports[nt])
-        check(counts == {"round_grad": 0, "coded_round_grad": 0,
-                         "tier_round_grad": 600, "encode": 0},
+        check(counts == expect(tier_round_grad=600),
               f"unexpected hierarchical launch counts {counts}")
         if nt == HIER_TIERS:
             hier_launches, hier_run_s = counts, hier_s
@@ -515,7 +872,16 @@ def main() -> int:
     check(single_equal, "T = 1 hierarchical trace differs from the flat one")
     check(np.array_equal(reports[1].times, res_c.times), "T = 1 clocks")
 
-    # -- 8. timing -------------------------------------------------------
+    # -- 8. the fleet path at the §IV width ------------------------------
+    fleet_width = fleet_width_phase(out, reset_counters, read_counters)
+
+    # -- 9. the fleet path at fleet scale --------------------------------
+    fleet_scale = fleet_scale_phase(dev, reset_counters, read_counters)
+
+    # -- 10. the legacy path ----------------------------------------------
+    legacy = legacy_phase(out, dev, reset_counters, read_counters)
+
+    # -- 11. timing ------------------------------------------------------
     records = []
     for label in ("coded", "uncoded"):
         x, y, w, beta = rg_inputs[label]
@@ -547,6 +913,7 @@ def main() -> int:
     enc_bytes = 4 * (c * ell + ell + ell * d1 + c * d1)
     enc_bound = 1e3 * max(enc_bytes / HBM_BYTES_PER_S,
                           enc_flops / FP32_FLOPS_PER_S)
+    enc_shape = [c, ell, d1]
     phase(f"time encode ({c}, {ell}, {d1}): kernel {enc_ms!r} ms (L2 "
           f"warm {enc_warm!r} ms), plain {enc_plain!r} ms, library "
           f"G @ (w X) {enc_lib!r} ms, bound {enc_bound!r} ms "
@@ -594,9 +961,74 @@ def main() -> int:
           f"(L2 warm {tier_warm!r} ms), plain {tier_plain!r} ms, library "
           f"(coef * masks) @ X {tier_lib!r} ms, bound {tier_bound!r} ms "
           f"(bytes {tier_bytes})")
+
+    # the in-kernel-generator encode at (2016, 300, 501), both kinds
+    key, w_p, x_p = prng_inputs
+    c, (ell, d1) = 2016, x_p.shape
+    prng_shape = [c, ell, d1]
+    prng_rec = {}
+    for kind in ("normal", "bernoulli"):
+        def prng_kernel(w_, x_, kind=kind):
+            return enc_ops.encode_parity_prng(key, w_, x_, c, kind)
+
+        def prng_plain(w_, x_, kind=kind):
+            return enc_ref.encode_parity_prng(key, w_, x_, c, kind)
+
+        cold = cold_copies((w_p, x_p))
+        p_ms = time_ms(prng_kernel, cold)
+        p_warm = time_ms(prng_kernel, [(w_p, x_p)])
+        # the plain generator is ~220 launches a call: 4 calls a run
+        p_plain = time_ms(prng_plain, cold, calls=4)
+        del cold
+        g_mat = prng.generator_values(key, c, ell, kind, device=dev)
+        p_lib = time_ms(lambda g_, w_, x_: g_ @ (w_[:, None] * x_),
+                        cold_copies((g_mat, w_p, x_p)))
+        del g_mat
+        p_flops = 2 * c * ell * d1 + ell * d1
+        p_hash_ops = HASH_INT_OPS * c * ell * -(-d1 // PRNG_COLS_PER_CTA)
+        p_bytes = 4 * (ell + ell * d1 + c * d1)
+        terms = {"bytes": p_bytes / HBM_BYTES_PER_S,
+                 "operations": max(p_flops / FP32_FLOPS_PER_S,
+                                   p_hash_ops / INT32_OPS_PER_S)}
+        bound_by = max(terms, key=terms.get)
+        prng_rec[kind] = {"ms": p_ms, "warm": p_warm, "plain": p_plain,
+                          "lib": p_lib, "bound": 1e3 * terms[bound_by],
+                          "bound_by": bound_by}
+        phase(f"time encode_prng {kind} ({c}, {ell}, {d1}): kernel "
+              f"{p_ms!r} ms (L2 warm {p_warm!r} ms), plain {p_plain!r} ms, "
+              f"library G @ (w X) on a materialized G (no generation) "
+              f"{p_lib!r} ms, bound {1e3 * terms[bound_by]!r} ms "
+              f"({bound_by}: flops {p_flops}, hash integer ops "
+              f"{p_hash_ops}, bytes {p_bytes})")
+
+    # the least-squares gradient at the §IV parity block (2016, 500)
+    a, y, beta = lsq_inputs
+    lsq_m, lsq_d = a.shape
+    cold = cold_copies(lsq_inputs)
+    lsq_ms = time_ms(cg_ops.lsq_gradient, cold)
+    lsq_warm = time_ms(cg_ops.lsq_gradient, [lsq_inputs])
+    lsq_plain = time_ms(cg_ref.lsq_gradient, cold)
+    lsq_lib = time_ms(lambda a_, y_, b_: (a_ @ b_ - y_) @ a_, cold)
+    del cold
+    lsq_bytes = 4 * (lsq_m * lsq_d + lsq_m + 2 * lsq_d)
+    lsq_flops = 4 * lsq_m * lsq_d + lsq_m
+    lsq_bound = 1e3 * max(lsq_bytes / HBM_BYTES_PER_S,
+                          lsq_flops / FP32_FLOPS_PER_S)
+    phase(f"time lsq_gradient ({lsq_m}, {lsq_d}): kernel {lsq_ms!r} ms "
+          f"(L2 warm {lsq_warm!r} ms), plain {lsq_plain!r} ms, library "
+          f"(A @ beta - y) @ A {lsq_lib!r} ms, bound {lsq_bound!r} ms "
+          f"(bytes {lsq_bytes})")
     phase(f"new paths' host seconds: scfl plan+encode {scfl_plan_s:.4f}, "
           f"scfl 600 epochs {scfl_run_s:.4f}, hierarchical T={HIER_TIERS} "
           f"600 epochs {hier_run_s:.4f}")
+    phase(f"fleet paths' host seconds: tiered encode at §IV width "
+          f"{fleet_width['seconds']:.4f}, solve_fleet n={FLEET_N} "
+          f"{fleet_scale['plan_s']:.4f}, fleet-scale tiered encode "
+          f"{fleet_scale['tiered_s']:.4f} (flat {fleet_scale['flat_s']:.4f}), "
+          f"round scheduling n={FLEET_N // 10} {fleet_scale['small_s']:.6f} / "
+          f"n={FLEET_N} {fleet_scale['large_s']:.6f} (ratio "
+          f"{fleet_scale['growth']:.3f}), legacy 600 epochs "
+          f"{legacy['seconds']:.4f}")
 
     label, m, d, ms, warm, plain, lib, bound_ms = records[0]
     kernels = [
@@ -613,7 +1045,7 @@ def main() -> int:
          "launches": launches["encode"], "max_abs_err": errs["encode"],
          "ms": enc_ms, "plain_ms": enc_plain, "bound_ms": enc_bound,
          "bound_by": "operations", "library_ms": enc_lib,
-         "ms_l2_warm": enc_warm, "shape": [c, ell, d1]},
+         "ms_l2_warm": enc_warm, "shape": enc_shape},
         {"name": "coded_round_gradient", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/round_grad.cu",
          "replaces": "src/repro/kernels/round_grad/round_grad.py:134",
@@ -632,6 +1064,29 @@ def main() -> int:
          "plain_ms": tier_plain, "bound_ms": tier_bound,
          "bound_by": "bytes", "library_ms": tier_lib,
          "ms_l2_warm": tier_warm, "shape": tier_shape},
+        {"name": "encode_parity_prng", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/encode.cu",
+         "replaces": "src/repro/kernels/encode/encode.py:210",
+         "launches": fleet_width["launches"],
+         "max_abs_err": max(errs["encode_prng_normal"],
+                            errs["encode_prng_bernoulli"]),
+         "ms": prng_rec["normal"]["ms"],
+         "plain_ms": prng_rec["normal"]["plain"],
+         "bound_ms": prng_rec["normal"]["bound"],
+         "bound_by": prng_rec["normal"]["bound_by"],
+         "library_ms": prng_rec["normal"]["lib"],
+         "ms_l2_warm": prng_rec["normal"]["warm"],
+         "bernoulli": {k: prng_rec["bernoulli"][k] for k in
+                       ("ms", "warm", "plain", "lib", "bound")},
+         "shape": prng_shape},
+        {"name": "lsq_gradient", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/round_grad.cu",
+         "replaces": "src/repro/kernels/coded_grad/coded_grad.py:53",
+         "launches": legacy["launches"],
+         "max_abs_err": errs["lsq_gradient"], "ms": lsq_ms,
+         "plain_ms": lsq_plain, "bound_ms": lsq_bound, "bound_by": "bytes",
+         "library_ms": lsq_lib, "ms_l2_warm": lsq_warm,
+         "shape": [lsq_m, lsq_d]},
     ]
     phase(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -305,7 +305,7 @@ class CodedFL:
         if state.c == 0:  # delta = 0 degenerates to uncoded FL w/ deadline
             return g_sys
         g_par = aggregation.parity_gradient(
-            dev["x_parity"], dev["y_parity"], beta)
+            dev["x_parity"], dev["y_parity"], beta, use_kernel=False)
         return g_sys + arrivals["parity_ok"] * g_par
 
     def tiered_contributions(self, state, dev, beta, arrivals, tier_masks):
@@ -329,7 +329,7 @@ class CodedFL:
         if state.c == 0:
             return partials, None
         g_par = aggregation.parity_gradient(
-            dev["x_parity"], dev["y_parity"], beta)
+            dev["x_parity"], dev["y_parity"], beta, use_kernel=False)
         return partials, arrivals["parity_ok"] * g_par
 
     def uplink_bits(self, state: cfl.CFLState, fleet: "FleetSpec",

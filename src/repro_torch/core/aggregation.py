@@ -19,6 +19,12 @@ runs).  Two gradient sources arrive at the server each epoch:
     versions.  Strategies feed them the packed systematic rows and
     Gram-folded parity of `core.cfl.fused_coded_device_state`.
 
+The legacy per-epoch form (`core.cfl.epoch_gradient`) keeps the two
+sources apart: `client_partial_gradients` per client, `parity_gradient`
+(the least-squares gradient wrapper, which launches its kernel on a CUDA
+tensor; `use_kernel=False` keeps the plain two-pass expression), then
+`combine` over the arrival masks.
+
 The hierarchical (edge -> cloud) form of the round gradient is a
 per-tier reduce and a cross-tier combine: `tier_reduce` computes each
 tier partial as the full-width masked gemv, tiers in sequence, so a
@@ -159,11 +165,44 @@ def fused_coded_gradient(dev: dict, w: torch.Tensor, parity_gate,
     return g_sys + parity_gate * g_par
 
 
+def client_partial_gradients(xs: torch.Tensor, ys: torch.Tensor,
+                             load_mask: torch.Tensor,
+                             beta: torch.Tensor) -> torch.Tensor:
+    """Per-client partial gradients over their systematic loads.
+
+    xs: (n, ell, d), ys: (n, ell); load_mask: (n, ell) 1.0 on the points
+    each client processes (its first ell*_i), 0.0 on punctured points.
+    Returns (n, d)."""
+    resid = (torch.einsum("nld,d->nl", xs, beta) - ys) * load_mask
+    return torch.einsum("nld,nl->nd", xs, resid)
+
+
 def parity_gradient(x_par: torch.Tensor, y_par: torch.Tensor,
-                    beta: torch.Tensor) -> torch.Tensor:
-    """(1/c) X~^T (X~ beta - y~) — the server's redundant gradient (Eq. 18),
-    the plain two-pass expression of the reference path."""
-    return ((x_par @ beta - y_par) @ x_par) / x_par.shape[0]
+                    beta: torch.Tensor,
+                    use_kernel: bool = True) -> torch.Tensor:
+    """(1/c) X~^T (X~ beta - y~) — the server's redundant gradient (Eq. 18).
+
+    use_kernel (the default): through the least-squares gradient wrapper,
+    which makes one pass over X~ in its kernel on a CUDA tensor and
+    computes its plain version on a CPU tensor; False: the plain two-pass
+    expression on any device (the reference's `use_kernel=False`)."""
+    if use_kernel:
+        g = rg_ops.lsq_gradient(x_par, y_par, beta)
+    else:
+        g = (x_par @ beta - y_par) @ x_par
+    return g / x_par.shape[0]
+
+
+def combine(partial_grads: torch.Tensor, received: torch.Tensor,
+            g_parity: torch.Tensor, parity_received) -> torch.Tensor:
+    """Deadline-masked combination of both gradient sources (Eqs. 18-19).
+
+    partial_grads: (n, d) per-client systematic gradients; received: (n,)
+    {0,1}, client i's gradient arrived by t*; g_parity: (d,);
+    parity_received: scalar {0,1}, the server's own parity computation
+    finished by t*."""
+    g_sys = torch.einsum("nd,n->d", partial_grads, received)
+    return g_sys + parity_received * g_parity
 
 
 def uncoded_full_gradient(xs: torch.Tensor, ys: torch.Tensor,

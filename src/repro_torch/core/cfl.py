@@ -10,7 +10,8 @@ The counterpart of `repro/core/cfl.py`.  In the order the protocol runs:
      them into the composite parity dataset.
   3. Per epoch the server combines whatever arrived by t* (Eqs. 18-19);
      the per-epoch operands come from `fused_coded_device_state` (fused
-     path) or `coded_device_state` (reference path).
+     path) or `coded_device_state` (reference path); `epoch_gradient` is
+     the legacy per-epoch API over the state itself.
 """
 from __future__ import annotations
 
@@ -209,3 +210,25 @@ def setup(key, xs: torch.Tensor, ys: torch.Tensor,
 
     return CFLState(plan=plan, weights=weights, load_mask=load_mask,
                     x_parity=x_par, y_parity=y_par, edge=edge, server=server)
+
+
+def epoch_gradient(state: CFLState, xs: torch.Tensor, ys: torch.Tensor,
+                   beta: torch.Tensor, received: torch.Tensor,
+                   parity_received, use_kernel: bool = True
+                   ) -> torch.Tensor:
+    """One epoch's combined gradient given arrival masks (the legacy
+    per-epoch API): per-client partials over the load mask, the parity
+    gradient (`aggregation.parity_gradient`: its kernel on a CUDA tensor
+    unless `use_kernel=False`), then the deadline-masked combine.
+    received: (n,) {0,1}; parity_received: a {0,1} scalar; c == 0 drops
+    the parity term."""
+    partials = aggregation.client_partial_gradients(xs, ys, state.load_mask,
+                                                    beta)
+    if state.c > 0:
+        g_par = aggregation.parity_gradient(
+            state.x_parity, state.y_parity, beta, use_kernel=use_kernel)
+    else:
+        g_par = torch.zeros_like(beta)
+        parity_received = torch.zeros((), dtype=beta.dtype,
+                                      device=beta.device)
+    return aggregation.combine(partials, received, g_par, parity_received)

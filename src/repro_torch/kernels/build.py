@@ -58,6 +58,17 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def start_nvcc(source: Path, target: Path) -> subprocess.Popen:
+    """Start one `nvcc` of `source` into the shared library `target`, with
+    the flags of every kernel library and `csrc/` on the include path;
+    the caller waits on the process (its output is the `-Xptxas=-v`
+    report, or the compiler's errors)."""
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(target),
+           str(source)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def build(names: Sequence[str] = SOURCES) -> dict[str, dict]:
     """Compile every named source not yet built, all in parallel.
 
@@ -71,16 +82,13 @@ def build(names: Sequence[str] = SOURCES) -> dict[str, dict]:
     todo = [name for name in names if name not in out]
     if not todo:
         return out
-    nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in todo:
         target = library_path(name)
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, target, time.perf_counter())
+        procs[name] = (start_nvcc(CSRC / f"{name}.cu", tmp), tmp, target,
+                       time.perf_counter())
     failures = []
     for name, (proc, tmp, target, t0) in procs.items():
         log, _ = proc.communicate()

@@ -6,6 +6,9 @@
 //     masked_round_gradient       (_masked_kernel, pallas_call at line 94),
 //     coded_round_gradient        (_coded_kernel,  pallas_call at line 154),
 //     tier_masked_round_gradient  (_tier_kernel,   pallas_call at line 209),
+// and, through its own C entry point over the flat variant at w = 1,
+//   src/repro/kernels/coded_grad/coded_grad.py::lsq_gradient
+//                               (_kernel,        pallas_call at line 69),
 // the per-epoch hot loop of every strategy on the fused gradient path:
 // the flat one for UncodedFL/CodedFL, the coded one for StochasticCodedFL
 // at sample_frac < 1 (systematic and parity rows in one launch), the
@@ -305,6 +308,21 @@ int rg_masked_round_gradient(const float* x, const float* y, const float* w,
                              int m, int d, void* stream) {
   return rg_tier_round_gradient(x, y, w, nullptr, 1, beta, partials, out, m,
                                 d, stream);
+}
+
+// Kernel 6, the least-squares gradient A^T (A beta - y) of the Pallas TPU
+// kernel src/repro/kernels/coded_grad/coded_grad.py::lsq_gradient
+// (pallas_call at line 69; the server's Eq.-18 parity gradient before
+// the 1/c, on the legacy per-epoch path): the flat variant at w = 1, the
+// same one-tier instance, row ranges and fixed-order reduce, so it is
+// bit-equal to rg_masked_round_gradient with w == nullptr.  It is bound
+// by bytes like the flat variant (one pass over A).  a (m, d), y (m,),
+// beta (d,), partials (rg_num_ctas(m), d), out (d,).
+int rg_lsq_gradient(const float* a, const float* y, const float* beta,
+                    float* partials, float* out, int m, int d,
+                    void* stream) {
+  return rg_tier_round_gradient(a, y, nullptr, nullptr, 1, beta, partials,
+                                out, m, d, stream);
 }
 
 // x (m, d), y/w (m,) (w may be nullptr), xp (c, d), yp/wp (c,), beta

@@ -2,11 +2,14 @@
 
 Three kernels, one per TPU kernel of `repro.kernels.round_grad`: the flat
 masked round gradient, the coded (systematic + parity rows in one
-launch) and the tier-masked ((T, D) tier partials from one pass over X).
-CPU tensors take the plain versions (`ref.py`); CUDA tensors launch the
-kernel on the current stream or raise.  There is no fallback from a CUDA
-tensor to a plain version.  Each kernel has its own launch counter:
-`COUNTER` (flat), `CODED_COUNTER`, `TIER_COUNTER`.
+launch) and the tier-masked ((T, D) tier partials from one pass over X);
+and the least-squares gradient of `repro.kernels.coded_grad`, which is
+the flat one at w = 1 behind a C entry point of its own
+(`kernels.coded_grad` re-exports it).  CPU tensors take the plain
+versions (`ref.py`); CUDA tensors launch the kernel on the current
+stream or raise.  There is no fallback from a CUDA tensor to a plain
+version.  Each kernel has its own launch counter: `COUNTER` (flat),
+`CODED_COUNTER`, `TIER_COUNTER`, `LSQ_COUNTER`.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from . import ref
 COUNTER = LaunchCounter()
 CODED_COUNTER = LaunchCounter()
 TIER_COUNTER = LaunchCounter()
+LSQ_COUNTER = LaunchCounter()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES: build.Signatures = {
@@ -30,6 +34,7 @@ _SIGNATURES: build.Signatures = {
                                _I),
     "rg_coded_round_gradient": ([_P] * 3 + [_I] + [_P] * 3 + [_I]
                                 + [_P] * 3 + [_I, _P], _I),
+    "rg_lsq_gradient": ([_P] * 5 + [_I, _I, _P], _I),
     "rg_num_ctas": ([_I], _I),
     "rg_max_d": ([], _I),
 }
@@ -94,6 +99,31 @@ def masked_round_gradient(x: torch.Tensor, y: torch.Tensor,
         partials.data_ptr(), out.data_ptr(), m, d, _stream(x.device))
     build.check_status(lib, status, "masked_round_gradient")
     COUNTER.launches += 1
+    return out
+
+
+def lsq_gradient(a: torch.Tensor, y: torch.Tensor,
+                 beta: torch.Tensor) -> torch.Tensor:
+    """g = A^T (A beta - y) in one pass over A (the least-squares gradient).
+
+    a: (M, D), y: (M,), beta: (D,), all float32 -> (D,) float32.  The
+    kernel is the flat one's one-tier instance with no weights, so the
+    result is bit-equal to `masked_round_gradient(a, y, None, beta)`.
+    """
+    lib = _dispatch(a.device)
+    if lib is None:
+        return ref.lsq_gradient(a, y, beta)
+    m, d = _check_rows(lib, a, y, None, beta, name="a")
+    out = torch.empty(d, dtype=torch.float32, device=a.device)
+    if d == 0:
+        return out
+    partials = torch.empty((lib.rg_num_ctas(m), d), dtype=torch.float32,
+                           device=a.device)
+    status = lib.rg_lsq_gradient(
+        a.data_ptr(), y.data_ptr(), beta.data_ptr(), partials.data_ptr(),
+        out.data_ptr(), m, d, _stream(a.device))
+    build.check_status(lib, status, "lsq_gradient")
+    LSQ_COUNTER.launches += 1
     return out
 
 

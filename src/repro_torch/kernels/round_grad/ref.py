@@ -21,6 +21,12 @@ def masked_round_gradient(x: torch.Tensor, y: torch.Tensor,
     return (resid * w) @ x
 
 
+def lsq_gradient(a: torch.Tensor, y: torch.Tensor,
+                 beta: torch.Tensor) -> torch.Tensor:
+    """g = A^T (A beta - y).  a: (M, D), y: (M,), beta: (D,) -> (D,)."""
+    return (a @ beta - y) @ a
+
+
 def coded_round_gradient(x: torch.Tensor, y: torch.Tensor,
                          w: torch.Tensor | None, x_par: torch.Tensor,
                          y_par: torch.Tensor, w_par: torch.Tensor,

@@ -23,6 +23,15 @@ Bounds:
     an all-ones mask must be bit-equal (`torch.equal`) to the flat
     kernel on the same operands.
   * encode: 2e-4 * max|ref|, as in `tests/test_torch_kernels.py`.
+  * in-kernel-generator encode: the generator itself, exposed with
+    X = I and w = 1, Rademacher entries `torch.equal` to the plain
+    `prng.generator_values` on the card, normal entries within rtol 1e-6
+    / atol 1e-7 (both evaluate Giles' float32 erfinv operation by
+    operation; `log1pf` may differ from torch's `log1p` by an ulp); the
+    product within 2e-4 * max|ref|; relaunches bit-identical; the fleet
+    encoders' one-tier tiered run `torch.equal` to the flat one.
+  * least-squares gradient: the float64 bound of the round gradient, and
+    `torch.equal` to the flat kernel at w = None (the same instance).
 """
 import numpy as np
 import pytest
@@ -32,7 +41,11 @@ from repro_torch import api
 from repro_torch.core.cfl import CFLState
 from repro_torch.fleet import FleetTopology, HierarchicalCFL, HierState
 from repro_torch.device import resolve_device
+from repro_torch.fleet import encode_fleet_tiered
+from repro_torch.kernels.coded_grad import ops as cg_ops
+from repro_torch.kernels.coded_grad import ref as cg_ref
 from repro_torch.kernels.encode import ops as enc_ops
+from repro_torch.kernels.encode import prng
 from repro_torch.kernels.encode import ref as enc_ref
 from repro_torch.kernels.round_grad import ops as rg_ops
 from repro_torch.kernels.round_grad import ref as rg_ref
@@ -316,3 +329,105 @@ def test_single_tier_on_the_card_is_the_flat_run(cuda):
         state=HierState(state, topo))
     np.testing.assert_array_equal(hier.nmse, flat.nmse)
     np.testing.assert_array_equal(hier.times, flat.times)
+
+
+@pytest.mark.parametrize("kind", ["bernoulli", "normal"])
+@pytest.mark.parametrize("c,ell", [(1, 1), (3, 5), (17, 33), (37, 13),
+                                   (2016, 300)])
+def test_prng_kernel_generator_is_the_plain_one(cuda, c, ell, kind):
+    """At X = I and w = 1 the kernel returns G itself (odd c * ell
+    included)."""
+    key = prng.split_keys(prng.prng_key(c + ell), 3)[2]
+    eye = torch.eye(ell, device=cuda)
+    got = enc_ops.encode_parity_prng(key, torch.ones(ell, device=cuda), eye,
+                                     c, kind)
+    want = prng.generator_values(key, c, ell, kind, device=cuda)
+    torch.cuda.synchronize()
+    if kind == "bernoulli":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("kind", ["bernoulli", "normal"])
+@pytest.mark.parametrize("c,ell,d", [(1, 1, 1), (5, 7, 3), (37, 13, 5),
+                                     (130, 17, 513), (2016, 300, 501)])
+def test_prng_kernel_matches_plain(cuda, c, ell, d, kind):
+    gen = torch.Generator(device=cuda).manual_seed(c + ell + d)
+    w = torch.rand((ell,), generator=gen, device=cuda)
+    x = torch.randn((ell, d), generator=gen, device=cuda)
+    key = prng.prng_key(c * d)
+    before = enc_ops.PRNG_COUNTER.launches
+    got = enc_ops.encode_parity_prng(key, w, x, c, kind)
+    again = enc_ops.encode_parity_prng(key, w, x, c, kind)
+    want = enc_ref.encode_parity_prng(key, w, x, c, kind)
+    torch.cuda.synchronize()
+    assert enc_ops.PRNG_COUNTER.launches == before + 2
+    assert torch.equal(got, again)
+    bound = 2e-4 * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=bound)
+
+
+def test_prng_kernel_guards(cuda):
+    w = torch.ones(2**16, device=cuda)
+    x = torch.ones((2**16, 1), device=cuda)
+    before = enc_ops.PRNG_COUNTER.launches
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        enc_ops.encode_parity_prng(prng.prng_key(0), w, x, 2**15)
+    with pytest.raises(ValueError, match="unknown generator kind"):
+        enc_ops.encode_parity_prng(prng.prng_key(0), w[:4], x[:4], 2, "u")
+    with pytest.raises(TypeError):
+        enc_ops.encode_parity_prng(prng.prng_key(0), w[:4], x[:4].double(),
+                                   2)
+    assert enc_ops.PRNG_COUNTER.launches == before
+    out = enc_ops.encode_parity_prng(prng.prng_key(0), w[:4], x[:4], 0)
+    assert tuple(out.shape) == (0, 1)
+
+
+@pytest.mark.parametrize("kind", ["bernoulli", "normal"])
+def test_prng_fleet_encode_on_the_card(cuda, kind):
+    """The fleet encoders: one launch per client, the plain composite
+    within the encode bound, one tier `torch.equal` to the flat run."""
+    n, ell, d, c = 12, 8, 32, 128
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    xs = torch.randn((n, ell, d), generator=gen, device=cuda)
+    ys = torch.randn((n, ell), generator=gen, device=cuda)
+    w = torch.rand((n, ell), generator=gen, device=cuda) + 0.5
+    key = prng.prng_key(3)
+    before = enc_ops.PRNG_COUNTER.launches
+    fx, fy = enc_ops.encode_fleet_prng(key, xs, ys, w, c, kind)
+    assert enc_ops.PRNG_COUNTER.launches == before + n
+    tx, ty = encode_fleet_tiered(key, xs, ys, w, c,
+                                 FleetTopology.uniform(n, 1), kind)
+    torch.cuda.synchronize()
+    assert torch.equal(tx, fx) and torch.equal(ty, fy)
+    px, py = enc_ops.encode_fleet_prng(key, xs.cpu(), ys.cpu(), w.cpu(), c,
+                                       kind)
+    for got, want in ((fx, px), (fy, py)):
+        bound = 2e-4 * float(want.abs().max())
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=bound)
+    t3x, t3y = encode_fleet_tiered(key, xs, ys, w, c,
+                                   FleetTopology.uniform(n, 3), kind)
+    torch.testing.assert_close(t3x, fx, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(t3y, fy, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("m,d", [(1, 1), (7, 5), (37, 13), (179, 16),
+                                 (2016, 500), (9, 3000)])
+def test_lsq_kernel_matches_plain(cuda, m, d):
+    gen = torch.Generator(device=cuda).manual_seed(3 * m + d)
+    a = torch.randn((m, d), generator=gen, device=cuda)
+    y = torch.randn((m,), generator=gen, device=cuda)
+    beta = torch.randn((d,), generator=gen, device=cuda)
+    before = (cg_ops.COUNTER.launches, rg_ops.COUNTER.launches)
+    got = cg_ops.lsq_gradient(a, y, beta)
+    again = cg_ops.lsq_gradient(a, y, beta)
+    plain = cg_ref.lsq_gradient(a, y, beta)
+    flat = rg_ops.masked_round_gradient(a, y, None, beta)
+    torch.cuda.synchronize()
+    assert (cg_ops.COUNTER.launches, rg_ops.COUNTER.launches) == \
+        (before[0] + 2, before[1] + 1)
+    assert torch.equal(got, again)
+    assert torch.equal(got, flat)
+    _held_to_float64("lsq kernel", got, a, y, None, beta)
+    _held_to_float64("lsq plain", plain, a, y, None, beta)

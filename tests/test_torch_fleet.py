@@ -14,7 +14,19 @@ Bounds:
     card it holds for the flat and Gram-folded paths by construction of
     the kernels (`tests/test_torch_cuda.py`, `chip_smoke.py`); here the
     plain versions run;
-  * `report_extras`: equal keys and values.
+  * `report_extras`: equal keys and values;
+  * `mega_fleet`, `wireless_fleet` and `sample_tier_rounds` (statistics,
+    validation errors and the generator's state after): bit-equal;
+  * `solve_fleet` against the port's batched solver on the reference
+    test's request (`tests/test_fleet.py`): loads and c equal, t* rtol
+    1e-4, p_return rtol 1e-6 / atol 1e-9 — the reference's own bounds
+    for the same comparison; against `repro.plan.reference` at small n:
+    the bounds of `tests/test_torch_plan.py` (loads and c equal, t*,
+    p_return and expected_agg rtol 1e-3);
+  * `encode_fleet_tiered` against JAX's (Pallas in interpret mode):
+    2e-4 * max|ref|, the reference's encode bound; inside the port one
+    tier is bit-equal to the flat encode and T tiers are within rtol
+    1e-5 / atol 1e-6 of it (`tests/test_fleet.py`'s bounds).
 """
 import dataclasses
 
@@ -23,13 +35,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import torch
+
 from repro import api as j_api
 from repro import fleet as j_fleet
 from repro.core import cfl as j_cfl
 from repro.plan.reference import solve_redundancy_reference
+from repro.sim import network as j_network
 from repro_torch import api as t_api
 from repro_torch import interop
-from repro_torch.fleet import FleetTopology, HierarchicalCFL, HierState
+from repro_torch.fleet import (FleetTopology, HierarchicalCFL, HierState,
+                               encode_fleet_tiered, sample_tier_rounds,
+                               solve_fleet)
+from repro_torch.kernels.encode import ops as enc_ops
+from repro_torch.plan import PlanRequest, solve_redundancy_batched
+from repro_torch.sim import network as t_network
+from test_torch_plan import _problem as _plan_problem
 from test_torch_schemes import port_plan, scfl_pair
 from test_torch_slice import (ELL, EPOCHS, LR, _assert_same_run, _data,
                               _fleets, _jax_run)
@@ -213,3 +234,204 @@ def test_plan_and_plan_with_wrap_the_base():
     np.testing.assert_array_equal(again.base.x_parity, state.base.x_parity)
     with pytest.raises(ValueError, match="topology covers"):
         HierarchicalCFL(base, FleetTopology.uniform(7, 2)).plan(tf, data)
+
+
+# ---------------------------------------------------------------------------
+# fleet generation and O(participants) round scheduling
+# ---------------------------------------------------------------------------
+
+def _assert_fleet_equal(got, want):
+    for part in ("edge", "server"):
+        for f in ("a", "mu", "tau", "p"):
+            np.testing.assert_array_equal(getattr(getattr(got, part), f),
+                                          getattr(getattr(want, part), f))
+    for f in ("mac_rates", "link_rates"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    for f in ("packet_bits", "d", "nu_comp", "nu_link"):
+        assert getattr(got, f) == getattr(want, f)
+
+
+@pytest.mark.parametrize("n,kw", [(24, {}), (5000, {"d": 16, "seed": 3}),
+                                  (100, {"ladder_period": 7, "erasure_p": 0.2,
+                                         "base_mac_kmacs": 800.0})])
+def test_mega_fleet_bit_equal(n, kw):
+    _assert_fleet_equal(t_network.mega_fleet(n, **kw),
+                        j_network.mega_fleet(n, **kw))
+    with pytest.raises(TypeError, match="unexpected"):
+        t_network.mega_fleet(10, nonsense_knob=3)
+
+
+@pytest.mark.parametrize("kw", [{}, {"seed": 4, "n": 40, "d": 32},
+                                {"nu_erasure": 0.0, "base_erasure_p": 0.1}])
+def test_wireless_fleet_bit_equal(kw):
+    _assert_fleet_equal(t_network.wireless_fleet(**kw),
+                        j_network.wireless_fleet(**kw))
+
+
+def _j_params(edge):
+    from repro.core.delay_model import DeviceDelayParams
+    return DeviceDelayParams(a=edge.a, mu=edge.mu, tau=edge.tau, p=edge.p)
+
+
+@pytest.mark.parametrize("n,tiers,budget,epochs", [(3000, 8, 100, 6),
+                                                   (30, 3, None, 3),
+                                                   (500, 5, 40, 12)])
+def test_sample_tier_rounds_bit_equal(n, tiers, budget, epochs):
+    fleet = t_network.mega_fleet(n, d=16, seed=1)
+    loads = np.random.default_rng(3).integers(1, 9, size=n)
+    topo = FleetTopology.uniform(n, tiers)
+    j_topo = J_TOPO.uniform(n, tiers)
+    if budget is not None:
+        topo, j_topo = (topo.with_round_budget(budget),
+                        j_topo.with_round_budget(budget))
+    g_rng, w_rng = np.random.default_rng(4), np.random.default_rng(4)
+    got = sample_tier_rounds(topo, fleet.edge, loads, epochs, g_rng)
+    want = j_fleet.sample_tier_rounds(j_topo, _j_params(fleet.edge), loads,
+                                      epochs, w_rng)
+    for f in ("durations", "tier_max", "participants"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+        assert getattr(got, f).dtype == getattr(want, f).dtype
+    assert got.total_participants == want.total_participants
+    assert g_rng.random() == w_rng.random()  # the same draws were made
+    if budget is None:
+        np.testing.assert_array_equal(got.participants,
+                                      np.full((epochs, tiers), n // tiers))
+
+
+def test_sample_tier_rounds_validation():
+    n = 30
+    fleet = t_network.mega_fleet(n, d=16, seed=1)
+    topo = FleetTopology.uniform(n, 3)
+    with pytest.raises(ValueError, match="loads"):
+        sample_tier_rounds(topo, fleet.edge, np.full(n + 1, 4), 3,
+                           np.random.default_rng(0))
+    other = t_network.mega_fleet(n + 1, d=16, seed=1)
+    with pytest.raises(ValueError, match="edge params"):
+        sample_tier_rounds(topo, other.edge, np.full(n, 4), 3,
+                           np.random.default_rng(0))
+
+
+# ---------------------------------------------------------------------------
+# fleet-scale planning
+# ---------------------------------------------------------------------------
+
+def _paper_request(**kw):
+    """The request of tests/test_fleet.py's solve_fleet checks."""
+    fleet = t_network.paper_fleet(0.2, 0.2, seed=0, n=24, d=40)
+    data_sizes = np.random.default_rng(2).integers(40, 81, size=24)
+    return PlanRequest(edge=fleet.edge, server=fleet.server,
+                       data_sizes=data_sizes, **kw)
+
+
+@pytest.mark.parametrize("kw", [{"c_up": 400},
+                                {"srv_weight": 0.5, "fixed_c": 64}])
+def test_solve_fleet_matches_batched_solver(kw):
+    req = _paper_request(**kw)
+    batched = solve_redundancy_batched([req], eps_rel=1e-6, device="cpu")[0]
+    fleet = solve_fleet(req, eps_rel=1e-6, device="cpu")
+    np.testing.assert_array_equal(fleet.loads, batched.loads)
+    assert fleet.c == batched.c
+    assert fleet.t_star == pytest.approx(batched.t_star, rel=1e-4)
+    np.testing.assert_allclose(fleet.p_return, batched.p_return, rtol=1e-6,
+                               atol=1e-9)
+    assert fleet.expected_agg >= req.m * (1.0 - 1e-9)
+    assert fleet.loads_cap_total == req.m
+    # chunks smaller than the fleet stream the same sum
+    streamed = solve_fleet(req, eps_rel=1e-6, chunk=8, device="cpu")
+    np.testing.assert_array_equal(streamed.loads, fleet.loads)
+    assert streamed.t_star == pytest.approx(fleet.t_star, rel=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["free", "fixed"])
+@pytest.mark.parametrize("n,ell,seed", [(5, 40, 123), (8, 60, 4242)])
+def test_solve_fleet_matches_reference_oracle(n, ell, seed, mode):
+    """The randomized fleets of tests/test_torch_plan.py."""
+    (je, js), (te, ts), sizes, kw = _plan_problem(n, ell, mode, seed)
+    ref = solve_redundancy_reference(je, js, sizes, eps_rel=1e-4, **kw)
+    got = solve_fleet(PlanRequest(te, ts, sizes, **kw), eps_rel=1e-4,
+                      device="cpu")
+    np.testing.assert_array_equal(got.loads, ref.loads)
+    assert got.c == ref.c
+    np.testing.assert_allclose(got.t_star, ref.t_star, rtol=1e-3)
+    np.testing.assert_allclose(got.p_return, ref.p_return, rtol=1e-3,
+                               atol=1e-6)
+    np.testing.assert_allclose(got.expected_agg, ref.expected_agg,
+                               rtol=1e-3)
+
+
+def test_solve_fleet_scales_past_the_oracle_ceiling():
+    """A fleet beyond the reference oracle's 16 384-client ceiling plans
+    (chunk-streamed, five chunks) within every device's cap."""
+    from repro.plan.reference import _MAX_ORACLE_N
+    n = 17_000
+    assert n > _MAX_ORACLE_N
+    fleet = t_network.mega_fleet(n, d=16, seed=0)
+    data_sizes = np.random.default_rng(1).integers(2, 9, size=n)
+    req = PlanRequest(edge=fleet.edge, server=fleet.server,
+                      data_sizes=data_sizes, c_up=256)
+    plan = solve_fleet(req, eps_rel=1e-2, device="cpu")
+    assert plan.loads.shape == (n,) and plan.loads.dtype == np.int64
+    assert np.all(plan.loads <= data_sizes) and np.all(plan.loads >= 0)
+    assert plan.expected_agg >= req.m * (1.0 - 1e-6)
+    assert 0 <= plan.c <= 256 and plan.p_return.shape == (n + 1,)
+
+
+def test_solve_fleet_rejects_the_partial_objective():
+    with pytest.raises(NotImplementedError):
+        solve_fleet(_paper_request(edge_chunks=4, fixed_c=64), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# tiered streamed encoding
+# ---------------------------------------------------------------------------
+
+def _encode_problem(n=6, ell=5, d=8):
+    rng = np.random.default_rng(9)
+    return (np.asarray(jax.random.PRNGKey(9)),
+            rng.standard_normal((n, ell, d)).astype(np.float32),
+            rng.standard_normal((n, ell)).astype(np.float32),
+            rng.uniform(0.5, 1.5, (n, ell)).astype(np.float32))
+
+
+PERMUTED_TIERS = np.array([2, 0, 1, 0, 2, 1])
+
+
+@pytest.mark.parametrize("kind", ["normal", "bernoulli"])
+def test_encode_tiered_matches_reference(kind):
+    key, xs, ys, w = _encode_problem()
+    jx, jy = j_fleet.encode_fleet_tiered(
+        jnp.asarray(key), jnp.asarray(xs), jnp.asarray(ys), jnp.asarray(w),
+        4, J_TOPO.from_assignment(PERMUTED_TIERS), kind=kind,
+        force_interpret=True)
+    tx, ty = encode_fleet_tiered(key, torch.tensor(xs), torch.tensor(ys),
+                                 torch.tensor(w), 4,
+                                 FleetTopology.from_assignment(
+                                     PERMUTED_TIERS), kind=kind)
+    for got, want in ((tx, jx), (ty, jy)):
+        want = np.asarray(want)
+        assert tuple(got.shape) == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4,
+                                   atol=2e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("kind", ["normal", "bernoulli"])
+def test_encode_tiered_single_tier_and_partition(kind):
+    key, xs, ys, w = _encode_problem()
+    args = (torch.tensor(xs), torch.tensor(ys), torch.tensor(w), 4)
+    x_flat, y_flat = enc_ops.encode_fleet_prng(key, *args, kind=kind)
+    x_one, y_one = encode_fleet_tiered(key, *args,
+                                       FleetTopology.uniform(6, 1), kind=kind)
+    assert torch.equal(x_one, x_flat) and torch.equal(y_one, y_flat)
+    x_t, y_t = encode_fleet_tiered(
+        key, *args, FleetTopology.from_assignment(PERMUTED_TIERS), kind=kind)
+    np.testing.assert_allclose(x_t.numpy(), x_flat.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(y_t.numpy(), y_flat.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_encode_tiered_validates_fleet_size():
+    key, xs, ys, w = _encode_problem()
+    with pytest.raises(ValueError, match="topology covers"):
+        encode_fleet_tiered(key, torch.tensor(xs), torch.tensor(ys),
+                            torch.tensor(w), 4, FleetTopology.uniform(7, 2))

@@ -18,13 +18,16 @@ import torch
 from repro_torch import api, device
 from repro_torch.core.redundancy import solve_redundancy
 from repro_torch.fleet import FleetTopology, HierarchicalCFL
+from repro_torch.fleet import encode_fleet_tiered, solve_fleet
 from repro_torch.kernels import build, common
+from repro_torch.kernels.coded_grad import ops as cg_ops
 from repro_torch.kernels.encode import ops as enc_ops
+from repro_torch.kernels.encode import ref as enc_ref
 from repro_torch.kernels.round_grad import ops as rg_ops
 from repro_torch.kernels.round_grad import ref as rg_ref
 from repro_torch.plan import PlanRequest, solve_redundancy_batched
 from repro_torch.schemes import StochasticCodedFL
-from repro_torch.sim.network import paper_fleet
+from repro_torch.sim.network import mega_fleet, paper_fleet
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
@@ -90,6 +93,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         api.Session(HierarchicalCFL(api.UncodedFL(),
                                     FleetTopology.uniform(4, 2)), fleet,
                     lr=0.1, epochs=2)
+    big = mega_fleet(64, d=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_fleet(PlanRequest(big.edge, big.server, np.full(64, 4),
+                                c_up=16))
     # the CPU is used only when asked for
     assert device.resolve_device("cpu") == torch.device("cpu")
     assert api.Session(api.UncodedFL(), fleet, lr=0.1, epochs=2,
@@ -104,6 +111,37 @@ def test_session_rejects_data_on_another_device():
                        device="meta")
     with pytest.raises(ValueError, match="session runs on"):
         sess.run(data)
+
+
+@pytest.mark.parametrize("scheme,tiers", [("coded", 0), ("coded", 3),
+                                          ("scfl", 0), ("scfl", 3)])
+def test_reference_path_reaches_no_kernel_wrapper(monkeypatch, scheme,
+                                                  tiers):
+    """`grad_path="reference"` is the plain two-pass oracle the fused path
+    is held against: its epochs call no round-gradient wrapper, the
+    parity gradient's included, so on the card they launch nothing."""
+    fleet = paper_fleet(seed=0, n=6, d=8)
+    data = api.TrainData.linreg(0, 6, 16, 8, device="cpu")
+    if scheme == "coded":
+        strategy = api.CodedFL(key=1, fixed_c=24, include_upload_delay=False,
+                               grad_path="reference")
+    else:
+        strategy = StochasticCodedFL(key=1, fixed_c=24, sample_frac=0.5,
+                                     include_upload_delay=False,
+                                     grad_path="reference")
+    if tiers:
+        strategy = HierarchicalCFL(strategy, FleetTopology.uniform(6, tiers))
+    sess = api.Session(strategy, fleet, lr=0.1, epochs=3, device="cpu")
+    state = sess.plan(data)  # the one-time encode may take its kernel
+
+    def wrapper(*args, **kwargs):
+        raise AssertionError("the reference path called a kernel wrapper")
+
+    for fn in ("masked_round_gradient", "coded_round_gradient",
+               "tier_masked_round_gradient", "lsq_gradient"):
+        monkeypatch.setattr(rg_ops, fn, wrapper)
+    rep = sess.run(data, rng=np.random.default_rng(0), state=state)
+    assert rep.nmse.shape == (4,) and np.all(np.isfinite(rep.nmse))
 
 
 OPS = [(rg_ops, "round_grad"), (enc_ops, "encode")]
@@ -157,8 +195,10 @@ RG_WRAPPERS = {
     "tier": (lambda x, y, w, b: rg_ops.tier_masked_round_gradient(
         x, y, w, torch.ones((3, x.shape[0])), b),
         "rg_tier_round_gradient", "TIER_COUNTER"),
+    "lsq": (lambda x, y, w, b: rg_ops.lsq_gradient(x, y, b),
+            "rg_lsq_gradient", "LSQ_COUNTER"),
 }
-RG_COUNTERS = ("COUNTER", "CODED_COUNTER", "TIER_COUNTER")
+RG_COUNTERS = ("COUNTER", "CODED_COUNTER", "TIER_COUNTER", "LSQ_COUNTER")
 
 
 @pytest.mark.parametrize("name", sorted(RG_WRAPPERS))
@@ -179,7 +219,7 @@ def test_kernel_route_never_computes_the_plain_version(monkeypatch, name):
         raise AssertionError("the plain version ran on the kernel route")
 
     for fn in ("masked_round_gradient", "coded_round_gradient",
-               "tier_masked_round_gradient"):
+               "tier_masked_round_gradient", "lsq_gradient"):
         monkeypatch.setattr(rg_ref, fn, plain)
     before = {k: getattr(rg_ops, k).launches for k in RG_COUNTERS}
     call(*_rg_operands())
@@ -258,3 +298,115 @@ def test_resolve_block_and_counter():
     counter = common.LaunchCounter(launches=3)
     counter.reset()
     assert counter.launches == 0
+
+
+def _key():
+    return np.array([0, 42], dtype=np.uint32)
+
+
+def _enc_operands(n=3, ell=5, d=4):
+    g = torch.Generator().manual_seed(1)
+    return (torch.randn((n, ell, d), generator=g),
+            torch.randn((n, ell), generator=g),
+            torch.rand((n, ell), generator=g))
+
+
+# each in-kernel-generator encode wrapper: (call, expected launches)
+PRNG_WRAPPERS = {
+    "single": (lambda xs, ys, w: enc_ops.encode_parity_prng(
+        _key(), w[0].contiguous(), xs[0].contiguous(), 6), 1),
+    "fleet": (lambda xs, ys, w: enc_ops.encode_fleet_prng(
+        _key(), xs, ys, w, 6, kind="bernoulli"), 3),
+    "tiered": (lambda xs, ys, w: encode_fleet_tiered(
+        _key(), xs, ys, w, 6, FleetTopology.uniform(3, 2)), 3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PRNG_WRAPPERS))
+def test_prng_encode_route_never_computes_the_plain_version(monkeypatch,
+                                                            name):
+    """On the kernel route the in-kernel-generator encoders launch once
+    per client through `enc_encode_parity_prng`, bump only
+    `PRNG_COUNTER`, never reach a plain version, and raise (without
+    counting) on a failed launch."""
+    call, launches = PRNG_WRAPPERS[name]
+    lib = mock.MagicMock()
+    lib.enc_encode_parity_prng.return_value = 0
+    monkeypatch.setattr(enc_ops, "_dispatch", lambda device: lib)
+    monkeypatch.setattr(enc_ops, "check_cuda_operand", lambda *a: None)
+    monkeypatch.setattr(enc_ops.torch.cuda, "current_stream",
+                        lambda device: mock.MagicMock(cuda_stream=0))
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain version ran on the kernel route")
+
+    for fn in ("encode_parity", "encode_parity_prng"):
+        monkeypatch.setattr(enc_ref, fn, plain)
+    before = (enc_ops.COUNTER.launches, enc_ops.PRNG_COUNTER.launches)
+    call(*_enc_operands())
+    assert lib.enc_encode_parity_prng.call_count == launches
+    assert (enc_ops.COUNTER.launches, enc_ops.PRNG_COUNTER.launches) == \
+        (before[0], before[1] + launches)
+    if name == "single":  # the key words go by value
+        assert lib.enc_encode_parity_prng.call_args.args[:2] == (0, 42)
+    lib.enc_encode_parity_prng.return_value = 700  # a CUDA error code
+    with pytest.raises(RuntimeError, match="launch failed"):
+        call(*_enc_operands())
+    assert enc_ops.PRNG_COUNTER.launches == before[1] + launches
+
+
+def test_prng_fleet_launches_accumulate_in_client_order(monkeypatch):
+    """The fleet encoder's launches add into one (c, d+1) composite, in
+    client order, with the keys of `split_keys`."""
+    from repro_torch.kernels.encode import prng
+    lib = mock.MagicMock()
+    lib.enc_encode_parity_prng.return_value = 0
+    monkeypatch.setattr(enc_ops, "_dispatch", lambda device: lib)
+    monkeypatch.setattr(enc_ops, "check_cuda_operand", lambda *a: None)
+    monkeypatch.setattr(enc_ops.torch.cuda, "current_stream",
+                        lambda device: mock.MagicMock(cuda_stream=0))
+    xs, ys, w = _enc_operands()
+    enc_ops.encode_fleet_prng(_key(), xs, ys, w, 6)
+    keys = prng.split_keys(_key(), 3)
+    calls = lib.enc_encode_parity_prng.call_args_list
+    assert [c.args[:2] for c in calls] == [tuple(int(v) for v in k)
+                                          for k in keys]
+    outs = {c.args[4] for c in calls}
+    assert len(outs) == 1  # one accumulator
+    # (c, ell, d + 1, kind normal, accumulate)
+    assert {c.args[5:10] for c in calls} == {(6, 5, 5, 0, 1)}
+
+
+def test_lsq_route_never_computes_the_plain_version(monkeypatch):
+    lib = mock.MagicMock()
+    lib.rg_max_d.return_value = 5810
+    lib.rg_num_ctas.side_effect = lambda m: -(-m // 16)
+    lib.rg_lsq_gradient.return_value = 0
+    assert cg_ops.COUNTER is rg_ops.LSQ_COUNTER
+    monkeypatch.setattr(rg_ops, "_dispatch", lambda device: lib)
+    monkeypatch.setattr(rg_ops, "_stream", lambda device: 0)
+
+    def plain(*args):
+        raise AssertionError("the plain version ran on the kernel route")
+
+    monkeypatch.setattr(rg_ref, "lsq_gradient", plain)
+    monkeypatch.setattr(rg_ref, "masked_round_gradient", plain)
+    x, y, _, b = _rg_operands()
+    before = (cg_ops.COUNTER.launches, rg_ops.COUNTER.launches)
+    cg_ops.lsq_gradient(x, y, b)
+    assert lib.rg_lsq_gradient.call_count == 1
+    assert (cg_ops.COUNTER.launches, rg_ops.COUNTER.launches) == \
+        (before[0] + 1, before[1])
+    lib.rg_lsq_gradient.return_value = 700
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cg_ops.lsq_gradient(x, y, b)
+    assert cg_ops.COUNTER.launches == before[0] + 1
+
+
+def test_new_wrappers_raise_on_other_devices():
+    xs, ys, w = (t.to("meta") for t in _enc_operands())
+    with pytest.raises(ValueError, match="no encode kernel"):
+        enc_ops.encode_parity_prng(_key(), w[0], xs[0], 4)
+    x, y, _, b = (t.to("meta") for t in _rg_operands())
+    with pytest.raises(ValueError, match="no round_grad kernel"):
+        cg_ops.lsq_gradient(x, y, b)
