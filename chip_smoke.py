@@ -28,7 +28,12 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      (2016, 300, 501) and at an odd c * ell, both kinds, within 2e-4 *
      max|ref|, relaunches bit-identical; the least-squares gradient at
      (2016, 500) within the float64 bound, relaunches bit-identical and
-     `torch.equal` to the flat kernel at w = None;
+     `torch.equal` to the flat kernel at w = None; the SSD intra-chunk
+     step (kernel 7) at the serving shape of mamba2-1.3b (B, nc, Q, H,
+     P, N) = (1, 8, 256, 64, 64, 128) with one group and with per-head B
+     and C, at the reduced mamba2's (Q 16, P 32, N 16) and at an odd Q,
+     within rtol 1e-4 / atol 1e-4 * max(1, max|ref|)
+     (`tests/test_kernels.py`), relaunches bit-identical;
   4. the main path: `repro_torch.quickstart.run` — the §IV plan, the
      encode through the kernel, 600 uncoded and 600 coded epochs — with
      the launch counters set to 0 just before it and read just after;
@@ -63,7 +68,20 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      state and its schedule's arrival masks (exactly 600 least-squares
      gradient launches, no other kernel), the same loop without the
      kernel within rtol 1e-4;
- 11. time each kernel, its plain version and the one PyTorch call that
+ 11. the serve path: mamba2-1.3b at full width (48 layers, d_model 2048,
+     vocab 50280, 1,446,714,368 float32 parameters drawn from a seeded
+     generator on the card); kernel 7 at the model's own operands (layer
+     0 of a 2048-token prefill, |cum| ~ 3e3) within the same bound and
+     within the derived float64 rounding bound; `ServeEngine(n_slots=4,
+     max_seq=2112)` over six requests of 100, 256, 640, 1024, 1537 and
+     2048 prompt tokens, 24 new tokens each (the counters set to 0 just
+     before, read just after: exactly 48 kernel-7 launches per prefill,
+     288 in all, none in decode, no other kernel); each request's tokens
+     equal to `greedy_generate` on its prompt alone; the kernel prefill
+     of the 2048-token prompt against the plain one within 1e-3 *
+     max(1, max|logit|), stated in advance, with the same greedy token;
+     prefill ms per request, decode ms per engine step and tokens/s;
+ 12. time each kernel, its plain version and the one PyTorch call that
      computes the same product: CUDA events around a run of back-to-back
      calls that rotate over copies of the operands larger than the L2
      together (so each call finds its operands cold), enqueued while a
@@ -72,7 +90,9 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      call; and each kernel again on one copy, warm in L2, as the epoch
      loop finds its operands.  No PyTorch call generates threefry, so
      the in-kernel-generator encode's library time is `G @ (w X)` on a
-     materialized G: it excludes the generation.
+     materialized G: it excludes the generation.  Kernel 7's library
+     expression is `torch.matmul` on head-major views with the causal
+     mask by `torch.tril`, held to the kernel first.
 
 Any failed check raises, so the exit code is non-zero.  The line before
 the last is the kernels' JSON record; the last line is
@@ -128,6 +148,19 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # (20 rounds of add, funnel shift and xor, five key injections)
 HASH_INT_OPS = 80
 PRNG_COLS_PER_CTA = 512  # csrc/encode.cu kBD: each CTA's output columns
+# phase 11: mamba2-1.3b at full width through ServeEngine (random weights
+# from a seed), six requests on four slots, 24 new tokens each
+SERVE_ARCH, SERVE_SEED, SERVE_PARAMS = "mamba2-1.3b", 0, 1_446_714_368
+SERVE_PROMPTS = (100, 256, 640, 1024, 1537, 2048)
+SERVE_NEW, SERVE_SLOTS, SERVE_MAX_SEQ = 24, 4, 2112
+# the kernel prefill of the 2048-token prompt against the plain one: max
+# |logit difference| <= LOGIT_RTOL * max(1, max|logit|), stated before the
+# first run on the card (on the CPU, 48 layers at d_model 512 with the
+# intra-chunk step exact to rounding move the logits by ~6e-6 of max:
+# tests/test_torch_lm_serve.py, test_rounding_of_the_ssd_step_...)
+LOGIT_RTOL = 1e-3
+# kernel 7's operands in a 2048-token prefill: (B, nc, Q, H, P, N)
+SSD_SHAPE = (1, 8, 256, 64, 64, 128)
 L2_BYTES = 50 * 2**20
 TIMING_REPEATS = 15   # timed runs per call; the median is kept
 TIMING_CALLS = 40     # back-to-back calls per timed run
@@ -533,6 +566,295 @@ def legacy_phase(out, dev, reset_counters, read_counters) -> dict:
     return {"launches": counts["lsq_gradient"], "seconds": seconds}
 
 
+def ssd_operands(gen, dev, B, nc, Q, H, P, N, G) -> tuple:
+    """Synthetic kernel-7 operands, the inputs of `tests/test_kernels.py`
+    (da = -0.1 |N(0, 1)|), with B and C per group."""
+    xc = torch.randn((B, nc, Q, H, P), generator=gen, device=dev)
+    dtc = torch.nn.functional.softplus(
+        torch.randn((B, nc, Q, H), generator=gen, device=dev))
+    da = -0.1 * torch.randn((B, nc, Q, H), generator=gen, device=dev).abs()
+    bc = torch.randn((B, nc, Q, G, N), generator=gen, device=dev)
+    cc = torch.randn((B, nc, Q, G, N), generator=gen, device=dev)
+    return xc, dtc, da, bc, cc
+
+
+def per_head(ops) -> tuple:
+    """Kernel-7 operands with B and C repeated per head (the reference's
+    layout, which the plain version takes)."""
+    xc, dtc, da, bc, cc = ops
+    rep = xc.shape[3] // bc.shape[3]
+    return (xc, dtc, da, bc.repeat_interleave(rep, 3),
+            cc.repeat_interleave(rep, 3))
+
+
+def bound_share(got, exact, bound) -> float:
+    """The largest |got - exact| / bound over the elements (an element
+    with a zero bound counts 0 if it is exact, else inf)."""
+    err = (got.double() - exact).abs()
+    share = torch.where(bound > 0, err / bound,
+                        torch.where(err > 0, torch.inf, 0.0))
+    return float(share.max())
+
+
+def check_ssd_case(label: str, ops, float64: bool = False) -> float:
+    """Kernel 7 against its plain version on `ops`: y and states within
+    rtol 1e-4 / atol 1e-4 * max(1, max|ref|) (`tests/test_kernels.py`),
+    a bit-identical relaunch, and with `float64` both held against the
+    float64 value within the derived rounding bound
+    (`kernels.ssd.ref.float64_reference_and_bound`).  Returns the max
+    |kernel - plain| over y and states."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    got = ssd_ops.ssd_chunk(*ops)
+    again = ssd_ops.ssd_chunk(*ops)
+    plain = ssd_ref.ssd_chunk_reference(*per_head(ops))
+    torch.cuda.synchronize()
+    errs, oks = [], []
+    for g, p in zip(got, plain):
+        err, ok = allclose_report(g, p, 1e-4,
+                                  1e-4 * max(1.0, float(p.abs().max())))
+        errs.append(err)
+        oks.append(ok)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    shape = list(ops[0].shape) + [ops[3].shape[3], ops[3].shape[4]]
+    msg = (f"check ssd_chunk {label} (B, nc, Q, H, P, G, N) = {shape}: "
+           f"max_abs_err y {errs[0]:.3e} (|ref| max "
+           f"{float(plain[0].abs().max()):.3e}), states {errs[1]:.3e} "
+           f"(|ref| max {float(plain[1].abs().max()):.3e}); within rtol "
+           f"1e-4 / atol 1e-4*max(1,|ref|max) {oks[0] and oks[1]}; "
+           f"bit-identical relaunch {same}")
+    if float64:
+        y64, s64, yb, sb = ssd_ref.float64_reference_and_bound(*ops)
+        worst = {}
+        for name, (y_, s_) in (("kernel", got), ("plain", plain)):
+            worst[name] = max(bound_share(y_, y64, yb),
+                              bound_share(s_, s64, sb))
+        msg += (f"; against float64 the worst element at "
+                f"{worst['kernel']:.3f} (kernel) and {worst['plain']:.3f} "
+                f"(plain) of the derived rounding bound")
+        check(worst["kernel"] <= 1.0 and worst["plain"] <= 1.0,
+              f"ssd_chunk {label} outside its float64 bound")
+    phase(msg)
+    check(oks[0] and oks[1], f"ssd_chunk {label} disagrees with plain")
+    check(same, f"ssd_chunk {label} not deterministic")
+    return max(errs)
+
+
+def check_ssd_kernel(dev, gen, errs: dict) -> tuple:
+    """Phase 3's checks of kernel 7 at synthetic operands; returns the
+    operands of the serving shape for the timing phase."""
+    cases = {"serving shape": (*SSD_SHAPE[:5], SSD_SHAPE[5], 1),
+             "serving shape, per-head B and C": (*SSD_SHAPE, 64),
+             "reduced mamba2": (1, 3, 16, 16, 32, 16, 1),
+             "odd Q": (1, 2, 97, 4, 64, 128, 2)}
+    out = None
+    for label, (B, nc, Q, H, P, N, G) in cases.items():
+        ops = ssd_operands(gen, dev, B, nc, Q, H, P, N, G)
+        err = check_ssd_case(label, ops)
+        if label == "serving shape":
+            errs["ssd_chunk"], out = err, ops
+    return out
+
+
+def serve_phase(dev, card: str, expect, reset_counters,
+                read_counters) -> dict:
+    """Phase 11: mamba2-1.3b at full width through `ServeEngine`, kernel 7
+    on every prefill; kernel 7 at the model's own operands; the engine's
+    tokens against `greedy_generate`; the kernel prefill against the
+    plain one."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = get_config(SERVE_ARCH)
+    s = cfg.ssm
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    def leaves(tree):
+        return [t for v in tree.values()
+                for t in (leaves(v) if isinstance(v, dict) else [v])]
+
+    n_params = sum(t.numel() for t in leaves(params))
+    phase(f"serve [{card}]: {cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {s.n_heads(cfg.d_model)} heads of {s.headdim}, "
+          f"d_state {s.d_state}, chunk {s.chunk}, vocab {cfg.vocab}: "
+          f"{n_params} float32 parameters on the card "
+          f"({4 * n_params / 1e9:.2f} GB), drawn in {init_s:.3f} s")
+    check(n_params == SERVE_PARAMS and cfg.n_layers == 48
+          and cfg.d_model == 2048 and cfg.vocab == 50280,
+          "mamba2-1.3b is not at full width")
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen,
+                             device=dev).cpu().numpy()
+               for n in SERVE_PROMPTS]
+
+    # kernel 7 at the model's own operands: layer 0 of the longest prompt
+    captured, real = [], ssd_ops.ssd_chunk
+
+    def capture(*ops):
+        captured.append(ops)
+        return real(*ops)
+
+    ssd_ops.ssd_chunk = capture
+    try:
+        T.prefill(cfg, params, {"tokens": torch.as_tensor(
+            prompts[-1], device=dev)[None]})
+    finally:
+        ssd_ops.ssd_chunk = real
+    model_ops = captured[0]  # layer 0's
+    cum = torch.cumsum(model_ops[2].double(), dim=2)
+    phase(f"serve: layer 0's decay logs of the {SERVE_PROMPTS[-1]}-token "
+          f"prompt reach |cum| {float(cum.abs().max()):.1f} within a chunk "
+          f"(dt max {float(model_ops[1].max()):.3f})")
+    model_err = check_ssd_case("at the model's own operands", model_ops,
+                               float64=True)
+
+    # the engine: six requests on four slots, 24 new tokens each
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    eng = ServeEngine(cfg, params, n_slots=SERVE_SLOTS,
+                      max_seq=SERVE_MAX_SEQ, device=dev)
+    admit, step = eng.try_admit, eng.step
+    prefill = {}      # uid -> (ms, kernel-7 launches)
+    steps = []        # (ms, kernel-7 launches, active slots)
+
+    def timed_admit(req):
+        torch.cuda.synchronize()
+        n0, t0 = ssd_ops.SSD_COUNTER.launches, time.perf_counter()
+        ok = admit(req)
+        torch.cuda.synchronize()
+        if ok:
+            prefill[req.uid] = (1e3 * (time.perf_counter() - t0),
+                                ssd_ops.SSD_COUNTER.launches - n0)
+        check(ok or ssd_ops.SSD_COUNTER.launches == n0,
+              "a refused admission launched kernel 7")
+        return ok
+
+    def timed_step():
+        active = len(eng.active)
+        torch.cuda.synchronize()
+        n0, t0 = ssd_ops.SSD_COUNTER.launches, time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        steps.append((1e3 * (time.perf_counter() - t0),
+                      ssd_ops.SSD_COUNTER.launches - n0, active))
+        return out
+
+    eng.try_admit, eng.step = timed_admit, timed_step
+    reset_counters()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counters()
+    new_tokens = sum(len(r.out_tokens) for r in done)
+    decode_s = sum(ms for ms, _, _ in steps) / 1e3
+    step_ms = statistics.median(ms for ms, _, _ in steps)
+    phase(f"serve [{card}]: ServeEngine(n_slots={SERVE_SLOTS}, "
+          f"max_seq={SERVE_MAX_SEQ}) ran {len(done)} requests in "
+          f"{run_s:.4f} s wall, {len(steps)} engine steps; "
+          f"{new_tokens} new tokens, {new_tokens / run_s:.2f} tokens/s over "
+          f"the run, {(new_tokens - len(done)) / decode_s:.2f} decoded "
+          f"tokens/s over the steps; launches {counts}")
+    phase(f"serve [{card}]: prefill ms per request (prompt tokens: ms, "
+          f"kernel-7 launches) " + ", ".join(
+              f"{SERVE_PROMPTS[u]}: {ms:.3f}, {n}"
+              for u, (ms, n) in sorted(prefill.items())))
+    by_slots = {k: [ms for ms, _, a in steps if a == k]
+                for k in sorted({a for _, _, a in steps})}
+    phase(f"serve [{card}]: decode ms per engine step median {step_ms:.3f}, "
+          f"by active slots " + ", ".join(
+              f"{k}: {statistics.median(v):.3f} ({len(v)} steps)"
+              for k, v in by_slots.items()) +
+          f"; kernel-7 launches in decode {sum(n for _, n, _ in steps)}")
+    check(sorted(r.uid for r in done) == list(range(len(SERVE_PROMPTS))),
+          "the engine did not finish every request")
+    check(all(len(r.out_tokens) == SERVE_NEW for r in done),
+          "a request finished with the wrong number of tokens")
+    check(counts == expect(ssd_chunk=cfg.n_layers * len(SERVE_PROMPTS)),
+          f"unexpected serve launch counts {counts}")
+    check(sorted(n for _, n in prefill.values()) ==
+          [cfg.n_layers] * len(SERVE_PROMPTS),
+          "a prefill did not launch kernel 7 once per layer")
+    check(sum(n for _, n, _ in steps) == 0, "decode launched kernel 7")
+
+    # the engine's tokens against greedy_generate on each prompt alone
+    greedy_ms = []
+    for r in sorted(done, key=lambda r: r.uid):
+        out, t_pre, st = greedy_generate(
+            cfg, params, torch.as_tensor(r.prompt, device=dev)[None],
+            SERVE_NEW, {}, device=dev)
+        gen_toks = out[0, len(r.prompt):].tolist()
+        greedy_ms.append((1e3 * t_pre, 1e3 * statistics.median(st)))
+        check(bool(((out >= 0) & (out < cfg.vocab)).all()),
+              "a token outside the vocabulary")
+        check(gen_toks == r.out_tokens,
+              f"request {r.uid}: engine tokens differ from greedy_generate")
+    phase(f"serve [{card}]: engine tokens equal greedy_generate's for all "
+          f"{len(done)} requests; greedy_generate prefill ms / median "
+          f"decode ms per token (batch 1) " + ", ".join(
+              f"{SERVE_PROMPTS[i]}: {p:.3f} / {d:.3f}"
+              for i, (p, d) in enumerate(greedy_ms)))
+
+    # the kernel prefill against the plain one, longest prompt
+    toks = torch.as_tensor(prompts[-1], device=dev)[None]
+    t0 = time.perf_counter()
+    lk, _ = T.prefill(cfg, params, {"tokens": toks})
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lp, _ = T.prefill(cfg, params, {"tokens": toks}, use_kernel=False)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    diff = float((lk - lp).abs().max())
+    bound = LOGIT_RTOL * max(1.0, float(lp.abs().max()))
+    same_tok = int(lk[0, -1].argmax()) == int(lp[0, -1].argmax())
+    phase(f"serve [{card}]: {SERVE_PROMPTS[-1]}-token prefill with kernel 7 "
+          f"{1e3 * kernel_s:.3f} ms, plain {1e3 * plain_s:.3f} ms; max "
+          f"|logit difference| {diff:.3e} (max|logit| "
+          f"{float(lp.abs().max()):.3f}; bound stated in advance "
+          f"{LOGIT_RTOL} * max(1, max|logit|) = {bound:.3e}); greedy token "
+          f"equal {same_tok}")
+    check(bool(torch.isfinite(lk).all()) and tuple(lk.shape) ==
+          (1, 1, cfg.vocab), "kernel prefill logits not finite or shape")
+    check(diff <= bound, "kernel prefill outside its bound of plain")
+    check(same_tok, "kernel and plain prefill choose different tokens")
+    return {"launches": counts["ssd_chunk"], "model_err": model_err,
+            "run_s": run_s, "tokens_per_s": new_tokens / run_s,
+            "step_ms": step_ms, "logit_diff": diff}
+
+
+def ssd_library(xh, dth, dah, bh, ch):
+    """Kernel 7's function as `torch.matmul` on the (B*nc*H, Q, N) and
+    (B*nc*H, Q, P) head-major views, the causal mask by `torch.tril`
+    (the library yardstick of the timing phase; never used by the port)."""
+    cum = torch.cumsum(dah, dim=-1, dtype=torch.float64).float()
+    xw = xh * dth[..., None]
+    lmat = torch.exp(cum[:, :, None] - cum[:, None, :])
+    y = torch.matmul(torch.tril(torch.matmul(ch, bh.transpose(1, 2)) * lmat),
+                     xw)
+    dec = torch.exp(cum[:, -1:] - cum)
+    states = torch.matmul((xw * dec[..., None]).transpose(1, 2), bh)
+    return y, states
+
+
+def head_major(ops) -> tuple:
+    """Kernel-7 operands as contiguous (B*nc*H, Q, ...) views."""
+    xc, dtc, da, bc, cc = per_head(ops)
+    B, nc, Q, H, P = xc.shape
+
+    def hm(t):  # (B, nc, Q, H, ...) -> (B * nc * H, Q, ...)
+        t = t.movedim(3, 2)
+        return t.reshape(B * nc * H, Q, *t.shape[4:]).contiguous()
+
+    return tuple(hm(t) for t in (xc, dtc, da, bc, cc))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -551,6 +873,8 @@ def main() -> int:
     from repro_torch.kernels.encode import ref as enc_ref
     from repro_torch.kernels.round_grad import ops as rg_ops
     from repro_torch.kernels.round_grad import ref as rg_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.schemes import StochasticCodedFL
 
     t_start = time.perf_counter()
@@ -700,13 +1024,16 @@ def main() -> int:
     # the in-kernel-generator encode and the least-squares gradient
     prng_inputs = check_prng_kernel(dev, gen, errs)
     lsq_inputs = check_lsq_kernel(dev, gen, errs)
+    # the SSD intra-chunk step (kernel 7) at synthetic operands
+    ssd_inputs = check_ssd_kernel(dev, gen, errs)
 
     counters = {"round_grad": rg_ops.COUNTER,
                 "coded_round_grad": rg_ops.CODED_COUNTER,
                 "tier_round_grad": rg_ops.TIER_COUNTER,
                 "encode": enc_ops.COUNTER,
                 "encode_prng": enc_ops.PRNG_COUNTER,
-                "lsq_gradient": cg_ops.COUNTER}
+                "lsq_gradient": cg_ops.COUNTER,
+                "ssd_chunk": ssd_ops.SSD_COUNTER}
 
     def reset_counters():
         for counter in counters.values():
@@ -881,7 +1208,10 @@ def main() -> int:
     # -- 10. the legacy path ----------------------------------------------
     legacy = legacy_phase(out, dev, reset_counters, read_counters)
 
-    # -- 11. timing ------------------------------------------------------
+    # -- 11. serving mamba2-1.3b at full width ----------------------------
+    serve = serve_phase(dev, card, expect, reset_counters, read_counters)
+
+    # -- 12. timing ------------------------------------------------------
     records = []
     for label in ("coded", "uncoded"):
         x, y, w, beta = rg_inputs[label]
@@ -1018,6 +1348,44 @@ def main() -> int:
           f"(L2 warm {lsq_warm!r} ms), plain {lsq_plain!r} ms, library "
           f"(A @ beta - y) @ A {lsq_lib!r} ms, bound {lsq_bound!r} ms "
           f"(bytes {lsq_bytes})")
+    # kernel 7 at the serving shape (a 2048-token prefill, one group)
+    B, nc, Q, H, P, N = SSD_SHAPE
+    G = ssd_inputs[3].shape[3]
+    cold = cold_copies(ssd_inputs)
+    ssd_ms = time_ms(ssd_ops.ssd_chunk, cold)
+    ssd_warm = time_ms(ssd_ops.ssd_chunk, [ssd_inputs])
+    del cold
+    # the plain version and the library expression allocate ~1 GB of
+    # intermediates a call and take ~14 ms of host time: 4 calls a run
+    cold = cold_copies(per_head(ssd_inputs))
+    ssd_plain = time_ms(ssd_ref.ssd_chunk_reference, cold, calls=4)
+    del cold
+    hm = head_major(ssd_inputs)
+    lib_y, lib_s = ssd_library(*hm)
+    got_y, got_s = ssd_ops.ssd_chunk(*ssd_inputs)
+    lib_err = max(float((lib_y - got_y.movedim(3, 2).reshape(lib_y.shape))
+                        .abs().max()),
+                  float((lib_s - got_s.reshape(lib_s.shape)).abs().max()))
+    lib_bound = 1e-4 * max(1.0, float(got_y.abs().max()),
+                           float(got_s.abs().max()))
+    check(lib_err <= lib_bound, "the library expression of kernel 7 "
+          f"disagrees with the kernel: {lib_err:.3e} > {lib_bound:.3e}")
+    ssd_lib = time_ms(ssd_library, cold_copies(hm), calls=4)
+    del hm, lib_y, lib_s, got_y, got_s
+    # the causal half of C B^T and of the product with x, and the state
+    ssd_flops = B * nc * H * (Q * (Q + 1) // 2 * 2 * (N + P)
+                              + 2 * Q * P * N)
+    ssd_bytes = 4 * (B * nc * Q * H * (2 * P + 2) + 2 * B * nc * Q * G * N
+                     + B * nc * H * P * N)
+    ssd_terms = {"bytes": ssd_bytes / HBM_BYTES_PER_S,
+                 "operations": ssd_flops / FP32_FLOPS_PER_S}
+    ssd_bound_by = max(ssd_terms, key=ssd_terms.get)
+    ssd_bound = 1e3 * ssd_terms[ssd_bound_by]
+    phase(f"time ssd_chunk {list(SSD_SHAPE)} G={G} [{card}]: kernel "
+          f"{ssd_ms!r} ms (L2 warm {ssd_warm!r} ms), plain {ssd_plain!r} "
+          f"ms, library matmul + tril on head-major views {ssd_lib!r} ms "
+          f"(max |library - kernel| {lib_err:.3e}), bound {ssd_bound!r} ms "
+          f"({ssd_bound_by}: flops {ssd_flops}, bytes {ssd_bytes})")
     phase(f"new paths' host seconds: scfl plan+encode {scfl_plan_s:.4f}, "
           f"scfl 600 epochs {scfl_run_s:.4f}, hierarchical T={HIER_TIERS} "
           f"600 epochs {hier_run_s:.4f}")
@@ -1087,6 +1455,14 @@ def main() -> int:
          "plain_ms": lsq_plain, "bound_ms": lsq_bound, "bound_by": "bytes",
          "library_ms": lsq_lib, "ms_l2_warm": lsq_warm,
          "shape": [lsq_m, lsq_d]},
+        {"name": "ssd_chunk", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd.cu",
+         "replaces": "src/repro/kernels/ssd/ssd.py:57",
+         "launches": serve["launches"],
+         "max_abs_err": max(errs["ssd_chunk"], serve["model_err"]),
+         "ms": ssd_ms, "plain_ms": ssd_plain, "bound_ms": ssd_bound,
+         "bound_by": ssd_bound_by, "library_ms": ssd_lib,
+         "ms_l2_warm": ssd_warm, "shape": [*SSD_SHAPE[:5], G, N]},
     ]
     phase(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,28 @@
+"""Architecture configs of the ported model families.
+
+`load_all` imports the config modules that are ported (their families'
+models run in `repro_torch.models`), so `get_config`/`list_archs` see
+exactly those; the reference's other configs come with their families.
+"""
+import importlib
+
+from .base import (ArchConfig, EncDecSpec, HybridSpec, INPUT_SHAPES, MoESpec,
+                   SSMSpec, VLMSpec, get_config, list_archs, register)
+
+_MODULES = ["mamba2_1p3b"]
+
+_loaded = False
+
+
+def load_all() -> None:
+    global _loaded
+    if _loaded:
+        return
+    _loaded = True
+    for m in _MODULES:
+        importlib.import_module(f"repro_torch.configs.{m}")
+
+
+__all__ = ["ArchConfig", "EncDecSpec", "HybridSpec", "INPUT_SHAPES",
+           "MoESpec", "SSMSpec", "VLMSpec", "get_config", "list_archs",
+           "register", "load_all"]

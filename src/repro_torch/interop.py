@@ -90,3 +90,12 @@ def fleet_topology(tier_of, sample_frac) -> FleetTopology:
     """`FleetTopology` from the (n,) tier ids and (T,) participation."""
     return FleetTopology(tier_of=np.array(tier_of, dtype=np.int32),
                          sample_frac=np.array(sample_frac, dtype=np.float64))
+
+
+def lm_params(tree, device) -> dict:
+    """The LM parameter tree of `models.transformer` from the reference's
+    `init_params` tree with its leaves as NumPy arrays, key for key (the
+    two trees have the same keys and stacked shapes), on `device`."""
+    if isinstance(tree, dict):
+        return {k: lm_params(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree)).to(device)

@@ -32,6 +32,15 @@ Bounds:
     encoders' one-tier tiered run `torch.equal` to the flat one.
   * least-squares gradient: the float64 bound of the round gradient, and
     `torch.equal` to the flat kernel at w = None (the same instance).
+  * SSD intra-chunk step (kernel 7): against its plain version within
+    rtol 1e-4 and atol 1e-4 * max(1, max|ref|) (`tests/test_kernels.py`),
+    at the synthetic decays (da = -0.1 |N(0, 1)|) and at the model's own
+    (dt = softplus(N(0, 1)), a = -linspace(1, 16, H)), where both take
+    the prefix sums of da in float64; at the model's own decays both are
+    also held against the float64 value within the rounding bound of
+    `kernels.ssd.ref.float64_reference_and_bound`.  Relaunches
+    bit-identical.  A reduced mamba2 prefill on the card within rtol 1e-4
+    / atol 1e-4 * max|ref| of the CPU one, one launch per layer.
 """
 import numpy as np
 import pytest
@@ -49,6 +58,8 @@ from repro_torch.kernels.encode import prng
 from repro_torch.kernels.encode import ref as enc_ref
 from repro_torch.kernels.round_grad import ops as rg_ops
 from repro_torch.kernels.round_grad import ref as rg_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.schemes import StochasticCodedFL, StochasticState
 from repro_torch.sim.network import make_fleet
 
@@ -431,3 +442,110 @@ def test_lsq_kernel_matches_plain(cuda, m, d):
     assert torch.equal(got, flat)
     _held_to_float64("lsq kernel", got, a, y, None, beta)
     _held_to_float64("lsq plain", plain, a, y, None, beta)
+
+
+def _ssd_operands(gen, cuda, B, nc, Q, H, P, N, G, model_da):
+    xc = torch.randn((B, nc, Q, H, P), generator=gen, device=cuda)
+    dtc = torch.nn.functional.softplus(
+        torch.randn((B, nc, Q, H), generator=gen, device=cuda))
+    if model_da:
+        da = dtc * -torch.linspace(1.0, 16.0, H, device=cuda)
+    else:
+        da = -0.1 * torch.randn((B, nc, Q, H), generator=gen,
+                                device=cuda).abs()
+    bc = torch.randn((B, nc, Q, G, N), generator=gen, device=cuda)
+    cc = torch.randn((B, nc, Q, G, N), generator=gen, device=cuda)
+    return xc, dtc, da, bc, cc
+
+
+def _ssd_plain(xc, dtc, da, bc, cc):
+    rep = xc.shape[3] // bc.shape[3]
+    return ssd_ref.ssd_chunk_reference(xc, dtc, da,
+                                       bc.repeat_interleave(rep, 3),
+                                       cc.repeat_interleave(rep, 3))
+
+
+# (B, nc, Q, H, P, N, G): the shapes of tests/test_kernels.py, the full
+# per-head shape, the reduced mamba2's (Q 16, P 32, N 16), an odd Q, and
+# the serving shape of mamba2-1.3b (a 2048-token prefill) with its one
+# group and with per-head B and C
+SSD_SHAPES = [(1, 1, 8, 1, 4, 4, 1), (2, 3, 32, 4, 16, 8, 4),
+              (1, 2, 128, 2, 64, 32, 2), (1, 2, 256, 2, 64, 128, 2),
+              (2, 3, 16, 16, 32, 16, 1), (1, 2, 97, 4, 64, 128, 2),
+              (1, 8, 256, 64, 64, 128, 1), (1, 8, 256, 64, 64, 128, 64)]
+
+
+@pytest.mark.parametrize("B,nc,Q,H,P,N,G", SSD_SHAPES)
+@pytest.mark.parametrize("model_da", [False, True])
+def test_ssd_kernel_matches_plain(cuda, B, nc, Q, H, P, N, G, model_da):
+    gen = torch.Generator(device=cuda).manual_seed(B + Q + H + G)
+    ops = _ssd_operands(gen, cuda, B, nc, Q, H, P, N, G, model_da)
+    before = ssd_ops.SSD_COUNTER.launches
+    y, s = ssd_ops.ssd_chunk(*ops)
+    y2, s2 = ssd_ops.ssd_chunk(*ops)
+    y0, s0 = _ssd_plain(*ops)
+    torch.cuda.synchronize()
+    assert ssd_ops.SSD_COUNTER.launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    for got, want in ((y, y0), (s, s0)):
+        bound = 1e-4 * max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=bound)
+    if model_da:
+        y64, s64, yb, sb = ssd_ref.float64_reference_and_bound(*ops)
+        for got in (y, y0):
+            assert bool(((got.double() - y64).abs() <= yb).all())
+        for got in (s, s0):
+            assert bool(((got.double() - s64).abs() <= sb).all())
+
+
+def test_ssd_kernel_checks_operands(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    xc, dtc, da, bc, cc = _ssd_operands(gen, cuda, 1, 1, 8, 2, 4, 4, 1,
+                                        False)
+    with pytest.raises(TypeError, match="da must be float32"):
+        ssd_ops.ssd_chunk(xc, dtc, da.double(), bc, cc)
+    with pytest.raises(ValueError, match="groups do not divide"):
+        ssd_ops.ssd_chunk(xc, dtc, da, torch.cat([bc] * 3, 3),
+                          torch.cat([cc] * 3, 3))
+    # a chunk longer than the kernel's shared memory holds (Q > 15552):
+    # the launch refuses it, and nothing is counted
+    n = ssd_ops.SSD_COUNTER.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ssd_ops.ssd_chunk(*_ssd_operands(gen, cuda, 1, 1, 15616, 1, 1, 1, 1,
+                                         False))
+    assert ssd_ops.SSD_COUNTER.launches == n
+    # bf16 operands are upcast exactly, as the Pallas kernel does on load
+    y, s = ssd_ops.ssd_chunk(xc.bfloat16(), dtc, da, bc.bfloat16(),
+                             cc.bfloat16())
+    y0, s0 = ssd_ops.ssd_chunk(xc.bfloat16().float(), dtc, da,
+                               bc.bfloat16().float(), cc.bfloat16().float())
+    assert torch.equal(y, y0) and torch.equal(s, s0)
+
+
+def test_ssd_prefill_on_the_card_matches_cpu(cuda):
+    """The reduced mamba2 prefill through kernel 7 (one launch per layer)
+    against the CPU prefill on the same weights and tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("mamba2-1.3b").reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    params_gpu = _to(params, cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 45),
+                         generator=torch.Generator().manual_seed(1))
+    want, want_cache = T.prefill(cfg, params, {"tokens": toks})
+    before = ssd_ops.SSD_COUNTER.launches
+    got, cache = T.prefill(cfg, params_gpu, {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert ssd_ops.SSD_COUNTER.launches == before + cfg.n_layers
+    for g, w in ((got, want), (cache["mamba"]["ssm"],
+                               want_cache["mamba"]["ssm"])):
+        bound = 1e-4 * max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=bound)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

@@ -25,6 +25,8 @@ from repro_torch.kernels.encode import ops as enc_ops
 from repro_torch.kernels.encode import ref as enc_ref
 from repro_torch.kernels.round_grad import ops as rg_ops
 from repro_torch.kernels.round_grad import ref as rg_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.plan import PlanRequest, solve_redundancy_batched
 from repro_torch.schemes import StochasticCodedFL
 from repro_torch.sim.network import mega_fleet, paper_fleet
@@ -144,7 +146,7 @@ def test_reference_path_reaches_no_kernel_wrapper(monkeypatch, scheme,
     assert rep.nmse.shape == (4,) and np.all(np.isfinite(rep.nmse))
 
 
-OPS = [(rg_ops, "round_grad"), (enc_ops, "encode")]
+OPS = [(rg_ops, "round_grad"), (enc_ops, "encode"), (ssd_ops, "ssd")]
 
 
 @pytest.mark.parametrize("ops,name", OPS)
@@ -410,3 +412,83 @@ def test_new_wrappers_raise_on_other_devices():
     x, y, _, b = (t.to("meta") for t in _rg_operands())
     with pytest.raises(ValueError, match="no round_grad kernel"):
         cg_ops.lsq_gradient(x, y, b)
+
+
+def test_serve_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    """The LM serve path: parameters, cache, prefill step, the engine,
+    `greedy_generate` and the serve command line ask for the card unless told
+    otherwise, and raise without one."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config("mamba2-1.3b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.init_cache(cfg, 2, 16)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, params, n_slots=2, max_seq=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.greedy_generate(cfg, params, torch.zeros((1, 4), dtype=int),
+                              2, {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "mamba2-1.3b"])
+    # the CPU is used only when asked for, and the parameters must be there
+    assert ServeEngine(cfg, params, n_slots=2, max_seq=16,
+                       device="cpu").device == torch.device("cpu")
+    with pytest.raises(ValueError, match="parameters are on"):
+        ServeEngine(cfg, params, n_slots=2, max_seq=16, device="meta")
+
+
+def _ssd_operands(B=1, nc=2, Q=8, H=4, P=4, G=2, N=4):
+    g = torch.Generator().manual_seed(2)
+    return (torch.randn((B, nc, Q, H, P), generator=g),
+            torch.rand((B, nc, Q, H), generator=g),
+            -torch.rand((B, nc, Q, H), generator=g),
+            torch.randn((B, nc, Q, G, N), generator=g),
+            torch.randn((B, nc, Q, G, N), generator=g))
+
+
+def test_ssd_route_never_computes_the_plain_version(monkeypatch):
+    """On the kernel route `ssd_chunk` calls `ssd_chunk_launch` once with
+    the operands' extents, per-group B and C as given, bumps only
+    `SSD_COUNTER`, never reaches the plain version, and raises (without
+    counting) on a failed launch."""
+    lib = mock.MagicMock()
+    lib.ssd_chunk_launch.return_value = 0
+    monkeypatch.setattr(ssd_ops, "_dispatch", lambda device: lib)
+    monkeypatch.setattr(ssd_ops.torch.cuda, "current_stream",
+                        lambda device: mock.MagicMock(cuda_stream=0))
+
+    def plain(*args):
+        raise AssertionError("the plain version ran on the kernel route")
+
+    monkeypatch.setattr(ssd_ref, "ssd_chunk_reference", plain)
+    others = (rg_ops.COUNTER, rg_ops.CODED_COUNTER, rg_ops.TIER_COUNTER,
+              rg_ops.LSQ_COUNTER, enc_ops.COUNTER, enc_ops.PRNG_COUNTER)
+    before = [c.launches for c in others]
+    n = ssd_ops.SSD_COUNTER.launches
+    y, states = ssd_ops.ssd_chunk(*_ssd_operands())
+    assert tuple(y.shape) == (1, 2, 8, 4, 4)
+    assert tuple(states.shape) == (1, 2, 4, 4, 4)
+    assert lib.ssd_chunk_launch.call_count == 1
+    assert lib.ssd_chunk_launch.call_args.args[7:14] == (1, 2, 8, 4, 4, 2, 4)
+    assert ssd_ops.SSD_COUNTER.launches == n + 1
+    assert [c.launches for c in others] == before
+    lib.ssd_chunk_launch.return_value = 700  # a CUDA error code
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ssd_ops.ssd_chunk(*_ssd_operands())
+    assert ssd_ops.SSD_COUNTER.launches == n + 1
+    ops = list(_ssd_operands())
+    ops[2] = ops[2].double()
+    with pytest.raises(TypeError, match="da must be float32"):
+        ssd_ops.ssd_chunk(*ops)
+
+
+def test_ssd_wrapper_raises_on_other_devices():
+    with pytest.raises(ValueError, match="no ssd kernel"):
+        ssd_ops.ssd_chunk(*(t.to("meta") for t in _ssd_operands()))
