@@ -33,6 +33,13 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      P, N) = (1, 8, 256, 64, 64, 128) with one group and with per-head B
      and C, at the reduced mamba2's (Q 16, P 32, N 16) and at an odd Q,
      within rtol 1e-4 / atol 1e-4 * max(1, max|ref|)
+     (`tests/test_kernels.py`), relaunches bit-identical; causal flash
+     attention (kernel 8) at the serving shape of granite-8b (B, Hq, Hkv,
+     S, D) = (1, 32, 8, 2048, 128), at S = 100 and 1537, at D = 64 and at
+     one and three query heads per key/value head: kernel and plain
+     version both within the float32 rounding bound of the float64 value
+     (`kernels.flash_attn.ref.float64_reference_and_bound`, derived
+     before the first run), within rtol 2e-4 / atol 2e-4 of each other
      (`tests/test_kernels.py`), relaunches bit-identical;
   4. the main path: `repro_torch.quickstart.run` — the §IV plan, the
      encode through the kernel, 600 uncoded and 600 coded epochs — with
@@ -81,7 +88,22 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      of the 2048-token prompt against the plain one within 1e-3 *
      max(1, max|logit|), stated in advance, with the same greedy token;
      prefill ms per request, decode ms per engine step and tokens/s;
- 12. time each kernel, its plain version and the one PyTorch call that
+     its parameters are freed before the next phase;
+ 12. the dense serve path: granite-8b at full width (36 layers, d_model
+     4096, 32 heads and 8 key/value heads of 128, d_ff 14336, vocab
+     49152, 8,254,689,280 float32 parameters drawn from a seeded
+     generator on the card); `ServeEngine(n_slots=4, max_seq=2112)` over
+     phase 11's prompt lengths, 24 new tokens each (the counters set to 0
+     just before, read just after: exactly 36 kernel-8 launches per
+     prefill, 216 in all, none in decode, no other kernel); each
+     request's tokens equal to `greedy_generate` on its prompt alone; the
+     kernel prefill of the 2048-token prompt against the plain one
+     (`use_kernel=False`, the grouped expression) within 1e-3 *
+     max(1, max|logit|), stated in advance, with the same greedy token;
+     prefill ms per request, decode ms per engine step, tokens/s and the
+     peak device memory beside two floors (the weights read once a
+     decode step, the prefill's float32 products at 67 TFLOP/s);
+ 13. time each kernel, its plain version and the one PyTorch call that
      computes the same product: CUDA events around a run of back-to-back
      calls that rotate over copies of the operands larger than the L2
      together (so each call finds its operands cold), enqueued while a
@@ -92,7 +114,12 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      the in-kernel-generator encode's library time is `G @ (w X)` on a
      materialized G: it excludes the generation.  Kernel 7's library
      expression is `torch.matmul` on head-major views with the causal
-     mask by `torch.tril`, held to the kernel first.
+     mask by `torch.tril`, held to the kernel first.  Kernel 8's is
+     `repeat_interleave` of the key/value heads to the query heads, then
+     `scaled_dot_product_attention(is_causal=True)` on the same float32
+     operands, the expansion inside the timed span, held to the kernel
+     first, with the backend it takes; the one call with
+     `enable_gqa=True` (a slower backend on float32) is kept beside it.
 
 Any failed check raises, so the exit code is non-zero.  The line before
 the last is the kernels' JSON record; the last line is
@@ -102,6 +129,7 @@ rest of the repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -161,6 +189,24 @@ SERVE_NEW, SERVE_SLOTS, SERVE_MAX_SEQ = 24, 4, 2112
 LOGIT_RTOL = 1e-3
 # kernel 7's operands in a 2048-token prefill: (B, nc, Q, H, P, N)
 SSD_SHAPE = (1, 8, 256, 64, 64, 128)
+# phase 12: granite-8b at full width through ServeEngine, the prompts and
+# slots of phase 11; the kernel-8 prefill of the 2048-token prompt
+# against the plain one within DENSE_LOGIT_RTOL * max(1, max|logit|),
+# stated before the first run on the card (on the CPU, 36 layers at
+# d_model 512 with the attention core exact to rounding move the logits
+# by ~1e-6 of max: tests/test_torch_lm_serve.py,
+# test_rounding_of_the_attention_core_...)
+DENSE_ARCH, DENSE_PARAMS, DENSE_LOGIT_RTOL = "granite-8b", 8_254_689_280, 1e-3
+# kernel 8's operands (B, Hq, Hkv, S, D): a 2048-token granite-8b prefill,
+# its 100- and 1537-token prompts, D = 64 (the reduced configs' head dim),
+# and one key/value head per query head (R = 1) and per three (R = 3)
+FLASH_SHAPE = (1, 32, 8, 2048, 128)
+FLASH_CASES = {"serving shape": FLASH_SHAPE,
+               "100-token prompt": (1, 32, 8, 100, 128),
+               "1537-token prompt": (1, 32, 8, 1537, 128),
+               "D = 64": (2, 4, 2, 77, 64),
+               "R = 1": (1, 8, 8, 300, 128),
+               "R = 3": (1, 12, 4, 257, 128)}
 L2_BYTES = 50 * 2**20
 TIMING_REPEATS = 15   # timed runs per call; the median is kept
 TIMING_CALLS = 40     # back-to-back calls per timed run
@@ -657,6 +703,169 @@ def check_ssd_kernel(dev, gen, errs: dict) -> tuple:
     return out
 
 
+def draw_params(cfg, dev, seed: int, card: str, n_want: int):
+    """The full-width parameter tree of `cfg`, drawn on the card from a
+    seeded generator; prints its size and checks its parameter count.
+    Returns (params, gen) with `gen` ready to draw the prompts."""
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def leaves(tree):
+        return [t for v in tree.values()
+                for t in (leaves(v) if isinstance(v, dict) else [v])]
+
+    n_params = sum(t.numel() for t in leaves(params))
+    phase(f"serve [{card}]: {cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}: {n_params} float32 parameters "
+          f"on the card ({4 * n_params / 1e9:.2f} GB), drawn in "
+          f"{init_s:.3f} s")
+    check(n_params == n_want, f"{cfg.name} is not at full width")
+    return params, gen
+
+
+def run_engine(cfg, params, prompts, dev, card: str, counter, name: str,
+               kname: str, expect, reset_counters, read_counters) -> dict:
+    """`ServeEngine(n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ)` over the
+    prompts, SERVE_NEW new tokens each, with the launch counters set to 0
+    just before the run and read just after: the kernel of `counter`
+    (named `name` among the counters, printed as `kname`) once per layer in every prefill, never in
+    decode, and no other kernel.  Prints prefill ms per request, decode
+    ms per engine step and tokens/s; returns the run's numbers."""
+    from repro_torch.serving import Request, ServeEngine
+
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    eng = ServeEngine(cfg, params, n_slots=SERVE_SLOTS,
+                      max_seq=SERVE_MAX_SEQ, device=dev)
+    admit, step = eng.try_admit, eng.step
+    prefill = {}      # uid -> (ms, kernel launches)
+    steps = []        # (ms, kernel launches, active slots)
+
+    def timed_admit(req):
+        torch.cuda.synchronize()
+        n0, t0 = counter.launches, time.perf_counter()
+        ok = admit(req)
+        torch.cuda.synchronize()
+        if ok:
+            prefill[req.uid] = (1e3 * (time.perf_counter() - t0),
+                                counter.launches - n0)
+        check(ok or counter.launches == n0,
+              f"a refused admission launched {kname}")
+        return ok
+
+    def timed_step():
+        active = len(eng.active)
+        torch.cuda.synchronize()
+        n0, t0 = counter.launches, time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        steps.append((1e3 * (time.perf_counter() - t0),
+                      counter.launches - n0, active))
+        return out
+
+    eng.try_admit, eng.step = timed_admit, timed_step
+    reset_counters()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counters()
+    new_tokens = sum(len(r.out_tokens) for r in done)
+    decode_s = sum(ms for ms, _, _ in steps) / 1e3
+    step_ms = statistics.median(ms for ms, _, _ in steps)
+    lengths = [len(p) for p in prompts]
+    phase(f"serve [{card}]: {cfg.name} ServeEngine(n_slots={SERVE_SLOTS}, "
+          f"max_seq={SERVE_MAX_SEQ}) ran {len(done)} requests in "
+          f"{run_s:.4f} s wall, {len(steps)} engine steps; "
+          f"{new_tokens} new tokens, {new_tokens / run_s:.2f} tokens/s over "
+          f"the run, {(new_tokens - len(done)) / decode_s:.2f} decoded "
+          f"tokens/s over the steps; launches {counts}")
+    phase(f"serve [{card}]: {cfg.name} prefill ms per request (prompt "
+          f"tokens: ms, {kname} launches) " + ", ".join(
+              f"{lengths[u]}: {ms:.3f}, {n}"
+              for u, (ms, n) in sorted(prefill.items())))
+    by_slots = {k: [ms for ms, _, a in steps if a == k]
+                for k in sorted({a for _, _, a in steps})}
+    phase(f"serve [{card}]: {cfg.name} decode ms per engine step median "
+          f"{step_ms:.3f}, by active slots " + ", ".join(
+              f"{k}: {statistics.median(v):.3f} ({len(v)} steps)"
+              for k, v in by_slots.items()) +
+          f"; {kname} launches in decode {sum(n for _, n, _ in steps)}")
+    check(sorted(r.uid for r in done) == list(range(len(prompts))),
+          "the engine did not finish every request")
+    check(all(len(r.out_tokens) == SERVE_NEW for r in done),
+          "a request finished with the wrong number of tokens")
+    launches = cfg.n_layers * len(prompts)
+    check(counts == expect(**{name: launches}),
+          f"unexpected serve launch counts {counts}")
+    check(sorted(n for _, n in prefill.values()) ==
+          [cfg.n_layers] * len(prompts),
+          f"a prefill did not launch {kname} once per layer")
+    check(sum(n for _, n, _ in steps) == 0, f"decode launched {kname}")
+    return {"done": done, "launches": counts[name], "run_s": run_s,
+            "tokens_per_s": new_tokens / run_s, "step_ms": step_ms,
+            "prefill_ms": {lengths[u]: ms for u, (ms, _) in prefill.items()}}
+
+
+def check_against_greedy(cfg, params, done, dev, card: str) -> None:
+    """Each request's engine tokens against `greedy_generate` on its
+    prompt alone."""
+    from repro_torch.launch.serve import greedy_generate
+
+    greedy_ms = []
+    for r in sorted(done, key=lambda r: r.uid):
+        out, t_pre, st = greedy_generate(
+            cfg, params, torch.as_tensor(r.prompt, device=dev)[None],
+            SERVE_NEW, {}, device=dev)
+        gen_toks = out[0, len(r.prompt):].tolist()
+        greedy_ms.append((len(r.prompt), 1e3 * t_pre,
+                          1e3 * statistics.median(st)))
+        check(bool(((out >= 0) & (out < cfg.vocab)).all()),
+              "a token outside the vocabulary")
+        check(gen_toks == r.out_tokens,
+              f"request {r.uid}: engine tokens differ from greedy_generate")
+    phase(f"serve [{card}]: {cfg.name} engine tokens equal "
+          f"greedy_generate's for all {len(done)} requests; greedy_generate "
+          f"prefill ms / median decode ms per token (batch 1) " + ", ".join(
+              f"{n}: {p:.3f} / {d:.3f}" for n, p, d in greedy_ms))
+
+
+def check_kernel_prefill(cfg, params, toks, card: str, kname: str,
+                         rtol: float) -> float:
+    """The prefill of `toks` with the kernel against the plain one: max
+    |logit difference| within rtol * max(1, max|logit|), stated before
+    the run, and the same greedy token.  Returns the difference."""
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    lk, _ = T.prefill(cfg, params, {"tokens": toks})
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lp, _ = T.prefill(cfg, params, {"tokens": toks}, use_kernel=False)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    diff = float((lk - lp).abs().max())
+    bound = rtol * max(1.0, float(lp.abs().max()))
+    same_tok = int(lk[0, -1].argmax()) == int(lp[0, -1].argmax())
+    phase(f"serve [{card}]: {cfg.name} {toks.shape[1]}-token prefill with "
+          f"{kname} {1e3 * kernel_s:.3f} ms, plain {1e3 * plain_s:.3f} ms; "
+          f"max |logit difference| {diff:.3e} (max|logit| "
+          f"{float(lp.abs().max()):.3f}; bound stated in advance "
+          f"{rtol} * max(1, max|logit|) = {bound:.3e}); greedy token "
+          f"equal {same_tok}")
+    check(bool(torch.isfinite(lk).all()) and tuple(lk.shape) ==
+          (1, 1, cfg.vocab), "kernel prefill logits not finite or shape")
+    check(diff <= bound, "kernel prefill outside its bound of plain")
+    check(same_tok, "kernel and plain prefill choose different tokens")
+    return diff
+
+
 def serve_phase(dev, card: str, expect, reset_counters,
                 read_counters) -> dict:
     """Phase 11: mamba2-1.3b at full width through `ServeEngine`, kernel 7
@@ -665,30 +874,15 @@ def serve_phase(dev, card: str, expect, reset_counters,
     plain one."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd import ops as ssd_ops
-    from repro_torch.launch.serve import greedy_generate
     from repro_torch.models import transformer as T
-    from repro_torch.serving import Request, ServeEngine
 
     cfg = get_config(SERVE_ARCH)
     s = cfg.ssm
-    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, gen, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    def leaves(tree):
-        return [t for v in tree.values()
-                for t in (leaves(v) if isinstance(v, dict) else [v])]
-
-    n_params = sum(t.numel() for t in leaves(params))
-    phase(f"serve [{card}]: {cfg.name}, {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {s.n_heads(cfg.d_model)} heads of {s.headdim}, "
-          f"d_state {s.d_state}, chunk {s.chunk}, vocab {cfg.vocab}: "
-          f"{n_params} float32 parameters on the card "
-          f"({4 * n_params / 1e9:.2f} GB), drawn in {init_s:.3f} s")
-    check(n_params == SERVE_PARAMS and cfg.n_layers == 48
-          and cfg.d_model == 2048 and cfg.vocab == 50280,
+    check(cfg.n_layers == 48 and cfg.d_model == 2048 and cfg.vocab == 50280,
           "mamba2-1.3b is not at full width")
+    phase(f"serve [{card}]: {cfg.name}: {s.n_heads(cfg.d_model)} heads of "
+          f"{s.headdim}, d_state {s.d_state}, chunk {s.chunk}")
+    params, gen = draw_params(cfg, dev, SERVE_SEED, card, SERVE_PARAMS)
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen,
                              device=dev).cpu().numpy()
                for n in SERVE_PROMPTS]
@@ -707,126 +901,156 @@ def serve_phase(dev, card: str, expect, reset_counters,
     finally:
         ssd_ops.ssd_chunk = real
     model_ops = captured[0]  # layer 0's
+    del captured
     cum = torch.cumsum(model_ops[2].double(), dim=2)
     phase(f"serve: layer 0's decay logs of the {SERVE_PROMPTS[-1]}-token "
           f"prompt reach |cum| {float(cum.abs().max()):.1f} within a chunk "
           f"(dt max {float(model_ops[1].max()):.3f})")
     model_err = check_ssd_case("at the model's own operands", model_ops,
                                float64=True)
+    del model_ops, cum
 
-    # the engine: six requests on four slots, 24 new tokens each
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW)
-            for i, p in enumerate(prompts)]
-    eng = ServeEngine(cfg, params, n_slots=SERVE_SLOTS,
-                      max_seq=SERVE_MAX_SEQ, device=dev)
-    admit, step = eng.try_admit, eng.step
-    prefill = {}      # uid -> (ms, kernel-7 launches)
-    steps = []        # (ms, kernel-7 launches, active slots)
+    run = run_engine(cfg, params, prompts, dev, card, ssd_ops.SSD_COUNTER,
+                     "ssd_chunk", "kernel-7", expect, reset_counters, read_counters)
+    check_against_greedy(cfg, params, run["done"], dev, card)
+    diff = check_kernel_prefill(
+        cfg, params, torch.as_tensor(prompts[-1], device=dev)[None], card,
+        "kernel 7", LOGIT_RTOL)
+    return {"launches": run["launches"], "model_err": model_err,
+            "run_s": run["run_s"], "tokens_per_s": run["tokens_per_s"],
+            "step_ms": run["step_ms"], "logit_diff": diff}
 
-    def timed_admit(req):
+
+def dense_serve_phase(dev, card: str, expect, reset_counters,
+                      read_counters) -> dict:
+    """Phase 12: granite-8b at full width through `ServeEngine`, kernel 8
+    on every prefill layer's attention core; the engine's tokens against
+    `greedy_generate`; the kernel prefill against the plain one."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+
+    cfg = get_config(DENSE_ARCH)
+    check(cfg.n_layers == 36 and cfg.d_model == 4096 and cfg.n_heads == 32
+          and cfg.n_kv_heads == 8 and cfg.d_ff == 14336 and
+          cfg.vocab == 49152, "granite-8b is not at full width")
+    phase(f"serve [{card}]: {cfg.name}: {cfg.n_heads} heads and "
+          f"{cfg.n_kv_heads} key/value heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+          f"rope theta {cfg.rope_theta}")
+    params, gen = draw_params(cfg, dev, SERVE_SEED, card, DENSE_PARAMS)
+    # the floors the serve times stand against: a decode step reads every
+    # weight once; a prefill of S tokens multiplies S rows through every
+    # layer's projections and MLP, the head once, plus the causal
+    # attention products
+    S, d = SERVE_PROMPTS[-1], cfg.d_model
+    layer_w = (2 * d * cfg.n_heads * cfg.hd + 2 * d * cfg.n_kv_heads * cfg.hd
+               + 3 * d * cfg.d_ff)
+    prefill_flops = (2 * S * cfg.n_layers * layer_w + 2 * d * cfg.vocab
+                     + cfg.n_layers * 4 * cfg.n_heads * cfg.hd
+                     * S * (S + 1) // 2)
+    phase(f"serve [{card}]: {cfg.name} floors: reading the "
+          f"{4 * DENSE_PARAMS / 1e9:.2f} GB of weights takes "
+          f"{1e3 * 4 * DENSE_PARAMS / HBM_BYTES_PER_S:.3f} ms a decode step; "
+          f"a {S}-token prefill is {prefill_flops / 1e12:.3f} TFLOP of "
+          f"float32 products, {1e3 * prefill_flops / FP32_FLOPS_PER_S:.1f} "
+          f"ms at 67 TFLOP/s")
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen,
+                             device=dev).cpu().numpy()
+               for n in SERVE_PROMPTS]
+    run = run_engine(cfg, params, prompts, dev, card, fa_ops.FLASH_COUNTER,
+                     "causal_attention", "kernel-8", expect, reset_counters, read_counters)
+    check_against_greedy(cfg, params, run["done"], dev, card)
+    diff = check_kernel_prefill(
+        cfg, params, torch.as_tensor(prompts[-1], device=dev)[None], card,
+        "kernel 8", DENSE_LOGIT_RTOL)
+    phase(f"serve [{card}]: {cfg.name} peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return {"launches": run["launches"], "run_s": run["run_s"],
+            "tokens_per_s": run["tokens_per_s"], "step_ms": run["step_ms"],
+            "logit_diff": diff}
+
+
+def flash_operands(gen, dev, B, Hq, Hkv, S, D) -> tuple:
+    """Synthetic kernel-8 operands: N(0, 1) q, k, v in the (B, H, S, D)
+    layout of `tests/test_kernels.py`."""
+    return tuple(torch.randn((B, h, S, D), generator=gen, device=dev)
+                 for h in (Hq, Hkv, Hkv))
+
+
+def check_flash_kernel(dev, gen, errs: dict) -> tuple:
+    """Phase 3's checks of kernel 8: at each shape of FLASH_CASES the
+    kernel and its plain version both within the float32 rounding bound
+    of the float64 value (`kernels.flash_attn.ref.float64_reference_and_
+    bound`, derived before the first run), within rtol 2e-4 / atol 2e-4
+    of each other (`tests/test_kernels.py`), and a bit-identical
+    relaunch.  Returns the operands of the serving shape."""
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.flash_attn import ref as fa_ref
+
+    out, worst_err = None, 0.0
+    for label, shape in FLASH_CASES.items():
+        ops = flash_operands(gen, dev, *shape)
+        got = fa_ops.causal_attention(*ops)
+        again = fa_ops.causal_attention(*ops)
+        plain = fa_ref.causal_attention(*ops)
+        o64, bound = fa_ref.float64_reference_and_bound(*ops)
         torch.cuda.synchronize()
-        n0, t0 = ssd_ops.SSD_COUNTER.launches, time.perf_counter()
-        ok = admit(req)
-        torch.cuda.synchronize()
-        if ok:
-            prefill[req.uid] = (1e3 * (time.perf_counter() - t0),
-                                ssd_ops.SSD_COUNTER.launches - n0)
-        check(ok or ssd_ops.SSD_COUNTER.launches == n0,
-              "a refused admission launched kernel 7")
-        return ok
+        err, ok = allclose_report(got, plain, 2e-4, 2e-4)
+        same = torch.equal(got, again)
+        share = {name: bound_share(o, o64, bound)
+                 for name, o in (("kernel", got), ("plain", plain))}
+        del o64, bound, plain
+        phase(f"check causal_attention {label} (B, Hq, Hkv, S, D) = "
+              f"{list(shape)}: max_abs_err vs plain {err:.3e} (|out| max "
+              f"{float(got.abs().max()):.3e}); within rtol 2e-4 / atol 2e-4 "
+              f"{ok}; against float64 the worst element at "
+              f"{share['kernel']:.4f} (kernel) and {share['plain']:.4f} "
+              f"(plain) of the derived rounding bound; bit-identical "
+              f"relaunch {same}")
+        check(share["kernel"] <= 1.0 and share["plain"] <= 1.0,
+              f"causal_attention {label} outside its float64 bound")
+        check(ok, f"causal_attention {label} disagrees with plain")
+        check(same, f"causal_attention {label} not deterministic")
+        worst_err = max(worst_err, err)
+        if label == "serving shape":
+            out = ops
+    errs["causal_attention"] = worst_err
+    return out
 
-    def timed_step():
-        active = len(eng.active)
-        torch.cuda.synchronize()
-        n0, t0 = ssd_ops.SSD_COUNTER.launches, time.perf_counter()
-        out = step()
-        torch.cuda.synchronize()
-        steps.append((1e3 * (time.perf_counter() - t0),
-                      ssd_ops.SSD_COUNTER.launches - n0, active))
-        return out
 
-    eng.try_admit, eng.step = timed_admit, timed_step
-    reset_counters()
-    t0 = time.perf_counter()
-    done = eng.run(reqs)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    counts = read_counters()
-    new_tokens = sum(len(r.out_tokens) for r in done)
-    decode_s = sum(ms for ms, _, _ in steps) / 1e3
-    step_ms = statistics.median(ms for ms, _, _ in steps)
-    phase(f"serve [{card}]: ServeEngine(n_slots={SERVE_SLOTS}, "
-          f"max_seq={SERVE_MAX_SEQ}) ran {len(done)} requests in "
-          f"{run_s:.4f} s wall, {len(steps)} engine steps; "
-          f"{new_tokens} new tokens, {new_tokens / run_s:.2f} tokens/s over "
-          f"the run, {(new_tokens - len(done)) / decode_s:.2f} decoded "
-          f"tokens/s over the steps; launches {counts}")
-    phase(f"serve [{card}]: prefill ms per request (prompt tokens: ms, "
-          f"kernel-7 launches) " + ", ".join(
-              f"{SERVE_PROMPTS[u]}: {ms:.3f}, {n}"
-              for u, (ms, n) in sorted(prefill.items())))
-    by_slots = {k: [ms for ms, _, a in steps if a == k]
-                for k in sorted({a for _, _, a in steps})}
-    phase(f"serve [{card}]: decode ms per engine step median {step_ms:.3f}, "
-          f"by active slots " + ", ".join(
-              f"{k}: {statistics.median(v):.3f} ({len(v)} steps)"
-              for k, v in by_slots.items()) +
-          f"; kernel-7 launches in decode {sum(n for _, n, _ in steps)}")
-    check(sorted(r.uid for r in done) == list(range(len(SERVE_PROMPTS))),
-          "the engine did not finish every request")
-    check(all(len(r.out_tokens) == SERVE_NEW for r in done),
-          "a request finished with the wrong number of tokens")
-    check(counts == expect(ssd_chunk=cfg.n_layers * len(SERVE_PROMPTS)),
-          f"unexpected serve launch counts {counts}")
-    check(sorted(n for _, n in prefill.values()) ==
-          [cfg.n_layers] * len(SERVE_PROMPTS),
-          "a prefill did not launch kernel 7 once per layer")
-    check(sum(n for _, n, _ in steps) == 0, "decode launched kernel 7")
+def sdpa_backend(q, k, v) -> str:
+    """The backend `scaled_dot_product_attention(..., is_causal=True,
+    enable_gqa=True)` takes on these operands: the first, in PyTorch's
+    priority order, that accepts them alone."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    # the engine's tokens against greedy_generate on each prompt alone
-    greedy_ms = []
-    for r in sorted(done, key=lambda r: r.uid):
-        out, t_pre, st = greedy_generate(
-            cfg, params, torch.as_tensor(r.prompt, device=dev)[None],
-            SERVE_NEW, {}, device=dev)
-        gen_toks = out[0, len(r.prompt):].tolist()
-        greedy_ms.append((1e3 * t_pre, 1e3 * statistics.median(st)))
-        check(bool(((out >= 0) & (out < cfg.vocab)).all()),
-              "a token outside the vocabulary")
-        check(gen_toks == r.out_tokens,
-              f"request {r.uid}: engine tokens differ from greedy_generate")
-    phase(f"serve [{card}]: engine tokens equal greedy_generate's for all "
-          f"{len(done)} requests; greedy_generate prefill ms / median "
-          f"decode ms per token (batch 1) " + ", ".join(
-              f"{SERVE_PROMPTS[i]}: {p:.3f} / {d:.3f}"
-              for i, (p, d) in enumerate(greedy_ms)))
+    order = [SDPBackend(int(b)) for b in torch._C._get_sdp_priority_order()]
+    for backend in order:
+        try:
+            with sdpa_kernel([backend]):
+                torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
+            return backend.name
+        except RuntimeError:
+            continue
+    return "none"
 
-    # the kernel prefill against the plain one, longest prompt
-    toks = torch.as_tensor(prompts[-1], device=dev)[None]
-    t0 = time.perf_counter()
-    lk, _ = T.prefill(cfg, params, {"tokens": toks})
-    torch.cuda.synchronize()
-    kernel_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    lp, _ = T.prefill(cfg, params, {"tokens": toks}, use_kernel=False)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    diff = float((lk - lp).abs().max())
-    bound = LOGIT_RTOL * max(1.0, float(lp.abs().max()))
-    same_tok = int(lk[0, -1].argmax()) == int(lp[0, -1].argmax())
-    phase(f"serve [{card}]: {SERVE_PROMPTS[-1]}-token prefill with kernel 7 "
-          f"{1e3 * kernel_s:.3f} ms, plain {1e3 * plain_s:.3f} ms; max "
-          f"|logit difference| {diff:.3e} (max|logit| "
-          f"{float(lp.abs().max()):.3f}; bound stated in advance "
-          f"{LOGIT_RTOL} * max(1, max|logit|) = {bound:.3e}); greedy token "
-          f"equal {same_tok}")
-    check(bool(torch.isfinite(lk).all()) and tuple(lk.shape) ==
-          (1, 1, cfg.vocab), "kernel prefill logits not finite or shape")
-    check(diff <= bound, "kernel prefill outside its bound of plain")
-    check(same_tok, "kernel and plain prefill choose different tokens")
-    return {"launches": counts["ssd_chunk"], "model_err": model_err,
-            "run_s": run_s, "tokens_per_s": new_tokens / run_s,
-            "step_ms": step_ms, "logit_diff": diff}
+
+def sdpa_gqa(q, k, v):
+    """Kernel 8's function as one PyTorch call with grouped heads (timed
+    beside the library yardstick; never used by the port)."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)
+
+
+def sdpa_expanded(q, k, v):
+    """Kernel 8's function as PyTorch calls: the key/value heads repeated
+    to the query heads, then `scaled_dot_product_attention` on equal head
+    counts, which float32 admits to its fused backends (the library
+    yardstick of the timing phase; never used by the port)."""
+    rep = q.shape[1] // k.shape[1]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1),
+        is_causal=True)
 
 
 def ssd_library(xh, dth, dah, bh, ch):
@@ -871,6 +1095,8 @@ def main() -> int:
     from repro_torch.kernels.encode import ops as enc_ops
     from repro_torch.kernels.encode import prng
     from repro_torch.kernels.encode import ref as enc_ref
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.flash_attn import ref as fa_ref
     from repro_torch.kernels.round_grad import ops as rg_ops
     from repro_torch.kernels.round_grad import ref as rg_ref
     from repro_torch.kernels.ssd import ops as ssd_ops
@@ -1026,6 +1252,8 @@ def main() -> int:
     lsq_inputs = check_lsq_kernel(dev, gen, errs)
     # the SSD intra-chunk step (kernel 7) at synthetic operands
     ssd_inputs = check_ssd_kernel(dev, gen, errs)
+    # causal flash attention (kernel 8) at synthetic operands
+    flash_inputs = check_flash_kernel(dev, gen, errs)
 
     counters = {"round_grad": rg_ops.COUNTER,
                 "coded_round_grad": rg_ops.CODED_COUNTER,
@@ -1033,7 +1261,8 @@ def main() -> int:
                 "encode": enc_ops.COUNTER,
                 "encode_prng": enc_ops.PRNG_COUNTER,
                 "lsq_gradient": cg_ops.COUNTER,
-                "ssd_chunk": ssd_ops.SSD_COUNTER}
+                "ssd_chunk": ssd_ops.SSD_COUNTER,
+                "causal_attention": fa_ops.FLASH_COUNTER}
 
     def reset_counters():
         for counter in counters.values():
@@ -1210,8 +1439,20 @@ def main() -> int:
 
     # -- 11. serving mamba2-1.3b at full width ----------------------------
     serve = serve_phase(dev, card, expect, reset_counters, read_counters)
+    # its 5.8 GB of parameters went with the phase's frame
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"after phase 11: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+          f"allocated on the card")
 
-    # -- 12. timing ------------------------------------------------------
+    # -- 12. serving granite-8b at full width -----------------------------
+    torch.cuda.reset_peak_memory_stats()
+    dense = dense_serve_phase(dev, card, expect, reset_counters,
+                              read_counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 13. timing ------------------------------------------------------
     records = []
     for label in ("coded", "uncoded"):
         x, y, w, beta = rg_inputs[label]
@@ -1386,6 +1627,50 @@ def main() -> int:
           f"ms, library matmul + tril on head-major views {ssd_lib!r} ms "
           f"(max |library - kernel| {lib_err:.3e}), bound {ssd_bound!r} ms "
           f"({ssd_bound_by}: flops {ssd_flops}, bytes {ssd_bytes})")
+    # kernel 8 at the serving shape (a 2048-token granite-8b prefill)
+    B, Hq, Hkv, S, D = FLASH_SHAPE
+    cold = cold_copies(flash_inputs)
+    flash_ms = time_ms(fa_ops.causal_attention, cold)
+    flash_warm = time_ms(fa_ops.causal_attention, [flash_inputs])
+    # the plain version materializes (B, Hq, S, S) float32 scores, 537 MB,
+    # and several like it a call: 4 calls a run
+    flash_plain = time_ms(fa_ref.causal_attention, cold, calls=4)
+    # the library yardstick: key/value heads expanded to Hq, then SDPA,
+    # the expansion timed with it; the grouped call beside it
+    rep = Hq // Hkv
+    q0, k0, v0 = flash_inputs
+    backend = sdpa_backend(q0, k0.repeat_interleave(rep, 1),
+                           v0.repeat_interleave(rep, 1))
+    gqa_backend = sdpa_backend(*flash_inputs)
+    got = fa_ops.causal_attention(*flash_inputs)
+    lib_err = 0.0
+    for lib_fn in (sdpa_expanded, sdpa_gqa):
+        lib_err = max(lib_err, float((lib_fn(*flash_inputs) - got)
+                                     .abs().max()))
+    check(lib_err <= 2e-4, "the library call of kernel 8 disagrees with the "
+          f"kernel: {lib_err:.3e}")
+    del got
+    flash_lib = time_ms(sdpa_expanded, cold, calls=4)
+    flash_lib_gqa = time_ms(sdpa_gqa, cold, calls=4)
+    del cold
+    flash_flops = 4 * B * Hq * D * S * (S + 1) // 2
+    flash_bytes = 4 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
+    flash_terms = {"bytes": flash_bytes / HBM_BYTES_PER_S,
+                   "operations": flash_flops / FP32_FLOPS_PER_S}
+    flash_bound_by = max(flash_terms, key=flash_terms.get)
+    flash_bound = 1e3 * flash_terms[flash_bound_by]
+    phase(f"time causal_attention {list(FLASH_SHAPE)} [{card}]: kernel "
+          f"{flash_ms!r} ms (L2 warm {flash_warm!r} ms), plain "
+          f"{flash_plain!r} ms, library repeat_interleave + "
+          f"scaled_dot_product_attention(is_causal) {flash_lib!r} ms on "
+          f"{backend} (with enable_gqa instead, {flash_lib_gqa!r} ms on "
+          f"{gqa_backend}; max |library - kernel| {lib_err:.3e}), bound "
+          f"{flash_bound!r} ms ({flash_bound_by}: flops {flash_flops}, "
+          f"bytes {flash_bytes})")
+    phase(f"serve [{card}]: granite-8b engine {dense['tokens_per_s']:.2f} "
+          f"tokens/s, decode step median {dense['step_ms']:.3f} ms; "
+          f"mamba2-1.3b engine {serve['tokens_per_s']:.2f} tokens/s, "
+          f"decode step median {serve['step_ms']:.3f} ms")
     phase(f"new paths' host seconds: scfl plan+encode {scfl_plan_s:.4f}, "
           f"scfl 600 epochs {scfl_run_s:.4f}, hierarchical T={HIER_TIERS} "
           f"600 epochs {hier_run_s:.4f}")
@@ -1463,6 +1748,19 @@ def main() -> int:
          "ms": ssd_ms, "plain_ms": ssd_plain, "bound_ms": ssd_bound,
          "bound_by": ssd_bound_by, "library_ms": ssd_lib,
          "ms_l2_warm": ssd_warm, "shape": [*SSD_SHAPE[:5], G, N]},
+        {"name": "causal_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+         "replaces": "src/repro/kernels/flash_attn/flash_attn.py:75",
+         "launches": dense["launches"],
+         "max_abs_err": errs["causal_attention"], "ms": flash_ms,
+         "plain_ms": flash_plain, "bound_ms": flash_bound,
+         "bound_by": flash_bound_by, "library_ms": flash_lib,
+         "library": "repeat_interleave + scaled_dot_product_attention "
+                    f"on {backend}",
+         "library_gqa_ms": flash_lib_gqa,
+         "library_gqa": f"scaled_dot_product_attention(enable_gqa) on "
+                        f"{gqa_backend}",
+         "ms_l2_warm": flash_warm, "shape": list(FLASH_SHAPE)},
     ]
     phase(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -6,9 +6,9 @@ paper's §IV experiment end to end on an NVIDIA H100: plan
 (`core.redundancy`, `plan.solver`), encode (`core.encoding`, kernel
 `kernels.encode`), train (`api.Session` over `api.UncodedFL` /
 `api.CodedFL`, per-epoch kernel `kernels.round_grad`) and report
-(`api.report`).  It also serves the LM zoo's `ssm` family: `configs`,
-`models` (prefill kernel `kernels.ssd`), `launch.serve` and
-`serving.ServeEngine`.
+(`api.report`).  It also serves the LM zoo's `dense` and `ssm` families:
+`configs`, `models` (prefill kernels `kernels.flash_attn` and
+`kernels.ssd`), `launch.serve` and `serving.ServeEngine`.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with
 no CUDA device and no device asked for they raise instead of falling

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-SOURCES = ("round_grad", "encode", "ssd")
+SOURCES = ("round_grad", "encode", "ssd", "flash_attn")
 
 # {C function: (argtypes, restype)}, as `load` takes it
 Signatures = dict[str, tuple[list, type]]

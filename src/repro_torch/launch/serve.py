@@ -1,7 +1,7 @@
-"""Serving command line: prefill + greedy autoregressive decode with the SSM
-cache (counterpart of `repro/launch/serve.py`).
+"""Serving command line: prefill + greedy autoregressive decode with the KV
+or SSM cache (counterpart of `repro/launch/serve.py`).
 
-  python -m repro_torch.launch.serve --arch mamba2-1.3b [--full] \\
+  python -m repro_torch.launch.serve --arch granite-8b [--full] \\
       [--batch 4 --prompt-len 64 --new-tokens 32] [--device cpu]
 
 Runs on the card unless `--device cpu` is given; weights are random,
@@ -41,7 +41,7 @@ def greedy_generate(cfg, params, prompt: torch.Tensor, new_tokens: int,
     dev = resolve_device(device)
     check_on_device(params, dev)
     S = prompt.shape[1]
-    prefill_step = make_prefill_step(cfg)
+    prefill_step = make_prefill_step(cfg, cache_len=S + new_tokens)
     decode = make_decode_step(cfg)
 
     batch = {"tokens": prompt, **extra}
@@ -65,7 +65,7 @@ def greedy_generate(cfg, params, prompt: torch.Tensor, new_tokens: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-1.3b", choices=list_archs())
+    ap.add_argument("--arch", default="granite-8b", choices=list_archs())
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--batch", type=int, default=4)

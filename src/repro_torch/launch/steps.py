@@ -13,9 +13,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as T
 
 
-def make_prefill_step(cfg: ArchConfig) -> Callable:
+def make_prefill_step(cfg: ArchConfig,
+                      cache_len: int | None = None) -> Callable:
+    """`cache_len` reserves KV slots beyond the prompt for the decode
+    steps (the dense family; the ssm family ignores it)."""
     def prefill_step(params, batch):
-        return T.prefill(cfg, params, batch)
+        return T.prefill(cfg, params, batch, cache_len=cache_len)
     return prefill_step
 
 

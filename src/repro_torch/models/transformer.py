@@ -1,6 +1,6 @@
 """Decoder LM over the reference's parameter tree (counterpart of
-`repro/models/transformer.py`), the `ssm` family (uniform Mamba2 blocks,
-attention-free) so far.
+`repro/models/transformer.py`), the `dense` family (uniform [attention +
+MLP] blocks) and the `ssm` family (uniform Mamba2 blocks) so far.
 
 Entry points, with the reference's names and batch dicts:
 
@@ -13,11 +13,13 @@ its stacked leading layer dimension (`params["blocks"][...]` is
 (n_layers, ...)), so weights cross between the packages by key
 (`repro_torch.interop.lm_params`).  The layers run as a Python loop over
 the stack where the reference scans.  Serving runs under
-`torch.inference_mode()`.
+`torch.inference_mode()`.  The dense decode writes each layer's new K/V
+into the cache in place (the reference returns a new cache).
 
-Every other `arch_type` raises `NotImplementedError`: the dense, moe,
-hybrid, vlm and audio families, `forward_train` and `loss_fn` wait for
-ROADMAP.md item 13.
+Every other `arch_type` raises `NotImplementedError`: the moe, hybrid,
+vlm and audio families, `forward_train` and `loss_fn` wait for
+ROADMAP.md item 13, as do the attention knobs no config sets
+(`attn_impl="repeat"`, a bf16 softmax, `fused_proj`, `attn_seq_shard`).
 """
 from __future__ import annotations
 
@@ -31,17 +33,47 @@ from repro_torch.device import resolve_device
 from . import layers as L
 from . import ssm as S
 
+PORTED_FAMILIES = ("dense", "ssm")
 
-def _require_ssm(cfg: ArchConfig) -> None:
-    if cfg.arch_type != "ssm":
+
+def _require_ported(cfg: ArchConfig) -> None:
+    if cfg.arch_type not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} ({cfg.name}) is not ported; only "
-            "the ssm family is (ROADMAP.md item 13)")
+            f"the {' and '.join(PORTED_FAMILIES)} families are (ROADMAP.md "
+            "item 13)")
+    for knob, ported in (("attn_impl", "grouped"), ("softmax_dtype", "f32"),
+                         ("fused_proj", False), ("attn_seq_shard", False)):
+        if getattr(cfg, knob) != ported:
+            raise NotImplementedError(
+                f"{knob}={getattr(cfg, knob)!r} ({cfg.name}) is not ported")
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+
+def _norm_init(cfg: ArchConfig, d: int, dtype: torch.dtype,
+               device: torch.device, stack: tuple[int, ...] = ()) -> dict:
+    if cfg.norm == "ln":
+        return L.init_ln(d, dtype, device, stack)
+    return L.init_norm(d, dtype, device, stack)
+
+
+def _init_self_block(gen: Optional[torch.Generator], cfg: ArchConfig,
+                     dtype: torch.dtype, device: torch.device,
+                     stack: tuple[int, ...] = ()) -> dict:
+    d = cfg.d_model
+    return {
+        "attn_norm": _norm_init(cfg, d, dtype, device, stack),
+        "attn": L.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.hd, dtype, device, stack,
+                                 bias=cfg.attn_bias),
+        "mlp_norm": _norm_init(cfg, d, dtype, device, stack),
+        "mlp": L.init_mlp(gen, d, cfg.d_ff, dtype, device, stack,
+                          act=cfg.act),
+    }
+
 
 def init_params(cfg: ArchConfig, gen: Optional[torch.Generator],
                 dtype: torch.dtype = torch.float32,
@@ -52,24 +84,29 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator],
 
     The reference's initialisers (N(0, 0.02) embedding, dense layers
     N(0, 1)/sqrt(fan_in), conv taps N(0, 0.01), a_log = log(linspace(1,
-    16, H)), unit norms), each layer its own draws; the numbers differ
-    from `jax.random`'s for any seed.
+    16, H)), unit norms, zero biases), each layer its own draws; the
+    numbers differ from `jax.random`'s for any seed.
     """
-    _require_ssm(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
-    d, s = cfg.d_model, cfg.ssm
+    d = cfg.d_model
     p: dict[str, Any] = {
         "embed": L.normal(gen, (cfg.vocab, d), 0.02, dtype, dev),
-        "final_norm": L.init_norm(d, dtype, dev),
+        "final_norm": _norm_init(cfg, d, dtype, dev),
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, d, cfg.vocab, dtype, dev)
     stack = (cfg.n_layers,)
-    p["blocks"] = {
-        "norm": L.init_norm(d, dtype, dev, stack),
-        "mixer": S.init_mamba2(gen, d, s.d_state, s.n_heads(d), s.headdim,
-                               s.n_groups, s.d_conv, dtype, dev, stack),
-    }
+    if cfg.arch_type == "dense":
+        p["blocks"] = _init_self_block(gen, cfg, dtype, dev, stack)
+    else:
+        s = cfg.ssm
+        p["blocks"] = {
+            "norm": L.init_norm(d, dtype, dev, stack),
+            "mixer": S.init_mamba2(gen, d, s.d_state, s.n_heads(d),
+                                   s.headdim, s.n_groups, s.d_conv, dtype,
+                                   dev, stack),
+        }
     return p
 
 
@@ -89,7 +126,7 @@ def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor
 
 
 def _unembed(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    x = L.rmsnorm(params["final_norm"], x)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm)
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     return (x @ head.to(x.dtype)).to(torch.float32)
 
@@ -98,15 +135,27 @@ def _unembed(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 # serving: cache init, prefill, single-token decode
 # ---------------------------------------------------------------------------
 
+def _attn_cache_len(cfg: ArchConfig, seq_len: int) -> int:
+    """Rolling-window caches only keep `window` slots (sub-quadratic decode)."""
+    if cfg.sliding_window is not None:
+        return min(seq_len, cfg.sliding_window)
+    return seq_len
+
+
 def init_cache(cfg: ArchConfig, batch_size: int, seq_len: int,
                dtype: torch.dtype = torch.float32,
                device: str | torch.device | None = None) -> dict:
-    """Zero-initialized decode cache (`seq_len` is unused by the ssm
-    family: its state does not grow with the sequence)."""
-    _require_ssm(cfg)
-    del seq_len
+    """Zero-initialized decode cache for `seq_len` positions (the ssm
+    family's state does not grow with the sequence)."""
+    _require_ported(cfg)
+    dev = resolve_device(device)
+    if cfg.arch_type == "dense":
+        return {"attn": L.init_kv_cache(batch_size,
+                                        _attn_cache_len(cfg, seq_len),
+                                        cfg.n_kv_heads, cfg.hd, dtype, dev,
+                                        (cfg.n_layers,))}
     return {"mamba": _mamba_cache_stack(cfg, cfg.n_layers, batch_size, dtype,
-                                        resolve_device(device))}
+                                        dev)}
 
 
 def _mamba_cache_stack(cfg: ArchConfig, n: int, B: int, dtype: torch.dtype,
@@ -122,17 +171,39 @@ def _mamba_cache_stack(cfg: ArchConfig, n: int, B: int, dtype: torch.dtype,
     }
 
 
+def _self_block_decode(cfg: ArchConfig, bp: dict, x: torch.Tensor,
+                       cache_l: dict, pos):
+    h = L.apply_norm(bp["attn_norm"], x, cfg.norm)
+    attn, new_cache = L.decode_self_attention(
+        bp["attn"], h, cache_l, pos, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, theta=cfg.rope_theta,
+        window=cfg.sliding_window)
+    x = x + attn
+    h = L.apply_norm(bp["mlp_norm"], x, cfg.norm)
+    return x + L.mlp(bp["mlp"], h, act=cfg.act), new_cache
+
+
 @torch.inference_mode()
 def decode_step(cfg: ArchConfig, params: dict, batch: dict, cache: dict):
     """One new token against the cache, computed in the parameters' dtype.
 
     batch: {"token": (B, 1) int64, "pos": absolute position of the new
-    token (unused by the ssm family)}. Returns (logits fp32 (B, 1, V),
-    new cache)."""
-    _require_ssm(cfg)
-    s = cfg.ssm
+    token, an int for every row or a (B,) tensor, one per row (unused by
+    the ssm family)}.  Returns (logits fp32 (B, 1, V), new cache); the
+    dense family writes the new K/V into `cache`'s tensors in place."""
+    _require_ported(cfg)
     x = _embed(cfg, params, batch["token"])
-    blocks, mc = params["blocks"], cache["mamba"]
+    blocks = params["blocks"]
+    new_cache = dict(cache)
+    if cfg.arch_type == "dense":
+        pos = torch.as_tensor(batch["pos"], device=x.device)
+        kv = cache["attn"]
+        for i in range(cfg.n_layers):
+            x, _ = _self_block_decode(cfg, _layer(blocks, i), x,
+                                      _layer(kv, i), pos)
+        return _unembed(cfg, params, x), new_cache
+    s = cfg.ssm
+    mc = cache["mamba"]
     convs, ssms = [], []
     for i in range(cfg.n_layers):
         bp = _layer(blocks, i)
@@ -144,27 +215,62 @@ def decode_step(cfg: ArchConfig, params: dict, batch: dict, cache: dict):
         x = x + y
         convs.append(nc["conv"])
         ssms.append(nc["ssm"])
-    new_cache = dict(cache)
     new_cache["mamba"] = {"conv": torch.stack(convs),
                           "ssm": torch.stack(ssms)}
     return _unembed(cfg, params, x), new_cache
 
 
+def _self_block_prefill(cfg: ArchConfig, bp: dict, x: torch.Tensor,
+                        positions: torch.Tensor, use_kernel: bool = True):
+    h = L.apply_norm(bp["attn_norm"], x, cfg.norm)
+    attn, (k, v) = L.self_attention(
+        bp["attn"], h, positions, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, theta=cfg.rope_theta,
+        window=cfg.sliding_window, return_kv=True, use_kernel=use_kernel)
+    x = x + attn
+    h = L.apply_norm(bp["mlp_norm"], x, cfg.norm)
+    x = x + L.mlp(bp["mlp"], h, act=cfg.act)
+    return x, (k, v)
+
+
 @torch.inference_mode()
 def prefill(cfg: ArchConfig, params: dict, batch: dict, *,
-            use_kernel: bool = True):
+            use_kernel: bool = True, cache_len: Optional[int] = None):
     """Process the prompt and build the decode cache, computed in the
     parameters' dtype.
 
-    batch: {"tokens": (B, S) int64}.  Returns (last-position logits fp32
-    (B, 1, V), cache).  `use_kernel` defaults
-    to True (the reference's to False): each layer's intra-chunk SSD step
-    goes to `kernels.ssd.ops.ssd_chunk`, which launches kernel 7 for
-    tensors on the card and computes the plain version on the CPU."""
-    _require_ssm(cfg)
-    s = cfg.ssm
-    x = _embed(cfg, params, batch["tokens"])
+    batch: {"tokens": (B, S) int64}.  `cache_len` reserves KV slots
+    beyond the prompt for the decode steps (default: the prompt length;
+    the ssm family's state does not grow, so it ignores it).  Returns
+    (last-position logits fp32 (B, 1, V), cache).  `use_kernel` defaults
+    to True (the reference's to False): each dense layer's causal
+    attention goes to `kernels.flash_attn.ops.causal_attention` (kernel 8
+    for tensors on the card, its plain version on the CPU), each ssm
+    layer's intra-chunk SSD step to `kernels.ssd.ops.ssd_chunk` (kernel
+    7); `use_kernel=False` keeps the plain expressions."""
+    _require_ported(cfg)
+    tokens = batch["tokens"]
+    B, Sq = tokens.shape
+    x = _embed(cfg, params, tokens)
     blocks = params["blocks"]
+    if cfg.arch_type == "dense":
+        positions = torch.arange(Sq, device=x.device)[None, :].expand(B, Sq)
+        window = cfg.sliding_window
+        kv = L.init_kv_cache(B, L.kv_cache_len(Sq, window, cache_len),
+                             cfg.n_kv_heads, cfg.hd, x.dtype, x.device,
+                             (cfg.n_layers,))
+        for i in range(cfg.n_layers):
+            x, (k, v) = _self_block_prefill(cfg, _layer(blocks, i), x,
+                                            positions, use_kernel)
+            if window is None:  # slot == position; the rest stays zero
+                kv["k"][i, :, :Sq] = k
+                kv["v"][i, :, :Sq] = v
+            else:
+                kv_i = L.kv_to_cache(k, v, window, cache_len)
+                kv["k"][i].copy_(kv_i["k"])
+                kv["v"][i].copy_(kv_i["v"])
+        return _unembed(cfg, params, x[:, -1:, :]), {"attn": kv}
+    s = cfg.ssm
     convs, ssms = [], []
     for i in range(cfg.n_layers):
         bp = _layer(blocks, i)

@@ -54,11 +54,15 @@ class ServeEngine:
     """Continuous batching over `n_slots` decode slots.
 
     The reference vmaps a one-slot `decode_step` over the slot dimension
-    so that each slot's `pos` stays a scalar inside the model.  The ssm
-    decode never reads `pos` (its state does not depend on the absolute
-    position), and every product of the decode is row by row over the
-    batch, so one batched `decode_step` over the slot dimension computes
-    the same function; it is what `step` runs.
+    so that each slot's `pos` stays a scalar inside the model.  The port
+    runs one batched `decode_step` over the slot dimension with `pos` a
+    (n_slots,) tensor, and computes the same function: every row is
+    roped at its own position, writes its K/V at its own slot of its own
+    cache row and attends the keys j <= pos[row] of that row only, and
+    every other product of the decode (norms, projections, MLP, the ssm
+    recurrence, which reads no position) is row by row over the batch.
+    Admission prefills with `cache_len=max_seq`, so the splice writes
+    whole cache rows and nothing of a slot's previous request survives.
     """
 
     def __init__(self, cfg: ArchConfig, params, n_slots: int, max_seq: int,
@@ -75,7 +79,7 @@ class ServeEngine:
         self.positions = np.zeros(n_slots, dtype=np.int64)  # next pos per slot
         self.active: dict[int, Request] = {}                # slot -> request
         self.last_token = np.zeros(n_slots, dtype=np.int64)
-        self._prefill = make_prefill_step(cfg)
+        self._prefill = make_prefill_step(cfg, cache_len=max_seq)
         self._decode = make_decode_step(cfg)
 
     # ------------------------------------------------------------------
@@ -113,9 +117,9 @@ class ServeEngine:
         if not self.active:
             return []
         tokens = torch.as_tensor(self.last_token, device=self.device)
+        pos = torch.tensor(self.positions, device=self.device)
         logits, self.cache = self._decode(
-            self.params, {"token": tokens[:, None],
-                          "pos": self.positions.copy()}, self.cache)
+            self.params, {"token": tokens[:, None], "pos": pos}, self.cache)
         nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
         finished = []
         for slot, req in list(self.active.items()):

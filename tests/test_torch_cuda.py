@@ -56,6 +56,8 @@ from repro_torch.kernels.coded_grad import ref as cg_ref
 from repro_torch.kernels.encode import ops as enc_ops
 from repro_torch.kernels.encode import prng
 from repro_torch.kernels.encode import ref as enc_ref
+from repro_torch.kernels.flash_attn import ops as fa_ops
+from repro_torch.kernels.flash_attn import ref as fa_ref
 from repro_torch.kernels.round_grad import ops as rg_ops
 from repro_torch.kernels.round_grad import ref as rg_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
@@ -549,3 +551,100 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# (B, Hq, Hkv, S, D): the shapes of tests/test_kernels.py (R = 1), the
+# shapes of chip_smoke.py's check (the serving shape of granite-8b, a
+# 2048-token prefill, its 100- and 1537-token prompts, the reduced
+# granite's D 64 and R 2, R = 1 and R = 3 at D 128), R = 3 at D 64,
+# R = 4 with one key/value head, one token, and a D that is no multiple
+# of 16
+FLASH_SHAPES = [(1, 2, 2, 64, 16), (2, 4, 4, 128, 32), (1, 1, 1, 256, 64),
+                (1, 2, 2, 96, 16), (1, 32, 8, 2048, 128),
+                (1, 32, 8, 100, 128), (1, 32, 8, 1537, 128),
+                (2, 4, 2, 77, 64), (1, 8, 8, 300, 128), (1, 12, 4, 257, 128),
+                (1, 6, 2, 200, 64), (1, 4, 1, 33, 128), (1, 3, 3, 1, 8),
+                (1, 2, 1, 70, 40)]
+
+
+def _flash_operands(gen, cuda, B, Hq, Hkv, S, D):
+    return tuple(torch.randn((B, h, S, D), generator=gen, device=cuda)
+                 for h in (Hq, Hkv, Hkv))
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda, B, Hq, Hkv, S, D):
+    """Kernel 8 and its plain version both within the derived float32
+    rounding bound of the float64 value
+    (`kernels.flash_attn.ref.float64_reference_and_bound`), within rtol
+    2e-4 / atol 2e-4 of each other (`tests/test_kernels.py`), and two
+    launches bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(B + Hq + S + D)
+    q, k, v = _flash_operands(gen, cuda, B, Hq, Hkv, S, D)
+    before = fa_ops.FLASH_COUNTER.launches
+    got = fa_ops.causal_attention(q, k, v)
+    again = fa_ops.causal_attention(q, k, v)
+    plain = fa_ref.causal_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.FLASH_COUNTER.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, plain, rtol=2e-4, atol=2e-4)
+    o64, bound = fa_ref.float64_reference_and_bound(q, k, v)
+    for out in (got, plain):
+        assert bool(((out.double() - o64).abs() <= bound).all())
+
+
+def test_flash_kernel_reads_the_model_layout_in_place(cuda):
+    """Transposed views of (B, S, H, D) projections give the result of
+    contiguous operands bit for bit, and the output has q's strides."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    qm, km, vm = (torch.randn((2, 45, h, 64), generator=gen, device=cuda)
+                  for h in (8, 2, 2))
+    views = [t.transpose(1, 2) for t in (qm, km, vm)]
+    got = fa_ops.causal_attention(*views)
+    want = fa_ops.causal_attention(*(t.contiguous() for t in views))
+    assert got.stride() == views[0].stride()
+    assert torch.equal(got, want)
+
+
+def test_flash_kernel_checks_operands(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = _flash_operands(gen, cuda, 1, 4, 2, 16, 32)
+    n = fa_ops.FLASH_COUNTER.launches
+    with pytest.raises(ValueError, match="exceeds"):
+        fa_ops.causal_attention(*_flash_operands(gen, cuda, 1, 2, 1, 8, 136))
+    with pytest.raises(ValueError, match="do not divide"):
+        fa_ops.causal_attention(q, k[:, :1].expand(1, 3, 16, 32).clone(),
+                                v[:, :1].expand(1, 3, 16, 32).clone())
+    assert fa_ops.FLASH_COUNTER.launches == n
+    # bf16 operands are upcast exactly, as the Pallas kernel does on load
+    got = fa_ops.causal_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    want = fa_ops.causal_attention(q.bfloat16().float(), k.bfloat16().float(),
+                                   v.bfloat16().float())
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want.bfloat16())
+
+
+def test_dense_prefill_on_the_card_matches_cpu(cuda):
+    """The reduced granite prefill through kernel 8 (one launch per layer)
+    against the CPU prefill on the same weights and tokens, logits and
+    KV cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("granite-8b").reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    params_gpu = _to(params, cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 45),
+                         generator=torch.Generator().manual_seed(1))
+    want, want_cache = T.prefill(cfg, params, {"tokens": toks}, cache_len=50)
+    before = fa_ops.FLASH_COUNTER.launches
+    got, cache = T.prefill(cfg, params_gpu, {"tokens": toks.to(cuda)},
+                           cache_len=50)
+    torch.cuda.synchronize()
+    assert fa_ops.FLASH_COUNTER.launches == before + cfg.n_layers
+    for g, w in ((got, want), (cache["attn"]["k"], want_cache["attn"]["k"]),
+                 (cache["attn"]["v"], want_cache["attn"]["v"])):
+        bound = 1e-4 * max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=bound)

@@ -1,18 +1,26 @@
-"""The port's ssm serving path against the JAX package, on the CPU:
+"""The port's serving paths against the JAX package, on the CPU:
 `models.transformer` (prefill, decode_step, init_params),
 `launch.serve.greedy_generate`, `serving.ServeEngine`, on the reduced
 mamba2-1.3b (2 layers, d_model 256, 16 heads of 32, d_state 16, chunk
-16, vocab 512) with JAX's `init_params(PRNGKey(0))` carried across by
-`interop.lm_params`.
+16, vocab 512) and the reduced granite-8b (2 layers, d_model 256, 4
+heads and 2 key/value heads of 64, d_ff 512, vocab 512; and its
+sliding-window variant, window 64) with JAX's `init_params(PRNGKey(0))`
+carried across by `interop.lm_params`.
 
-The port's prefill takes its kernel wrapper by default, which computes
-the plain version on CPU tensors; the JAX prefill runs its jnp path (the
-reference engine's default).
+The port's prefill takes its kernel wrappers by default, which compute
+the plain versions on CPU tensors; the JAX prefill runs its jnp path
+(the reference engine's default).  The JAX engine vmaps a one-slot
+decode over the slots; the port's runs one batched decode with one
+position per slot.
 
 Bounds:
   * logits and caches: rtol 1e-4 and atol 1e-4 * max(1, max|ref|) —
     float32 products over 256- to 1056-wide rows taken in another order,
     through two layers (seen: ~4e-6 on logits of magnitude ~3);
+  * the dense prefill through the kernel wrapper against the grouped
+    expression (`use_kernel=False`): rtol 1e-5 and atol 1e-5 *
+    max(1, max|ref|) (the plain version scales the scores, the model
+    scales q; seen: ~1e-6);
   * tokens (greedy_generate, the engine): equal.
 """
 import dataclasses
@@ -30,95 +38,180 @@ from repro.serving import Request as JRequest
 from repro.serving import ServeEngine as JServeEngine
 from repro_torch import interop
 from repro_torch.configs import get_config, list_archs
+from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
 from repro_torch.serving import Request, ServeEngine
 
 ARCH = "mamba2-1.3b"
+DENSE = "granite-8b"
+ARCHS = [ARCH, DENSE]
 CPU = torch.device("cpu")
 
 
-def _close(got, want):
+def _close(got, want, rtol=1e-4):
     want = np.asarray(want)
     got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     assert got.shape == want.shape
     np.testing.assert_allclose(
-        got, want, rtol=1e-4, atol=1e-4 * max(1.0, float(np.abs(want).max())))
+        got, want, rtol=rtol,
+        atol=rtol * max(1.0, float(np.abs(want).max())))
+
+
+def _leaves(tree, prefix=""):
+    """{path: leaf} of a nested dict of arrays or tensors."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _close_caches(got, want, skip=()):
+    got, want = _leaves(got), _leaves(want)
+    assert sorted(got) == sorted(want)
+    for k in got:
+        if k not in skip:
+            _close(got[k], want[k])
+
+
+def _build(arch, window=False):
+    """(JAX config, JAX params, port config, port params)."""
+    jcfg, cfg = j_get_config(arch), get_config(arch)
+    if window:
+        jcfg, cfg = jcfg.with_sliding_window(), cfg.with_sliding_window()
+    jcfg, cfg = jcfg.reduced(), cfg.reduced()
+    jparams = JT.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = interop.lm_params(jax.tree.map(np.asarray, jparams), CPU)
+    return jcfg, jparams, cfg, tparams
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def models(request):
+    return _build(request.param)
 
 
 @pytest.fixture(scope="module")
-def models():
-    """(JAX config, JAX params, port config, port params)."""
-    jcfg = j_get_config(ARCH).reduced()
-    jparams = JT.init_params(jcfg, jax.random.PRNGKey(0))
-    tparams = interop.lm_params(jax.tree.map(np.asarray, jparams), CPU)
-    return jcfg, jparams, get_config(ARCH).reduced(), tparams
+def windowed():
+    """The reduced granite-8b's sliding-window variant (window 64)."""
+    return _build(DENSE, window=True)
 
 
 def _prompt(seed, shape, vocab):
     return np.random.default_rng(seed).integers(0, vocab, shape)
 
 
-def test_configs_match_the_reference():
-    assert list_archs() == [ARCH]
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_match_the_reference(arch):
+    assert list_archs() == sorted(ARCHS)
     for reduced in (False, True):
-        jc, tc = j_get_config(ARCH), get_config(ARCH)
-        if reduced:
-            jc, tc = jc.reduced(), tc.reduced()
-        assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
-    assert get_config(ARCH).supports_shape("long_500k")
+        for window in (False, True):
+            jc, tc = j_get_config(arch), get_config(arch)
+            if window:
+                jc, tc = jc.with_sliding_window(), tc.with_sliding_window()
+            if reduced:
+                jc, tc = jc.reduced(), tc.reduced()
+            assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert get_config(arch).supports_shape("long_500k") == (arch == ARCH)
 
 
-def test_init_params_tree_matches_jax_at_full_width():
-    """Key for key and shape for shape, on the meta device: 48 layers,
-    d_model 2048, vocab 50280, 1,446,714,368 parameters."""
-    want = jax.eval_shape(lambda: JT.init_params(j_get_config(ARCH),
+FULL_WIDTH = {
+    ARCH: (1_446_714_368, "['blocks']['mixer']['w_in']", (48, 2048, 8512)),
+    DENSE: (8_254_689_280, "['blocks']['mlp']['w_gate']", (36, 4096, 14336)),
+}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_params_tree_matches_jax_at_full_width(arch):
+    """Key for key and shape for shape, on the meta device: mamba2-1.3b
+    (48 layers, d_model 2048, vocab 50280, 1,446,714,368 parameters) and
+    granite-8b (36 layers, d_model 4096, d_ff 14336, vocab 49152,
+    8,254,689,280 parameters)."""
+    want = jax.eval_shape(lambda: JT.init_params(j_get_config(arch),
                                                  jax.random.PRNGKey(0)))
-    got = T.init_params(get_config(ARCH), None, device="meta")
+    got = T.init_params(get_config(arch), None, device="meta")
     flat_want = {jax.tree_util.keystr(k): v.shape for k, v in
                  jax.tree_util.tree_flatten_with_path(want)[0]}
     flat_got = {jax.tree_util.keystr(k): tuple(v.shape) for k, v in
                 jax.tree_util.tree_flatten_with_path(got)[0]}
+    n_params, key, shape = FULL_WIDTH[arch]
     assert flat_got == flat_want
-    assert sum(int(np.prod(s)) for s in flat_got.values()) == 1_446_714_368
-    assert flat_got["['blocks']['mixer']['w_in']"] == (48, 2048, 8512)
+    assert sum(int(np.prod(s)) for s in flat_got.values()) == n_params
+    assert flat_got[key] == shape
 
 
-def test_init_params_is_seeded():
-    cfg = get_config(ARCH).reduced()
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_params_is_seeded(arch):
+    cfg = get_config(arch).reduced()
     a, b, c = (T.init_params(cfg, torch.Generator().manual_seed(s),
                              device=CPU) for s in (3, 3, 4))
-    assert torch.equal(a["blocks"]["mixer"]["w_in"],
-                       b["blocks"]["mixer"]["w_in"])
+    w = "mixer.w_in" if arch == ARCH else "attn.wq"
+    wa, wb = _leaves(a["blocks"])[w], _leaves(b["blocks"])[w]
+    assert torch.equal(wa, wb)
     assert not torch.equal(a["embed"], c["embed"])
-    assert float(a["blocks"]["mixer"]["w_in"].std()) == pytest.approx(
-        1 / np.sqrt(cfg.d_model), rel=0.05)
+    assert float(wa.std()) == pytest.approx(1 / np.sqrt(cfg.d_model),
+                                            rel=0.05)
 
 
-@pytest.mark.parametrize("S", [5, 16, 37])
+def test_lm_params_carries_the_dense_tree_key_for_key(models):
+    """`interop.lm_params` on the reduced trees: the same keys, shapes and
+    float32 values as JAX's `init_params(PRNGKey(0))`."""
+    _, jparams, cfg, params = models
+    want = _leaves(jax.tree.map(np.asarray, jparams))
+    got = _leaves(params)
+    assert sorted(got) == sorted(want)
+    for k, v in got.items():
+        assert v.dtype == torch.float32 and v.device == CPU
+        assert np.array_equal(v.numpy(), want[k])
+    if cfg.arch_type == "dense":
+        assert got["blocks.attn.wk"].shape == (2, 256, 128)
+
+
+@pytest.mark.parametrize("S", [1, 5, 16, 37])
 def test_prefill_matches_jax(models, S):
+    """Logits and the cache, with `cache_len` = S + 4 (the dense KV cache
+    zero-padded beyond the prompt; the ssm family ignores it).  The ssm
+    conv cache of a 1-token prompt is R4's (ROADMAP.md) and is held by
+    `test_short_prompts_prefill_then_decode` instead."""
     jcfg, jparams, cfg, params = models
     toks = _prompt(S, (2, S), cfg.vocab)
-    logits, cache = T.prefill(cfg, params, {"tokens": torch.as_tensor(toks)})
+    logits, cache = T.prefill(cfg, params, {"tokens": torch.as_tensor(toks)},
+                              cache_len=S + 4)
     j_logits, j_cache = JT.prefill(jcfg, jparams,
                                    {"tokens": jnp.asarray(toks, jnp.int32)},
-                                   compute_dtype=jnp.float32)
+                                   compute_dtype=jnp.float32,
+                                   cache_len=S + 4)
     _close(logits, j_logits)
-    for k in ("conv", "ssm"):
-        _close(cache["mamba"][k], j_cache["mamba"][k])
+    r4 = ("mamba.conv",) if cfg.arch_type == "ssm" and S < 3 else ()
+    _close_caches(cache, j_cache, skip=r4)
 
 
 def test_prefill_wrapper_equals_plain_on_cpu(models):
-    """On CPU tensors the kernel wrapper computes the plain expression:
-    `use_kernel` True and False give bit-equal logits and caches."""
+    """On CPU tensors the kernel wrappers compute the plain versions: for
+    the ssm family `use_kernel` True and False give bit-equal logits and
+    caches; for the dense family the caches are bit-equal and the logits
+    agree within rtol 1e-5 (kernel 8's plain version scales the scores,
+    the grouped expression scales q)."""
     _, _, cfg, params = models
     toks = {"tokens": torch.as_tensor(_prompt(0, (1, 40), cfg.vocab))}
     a = T.prefill(cfg, params, toks)
     b = T.prefill(cfg, params, toks, use_kernel=False)
-    assert torch.equal(a[0], b[0])
-    for k in ("conv", "ssm"):
-        assert torch.equal(a[1]["mamba"][k], b[1]["mamba"][k])
+    if cfg.arch_type == "ssm":
+        assert torch.equal(a[0], b[0])
+    else:
+        _close(a[0], b[0].numpy(), rtol=1e-5)
+    la, lb = _leaves(a[1]), _leaves(b[1])
+    assert sorted(la) == sorted(lb)
+    # the first layer's cache precedes any attention output
+    for k in la:
+        if cfg.arch_type == "ssm":
+            assert torch.equal(la[k], lb[k])
+        else:
+            assert torch.equal(la[k][0], lb[k][0])
+            _close(la[k], lb[k].numpy(), rtol=1e-5)
 
 
 def test_decode_steps_match_jax(models):
@@ -126,10 +219,11 @@ def test_decode_steps_match_jax(models):
     logits and both caches after every step."""
     jcfg, jparams, cfg, params = models
     toks = _prompt(1, (2, 21), cfg.vocab)
-    _, cache = T.prefill(cfg, params, {"tokens": torch.as_tensor(toks)})
+    _, cache = T.prefill(cfg, params, {"tokens": torch.as_tensor(toks)},
+                         cache_len=27)
     j_logits, j_cache = JT.prefill(jcfg, jparams,
                                    {"tokens": jnp.asarray(toks, jnp.int32)},
-                                   compute_dtype=jnp.float32)
+                                   compute_dtype=jnp.float32, cache_len=27)
     j_decode = jax.jit(lambda p, b, c: JT.decode_step(
         jcfg, p, b, c, compute_dtype=jnp.float32))
     tok = np.argmax(np.asarray(j_logits)[:, -1], axis=-1)[:, None]
@@ -140,8 +234,7 @@ def test_decode_steps_match_jax(models):
             jparams, {"token": jnp.asarray(tok, jnp.int32),
                       "pos": jnp.asarray(21 + i, jnp.int32)}, j_cache)
         _close(logits, j_logits)
-        for k in ("conv", "ssm"):
-            _close(cache["mamba"][k], j_cache["mamba"][k])
+        _close_caches(cache, j_cache)
         tok = np.argmax(np.asarray(j_logits)[:, -1], axis=-1)[:, None]
 
 
@@ -204,24 +297,27 @@ def test_serve_engine_tokens_equal_greedy_generate(models):
 
 @pytest.mark.parametrize("S", [1, 2, 3])
 def test_short_prompts_prefill_then_decode(models, S):
-    """R4 corrected: a prompt shorter than d_conv - 1 keeps a zero-padded
-    conv history of d_conv - 1 rows, so prefill-then-decode gives the
-    tokens (and the state) of decoding each prompt token from an empty
-    cache."""
+    """Prefill-then-decode gives the tokens (and the cache) of decoding
+    each prompt token from an empty cache.  For the ssm family this is R4
+    corrected: a prompt shorter than d_conv - 1 keeps a zero-padded conv
+    history of d_conv - 1 rows."""
     _, _, cfg, params = models
     prompt = torch.as_tensor(_prompt(10 + S, (2, S), cfg.vocab))
     out, _, _ = serve.greedy_generate(cfg, params, prompt, 5, {},
                                       device="cpu")
-    _, cache = T.prefill(cfg, params, {"tokens": prompt})
-    assert tuple(cache["mamba"]["conv"].shape) == (
-        cfg.n_layers, 2, cfg.ssm.d_conv - 1, 544)
+    _, cache = T.prefill(cfg, params, {"tokens": prompt}, cache_len=8)
+    if cfg.arch_type == "ssm":
+        assert tuple(cache["mamba"]["conv"].shape) == (
+            cfg.n_layers, 2, cfg.ssm.d_conv - 1, 544)
     step = T.init_cache(cfg, 2, 8, device="cpu")
     for i in range(S):
         logits, step = T.decode_step(cfg, params,
                                      {"token": prompt[:, i:i + 1], "pos": i},
                                      step)
-    for k in ("conv", "ssm"):
-        _close(step["mamba"][k], cache["mamba"][k].numpy())
+    got, want = _leaves(step), _leaves(cache)
+    assert sorted(got) == sorted(want)
+    for k in got:
+        _close(got[k], want[k].numpy())
     toks = []
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     for i in range(5):
@@ -232,41 +328,112 @@ def test_short_prompts_prefill_then_decode(models, S):
     assert torch.cat(toks, dim=1).tolist() == out[:, S:].tolist()
 
 
-def test_serve_main_runs_on_the_cpu(capsys):
-    assert serve.main(["--arch", ARCH, "--device", "cpu", "--batch", "2",
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_main_runs_on_the_cpu(capsys, arch):
+    assert serve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
                        "--prompt-len", "9", "--new-tokens", "3"]) == 0
     out = capsys.readouterr().out
-    assert f"arch={ARCH}-reduced batch=2 prompt=9 new=3" in out
+    assert f"arch={arch}-reduced batch=2 prompt=9 new=3" in out
     assert "output token range OK" in out
+
+
+def _stub_library(monkeypatch, ops, entry):
+    """A stub kernel library for CPU tensors (the kernel route forced),
+    and a plain version that fails if it runs."""
+    from unittest import mock
+
+    lib = mock.MagicMock()
+    getattr(lib, entry).return_value = 0
+    monkeypatch.setattr(ops, "_dispatch", lambda device: lib)
+    monkeypatch.setattr(ops.torch.cuda, "current_stream",
+                        lambda device: mock.MagicMock(cuda_stream=0))
+    return lib
 
 
 def test_prefill_launches_the_kernel_once_per_layer(models, monkeypatch):
     """With the kernel route forced (a stub library for CPU tensors) the
-    prefill launches kernel 7 once per layer and never reaches the plain
-    version; decode launches nothing."""
-    from unittest import mock
-
+    prefill launches its family's kernel once per layer (kernel 7 for
+    the ssm family, kernel 8 for the dense one) and never reaches the
+    plain version; decode launches nothing."""
     _, _, cfg, params = models
-    lib = mock.MagicMock()
-    lib.ssd_chunk_launch.return_value = 0
-    monkeypatch.setattr(ssd_ops, "_dispatch", lambda device: lib)
-    monkeypatch.setattr(ssd_ops.torch.cuda, "current_stream",
-                        lambda device: mock.MagicMock(cuda_stream=0))
 
     def plain(*args):
         raise AssertionError("the plain version ran on the kernel route")
 
-    monkeypatch.setattr(ssd_ops.ref, "ssd_chunk_reference", plain)
-    before = ssd_ops.SSD_COUNTER.launches
     toks = torch.as_tensor(_prompt(3, (1, 20), cfg.vocab))
-    _, cache = T.prefill(cfg, params, {"tokens": toks})
-    assert ssd_ops.SSD_COUNTER.launches == before + cfg.n_layers
-    assert lib.ssd_chunk_launch.call_count == cfg.n_layers
-    # (B, nc, Q, H, P, G, N) of each launch: 20 tokens in 2 chunks of 16
-    assert {c.args[7:14] for c in lib.ssd_chunk_launch.call_args_list} == \
-        {(1, 2, 16, 16, 32, 1, 16)}
+    if cfg.arch_type == "ssm":
+        lib = _stub_library(monkeypatch, ssd_ops, "ssd_chunk_launch")
+        monkeypatch.setattr(ssd_ops.ref, "ssd_chunk_reference", plain)
+        counter, launch = ssd_ops.SSD_COUNTER, lib.ssd_chunk_launch
+        # (B, nc, Q, H, P, G, N) of each launch: 20 tokens in 2 chunks
+        args, want = slice(7, 14), (1, 2, 16, 16, 32, 1, 16)
+    else:
+        lib = _stub_library(monkeypatch, fa_ops, "flash_attn_launch")
+        monkeypatch.setattr(fa_ops.ref, "causal_attention", plain)
+        counter, launch = fa_ops.FLASH_COUNTER, lib.flash_attn_launch
+        # (B, Hq, Hkv, S, D) and the (b, h, s) strides of q, k, v, o: the
+        # (B, S, H, D) projections read in place, the output alike
+        args = slice(4, 21)
+        want = (1, 4, 2, 20, 64, 5120, 64, 256, 2560, 64, 128, 2560, 64,
+                128, 5120, 64, 256)
+    before = counter.launches
+    _, cache = T.prefill(cfg, params, {"tokens": toks}, cache_len=21)
+    assert counter.launches == before + cfg.n_layers
+    assert launch.call_count == cfg.n_layers
+    assert {c.args[args] for c in launch.call_args_list} == {want}
     T.decode_step(cfg, params, {"token": toks[:, :1], "pos": 20}, cache)
-    assert ssd_ops.SSD_COUNTER.launches == before + cfg.n_layers
+    assert counter.launches == before + cfg.n_layers
+
+
+@pytest.mark.parametrize("S,steps", [(80, 6), (60, 8)])
+def test_sliding_window_matches_jax(windowed, S, steps):
+    """The reduced sliding window (64): a prompt longer than the window
+    (its rolling cache) and one that decodes past it, logits and caches
+    after the prefill and after every decode step; the prefill takes the
+    grouped expression (a window never goes to kernel 8)."""
+    jcfg, jparams, cfg, params = windowed
+    assert cfg.sliding_window == 64
+    toks = _prompt(S, (2, S), cfg.vocab)
+    logits, cache = T.prefill(cfg, params, {"tokens": torch.as_tensor(toks)},
+                              cache_len=S + steps)
+    j_logits, j_cache = JT.prefill(jcfg, jparams,
+                                   {"tokens": jnp.asarray(toks, jnp.int32)},
+                                   compute_dtype=jnp.float32,
+                                   cache_len=S + steps)
+    _close(logits, j_logits)
+    _close_caches(cache, j_cache)
+    assert cache["attn"]["k"].shape[2] == 64
+    j_decode = jax.jit(lambda p, b, c: JT.decode_step(
+        jcfg, p, b, c, compute_dtype=jnp.float32))
+    tok = np.argmax(np.asarray(j_logits)[:, -1], axis=-1)[:, None]
+    for i in range(steps):
+        logits, cache = T.decode_step(
+            cfg, params, {"token": torch.as_tensor(tok), "pos": S + i}, cache)
+        j_logits, j_cache = j_decode(
+            jparams, {"token": jnp.asarray(tok, jnp.int32),
+                      "pos": jnp.asarray(S + i, jnp.int32)}, j_cache)
+        _close(logits, j_logits)
+        _close_caches(cache, j_cache)
+        tok = np.argmax(np.asarray(j_logits)[:, -1], axis=-1)[:, None]
+
+
+def test_sliding_window_engine_matches_jax(windowed):
+    """The engine on the windowed model, slots at different offsets past
+    the window: the same tokens as the JAX engine."""
+    jcfg, jparams, cfg, params = windowed
+    def reqs(cls):
+        return [cls(uid=i, prompt=np.random.default_rng(20 + i)
+                    .integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=m)
+                for i, (n, m) in enumerate(((70, 5), (30, 40), (62, 9)))]
+
+    done = ServeEngine(cfg, params, n_slots=2, max_seq=96,
+                       device="cpu").run(reqs(Request), max_steps=200)
+    j_done = JServeEngine(jcfg, jparams, n_slots=2, max_seq=96).run(
+        reqs(JRequest), max_steps=200)
+    got = {r.uid: r.out_tokens for r in done}
+    assert sorted(got) == [0, 1, 2]
+    assert got == {r.uid: r.out_tokens for r in j_done}
 
 
 def test_rounding_of_the_ssd_step_moves_deep_logits_inside_the_bound(
@@ -305,10 +472,55 @@ def test_rounding_of_the_ssd_step_moves_deep_logits_inside_the_bound(
     assert int(plain.argmax()) == int(other.argmax())
 
 
-def test_unported_families_raise(models):
-    _, _, cfg, params = models
-    dense = dataclasses.replace(cfg, arch_type="dense")
+def test_rounding_of_the_attention_core_moves_deep_logits_inside_the_bound(
+        monkeypatch):
+    """How far a rounding-level change of the attention core moves the
+    logits of a deep dense prefill: the scale that `chip_smoke.py`'s
+    bound on the kernel-8 prefill against the plain one (DENSE_LOGIT_RTOL,
+    1e-3 of max(1, max|logit|)) has to allow for.
+
+    A 36-layer granite at d_model 512 (8 heads and 2 key/value heads of
+    64, d_ff 1024, vocab 1024; weights from seed 0) prefills one
+    512-token prompt with the plain float32 attention core, then with
+    that core computed in float64 and rounded to float32.  `pytest -s`
+    prints the reading.
+    """
+    cfg = dataclasses.replace(get_config(DENSE), d_model=512, n_heads=8,
+                              n_kv_heads=2, d_ff=1024, vocab=1024)
+    gen = torch.Generator().manual_seed(0)
+    params = T.init_params(cfg, gen, device="cpu")
+    toks = {"tokens": torch.randint(0, cfg.vocab, (1, 512), generator=gen)}
+    plain, _ = T.prefill(cfg, params, toks)
+
+    def rounded_float64(q, k, v):
+        o64, _ = fa_ops.ref.float64_reference_and_bound(q, k, v)
+        return o64.float()
+
+    monkeypatch.setattr(fa_ops.ref, "causal_attention", rounded_float64)
+    other, _ = T.prefill(cfg, params, toks)
+    diff = float((plain - other).abs().max())
+    top = float(plain.abs().max())
+    print(f"max|logit| {top!r}, max |logit difference| {diff!r} "
+          f"({diff / top!r} of max)")
+    assert 0.0 < diff <= 1e-3 * max(1.0, top)
+    assert int(plain.argmax()) == int(other.argmax())
+
+
+@pytest.mark.parametrize("family", ["moe", "hybrid", "vlm", "audio"])
+def test_unported_families_raise(family):
+    cfg = dataclasses.replace(get_config(DENSE).reduced(), arch_type=family)
+    params = T.init_params(get_config(DENSE).reduced(), None, device="meta")
     with pytest.raises(NotImplementedError, match="item 13"):
-        T.init_params(dense, None, device="meta")
+        T.init_params(cfg, None, device="meta")
     with pytest.raises(NotImplementedError, match="item 13"):
-        T.prefill(dense, params, {"tokens": torch.zeros((1, 4), dtype=int)})
+        T.prefill(cfg, params, {"tokens": torch.zeros((1, 4), dtype=int)})
+
+
+@pytest.mark.parametrize("knob", [{"attn_impl": "repeat"},
+                                  {"softmax_dtype": "bf16"},
+                                  {"fused_proj": True},
+                                  {"attn_seq_shard": True}])
+def test_unported_attention_knobs_raise(knob):
+    cfg = dataclasses.replace(get_config(DENSE).reduced(), **knob)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        T.init_params(cfg, None, device="meta")

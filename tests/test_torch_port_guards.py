@@ -23,6 +23,8 @@ from repro_torch.kernels import build, common
 from repro_torch.kernels.coded_grad import ops as cg_ops
 from repro_torch.kernels.encode import ops as enc_ops
 from repro_torch.kernels.encode import ref as enc_ref
+from repro_torch.kernels.flash_attn import ops as fa_ops
+from repro_torch.kernels.flash_attn import ref as fa_ref
 from repro_torch.kernels.round_grad import ops as rg_ops
 from repro_torch.kernels.round_grad import ref as rg_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
@@ -146,7 +148,8 @@ def test_reference_path_reaches_no_kernel_wrapper(monkeypatch, scheme,
     assert rep.nmse.shape == (4,) and np.all(np.isfinite(rep.nmse))
 
 
-OPS = [(rg_ops, "round_grad"), (enc_ops, "encode"), (ssd_ops, "ssd")]
+OPS = [(rg_ops, "round_grad"), (enc_ops, "encode"), (ssd_ops, "ssd"),
+       (fa_ops, "flash_attn")]
 
 
 @pytest.mark.parametrize("ops,name", OPS)
@@ -414,8 +417,10 @@ def test_new_wrappers_raise_on_other_devices():
         cg_ops.lsq_gradient(x, y, b)
 
 
-def test_serve_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
-    """The LM serve path: parameters, cache, prefill step, the engine,
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "granite-8b"])
+def test_serve_entry_points_default_to_cuda_and_raise_without_it(no_cuda,
+                                                                 arch):
+    """The LM serve paths: parameters, cache, prefill step, the engine,
     `greedy_generate` and the serve command line ask for the card unless told
     otherwise, and raise without one."""
     from repro_torch.configs import get_config
@@ -423,7 +428,7 @@ def test_serve_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     from repro_torch.models import transformer as T
     from repro_torch.serving import ServeEngine
 
-    cfg = get_config("mamba2-1.3b").reduced()
+    cfg = get_config(arch).reduced()
     with pytest.raises(RuntimeError, match="CUDA"):
         T.init_params(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -436,7 +441,7 @@ def test_serve_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         serve.greedy_generate(cfg, params, torch.zeros((1, 4), dtype=int),
                               2, {})
     with pytest.raises(RuntimeError, match="CUDA"):
-        serve.main(["--arch", "mamba2-1.3b"])
+        serve.main(["--arch", arch])
     # the CPU is used only when asked for, and the parameters must be there
     assert ServeEngine(cfg, params, n_slots=2, max_seq=16,
                        device="cpu").device == torch.device("cpu")
@@ -492,3 +497,55 @@ def test_ssd_route_never_computes_the_plain_version(monkeypatch):
 def test_ssd_wrapper_raises_on_other_devices():
     with pytest.raises(ValueError, match="no ssd kernel"):
         ssd_ops.ssd_chunk(*(t.to("meta") for t in _ssd_operands()))
+
+
+def _fa_operands(B=1, Hq=4, Hkv=2, S=10, D=8):
+    g = torch.Generator().manual_seed(3)
+    return tuple(torch.randn((B, h, S, D), generator=g)
+                 for h in (Hq, Hkv, Hkv))
+
+
+def test_flash_route_never_computes_the_plain_version(monkeypatch):
+    """On the kernel route `causal_attention` calls `flash_attn_launch`
+    once with the operands' extents and strides and the float32 scale,
+    bumps only `FLASH_COUNTER`, never reaches the plain version, and
+    raises (without counting) on a failed launch."""
+    lib = mock.MagicMock()
+    lib.flash_attn_launch.return_value = 0
+    monkeypatch.setattr(fa_ops, "_dispatch", lambda device: lib)
+    monkeypatch.setattr(fa_ops.torch.cuda, "current_stream",
+                        lambda device: mock.MagicMock(cuda_stream=0))
+
+    def plain(*args):
+        raise AssertionError("the plain version ran on the kernel route")
+
+    monkeypatch.setattr(fa_ref, "causal_attention", plain)
+    others = (rg_ops.COUNTER, rg_ops.CODED_COUNTER, rg_ops.TIER_COUNTER,
+              rg_ops.LSQ_COUNTER, enc_ops.COUNTER, enc_ops.PRNG_COUNTER,
+              ssd_ops.SSD_COUNTER)
+    before = [c.launches for c in others]
+    n = fa_ops.FLASH_COUNTER.launches
+    out = fa_ops.causal_attention(*_fa_operands())
+    assert tuple(out.shape) == (1, 4, 10, 8)
+    assert lib.flash_attn_launch.call_count == 1
+    args = lib.flash_attn_launch.call_args.args
+    assert args[4:9] == (1, 4, 2, 10, 8)
+    assert args[9:21] == (320, 80, 8, 160, 80, 8, 160, 80, 8, 320, 80, 8)
+    assert args[21] == fa_ops.scale(8)
+    assert fa_ops.FLASH_COUNTER.launches == n + 1
+    assert [c.launches for c in others] == before
+    lib.flash_attn_launch.return_value = 700  # a CUDA error code
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa_ops.causal_attention(*_fa_operands())
+    assert fa_ops.FLASH_COUNTER.launches == n + 1
+    # a last dimension that is not contiguous is copied once, the rest not
+    q, k, v = _fa_operands()
+    lib.flash_attn_launch.return_value = 0
+    fa_ops.causal_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                            k, v)
+    assert lib.flash_attn_launch.call_args.args[9:12] == (320, 80, 8)
+
+
+def test_flash_wrapper_raises_on_other_devices():
+    with pytest.raises(ValueError, match="no flash_attn kernel"):
+        fa_ops.causal_attention(*(t.to("meta") for t in _fa_operands()))
