@@ -7,7 +7,12 @@ an H100, sm_90a).  Phases, each printed as it finishes:
 
   1. the card (`nvidia-smi` name and power limit), torch and CUDA versions;
   2. build every kernel source in `src/repro_torch/kernels/csrc/` (one
-     `nvcc` per source, started together);
+     `nvcc` per source, started together), print each kernel instance's
+     `-Xptxas=-v` line (registers, static shared memory, spills) and
+     kernel 8's dynamic shared memory; kernel 8 must not spill (a library
+     found built is compiled once more for its report), and where
+     the toolkit has `cuobjdump` its library must hold HMMA (tensor-core)
+     instructions, whose count is printed;
   3. hold each kernel against its plain PyTorch version on the card at
      the main paths' shapes: the flat round gradient at (5632, 500) with
      random weights and at (7200, 500) with w = None (rtol 1e-3 / atol
@@ -120,6 +125,11 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      operands, the expansion inside the timed span, held to the kernel
      first, with the backend it takes; the one call with
      `enable_gqa=True` (a slower backend on float32) is kept beside it.
+     Each kernel's bound is computed from the shapes: the bytes it must
+     move over 3.35 TB/s or its operations over the rate of their type;
+     kernel 8's products go through the tensor cores as three TF32
+     products per float32 product (3xTF32), so its bound is three times
+     its flops over 495 TFLOP/s, its float32-FMA bound kept beside it.
 
 Any failed check raises, so the exit code is non-zero.  The line before
 the last is the kernels' JSON record; the last line is
@@ -145,9 +155,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 # H100 SXM data sheet: HBM3 bandwidth and the float32 rate outside the
-# tensor cores (the encode must stay full float32, not TF32)
+# tensor cores (the encode must stay full float32, not TF32), and the
+# dense TF32 tensor-core rate, which kernel 8's 3xTF32 products run at
+# three TF32 products per float32 one
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 
 SEC4_T_STAR = 11.9641
 # The reference's main path (its batched grid solver) stops at
@@ -220,6 +233,54 @@ def check(cond: bool, what: str) -> None:
 
 def phase(msg: str) -> None:
     print(msg, flush=True)
+
+
+def ptxas_report(name: str, log: str) -> dict:
+    """Print each kernel instance's registers and spills from one source's
+    `-Xptxas=-v` log; returns {instance: bytes of spill stores + loads}."""
+    spills, entry = {}, "?"
+    for line in log.splitlines():
+        fn = re.search(r"entry function '.*?\d+([a-z_]+_kernel)"
+                       r"(?:I((?:L[a-z]+\d+E)+)E)?", line)
+        if fn:  # the kernel (and its template instance) reported next
+            args = re.findall(r"L([a-z]+)(\d+)E", fn[2] or "")
+            entry = fn[1] + (
+                "<" + ", ".join(("true" if n == "1" else "false")
+                                if t == "b" else n for t, n in args) + ">"
+                if args else "")
+        elif "registers" in line or "spill" in line:
+            phase(f"  ptxas {name} {entry}: {line.strip()}")
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+            if found:
+                spills[entry] = int(found[1]) + int(found[2])
+    return spills
+
+
+def ptxas_log_again(name: str) -> str:
+    """The `-Xptxas=-v` report of `csrc/<name>.cu`, compiled once more into
+    a throwaway library, for a source that `build.build` found built."""
+    from repro_torch.kernels import build
+
+    target = build.BUILD_DIR / f"{name}-report.{os.getpid()}.so"
+    proc = build.start_nvcc(build.CSRC / f"{name}.cu", target)
+    log, _ = proc.communicate()
+    target.unlink(missing_ok=True)
+    check(proc.returncode == 0, f"{name}.cu failed to compile:\n{log}")
+    return log
+
+
+def sass_count(library, opcode: str):
+    """How many `opcode` instructions `cuobjdump -sass` lists in
+    `library`, or None where the toolkit has no cuobjdump."""
+    from repro_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                         text=True, check=True).stdout
+    return sum(opcode in line for line in out.splitlines())
 
 
 def card_line() -> str:
@@ -1117,14 +1178,19 @@ def main() -> int:
     phase(f"build: {time.perf_counter() - t0:.2f} s wall for "
           + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in built.items()))
     for name, info in built.items():
-        entry = "?"
-        for line in info["log"].splitlines():
-            fn = re.search(r"entry function '.*?\d+([a-z_]+_kernel)"
-                           r"(?:ILi(\d+)E)?", line)
-            if fn:  # the kernel (and tier-count instance) reported next
-                entry = fn[1] + (f"<{fn[2]}>" if fn[2] else "")
-            elif "registers" in line or "spill" in line:
-                phase(f"  ptxas {name} {entry}: {line.strip()}")
+        log = info["log"]
+        if name == "flash_attn" and not log:  # found built: no report
+            log = ptxas_log_again(name)
+        spills = ptxas_report(name, log)
+        if name == "flash_attn":
+            check(spills and not any(spills.values()),
+                  f"kernel 8 spills registers: {spills}")
+    phase(f"  kernel 8 dynamic shared memory at D = {FLASH_SHAPE[4]}: "
+          f"{fa_ops.smem_bytes(FLASH_SHAPE[4])} bytes a CTA, two CTAs an SM")
+    hmma = sass_count(build.library_path("flash_attn"), "HMMA")
+    phase(f"  kernel 8 SASS: {hmma} HMMA instructions" if hmma is not None
+          else "  kernel 8 SASS: no cuobjdump beside nvcc, HMMA not counted")
+    check(hmma is None or hmma > 0, "kernel 8 issues no HMMA instruction")
 
     # -- 3. kernels against their plain versions -------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1655,18 +1721,21 @@ def main() -> int:
     del cold
     flash_flops = 4 * B * Hq * D * S * (S + 1) // 2
     flash_bytes = 4 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
+    # 3xTF32: three TF32 tensor-core products per float32 product
     flash_terms = {"bytes": flash_bytes / HBM_BYTES_PER_S,
-                   "operations": flash_flops / FP32_FLOPS_PER_S}
+                   "operations": 3 * flash_flops / TF32_FLOPS_PER_S}
     flash_bound_by = max(flash_terms, key=flash_terms.get)
     flash_bound = 1e3 * flash_terms[flash_bound_by]
+    flash_bound_fp32 = 1e3 * flash_flops / FP32_FLOPS_PER_S
     phase(f"time causal_attention {list(FLASH_SHAPE)} [{card}]: kernel "
           f"{flash_ms!r} ms (L2 warm {flash_warm!r} ms), plain "
           f"{flash_plain!r} ms, library repeat_interleave + "
           f"scaled_dot_product_attention(is_causal) {flash_lib!r} ms on "
           f"{backend} (with enable_gqa instead, {flash_lib_gqa!r} ms on "
           f"{gqa_backend}; max |library - kernel| {lib_err:.3e}), bound "
-          f"{flash_bound!r} ms ({flash_bound_by}: flops {flash_flops}, "
-          f"bytes {flash_bytes})")
+          f"{flash_bound!r} ms ({flash_bound_by}, 3xTF32 at 495 TFLOP/s: "
+          f"flops {flash_flops}, bytes {flash_bytes}; on the float32 FMA "
+          f"pipes {flash_bound_fp32!r} ms)")
     phase(f"serve [{card}]: granite-8b engine {dense['tokens_per_s']:.2f} "
           f"tokens/s, decode step median {dense['step_ms']:.3f} ms; "
           f"mamba2-1.3b engine {serve['tokens_per_s']:.2f} tokens/s, "
@@ -1755,6 +1824,9 @@ def main() -> int:
          "max_abs_err": errs["causal_attention"], "ms": flash_ms,
          "plain_ms": flash_plain, "bound_ms": flash_bound,
          "bound_by": flash_bound_by, "library_ms": flash_lib,
+         "bound_route": "3xTF32: three TF32 products per float32 product "
+                        "at 495 TFLOP/s",
+         "hmma": hmma,
          "library": "repeat_interleave + scaled_dot_product_attention "
                     f"on {backend}",
          "library_gqa_ms": flash_lib_gqa,

@@ -1,0 +1,239 @@
+"""Time variants of the causal flash-attention kernel (kernel 8) on one GPU.
+
+    python3 scripts/flash_attn_variants.py [--only NAME,NAME]
+
+Builds `src/repro_torch/kernels/csrc/flash_attn.cu` and variants of it,
+each made by replacing some lines of the source (one `nvcc` per variant
+through `kernels.build.start_nvcc`, all started together, into
+`build/flash_attn_variants/`; each line must occur once in the source,
+except the `tf32::split(` calls, which `no_split` and `cvt_rna` replace
+at all their occurrences; anything else stops the script), and times each at the serving shape of
+granite-8b, (B, Hq, Hkv, S, D) = (1, 32, 8, 2048, 128):
+
+  * kernel      — the source as it is;
+  * plain_tf32  — one TF32 product per float32 product (big.big) in both
+                  products: what the second and third products and the
+                  splits of the small parts cost;
+  * scores_only — no P.V products: what the output product costs;
+  * no_exp      — the probabilities without expf: what the exponentials
+                  cost;
+  * no_split    — every operand passed to the tensor cores as its float32
+                  bits, big and small alike (wrong results): what the
+                  splits cost;
+  * no_softmax  — the mask, running max, exponentials and rescaling
+                  skipped (the scores go to P.V as they are): what the
+                  online softmax costs;
+  * unroll4     — the score product's loop over D unrolled by 4;
+  * keys32      — 32-key K/V tiles (the shared tiles shrink to 69 KB);
+  * keys32_3cta — 32-key tiles at three CTAs an SM (at most 170
+                  registers a thread);
+  * runtime_nd  — D's column-tile count read at run time at D = 128 too
+                  (the instance other head sizes take);
+  * cvt_rna     — the splits by `cvt.rna.tf32.f32` instead of the integer
+                  rounding of `tf32::rna` (the same results for finite
+                  values: its difference from the kernel must be 0).
+
+and prints the opcode histogram of the kernel's D = 128 instance
+(`cuobjdump -sass`).
+
+Time: CUDA events around 20 back-to-back launches on the same operands
+(warm in L2), queued behind a sleep kernel, median of 7 runs
+(`kernel_variants.py`).  Prints
+each variant's registers (ptxas), its time, and its largest difference
+from the unmodified kernel.
+
+Beside them, the rate of the instruction the kernel is built on: a kernel
+whose warps issue nothing but `mma.sync.aligned.m16n8k8` TF32 products
+(`tf32::mma` of `csrc/mma_tf32.cuh`) into `chains` independent
+accumulators, 1, 2 or 4 CTAs of 256 threads per SM on 132 SMs, in
+TFLOP/s (2048 flops a product).  Needs a CUDA card (sm_90a) and `nvcc`.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+from kernel_variants import build_variants, median_ms  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attn import ops  # noqa: E402
+
+OUT = ROOT / "build" / "flash_attn_variants"
+SCORE_MMA = "tf32::mma3(s[j], a_big, a_small, b_big, b_small);"
+OUT_MMA = "tf32::mma3(acc[j], a_big, a_small, b_big, b_small);"
+PROB = "s[j][e] = expf(s[j][e] - m[e >> 1]);"
+SPLIT = "tf32::split("
+KK_UNROLL = "#pragma unroll 2\n"
+BK = "constexpr int kBk = 64; "
+BOUNDS = "__launch_bounds__(kThreads, 2)"
+FULL = "const bool full = (D + 7) / 8 == kMaxNd;"
+SOFTMAX_FIRST = "      const bool masked = t0 + kBk - 1 > r0 || t0 + kBk > S;\n"
+SOFTMAX_LAST = ("        for (int e = 0; e < 4; ++e) acc[j][e] *= "
+                "alpha[e >> 1];\n")
+INCLUDE = '#include "mma_tf32.cuh"\n'
+VARIANTS = {
+    "kernel": {},
+    "plain_tf32": {SCORE_MMA: "tf32::mma(s[j], a_big, b_big);",
+                   OUT_MMA: "tf32::mma(acc[j], a_big, b_big);"},
+    "scores_only": {OUT_MMA: ""},
+    "no_exp": {PROB: "s[j][e] = s[j][e] - m[e >> 1];"},
+    "no_split": {SPLIT: "bits_as_split(",
+                 INCLUDE: INCLUDE + "__device__ __forceinline__ void "
+                          "bits_as_split(float x, uint32_t& big, uint32_t& "
+                          "small) { big = small = __float_as_uint(x); }\n"},
+    "no_softmax": {SOFTMAX_FIRST: "#if 0\n" + SOFTMAX_FIRST,
+                   SOFTMAX_LAST: SOFTMAX_LAST + "#endif\n"},
+    "unroll4": {KK_UNROLL: "#pragma unroll 4\n"},
+    "keys32": {BK: "constexpr int kBk = 32; "},
+    "keys32_3cta": {BK: "constexpr int kBk = 32; ",
+                    BOUNDS: "__launch_bounds__(kThreads, 3)"},
+    "runtime_nd": {FULL: "const bool full = false;"},
+    "cvt_rna": {SPLIT: "cvt_split(",
+                INCLUDE: INCLUDE + r"""
+__device__ __forceinline__ uint32_t cvt_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void cvt_split(float x, uint32_t& big,
+                                          uint32_t& small) {
+  big = cvt_rna(x);
+  small = cvt_rna(x - __uint_as_float(big));
+}
+"""},
+}
+SHAPE = (1, 32, 8, 2048, 128)
+RATE_SOURCE = r"""
+#include <cuda_runtime.h>
+#include "mma_tf32.cuh"
+
+template <int kChains>
+__global__ void mma_rate(float* out, int iters) {
+  uint32_t a[4], b[2];
+  for (int i = 0; i < 4; ++i) a[i] = tf32::rna(1e-3f * (threadIdx.x + i));
+  for (int i = 0; i < 2; ++i) b[i] = tf32::rna(1e-3f * (threadIdx.x - i));
+  float c[kChains][4] = {};
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int j = 0; j < kChains; ++j) tf32::mma(c[j], a, b);
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < kChains; ++j) sum += c[j][0] + c[j][1] + c[j][2] + c[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
+}
+
+extern "C" int mma_rate_launch(float* out, int blocks, int chains, int iters,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (chains == 4) mma_rate<4><<<blocks, 256, 0, st>>>(out, iters);
+  else mma_rate<8><<<blocks, 256, 0, st>>>(out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def opcode_histogram(lib: Path) -> None:
+    """Print the opcodes of the D = 128 instance of `flash_attn_kernel` in
+    `lib`, most frequent first."""
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    body = sass.split("flash_attn_kernelILb1ELi16E", 1)[1].split(
+        "Function :", 1)[0]
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
+                     r"(?:\.[\w.]*)?", body)
+    counts = {}
+    for op in ops:
+        counts[op] = counts.get(op, 0) + 1
+    print(f"SASS of the D = 128 instance: {len(ops)} instructions; "
+          + ", ".join(f"{op} {n}" for op, n in
+                      sorted(counts.items(), key=lambda kv: -kv[1])),
+          flush=True)
+
+
+def mma_rates(stream) -> None:
+    """Print the TF32 mma.sync rate at 1, 2 and 4 CTAs an SM."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    src, lib = OUT / "mma_rate.cu", OUT / "libmma_rate.so"
+    src.write_text(RATE_SOURCE)
+    log, _ = (proc := build.start_nvcc(src, lib)).communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"mma_rate failed to build:\n{log}")
+    fn = ctypes.CDLL(str(lib)).mma_rate_launch
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    iters = 4096
+    for per_sm in (1, 2, 4):
+        blocks = 132 * per_sm
+        out = torch.empty(blocks * 256, device="cuda")
+        for chains in (4, 8):
+            def launch():
+                if fn(out.data_ptr(), blocks, chains, iters, stream) != 0:
+                    raise RuntimeError("mma_rate launch failed")
+            launch()
+            ms, _ = median_ms(launch, calls=5)
+            flops = blocks * 8 * iters * chains * 2048
+            print(f"mma.sync m16n8k8 tf32: {per_sm} CTA(s) of 8 warps an SM, "
+                  f"{chains} accumulators a warp: {flops / ms / 1e9!r} "
+                  f"TFLOP/s", flush=True)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--only", default=",".join(VARIANTS))
+    names = parser.parse_args().only.split(",")
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    libs = {}
+    built = build_variants("flash_attn", {n: VARIANTS[n] for n in names}, OUT,
+                           every=frozenset({SPLIT}))
+    for name, (lib, log) in built.items():
+        print(f"{name}: registers {re.findall(r'Used (\d+) registers', log)}",
+              flush=True)
+        libs[name] = lib
+    if "kernel" in libs:
+        opcode_histogram(libs["kernel"])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, Hq, Hkv, S, D = SHAPE
+    q, k, v = (torch.randn((B, h, S, D), generator=gen, device=dev)
+               for h in (Hq, Hkv, Hkv))
+    strides = [st for t in (q, k, v, q) for st in t.stride()[:3]]
+    stream = torch.cuda.current_stream().cuda_stream
+    base = None
+    for name, path in libs.items():
+        fn = ctypes.CDLL(str(path)).flash_attn_launch
+        fn.argtypes, fn.restype = ops._SIGNATURES["flash_attn_launch"]
+        out = torch.empty_like(q)
+
+        def launch():
+            if fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  B, Hq, Hkv, S, D, *strides, ops.scale(D), stream) != 0:
+                raise RuntimeError(f"{name} launch failed")
+
+        launch()
+        torch.cuda.synchronize()
+        if base is None:
+            base = out.clone()
+        diff = float((out - base).abs().max())
+        ms, low = median_ms(launch)
+        print(f"{name}: {ms!r} ms (min {low!r}); max |diff| from the first "
+              f"{diff:.3e}", flush=True)
+    mma_rates(stream)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,6 @@
 // Causal softmax attention with an online softmax (flash attention) for
-// NVIDIA Hopper (sm_90a).
+// NVIDIA Hopper (sm_90a), its two products on the TF32 tensor cores in
+// float32 precision (3xTF32, `mma_tf32.cuh`).
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attn/flash_attn.py::causal_attention
@@ -13,186 +14,396 @@
 //
 // What bounds it on this card: operations.  At the serving shape of
 // granite-8b (B, Hq, Hkv, S, D) = (1, 32, 8, 2048, 128) the causal half is
-// 4 Hq D S (S + 1) / 2 = 34.4 GFLOP against 83.9 MB of q, k, v and o: some
-// 400 flops per byte, so the least time is the flops over the card's
-// float32 rate outside the tensor cores (0.513 ms at 67 TFLOP/s).  It
-// stays full float32 (the model holds its logits at rtol 1e-4 against the
-// reference; TF32 keeps ~3 digits).
+// 4 Hq D S (S + 1) / 2 = 34.4 GFLOP against 83.9 MB of q, k, v and o
+// (25.0 us at 3.35 TB/s).  Plain TF32 keeps ~3 digits, which the float32
+// rounding bound the kernel is held to does not admit; 3xTF32 does (below)
+// at three tensor-core products per float32 product, so the least time is
+// 3 x 34.4 GFLOP at the dense TF32 rate of 495 TFLOP/s: 0.208 ms (the
+// float32 FMA pipes alone: 0.513 ms at 67 TFLOP/s).
 //
 // What the design does about it:
-//   * The Pallas grid runs (B*H, S/512, S/512) in order on one core and
-//     keeps a 512-row block in VMEM.  Here one 256-thread CTA owns one
-//     (b, h, 64-row query tile) and streams 64-row K and V tiles through
-//     shared memory, only those at or below the diagonal: tiles strictly
-//     above it are never loaded (the Pallas kernel still prefetches them).
-//     The heaviest query tiles are scheduled first.
-//   * Shared memory holds the scaled Q tile and the K tile d-major
-//     ([D][65]), the V tile ([64][D]) and the probability tile ([64][65]):
-//     113 KB at D = 128, above the 48 KB a launch gets by default, so the
-//     launch raises the limit with cudaFuncSetAttribute first.
-//   * Each thread holds a 4 x 4 register block of the score tile and a
-//     4 x (D/16) block of the output; the 16 threads of a row group are a
-//     half-warp, so the row max and the row sum are shuffle reductions in
-//     a fixed order.  The running max, normaliser and accumulator stay in
-//     registers across the KV tiles.
+//   * Both products run on mma.sync m16n8k8 TF32 tensor-core tiles, each
+//     operand split into big + small and multiplied three times into one
+//     float32 accumulator (`tf32::mma3`).  mma.sync, not wgmma: wgmma
+//     takes TF32 operands only K-major from shared memory, so P.V would
+//     need V transposed into a swizzled layout and P written out.
+//   * One 128-thread CTA owns one (b, h, 64-row query tile), 16 rows per
+//     warp (FlashAttention-2's split: no exchange between warps), and
+//     streams 64-key K and V tiles, only those at or below the diagonal,
+//     heaviest query tiles first.  A warp skips the products of a KV tile
+//     that lies wholly above its 16 rows (arithmetically the same: such a
+//     tile would add p = 0 and rescale by exp(0) = 1).
+//   * Two CTAs an SM (103,424 bytes of shared memory at D = 128 and at
+//     most 255 registers a thread each): the barriers of one CTA and its
+//     softmax, which leave the tensor cores idle, overlap the other CTA's
+//     products.  With one CTA of 8 warps an SM, every warp in the same
+//     phase, the softmax's latency stood in the products' way.
+//   * Each warp splits the K and V elements of its fragments as it reads
+//     them, from raw float32 tiles: a split of every tile once per CTA
+//     into shared memory doubles the bytes each fragment load reads and
+//     does not fit two CTAs an SM.  rna is two integer operations
+//     (cvt.rna compiles to four).
+//   * Shared memory: the scaled Q tile and one K and one V tile, raised
+//     above the default 48 KB with cudaFuncSetAttribute.  Rows are D
+//     rounded up to 8 (the columns past D zero) plus a pad: Q and K rows
+//     8 mod 32 words, so that a half-warp's 8-byte fragment loads fall on
+//     16 bank pairs, V rows 4 mod 8 words, for 32 banks.
+//   * cp.async brings V tile j while tile j's scores are made and K tile
+//     j + 1 while its P.V runs (FlashAttention-2's order; two barriers a
+//     tile).  The 16-byte cp.async.cg path needs D % 4 == 0 and every base
+//     and stride of q, k, v a multiple of 4 floats; any other view (an odd
+//     offset, D = 70) takes a 4-byte cp.async.ca instance of the same
+//     kernel, chosen at launch.  Rows past S are zero-filled by the copy.
+//   * Scores: each warp computes 16 rows x 64 keys (8 n-tiles, 32 float32
+//     accumulators a thread); a k-step takes columns (2t, 2t + 1) as its
+//     k-indices (t, t + 4), so each A and B fragment pair is one 8-byte
+//     load.  Masks only on tiles that cross the diagonal or the end of S.
+//   * P never leaves registers: P.V's k-step covers the 8 keys of one
+//     score n-tile in the order (2t, 2t + 1) -> (t, t + 4), so a thread's
+//     accumulators c0 c2 c1 c3 of S are its A fragment a0 a1 a2 a3 of P,
+//     and the B fragment reads V's rows 2t and 2t + 1.  The output is 16 x
+//     D a warp (16 n-tiles, 64 float32 accumulators a thread at D = 128).
+//   * A row's scores sit in the 4 lanes of a quad: its max is a tree over
+//     the lane's 16 values and two __shfl_xor_sync steps a tile; each lane
+//     sums its own probabilities (a tree) and the quad adds the four sums
+//     once, at the end, in a fixed order.
 //   * Masked scores are -1e30 (the reference's NEG_INF), never -inf, and a
 //     masked entry's probability is 0 outright, so a row whose running max
 //     is still -1e30 never forms exp(-1e30 - -1e30) = 1 for it.
-//   * Query head h reads key/value head h / (Hq / Hkv): the grouping of
-//     the model's grouped-query einsum; the repeated K and V of the
-//     reference's plain version are never formed.
-//   * Operands are addressed through their batch, head and row strides
-//     (the last dimension contiguous), so the model's (B, S, H, D)
-//     projections are read in place, with no transpose.
-//   * q is multiplied by c on load, as the model scales q before the
-//     product; expf in full precision (no --use_fast_math); every sum in
-//     a fixed order, so two launches on the same inputs are bit-identical.
-//     Any S: the ragged tail is masked in the loads and the stores.
+//   * Query head h reads key/value head h / (Hq / Hkv); operands are read
+//     in place through their batch, head and row strides (the last
+//     dimension contiguous) and the output written through q's; q is
+//     multiplied by c on load; expf in full precision (no
+//     --use_fast_math); every sum in a fixed order, so two launches on the
+//     same inputs are bit-identical.  Any S, D <= 128.
 //
-// A simple kernel that is right comes first: no wgmma (float32 has no
-// full-precision tensor-core path), no TMA, no multi-stage pipeline.
+// The split's error.  A product term leaves out at most about 12 u |a||b|
+// (u = 2^-24); each MMA adds to its accumulator with an error of at most
+// about 2 u of the partial sum (tensor cores truncate inside an MMA: Fasi,
+// Higham, Mikaitis and Pranesh, PeerJ CS 2021).  A score's first-order
+// worst case is therefore (12 + 0.75 D + 2) u c |q||k| against the
+// (D + 4) u c |q||k| of `kernels.flash_attn.ref.float64_reference_and_
+// bound`: inside it for D >= 40; at D = 8, 16 and 32 the bound is tighter
+// than the split's own worst case and holds by the errors' cancellation.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kernel_api.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kT = 64;            // query rows and key rows of a tile
-constexpr int kMaxD = 128;
-constexpr int kLd = kT + 1;       // row stride of the d-major and P tiles
-constexpr int kColGroups = kMaxD / 16;  // output columns per thread
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBq = 16 * kWarps;  // query rows of a CTA, 16 per warp
+constexpr int kBk = 64;           // keys of a K/V tile
+constexpr int kSt = kBk / 8;      // score n-tiles a warp holds
+constexpr int kMaxNd = 16;        // 8-wide column tiles of D <= 128
 constexpr float kNegInf = -1e30f;
 
 struct Strides {
   int64_t b, h, s;  // element strides of batch, head and row; d is 1
 };
 
-__global__ void __launch_bounds__(kThreads)
+// Row strides (floats) of the shared tiles, D rounded up to 8 nd plus a
+// pad.  Q and K: 8 mod 32, so that a half-warp's 8-byte fragment loads
+// (rows g, columns 2t and 2t + 1) fall on 16 distinct bank pairs.  V:
+// 4 mod 8, so that its B fragment (rows 2t, column g) falls on 32 banks.
+__host__ __device__ constexpr int qk_stride(int nd) {
+  return 8 * nd + (40 - 8 * nd % 32) % 32;
+}
+__host__ __device__ constexpr int v_stride(int nd) { return 8 * nd + 4; }
+
+__host__ __device__ constexpr size_t smem_bytes(int nd) {
+  return sizeof(float) *
+         ((kBq + kBk) * qk_stride(nd) + kBk * v_stride(nd));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const float* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copy 16 bytes (kVec) or 4 from global to shared memory; with `read`
+// false nothing is read and the destination is zero-filled.
+template <bool kVec>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool read) {
+  if constexpr (kVec) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(read ? 16 : 0));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(read ? 4 : 0));
+  }
+}
+
+// Start the copy of `rows` (<= kBk) rows of D floats at `src` (row stride
+// `ss`) into a kBk-row shared tile as one commit group; rows past `rows`
+// are zero-filled.
+template <bool kVec>
+__device__ __forceinline__ void copy_tile(float* dst, const float* src,
+                                          int64_t ss, int rows, int D,
+                                          int ld) {
+  constexpr int w = kVec ? 4 : 1;
+  const int per_row = D / w;
+  for (int e = threadIdx.x; e < kBk * per_row; e += kThreads) {
+    const int r = e / per_row, c = (e - r * per_row) * w;
+    const bool in = r < rows;
+    cp_async<kVec>(dst + r * ld + c, src + (in ? r * ss + c : 0), in);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait for this thread's copies, then for every thread's: the tile is in
+// shared memory for the whole CTA.
+__device__ __forceinline__ void tile_landed() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Row max and row sum over a quad's 16 values of one row, in a fixed tree
+// order.
+__device__ __forceinline__ float max16(const float (&s)[kSt][4], int e) {
+  float x[kSt];
+#pragma unroll
+  for (int j = 0; j < kSt; ++j) x[j] = fmaxf(s[j][e], s[j][e + 1]);
+#pragma unroll
+  for (int w = kSt / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) x[j] = fmaxf(x[j], x[j + w]);
+  return x[0];
+}
+
+__device__ __forceinline__ float sum16(const float (&s)[kSt][4], int e) {
+  float x[kSt];
+#pragma unroll
+  for (int j = 0; j < kSt; ++j) x[j] = s[j][e] + s[j][e + 1];
+#pragma unroll
+  for (int w = kSt / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) x[j] = x[j] + x[j + w];
+  return x[0];
+}
+
+// kNd: the 8-wide column tiles of D, fixed at compile time (16: D in
+// 121..128), or 0 for a count read at run time.
+template <bool kVec, int kNd>
+__global__ void __launch_bounds__(kThreads, 2)
 flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
                   Strides sq, Strides sk, Strides sv, Strides so, int S,
                   int D, int rep, float scale) {
-  extern __shared__ float smem[];
-  float* qt = smem;                // [D][kLd]  scaled Q rows, d-major
-  float* kt = qt + D * kLd;        // [D][kLd]  K rows, d-major
-  float* vs = kt + D * kLd;        // [kT][D]   V rows
-  float* ps = vs + kT * D;         // [kT][kLd] probabilities
+  const int nd = kNd ? kNd : (D + 7) / 8;
+  const int ld = qk_stride(nd), ldv = v_stride(nd);
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [kBq][ld] scaled Q rows
+  float* ks = qs + kBq * ld;                    // [kBk][ld] K rows
+  float* vs = ks + kBk * ld;                    // [kBk][ldv] V rows
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kT;  // heaviest first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBq;  // heaviest first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int g = h / rep;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
 
   const float* qh = q + b * sq.b + h * sq.h;
-  const float* kh = k + b * sk.b + g * sk.h;
-  const float* vh = v + b * sv.b + g * sv.h;
+  const float* kh = k + b * sk.b + (h / rep) * sk.h;
+  const float* vh = v + b * sv.b + (h / rep) * sv.h;
   float* oh = o + b * so.b + h * so.h;
 
-  for (int e = tid; e < kT * D; e += kThreads) {
-    const int r = e / D, d = e % D, qr = q0 + r;
-    qt[d * kLd + r] = qr < S ? qh[qr * sq.s + d] * scale : 0.f;
-  }
-
-  float m[4], l[4], acc[4][kColGroups];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kColGroups; ++c) acc[i][c] = 0.f;
-  }
-
   // keys at or below the diagonal of the tile's last row
-  const int t_end = min(q0 + kT, S);
-  for (int t0 = 0; t0 < t_end; t0 += kT) {
-    __syncthreads();  // the last tile's V and P are read (and Q stored)
-    for (int e = tid; e < kT * D; e += kThreads) {
-      const int r = e / D, d = e % D, tr = t0 + r;
-      const bool in = tr < S;
-      kt[d * kLd + r] = in ? kh[tr * sk.s + d] : 0.f;
-      vs[e] = in ? vh[tr * sv.s + d] : 0.f;
-    }
-    __syncthreads();
+  const int n_kv = (min(q0 + kBq, S) + kBk - 1) / kBk;
+  copy_tile<kVec>(ks, kh, sk.s, min(kBk, S), D, ld);
 
-    float s[4][4] = {};
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qt[d * kLd + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = kt[d * kLd + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+  // columns D .. 8 nd - 1 of the K and V tiles stay zero
+  const int pad = 8 * nd - D;
+  for (int e = tid; e < kBk * pad; e += kThreads) {
+    const int r = e / pad, c = D + e - r * pad;
+    ks[r * ld + c] = 0.f;
+    vs[r * ldv + c] = 0.f;
+  }
+  // the scaled Q tile, zero past S and past D
+  for (int e = tid; e < kBq * 2 * nd; e += kThreads) {
+    const int r = e / (2 * nd), c = (e - r * 2 * nd) * 4, qr = q0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (qr < S) {
+      const float* src = qh + qr * sq.s + c;
+      if constexpr (kVec) {
+        if (c < D) x = *reinterpret_cast<const float4*>(src);
+      } else {
+        x.x = c < D ? src[0] : 0.f;
+        x.y = c + 1 < D ? src[1] : 0.f;
+        x.z = c + 2 < D ? src[2] : 0.f;
+        x.w = c + 3 < D ? src[3] : 0.f;
+      }
     }
+    *reinterpret_cast<float4*>(qs + r * ld + c) =
+        make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+  }
 
+  const int r0 = q0 + 16 * warp;  // the warp's first row
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kMaxNd][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = q0 + ty + 16 * i;
-      bool ok[4];
-      float mx = kNegInf;
+  for (int j = 0; j < kMaxNd; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = t0 + tx + 16 * j;
-        ok[j] = t <= qr && t < S;
-        if (!ok[j]) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int it = 0; it < n_kv; ++it) {
+    const int t0 = it * kBk;
+    // K tile it in place (and Q, at it = 0); every warp is past P.V of
+    // tile it - 1, so V tile it may land while the scores are made
+    tile_landed();
+    copy_tile<kVec>(vs, vh + t0 * sv.s, sv.s, min(kBk, S - t0), D, ldv);
+    // a warp whose 16 rows all lie above the tile keeps no key of it
+    const bool active = r0 < S && r0 + 15 >= t0;
+
+    // s = (c Q) K^T over this warp's 16 rows and the tile's 64 keys;
+    // k-step kk takes columns 8 kk + (2t, 2t + 1) as (t, t + 4)
+    float s[kSt][4];
+#pragma unroll
+    for (int j = 0; j < kSt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    if (active) {
+#pragma unroll 2
+      for (int kk = 0; kk < nd; ++kk) {
+        const float* qa = qs + (16 * warp + g) * ld + 8 * kk + 2 * t;
+        const float2 q_g = *reinterpret_cast<const float2*>(qa);
+        const float2 q_g8 = *reinterpret_cast<const float2*>(qa + 8 * ld);
+        uint32_t a_big[4], a_small[4];
+        tf32::split(q_g.x, a_big[0], a_small[0]);
+        tf32::split(q_g8.x, a_big[1], a_small[1]);
+        tf32::split(q_g.y, a_big[2], a_small[2]);
+        tf32::split(q_g8.y, a_big[3], a_small[3]);
+#pragma unroll
+        for (int j = 0; j < kSt; ++j) {
+          const float2 kb = *reinterpret_cast<const float2*>(
+              ks + (8 * j + g) * ld + 8 * kk + 2 * t);
+          uint32_t b_big[2], b_small[2];
+          tf32::split(kb.x, b_big[0], b_small[0]);
+          tf32::split(kb.y, b_big[1], b_small[1]);
+          tf32::mma3(s[j], a_big, a_small, b_big, b_small);
+        }
+      }
+
+      // element (j, e) is row r0 + g + 8 (e / 2), key t0 + 8 j + 2 t + e % 2
+      const bool masked = t0 + kBk - 1 > r0 || t0 + kBk > S;
+      if (masked) {
+#pragma unroll
+        for (int j = 0; j < kSt; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = t0 + 8 * j + 2 * t + (e & 1);
+            if (key > r0 + g + 8 * (e >> 1) || key >= S) s[j][e] = kNegInf;
+          }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = fmaxf(m[i], max16(s, 2 * i));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        alpha[i] = expf(m[i] - mx);
+        m[i] = mx;
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
+      for (int j = 0; j < kSt; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        ps[(ty + 16 * i) * kLd + tx + 16 * j] = p;
-        sum += p;
+        for (int e = 0; e < 4; ++e) s[j][e] = expf(s[j][e] - m[e >> 1]);
+      if (masked) {  // a masked probability is 0 outright
+#pragma unroll
+        for (int j = 0; j < kSt; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = t0 + 8 * j + 2 * t + (e & 1);
+            if (key > r0 + g + 8 * (e >> 1) || key >= S) s[j][e] = 0.f;
+          }
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum16(s, 2 * i);
 #pragma unroll
-      for (int c = 0; c < kColGroups; ++c) acc[i][c] *= alpha;
+      for (int j = 0; j < kMaxNd; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
     }
-    __syncthreads();
 
-    const int t_n = min(kT, S - t0);
-    for (int t = 0; t < t_n; ++t) {
-      float p[4];
+    // V tile it in place; every warp is past the scores of K tile it, so
+    // K tile it + 1 may land while P.V runs
+    tile_landed();
+    if (it + 1 < n_kv)
+      copy_tile<kVec>(ks, kh + (t0 + kBk) * sk.s, sk.s,
+                      min(kBk, S - t0 - kBk), D, ld);
+    if (!active) continue;
+
+    // acc += P V; k-step kk takes keys 8 kk + (2t, 2t + 1) as (t, t + 4)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * kLd + t];
+    for (int kk = 0; kk < kSt; ++kk) {
+      uint32_t a_big[4], a_small[4];
+      tf32::split(s[kk][0], a_big[0], a_small[0]);
+      tf32::split(s[kk][2], a_big[1], a_small[1]);
+      tf32::split(s[kk][1], a_big[2], a_small[2]);
+      tf32::split(s[kk][3], a_big[3], a_small[3]);
+      const float* vb = vs + (8 * kk + 2 * t) * ldv + g;
 #pragma unroll
-      for (int c = 0; c < kColGroups; ++c) {
-        const int d = tx + 16 * c;
-        if (d < D) {
-          const float vv = vs[t * D + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
+      for (int j = 0; j < kMaxNd; ++j) {
+        if (j < nd) {
+          uint32_t b_big[2], b_small[2];
+          tf32::split(vb[8 * j], b_big[0], b_small[0]);
+          tf32::split(vb[ldv + 8 * j], b_big[1], b_small[1]);
+          tf32::mma3(acc[j], a_big, a_small, b_big, b_small);
         }
       }
     }
   }
 
+  // the quad's four partial sums of each row, in a fixed order
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty + 16 * i;
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qr = r0 + g + 8 * i;
     if (qr >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    float* orow = oh + qr * so.s;
 #pragma unroll
-    for (int c = 0; c < kColGroups; ++c) {
-      const int d = tx + 16 * c;
-      if (d < D) oh[qr * so.s + d] = acc[i][c] / den;
-    }
+    for (int j = 0; j < kMaxNd; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * j + 2 * t + e;
+        if (j < nd && d < D) orow[d] = acc[j][2 * i + e] / den;
+      }
   }
+}
+
+template <bool kVec, int kNd>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o,
+                   int B, int Hq, int S, int D, int rep, Strides sq,
+                   Strides sk, Strides sv, Strides so, float scale,
+                   cudaStream_t st) {
+  const size_t smem = smem_bytes((D + 7) / 8);
+  auto* kernel = flash_attn_kernel<kVec, kNd>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e == cudaSuccess)  // room for two CTAs an SM
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  const int n_qt = (S + kBq - 1) / kBq;
+  kernel<<<dim3(n_qt, Hq, B), kThreads, smem, st>>>(q, k, v, o, sq, sk, sv,
+                                                    so, S, D, rep, scale);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -211,25 +422,37 @@ int flash_attn_launch(const float* q, const float* k, const float* v,
                       long long v_b, long long v_h, long long v_s,
                       long long o_b, long long o_h, long long o_s,
                       float scale, void* stream) {
-  if (B <= 0 || Hq <= 0 || Hkv <= 0 || S <= 0 || D <= 0 || D > kMaxD ||
-      Hq % Hkv != 0 || B > 65535 || Hq > 65535)
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || S <= 0 || D <= 0 ||
+      D > 8 * kMaxNd || Hq % Hkv != 0 || B > 65535 || Hq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      sizeof(float) * (2 * static_cast<size_t>(D) * kLd +
-                       static_cast<size_t>(kT) * D + kT * kLd);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
   const Strides sq{q_b, q_h, q_s}, sk{k_b, k_h, k_s}, sv{v_b, v_h, v_s},
       so{o_b, o_h, o_s};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_qt = (S + kT - 1) / kT;
-  flash_attn_kernel<<<dim3(n_qt, Hq, B), kThreads, smem, st>>>(
-      q, k, v, o, sq, sk, sv, so, S, D, Hq / Hkv, scale);
-  return static_cast<int>(cudaGetLastError());
+  const int rep = Hq / Hkv;
+  // 16-byte copies: whole 4-float chunks, every row start 16-byte aligned
+  const bool vec = D % 4 == 0 && aligned16(q) && aligned16(k) &&
+                   aligned16(v) &&
+                   ((q_b | q_h | q_s | k_b | k_h | k_s | v_b | v_h | v_s) &
+                    3) == 0;
+  const bool full = (D + 7) / 8 == kMaxNd;
+  cudaError_t e;
+  if (vec && full)
+    e = launch<true, kMaxNd>(q, k, v, o, B, Hq, S, D, rep, sq, sk, sv, so,
+                             scale, st);
+  else if (vec)
+    e = launch<true, 0>(q, k, v, o, B, Hq, S, D, rep, sq, sk, sv, so, scale,
+                        st);
+  else
+    e = launch<false, 0>(q, k, v, o, B, Hq, S, D, rep, sq, sk, sv, so, scale,
+                         st);
+  return static_cast<int>(e);
+}
+
+// The dynamic shared memory (bytes) of one CTA of the kernel at head size
+// D, or -1 for a D that flash_attn_launch refuses.
+int flash_attn_smem_bytes(int D) {
+  return D > 0 && D <= 8 * kMaxNd ? static_cast<int>(smem_bytes((D + 7) / 8))
+                                  : -1;
 }
 
 }  // extern "C"

@@ -40,6 +40,7 @@ _SIGNATURES: build.Signatures = {
     # q, k, v, o, B, Hq, Hkv, S, D, 4 x (b, h, s) strides, scale, stream
     "flash_attn_launch": ([_P] * 4 + [_I] * 5 + [_L] * 12
                           + [ctypes.c_float, _P], _I),
+    "flash_attn_smem_bytes": ([_I], _I),
 }
 
 
@@ -71,6 +72,12 @@ def _shapes(q, k, v) -> tuple[int, int, int, int, int]:
     if D > MAX_D:
         raise ValueError(f"head dim {D} exceeds the kernel's {MAX_D}")
     return B, Hq, Hkv, S, D
+
+
+def smem_bytes(D: int) -> int:
+    """Dynamic shared memory (bytes) of one CTA of the kernel at head size
+    D, as the kernel's library computes it (built on first use)."""
+    return build.load("flash_attn", _SIGNATURES).flash_attn_smem_bytes(D)
 
 
 @functools.lru_cache(maxsize=None)

@@ -57,6 +57,22 @@ def float64_reference_and_bound(q, k, v):
         n = ceil(S / 64) online-softmax rescales of 3 u each;
       * the output, a sum of T_i terms, adds T_i u:
           |o - o64|[i, d] <= sum_j w_ij |v_jd| (eta_ij + T_i u).
+
+    The kernel (`csrc/flash_attn.cu`) forms both products on TF32 tensor
+    cores in three parts (3xTF32: x = big + small, each rounded to TF32,
+    and a.b ~ a_small b_big + a_big b_small + a_big b_big).  The split
+    leaves out at most about 12 u |a||b| a product; each tensor-core
+    product adds to its float32 accumulator with an error of at most
+    about 2 u of the partial sum's magnitude (tensor cores truncate
+    inside an MMA: Fasi, Higham, Mikaitis and Pranesh, "Numerical
+    behavior of NVIDIA tensor cores", PeerJ CS 2021), three of them per
+    8 of the D terms.  A score's first-order worst case on that route is
+    (12 + 0.75 D + 2) u c |q_i|.|k_j|, inside the (D + 4) u above for
+    D >= 40; for D = 8, 16 and 32 this bound is tighter than the split's
+    own worst case, and the kernel stays inside it only because those
+    errors do not all align (an emulation of its arithmetic sits at a few
+    hundredths of the bound, `tests/test_torch_flash_attn.py`).  The
+    bound itself is the same for every route.
     """
     k, v = _repeat_kv(q, k, v)
     f64 = torch.float64

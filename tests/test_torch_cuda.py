@@ -558,13 +558,18 @@ def _to(tree, device):
 # 2048-token prefill, its 100- and 1537-token prompts, the reduced
 # granite's D 64 and R 2, R = 1 and R = 3 at D 128), R = 3 at D 64,
 # R = 4 with one key/value head, one token, and a D that is no multiple
-# of 16
+# of 16; S one off the edges of the kernel's 64-row query and 64-key
+# tiles (127, 128, 129, 2049), and D of 70 (no multiple of 4: the
+# kernel's 4-byte copies) and 72 (9 column tiles of 8: its run-time
+# column count)
 FLASH_SHAPES = [(1, 2, 2, 64, 16), (2, 4, 4, 128, 32), (1, 1, 1, 256, 64),
                 (1, 2, 2, 96, 16), (1, 32, 8, 2048, 128),
                 (1, 32, 8, 100, 128), (1, 32, 8, 1537, 128),
                 (2, 4, 2, 77, 64), (1, 8, 8, 300, 128), (1, 12, 4, 257, 128),
                 (1, 6, 2, 200, 64), (1, 4, 1, 33, 128), (1, 3, 3, 1, 8),
-                (1, 2, 1, 70, 40)]
+                (1, 2, 1, 70, 40), (1, 8, 2, 127, 128), (1, 8, 2, 128, 128),
+                (1, 8, 2, 129, 128), (1, 8, 2, 2049, 128), (2, 4, 2, 150, 70),
+                (1, 6, 3, 193, 72)]
 
 
 def _flash_operands(gen, cuda, B, Hq, Hkv, S, D):
@@ -572,15 +577,10 @@ def _flash_operands(gen, cuda, B, Hq, Hkv, S, D):
                  for h in (Hq, Hkv, Hkv))
 
 
-@pytest.mark.parametrize("B,Hq,Hkv,S,D", FLASH_SHAPES)
-def test_flash_kernel_matches_plain(cuda, B, Hq, Hkv, S, D):
-    """Kernel 8 and its plain version both within the derived float32
-    rounding bound of the float64 value
-    (`kernels.flash_attn.ref.float64_reference_and_bound`), within rtol
-    2e-4 / atol 2e-4 of each other (`tests/test_kernels.py`), and two
-    launches bit-identical."""
-    gen = torch.Generator(device=cuda).manual_seed(B + Hq + S + D)
-    q, k, v = _flash_operands(gen, cuda, B, Hq, Hkv, S, D)
+def _hold_flash(q, k, v):
+    """Kernel 8 and its plain version both within the float64 bound,
+    within rtol 2e-4 / atol 2e-4 of each other, two launches counted and
+    bit-identical."""
     before = fa_ops.FLASH_COUNTER.launches
     got = fa_ops.causal_attention(q, k, v)
     again = fa_ops.causal_attention(q, k, v)
@@ -592,6 +592,68 @@ def test_flash_kernel_matches_plain(cuda, B, Hq, Hkv, S, D):
     o64, bound = fa_ref.float64_reference_and_bound(q, k, v)
     for out in (got, plain):
         assert bool(((out.double() - o64).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda, B, Hq, Hkv, S, D):
+    """Kernel 8 and its plain version both within the derived float32
+    rounding bound of the float64 value
+    (`kernels.flash_attn.ref.float64_reference_and_bound`), within rtol
+    2e-4 / atol 2e-4 of each other (`tests/test_kernels.py`), and two
+    launches bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(B + Hq + S + D)
+    _hold_flash(*_flash_operands(gen, cuda, B, Hq, Hkv, S, D))
+
+
+def _misaligned(t):
+    """`t`'s values in a view whose base sits 4 bytes past a 16-byte
+    boundary (the row strides unchanged)."""
+    flat = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _wide_rows(t):
+    """`t`'s values in a view with one unused float after each row (an odd
+    row stride)."""
+    out = torch.zeros((*t.shape[:-1], t.shape[-1] + 1), device=t.device,
+                      dtype=t.dtype)[..., :-1]
+    out.copy_(t)
+    return out
+
+
+# (layout, B, Hq, Hkv, S, D): views that take the 4-byte copies at a D the
+# 16-byte ones would take (a base off a 16-byte boundary, an odd row
+# stride), and q and k scaled x6, so that scores reach ~100, at the
+# serving shape, at D = 64 and at D = 16
+FLASH_LAYOUTS = [("misaligned", 1, 4, 2, 129, 72),
+                 ("misaligned", 1, 8, 2, 300, 128),
+                 ("wide rows", 2, 4, 2, 100, 64),
+                 ("x6", 1, 32, 8, 2048, 128), ("x6", 1, 4, 1, 257, 64),
+                 ("x6", 1, 3, 3, 129, 16)]
+
+
+@pytest.mark.parametrize("layout,B,Hq,Hkv,S,D", FLASH_LAYOUTS)
+def test_flash_kernel_on_views_and_large_scores(cuda, layout, B, Hq, Hkv,
+                                                S, D):
+    """The holds of `test_flash_kernel_matches_plain` on strided views
+    (read in place, no copy: the output is also checked bit for bit
+    against contiguous operands) and on scores of magnitude ~100, where
+    the 3xTF32 split's error shows."""
+    gen = torch.Generator(device=cuda).manual_seed(B + Hq + S + D + 1)
+    q, k, v = _flash_operands(gen, cuda, B, Hq, Hkv, S, D)
+    if layout == "x6":
+        q, k = 6 * q, 6 * k
+        assert float((q[0, 0] @ k[0, 0].T).abs().max()) / D ** 0.5 > 50
+        _hold_flash(q, k, v)
+        return
+    view = _misaligned if layout == "misaligned" else _wide_rows
+    views = [view(t) for t in (q, k, v)]
+    assert views[0].data_ptr() % 16 or views[0].stride(2) % 4
+    _hold_flash(*views)
+    assert torch.equal(fa_ops.causal_attention(*views),
+                       fa_ops.causal_attention(q, k, v))
 
 
 def test_flash_kernel_reads_the_model_layout_in_place(cuda):

@@ -13,7 +13,14 @@ path against the JAX package, on the CPU.
     route, `decode_self_attention` with one position or one per row)
     against `repro.models.layers` in float32: rtol 1e-5 and atol
     1e-5 * max(1, max|ref|) (float32 products over 64- to 256-wide rows
-    taken in another order; seen: ~1e-6), masks and cache layouts equal.
+    taken in another order; seen: ~1e-6), masks and cache layouts equal;
+  * kernel 8's 3xTF32 arithmetic (`csrc/flash_attn.cu`: the TF32 split by
+    `cvt.rna`, the three products of `mma_tf32.cuh` in their order with
+    each tensor-core sum truncated, the online softmax over 64-key tiles)
+    emulated in plain torch and held to the unchanged float64 bound at
+    D = 8, 16, 40 and 64, operands scaled x1 and x6 (`-s` prints the
+    share, the proxy of the card's), with the rounding helper's own
+    properties, and plain TF32 shown to fall outside the bound.
 """
 import jax
 import jax.numpy as jnp
@@ -112,6 +119,149 @@ def test_wrapper_checks_operands():
         fa_ops.causal_attention(big, big, big)
     assert fa_ops.scale(128) == float(np.float32(1.0) /
                                       np.sqrt(np.float32(128)))
+
+
+# ---------------------------------------------------------------------------
+# kernel 8's 3xTF32 arithmetic, emulated in plain torch
+# ---------------------------------------------------------------------------
+
+def _rna_tf32(x):
+    """float32 `x` rounded to TF32 as `cvt.rna.tf32.f32` rounds it (to
+    nearest, ties away from zero): 0x1000 added to the bits, the low 13
+    cleared."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    big = _rna_tf32(x)
+    return big, _rna_tf32(x - big)
+
+
+def _toward_zero(x64):
+    """float64 `x64` rounded to float32 toward zero, as a tensor core
+    truncates its sums (the worse of the two roundings)."""
+    x32 = x64.float()
+    over = x32.double().abs() > x64.abs()
+    return torch.where(over, torch.nextafter(x32, torch.zeros_like(x32)),
+                       x32)
+
+
+def _product3(a, b, acc, split=True):
+    """acc + a @ b as `tf32::mma3` forms it over k-steps of 8: in each,
+    small.big, big.small, big.big, each an exact sum of exact products
+    added to the float32 accumulator and truncated (split=False: big.big
+    alone, plain TF32)."""
+    (a_big, a_small), (b_big, b_small) = _split(a), _split(b)
+    terms = (((a_small, b_big), (a_big, b_small)) if split else ()) + (
+        (a_big, b_big),)
+    for kk in range(0, a.shape[-1], 8):
+        ka, kb = (..., slice(kk, kk + 8)), (..., slice(kk, kk + 8),
+                                            slice(None))
+        for x, y in terms:
+            acc = _toward_zero(acc.double()
+                               + x[ka].double() @ y[kb].double())
+    return acc
+
+
+def _emulate_kernel(q, k, v, split=True):
+    """`csrc/flash_attn.cu`'s arithmetic on float32 CPU tensors: q scaled
+    on load, D padded with zeros to a multiple of 8, 64-key tiles, 3xTF32
+    products, -1e30 masks with p = 0 outright, the online softmax with
+    one partial sum per lane of a quad (keys 8 j + 2 t + e, summed as the
+    kernel's tree: the pair e = 0, 1 of each j, then j with j + 4, j + 2,
+    j + 1; the lane's update l * alpha + sum fused, as nvcc contracts it),
+    the quad's sums added (l0 + l1) + (l2 + l3) at the end."""
+    B, Hq, S, D = q.shape
+    rep = Hq // k.shape[1]
+    k, v = (t.repeat_interleave(rep, 1) for t in (k, v))
+    pad = -D % 8
+    qs = torch.nn.functional.pad(q * fa_ops.scale(D), (0, pad))
+    k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (k, v))
+    rows = torch.arange(S)[:, None]
+    m = torch.full((B, Hq, S), -1e30)
+    lanes = torch.zeros((B, Hq, S, 4))
+    acc = torch.zeros((B, Hq, S, D + pad))
+    for t0 in range(0, S, 64):
+        tail = (0, 0, 0, 64 - min(64, S - t0))
+        kt, vt = (torch.nn.functional.pad(t[:, :, t0:t0 + 64], tail)
+                  for t in (k, v))
+        keep = (t0 + torch.arange(64) <= rows) & (t0 + torch.arange(64) < S)
+        s = _product3(qs, kt.transpose(-1, -2), torch.zeros((B, Hq, S, 64)),
+                      split)
+        s = torch.where(keep, s, -1e30)
+        mx = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - mx)
+        m = mx
+        p = torch.where(keep, torch.exp(s - m[..., None]), 0.0)
+        by_lane = p.view(B, Hq, S, 8, 4, 2)
+        sums = by_lane[..., 0] + by_lane[..., 1]  # (..., j, lane)
+        for w in (4, 2, 1):
+            sums = sums[..., :w, :] + sums[..., w:2 * w, :]
+        sums = sums[..., 0, :]
+        lanes = (lanes.double() * alpha[..., None].double()
+                 + sums.double()).float()
+        acc = _product3(p, vt, acc * alpha[..., None], split)
+    den = (lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3])
+    return (acc / torch.clamp(den, min=1e-30)[..., None])[..., :D]
+
+
+def test_tf32_rounding_helper():
+    """Low 13 bits zero, |x - rna(x)| <= 2^-11 |x|, ties away from zero,
+    and the split x = big + small to within 2^-22 |x|."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(np.concatenate([
+        rng.standard_normal(100_000) * 10.0 ** rng.integers(-30, 30, 100_000),
+        [1.0, -1.0, 0.0, 3.0e38]]).astype(np.float32))
+    big = _rna_tf32(x)
+    assert bool(((big.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool(((x - big).abs() <= 2.0 ** -11 * x.abs()).all())
+    half = torch.tensor([0x3F801000, -0x407FF000], dtype=torch.int32)
+    assert _rna_tf32(half.view(torch.float32)).tolist() == [
+        1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]
+    big, small = _split(x)
+    resid = x.double() - big.double() - small.double()
+    assert bool((resid.abs() <= 2.0 ** -22 * x.double().abs()).all())
+
+
+# (B, Hq, Hkv, S, D, operand scale): D = 8, 16, 40, 64; ragged S up to
+# 300; one, three and four query heads per key/value head; q and k scaled
+# x6, scores of magnitude ~100
+EMULATED = [(1, 2, 2, 300, 8, 1.0), (1, 3, 1, 200, 8, 6.0),
+            (1, 4, 1, 257, 16, 1.0), (1, 3, 3, 129, 16, 6.0),
+            (1, 6, 2, 300, 40, 1.0), (1, 4, 4, 150, 40, 6.0),
+            (2, 4, 1, 200, 64, 1.0), (1, 3, 1, 300, 64, 6.0)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,mult", EMULATED)
+def test_kernel_arithmetic_within_the_float64_bound(B, Hq, Hkv, S, D, mult):
+    """The emulated 3xTF32 kernel within the unchanged float32 rounding
+    bound of `ref.float64_reference_and_bound` (a proxy of the card's
+    share; `-s` prints it)."""
+    q, k, v = (torch.from_numpy(a) for a in _normal(
+        S + D + Hq, (B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    q, k = q * mult, k * mult
+    got = _emulate_kernel(q, k, v)
+    o64, bound = fa_ref.float64_reference_and_bound(q, k, v)
+    share = float(((got.double() - o64).abs() / bound).max())
+    print(f"emulated 3xTF32 kernel 8 at (B, Hq, Hkv, S, D) = "
+          f"{(B, Hq, Hkv, S, D)}, q and k x{mult:g}: worst element at "
+          f"{share:.4f} of the float64 bound")
+    assert share <= 1.0
+    np.testing.assert_allclose(got.numpy(),
+                               fa_ref.causal_attention(q, k, v).numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_plain_tf32_is_outside_the_float64_bound():
+    """The bound tells the split from plain TF32: one TF32 product per
+    float32 product lands far outside it (seen: 20-150x at the shapes of
+    EMULATED) where 3xTF32 stays far inside."""
+    q, k, v = (torch.from_numpy(a) for a in _normal(
+        5, (1, 4, 200, 64), (1, 1, 200, 64), (1, 1, 200, 64)))
+    o64, bound = fa_ref.float64_reference_and_bound(q, k, v)
+    shares = [float(((_emulate_kernel(q, k, v, split).double() - o64).abs()
+                     / bound).max()) for split in (False, True)]
+    assert shares[0] > 1.0 > shares[1]
 
 
 # ---------------------------------------------------------------------------
