@@ -9,15 +9,20 @@ an H100, sm_90a).  Phases, each printed as it finishes:
   2. build every kernel source in `src/repro_torch/kernels/csrc/` (one
      `nvcc` per source, started together), print each kernel instance's
      `-Xptxas=-v` line (registers, static shared memory, spills) and
-     kernel 8's dynamic shared memory; kernel 8 must not spill (a library
-     found built is compiled once more for its report), and where
-     the toolkit has `cuobjdump` its library must hold HMMA (tensor-core)
-     instructions, whose count is printed;
+     kernel 8's dynamic shared memory; kernel 8, kernel 2's
+     `encode_kernel` instances and the round-gradient kernels (1, 4, 5,
+     6) must not spill (a library found built is compiled once more for
+     its report), and where the toolkit has `cuobjdump` the libraries of
+     kernels 8 and 2 must hold HMMA (tensor-core) instructions, whose
+     counts are printed;
   3. hold each kernel against its plain PyTorch version on the card at
      the main paths' shapes: the flat round gradient at (5632, 500) with
      random weights and at (7200, 500) with w = None (rtol 1e-3 / atol
      1e-6, and two launches bit-identical), the encode at (2016, 300, 501)
-     (2e-4 * max|ref|); the coded round gradient at 7200 + 2016 rows of
+     (2e-4 * max|ref|, and kernel and plain version both within the float64
+     bound of `kernels.encode.ops.float64_reference_and_bound`, stated
+     before the first run of the 3xTF32 kernel; relaunches bit-identical);
+     the coded round gradient at 7200 + 2016 rows of
      500 with zero-weight rows, per-row (of order 1) and scalar parity
      weights, the parity stream alone (systematic weights 0), and an
      empty parity block (which runs the flat kernel), and the tier-masked
@@ -129,7 +134,8 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      move over 3.35 TB/s or its operations over the rate of their type;
      kernel 8's products go through the tensor cores as three TF32
      products per float32 product (3xTF32), so its bound is three times
-     its flops over 495 TFLOP/s, its float32-FMA bound kept beside it.
+     its flops over 495 TFLOP/s, its float32-FMA bound kept beside it;
+     likewise kernel 2's (the parity encode).
 
 Any failed check raises, so the exit code is non-zero.  The line before
 the last is the kernels' JSON record; the last line is
@@ -155,9 +161,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 # H100 SXM data sheet: HBM3 bandwidth and the float32 rate outside the
-# tensor cores (the encode must stay full float32, not TF32), and the
-# dense TF32 tensor-core rate, which kernel 8's 3xTF32 products run at
-# three TF32 products per float32 one
+# tensor cores, and the dense TF32 tensor-core rate, which the 3xTF32
+# products of kernels 2 and 8 run at three TF32 products per float32 one
+# (one TF32 product alone would miss their float32 bounds)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
@@ -1177,20 +1183,28 @@ def main() -> int:
     built = build.build(build.SOURCES)
     phase(f"build: {time.perf_counter() - t0:.2f} s wall for "
           + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in built.items()))
+    # the kernels that must not spill: {source: instance-name prefix}
+    no_spill = {"flash_attn": "flash_attn_kernel", "encode": "encode_kernel",
+                "round_grad": ""}
     for name, info in built.items():
         log = info["log"]
-        if name == "flash_attn" and not log:  # found built: no report
+        if name in no_spill and not log:  # found built: no report
             log = ptxas_log_again(name)
-        spills = ptxas_report(name, log)
-        if name == "flash_attn":
+        spills = {k: v for k, v in ptxas_report(name, log).items()
+                  if name in no_spill and k.startswith(no_spill[name])}
+        if name in no_spill:
             check(spills and not any(spills.values()),
-                  f"kernel 8 spills registers: {spills}")
+                  f"{name}.cu kernels spill registers: {spills}")
     phase(f"  kernel 8 dynamic shared memory at D = {FLASH_SHAPE[4]}: "
           f"{fa_ops.smem_bytes(FLASH_SHAPE[4])} bytes a CTA, two CTAs an SM")
-    hmma = sass_count(build.library_path("flash_attn"), "HMMA")
-    phase(f"  kernel 8 SASS: {hmma} HMMA instructions" if hmma is not None
-          else "  kernel 8 SASS: no cuobjdump beside nvcc, HMMA not counted")
-    check(hmma is None or hmma > 0, "kernel 8 issues no HMMA instruction")
+    hmma = {}
+    for name, kernel in (("flash_attn", "kernel 8"), ("encode", "kernel 2")):
+        hmma[name] = sass_count(build.library_path(name), "HMMA")
+        phase(f"  {kernel} SASS ({name}.cu): {hmma[name]} HMMA instructions"
+              if hmma[name] is not None else f"  {kernel} SASS: no "
+              "cuobjdump beside nvcc, HMMA not counted")
+        check(hmma[name] is None or hmma[name] > 0,
+              f"{kernel} issues no HMMA instruction")
 
     # -- 3. kernels against their plain versions -------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1227,14 +1241,26 @@ def main() -> int:
     w_enc = torch.rand((ell,), generator=gen, device=dev)
     x_enc = torch.randn((ell, d1), generator=gen, device=dev)
     got = enc_ops.encode_parity(g, w_enc, x_enc)
+    again = enc_ops.encode_parity(g, w_enc, x_enc)
     want = enc_ref.encode_parity(g, w_enc, x_enc)
+    p64, p_bound = enc_ops.float64_reference_and_bound(g, w_enc, x_enc)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     bound = 2e-4 * float(want.abs().max())
     ok = torch.allclose(got, want, rtol=2e-4, atol=bound)
+    enc_share = {name: bound_share(p, p64, p_bound)
+                 for name, p in (("kernel", got), ("plain", want))}
+    del p64, p_bound
     phase(f"check encode ({c}, {ell}, {d1}): max_abs_err {err:.3e} "
-          f"bound 2e-4*max|ref| = {bound:.3e}, allclose {ok}")
+          f"bound 2e-4*max|ref| = {bound:.3e}, allclose {ok}; against "
+          f"float64 the worst element at {enc_share['kernel']:.4f} (kernel) "
+          f"and {enc_share['plain']:.4f} (plain) of the stated bound 1.01 "
+          f"(L + 20) u |G| |diag(w) X|; bit-identical relaunch "
+          f"{torch.equal(got, again)}")
     check(ok, "encode disagrees with its plain version")
+    check(enc_share["kernel"] <= 1.0 and enc_share["plain"] <= 1.0,
+          "encode outside its float64 bound")
+    check(torch.equal(got, again), "encode not deterministic")
     errs["encode"] = err
 
     # the coded kernel: 7200 systematic + 2016 parity rows (the SCFL main
@@ -1548,13 +1574,19 @@ def main() -> int:
     del cold
     enc_flops = 2 * c * ell * d1 + ell * d1
     enc_bytes = 4 * (c * ell + ell + ell * d1 + c * d1)
-    enc_bound = 1e3 * max(enc_bytes / HBM_BYTES_PER_S,
-                          enc_flops / FP32_FLOPS_PER_S)
+    # 3xTF32: three TF32 tensor-core products per float32 product
+    enc_terms = {"bytes": enc_bytes / HBM_BYTES_PER_S,
+                 "operations": 3 * 2 * c * ell * d1 / TF32_FLOPS_PER_S}
+    enc_bound_by = max(enc_terms, key=enc_terms.get)
+    enc_bound = 1e3 * enc_terms[enc_bound_by]
+    enc_bound_fp32 = 1e3 * enc_flops / FP32_FLOPS_PER_S
     enc_shape = [c, ell, d1]
-    phase(f"time encode ({c}, {ell}, {d1}): kernel {enc_ms!r} ms (L2 "
-          f"warm {enc_warm!r} ms), plain {enc_plain!r} ms, library "
+    phase(f"time encode ({c}, {ell}, {d1}) [{card}]: kernel {enc_ms!r} ms "
+          f"(L2 warm {enc_warm!r} ms), plain {enc_plain!r} ms, library "
           f"G @ (w X) {enc_lib!r} ms, bound {enc_bound!r} ms "
-          f"(flops {enc_flops})")
+          f"({enc_bound_by}, 3xTF32 at 495 TFLOP/s: flops {enc_flops}, "
+          f"bytes {enc_bytes}; on the float32 FMA pipes {enc_bound_fp32!r} "
+          f"ms)")
 
     # the coded kernel at the SCFL path's shapes: 7200 + 2016 rows of 500
     x, y, w, xp, yp, wp, beta = coded_inputs
@@ -1766,8 +1798,11 @@ def main() -> int:
          "replaces": "src/repro/kernels/encode/encode.py:61",
          "launches": launches["encode"], "max_abs_err": errs["encode"],
          "ms": enc_ms, "plain_ms": enc_plain, "bound_ms": enc_bound,
-         "bound_by": "operations", "library_ms": enc_lib,
-         "ms_l2_warm": enc_warm, "shape": enc_shape},
+         "bound_by": enc_bound_by, "library_ms": enc_lib,
+         "bound_route": "3xTF32: three TF32 products per float32 product "
+                        "at 495 TFLOP/s",
+         "hmma": hmma["encode"], "ms_l2_warm": enc_warm,
+         "shape": enc_shape},
         {"name": "coded_round_gradient", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/round_grad.cu",
          "replaces": "src/repro/kernels/round_grad/round_grad.py:134",
@@ -1826,7 +1861,7 @@ def main() -> int:
          "bound_by": flash_bound_by, "library_ms": flash_lib,
          "bound_route": "3xTF32: three TF32 products per float32 product "
                         "at 495 TFLOP/s",
-         "hmma": hmma,
+         "hmma": hmma["flash_attn"],
          "library": "repeat_interleave + scaled_dot_product_attention "
                     f"on {backend}",
          "library_gqa_ms": flash_lib_gqa,

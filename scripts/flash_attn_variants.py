@@ -53,7 +53,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -62,7 +61,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-from kernel_variants import build_variants, median_ms  # noqa: E402
+from kernel_variants import (build_variants, library_function,  # noqa: E402
+                             median_ms, opcode_histogram, print_card)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attn import ops  # noqa: E402
 
@@ -140,25 +140,6 @@ extern "C" int mma_rate_launch(float* out, int blocks, int chains, int iters,
 """
 
 
-def opcode_histogram(lib: Path) -> None:
-    """Print the opcodes of the D = 128 instance of `flash_attn_kernel` in
-    `lib`, most frequent first."""
-    tool = Path(build.nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
-    body = sass.split("flash_attn_kernelILb1ELi16E", 1)[1].split(
-        "Function :", 1)[0]
-    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
-                     r"(?:\.[\w.]*)?", body)
-    counts = {}
-    for op in ops:
-        counts[op] = counts.get(op, 0) + 1
-    print(f"SASS of the D = 128 instance: {len(ops)} instructions; "
-          + ", ".join(f"{op} {n}" for op, n in
-                      sorted(counts.items(), key=lambda kv: -kv[1])),
-          flush=True)
-
-
 def mma_rates(stream) -> None:
     """Print the TF32 mma.sync rate at 1, 2 and 4 CTAs an SM."""
     OUT.mkdir(parents=True, exist_ok=True)
@@ -193,9 +174,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
+    print_card()
     libs = {}
     built = build_variants("flash_attn", {n: VARIANTS[n] for n in names}, OUT,
                            every=frozenset({SPLIT}))
@@ -204,7 +183,9 @@ def main() -> int:
               flush=True)
         libs[name] = lib
     if "kernel" in libs:
-        opcode_histogram(libs["kernel"])
+        print("SASS of the D = 128 instance: " + opcode_histogram(
+            libs["kernel"], "flash_attn_kernelILb1ELi16E"),
+              flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     B, Hq, Hkv, S, D = SHAPE
@@ -214,8 +195,7 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     base = None
     for name, path in libs.items():
-        fn = ctypes.CDLL(str(path)).flash_attn_launch
-        fn.argtypes, fn.restype = ops._SIGNATURES["flash_attn_launch"]
+        fn = library_function(path, "flash_attn_launch", ops._SIGNATURES)
         out = torch.empty_like(q)
 
         def launch():

@@ -9,29 +9,57 @@
 // private generator G (C, L) times its Eq.-17-weighted data with the
 // labels riding along as the last column of X (L, D).
 //
-// What bounds it on this card: operations.  At the paper's shapes
-// (C = 2016, L = 300, D = 501) one call is 2*C*L*D = 0.61 GFLOP against
-// 7.5 MB of operands: about 80 flops per byte, well above the float32
-// balance point.  It must stay in full float32 (the reference holds the
-// encode at 2e-4 * max|ref|; TF32 keeps about three digits), so the
-// bound is the card's float32 rate outside the tensor cores.
+// What bounds it on this card: operations, and the shared memory that
+// feeds them.  At the paper's shapes (C = 2016, L = 300, D = 501) one
+// call is 2*C*L*D = 0.61 GFLOP against 7.1 MB of operands, about 86 flops
+// per byte.  The reference holds the encode to 2e-4 * max|ref|, which one
+// TF32 product per float32 product misses, so the products go through
+// the tensor cores as 3xTF32 (`mma_tf32.cuh`): each float32 operand split
+// into two TF32 words, three m16n8k8 products per float32 product, 3 x
+// 0.61 GFLOP at the card's 495 TFLOP/s TF32 rate, 3.7 us (on the float32
+// FMA pipes, 9.0 us).  mma.sync reaches about 310 TFLOP/s, and its
+// fragments come from shared memory: with 128 x 64 output tiles of
+// 32 x 32 warp tiles, big and small words, that is 128 KB a step of 32
+// along L for every SM, beside the staging's 96 KB (copies in, split
+// words out).  Each CTA also brings its tiles from L2: G is read by 8
+// column tiles and X by 16 row tiles, 29 MB in all.
 //
 // What the design does about it:
-//   * A shared-memory-tiled float32 GEMM: each 256-thread CTA computes a
-//     64 x 64 output tile, each thread a 4 x 4 register block, walking
-//     L in steps of 16 with both operand tiles staged in shared memory,
-//     so every loaded element feeds 64 fused multiply-adds.  The next
-//     step's tiles are loaded into registers while the current step's
-//     products run, so the loads' latency overlaps the arithmetic.
-//   * The diagonal weighting is applied as the X tile is loaded
-//     (w[k] * x[k, n] goes straight into shared memory), so diag(w) X
-//     never exists in device memory: the one thing the TPU kernel fuses.
-//   * Ragged edges in C, L and D are masked in the loads and the store;
-//     nothing is padded on the host.  Each output is one fma chain over
-//     L in increasing order, so results are deterministic.
-//
-// A simple kernel that is right comes first: no wgmma (float32 has no
-// full-precision tensor-core path), no TMA, no multi-stage pipeline.
+//   * Each 256-thread CTA computes a 128 x 64 output tile (8 warps, 4 x 2,
+//     each a 32 x 32 tile: 2 x 4 m16n8k8 accumulators), walking L in steps
+//     of 32.  At C = 2016, D = 501 that is 16 x 8 = 128 CTAs, one wave on
+//     132 SMs.
+//   * Every operand element is split once, when it is staged.  A ring of
+//     three raw stages takes G's (128 x 32) and X's (32 x 64) tiles and
+//     w's 32 entries by cp.async, up to three steps ahead of the products
+//     (16-byte copies for G when L % 4 == 0 and G is 16-byte aligned, as
+//     at L = 300; X's rows, at D = 501, are not, so X takes 4-byte copies
+//     unless D % 4 == 0 and X is aligned: an instance chosen at launch,
+//     as kernel 8 chooses its copy width).  Each step, the CTA forms
+//     w[k] * x[k, n] in float32 (rounded on its own), splits it and G's
+//     elements into (big, small) TF32 words and stores them into
+//     double-buffered split tiles; a thread reads all its raw values
+//     before it stores a word, so the loads do not wait on the stores.
+//     The fragments then load ready-made words: the inner loop does no
+//     rounding and no split.  diag(w) X never exists in device memory.
+//   * The split tiles' rows are padded (G: 36 words, X: 72) so that the
+//     A and B fragment loads of `mma_tf32.cuh`'s map hit 32 distinct
+//     banks.
+//   * One barrier a step: the products of step s, the split of step s + 1
+//     and the copies of step s + 3 use different buffers.
+//   * The output tile goes out through shared memory, each warp writing
+//     whole row segments (the fragments' own layout would write half
+//     sectors).
+//   * Ragged edges in C, L and D are zero-filled in the copies (zeros
+//     split to zeros and add exactly nothing) and masked in the store;
+//     nothing is padded on the host.  Each output is one fixed chain over
+//     L in increasing steps of 8 (small.big, big.small, big.big), so
+//     relaunches are bit-identical.
+//   * Accuracy: the split leaves out at most ~12 u |g||wx| a product (u =
+//     2^-24), each tensor-core product truncates its float32 sum (~2 u of
+//     the partial sum, three per 8 terms), and w x rounds once: within
+//     (0.75 L + 19) u (|G| |diag(w) X|), inside the stated bound of
+//     ops.float64_reference_and_bound, 1.01 (L + 20) u (|G| |diag(w) X|).
 //
 // The in-kernel-generator variant, which replaces encode_parity_prng,
 // has its own note below, above encode_prng_kernel.
@@ -40,102 +68,278 @@
 #include <stdint.h>
 
 #include "kernel_api.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kBM = 64;   // output rows per CTA (C axis)
-constexpr int kBN = 64;   // output columns per CTA (D axis)
-constexpr int kBK = 16;   // contraction step (L axis)
-constexpr int kTM = 4;    // rows per thread
-constexpr int kTN = 4;    // columns per thread
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256
-constexpr int kGLoads = kBM * kBK / kThreads;        // G elements per thread
-constexpr int kXLoads = kBK * kBN / kThreads;        // X elements per thread
+constexpr int kBM = 128;   // output rows per CTA (C axis)
+constexpr int kBN = 64;    // output columns per CTA (D axis)
+constexpr int kBK = 32;    // contraction step (L axis)
+constexpr int kWarpsM = 4, kWarpsN = 2;  // the CTA's warps over its tile
+constexpr int kStages = 3;               // raw stages in flight
+constexpr int kThreads = 32 * kWarpsM * kWarpsN;
+constexpr int kWM = kBM / kWarpsM;       // a warp's rows
+constexpr int kWN = kBN / kWarpsN;       // a warp's columns
+constexpr int kMT = kWM / 16;            // m16 tiles a warp
+constexpr int kNT = kWN / 8;             // n8 tiles a warp
+constexpr int kAStride = kBK + 4;        // split G rows: 4g + t distinct banks
+constexpr int kBStride = kBN + 8;        // split X rows: 8t + g distinct banks
+constexpr int kATile = kBM * kAStride;   // words of one split G tile
+constexpr int kBTile = kBK * kBStride;   // words of one split X tile
+constexpr int kOStride = kBN + 8;        // the output tile's rows (float2)
+constexpr int kSplitWords = 2 * kATile + 2 * kBTile;  // big and small
+constexpr int kRawFloats = kBM * kBK + kBK * kBN + kBK;  // G, X, w
+constexpr int kSmemBytes = (kStages * kRawFloats + 2 * kSplitWords) * 4;
+constexpr int kGPer = kBM * kBK / kThreads;  // elements a thread splits
+constexpr int kXPer = kBK * kBN / kThreads;
+static_assert(kWM % 16 == 0 && kWN % 8 == 0 && kBK % 8 == 0, "mma tiles");
+static_assert(kThreads % kBK == 0 && kThreads % kBN == 0,
+              "a thread splits one column of each tile");
+static_assert(kStages >= 2 && kRawFloats % 4 == 0, "ring");
+static_assert(kSmemBytes <= 232448, "shared memory of one CTA");
+static_assert(kBM * kOStride <= 2 * kSplitWords, "output tile");
+static_assert(kBM * kBN % kThreads == 0, "whole output rows a pass");
 
-// Load step k0's G tile and (w * X) tile into per-thread registers;
-// element t of thread tid is flat index tid + t * kThreads of the tile.
-// Neighbouring threads read neighbouring addresses along a row.
-__device__ __forceinline__ void load_tiles(
-    const float* __restrict__ g, const float* __restrict__ w,
-    const float* __restrict__ x, int c, int l, int d, int row0, int col0,
-    int k0, int tid, float (&g_reg)[kGLoads], float (&x_reg)[kXLoads]) {
-#pragma unroll
-  for (int t = 0; t < kGLoads; ++t) {
-    const int i = tid + t * kThreads;
-    const int gr = row0 + i / kBK, gk = k0 + i % kBK;
-    g_reg[t] = (gr < c && gk < l) ? g[static_cast<int64_t>(gr) * l + gk] : 0.f;
-  }
-#pragma unroll
-  for (int t = 0; t < kXLoads; ++t) {
-    const int i = tid + t * kThreads;
-    const int gk = k0 + i / kBN, gn = col0 + i % kBN;
-    x_reg[t] = (gk < l && gn < d)
-                   ? w[gk] * x[static_cast<int64_t>(gk) * d + gn] : 0.f;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copy kVec floats (16 or 4 bytes) from global to shared memory; with
+// `read` false nothing is read and the destination is zero-filled.
+template <int kVec>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool read) {
+  if constexpr (kVec == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)), "l"(src), "r"(read ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)), "l"(src), "r"(read ? 4 : 0)
+                 : "memory");
   }
 }
 
+template <int kN>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kN) : "memory");
+}
+
+// Copy the (rows x cols) tile at (r0, c0) of the row-major (nr, nc)
+// matrix src into dst (row stride cols), zero-filling past the edges;
+// kVec floats a copy (nc % kVec == 0 and src 16-byte aligned for 4).
+template <int kVec, int kRows, int kCols>
+__device__ __forceinline__ void copy_tile(float* dst,
+                                          const float* __restrict__ src,
+                                          int nr, int nc, int r0, int c0) {
+  constexpr int kCopies = kRows * kCols / kVec;
+  static_assert(kCopies % kThreads == 0, "whole copies a thread");
+#pragma unroll
+  for (int i = 0; i < kCopies / kThreads; ++i) {
+    const int e = static_cast<int>(threadIdx.x) + i * kThreads;
+    const int r = e / (kCols / kVec), c = (e % (kCols / kVec)) * kVec;
+    const bool in = r0 + r < nr && c0 + c < nc;
+    cp_async<kVec>(dst + r * kCols + c,
+                   in ? src + static_cast<int64_t>(r0 + r) * nc + c0 + c
+                      : src, in);
+  }
+}
+
+// Start step k0's copies into a raw stage (G tile, X tile, w) as one
+// commit group.
+template <bool kVecG, bool kVecX>
+__device__ __forceinline__ void issue_step(
+    float* raw, const float* __restrict__ g, const float* __restrict__ w,
+    const float* __restrict__ x, int c, int l, int d, int row0, int col0,
+    int k0) {
+  copy_tile<kVecG ? 4 : 1, kBM, kBK>(raw, g, c, l, row0, k0);
+  copy_tile<kVecX ? 4 : 1, kBK, kBN>(raw + kBM * kBK, x, l, d, k0, col0);
+  const int k = static_cast<int>(threadIdx.x);
+  if (k < kBK) {
+    const bool in = k0 + k < l;
+    cp_async<1>(raw + kBM * kBK + kBK * kBN + k, in ? w + k0 + k : w, in);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Split a landed raw stage into big and small TF32 words: G as it is,
+// X as w[k] * x[k, n] rounded once to float32.  Every raw value is read
+// into registers before the first split word is stored, so the loads do
+// not wait on the stores (both are shared memory, one array).
+__device__ __forceinline__ void split_step(const float* __restrict__ raw,
+                                           uint32_t* __restrict__ split) {
+  const float* rg = raw;
+  const float* rx = raw + kBM * kBK;
+  const float* rw = rx + kBK * kBN;
+  uint32_t* a_big = split;
+  uint32_t* a_small = a_big + kATile;
+  uint32_t* b_big = a_small + kATile;
+  uint32_t* b_small = b_big + kBTile;
+  const int tid = threadIdx.x;
+  float gv[kGPer], xv[kXPer], wv[kXPer];
+#pragma unroll
+  for (int i = 0; i < kGPer; ++i) gv[i] = rg[tid + i * kThreads];
+#pragma unroll
+  for (int i = 0; i < kXPer; ++i) {
+    const int f = tid + i * kThreads;
+    xv[i] = rx[f];
+    wv[i] = rw[f / kBN];
+  }
+#pragma unroll
+  for (int i = 0; i < kGPer; ++i) {
+    const int f = tid + i * kThreads;
+    const int at = (f / kBK) * kAStride + f % kBK;
+    tf32::split(gv[i], a_big[at], a_small[at]);
+  }
+#pragma unroll
+  for (int i = 0; i < kXPer; ++i) {
+    const int f = tid + i * kThreads;
+    const int bt = (f / kBN) * kBStride + f % kBN;
+    // rounded on its own: no fma of the product into the split
+    tf32::split(__fmul_rn(wv[i], xv[i]), b_big[bt], b_small[bt]);
+  }
+}
+
+// The products of one step: for each k8 sub-step below L, every warp's
+// kMT x kNT accumulators take small.big, big.small and big.big.
+__device__ __forceinline__ void mma_step(const uint32_t* split,
+                                         float (&acc)[kMT][kNT][4], int k0,
+                                         int l, int wm, int wn) {
+  const uint32_t* a_big = split;
+  const uint32_t* a_small = a_big + kATile;
+  const uint32_t* b_big = a_small + kATile;
+  const uint32_t* b_small = b_big + kBTile;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 8) {
+    if (k0 + kk >= l) break;  // past L: all zeros
+    uint32_t fa_big[kMT][4], fa_small[kMT][4], fb_big[kNT][2],
+        fb_small[kNT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const int r = wm * kWM + mt * 16 + g;
+      const int o[4] = {r * kAStride + kk + t, (r + 8) * kAStride + kk + t,
+                        r * kAStride + kk + t + 4,
+                        (r + 8) * kAStride + kk + t + 4};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        fa_big[mt][e] = a_big[o[e]];
+        fa_small[mt][e] = a_small[o[e]];
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int n = wn * kWN + nt * 8 + g;
+      const int o[2] = {(kk + t) * kBStride + n, (kk + t + 4) * kBStride + n};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        fb_big[nt][e] = b_big[o[e]];
+        fb_small[nt][e] = b_small[o[e]];
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+        tf32::mma3(acc[mt][nt], fa_big[mt], fa_small[mt], fb_big[nt],
+                   fb_small[nt]);
+  }
+}
+
+template <bool kVecG, bool kVecX>
 __global__ void __launch_bounds__(kThreads)
 encode_kernel(const float* __restrict__ g, const float* __restrict__ w,
               const float* __restrict__ x, float* __restrict__ out,
               int c, int l, int d) {
-  __shared__ float s_g[kBK][kBM + 1];  // G tile, transposed; +1 avoids bank conflicts
-  __shared__ float s_x[kBK][kBN];      // (w * X) tile
+  extern __shared__ __align__(16) float smem[];
+  float* raw = smem;  // kStages x kRawFloats
+  uint32_t* split = reinterpret_cast<uint32_t*>(smem + kStages * kRawFloats);
 
-  const int tid = threadIdx.x;
-  const int tx = tid % (kBN / kTN);
-  const int ty = tid / (kBN / kTN);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
   const int row0 = blockIdx.y * kBM;
   const int col0 = blockIdx.x * kBN;
+  const int n_steps = (l + kBK - 1) / kBK;
 
-  float acc[kTM][kTN];
+  float acc[kMT][kNT][4];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
-  float g_reg[kGLoads], x_reg[kXLoads];
-  load_tiles(g, w, x, c, l, d, row0, col0, 0, tid, g_reg, x_reg);
-  for (int k0 = 0; k0 < l; k0 += kBK) {
-#pragma unroll
-    for (int t = 0; t < kGLoads; ++t) {
-      const int i = tid + t * kThreads;
-      s_g[i % kBK][i / kBK] = g_reg[t];
-    }
-#pragma unroll
-    for (int t = 0; t < kXLoads; ++t) {
-      const int i = tid + t * kThreads;
-      s_x[i / kBN][i % kBN] = x_reg[t];
-    }
-    __syncthreads();
-    if (k0 + kBK < l)  // the next step's loads overlap this step's products
-      load_tiles(g, w, x, c, l, d, row0, col0, k0 + kBK, tid, g_reg, x_reg);
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float a[kTM], b[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) a[i] = s_g[k][ty * kTM + i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) b[j] = s_x[k][tx * kTN + j];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  // steps 0 .. kStages - 1 in flight; step 0 split
+  for (int s = 0; s < kStages; ++s) {
+    if (s < n_steps)
+      issue_step<kVecG, kVecX>(raw + s * kRawFloats, g, w, x, c, l, d, row0,
+                               col0, s * kBK);
+    else
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  cp_async_wait<kStages - 1>();
+  __syncthreads();
+  split_step(raw, split);
+
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of step s + 1
+    __syncthreads();  // every thread's; split s is in; step s - 1's
+                      // products are done with the other split buffer
+    // step s's raw stage was split: refill it with step s + kStages
+    if (s + kStages < n_steps)
+      issue_step<kVecG, kVecX>(raw + (s % kStages) * kRawFloats, g, w, x, c,
+                               l, d, row0, col0, (s + kStages) * kBK);
+    else
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    mma_step(split + (s & 1) * kSplitWords, acc, s * kBK, l, wm, wn);
+    if (s + 1 < n_steps)  // the next step, into the other split buffer
+      split_step(raw + ((s + 1) % kStages) * kRawFloats,
+                 split + ((s + 1) & 1) * kSplitWords);
   }
 
+  // the tile goes out through shared memory, a warp a row segment
+  __syncthreads();  // every warp's products are done: the tiles are free
+  float* s_out = reinterpret_cast<float*>(split);  // (kBM, kOStride)
+  const int gq = lane / 4, tq = lane % 4;
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = row0 + ty * kTM + i;
-    if (r >= c) continue;
+  for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int n = col0 + tx * kTN + j;
-      if (n < d) out[static_cast<int64_t>(r) * d + n] = acc[i][j];
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int r = wm * kWM + mt * 16 + gq;
+      const int n = wn * kWN + nt * 8 + 2 * tq;
+      *reinterpret_cast<float2*>(s_out + r * kOStride + n) =
+          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(s_out + (r + 8) * kOStride + n) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
     }
+  }
+  __syncthreads();
+#pragma unroll 4
+  for (int i = 0; i < kBM * kBN / kThreads; ++i) {
+    const int e = static_cast<int>(threadIdx.x) + i * kThreads;
+    const int r = e / kBN, n = e % kBN;
+    if (row0 + r < c && col0 + n < d)
+      out[static_cast<int64_t>(row0 + r) * d + col0 + n] =
+          s_out[r * kOStride + n];
   }
 }
 
+template <bool kVecG, bool kVecX>
+cudaError_t launch_encode(const float* g, const float* w, const float* x,
+                          float* out, int c, int l, int d, cudaStream_t s) {
+  auto kernel = encode_kernel<kVecG, kVecX>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((d + kBN - 1) / kBN, (c + kBM - 1) / kBM);
+  kernel<<<grid, kThreads, kSmemBytes, s>>>(g, w, x, out, c, l, d);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
 
 // ---------------------------------------------------------------------------
 // P = G diag(w) X with G regenerated from a threefry key inside the kernel.
@@ -387,9 +591,15 @@ extern "C" {
 int enc_encode_parity(const float* g, const float* w, const float* x,
                       float* out, int c, int l, int d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((d + kBN - 1) / kBN, (c + kBM - 1) / kBM);
-  encode_kernel<<<grid, kThreads, 0, s>>>(g, w, x, out, c, l, d);
-  return static_cast<int>(cudaGetLastError());
+  // 16-byte copies where a matrix's rows allow them
+  const bool vg = l % 4 == 0 && aligned16(g);
+  const bool vx = d % 4 == 0 && aligned16(x);
+  const cudaError_t e =
+      vg ? (vx ? launch_encode<true, true>(g, w, x, out, c, l, d, s)
+               : launch_encode<true, false>(g, w, x, out, c, l, d, s))
+         : (vx ? launch_encode<false, true>(g, w, x, out, c, l, d, s)
+               : launch_encode<false, false>(g, w, x, out, c, l, d, s));
+  return static_cast<int>(e);
 }
 
 // key (k0, k1); w (l,), x (l, d), out (c, d): float32, contiguous, on

@@ -14,56 +14,95 @@
 // at sample_frac < 1 (systematic and parity rows in one launch), the
 // tiered one for HierarchicalCFL (T tier partials from one pass over X).
 //
-// What bounds them on this card: bytes.  The work is about 4*M*D flops
-// (4*M*D*T for T tiers) over an (M, D) float32 matrix read once, about
-// one flop per byte (T at most a few), far below the H100's ~20 flops per
-// byte balance point for float32 outside the tensor cores.  At the
-// paper's shapes (M = 5632 packed or 7200 rows, plus 2016 parity rows
-// for the coded variant, D = 500) the least time is those bytes over
-// 3.35 TB/s.
+// What bounds them on this card: bytes, and the latency of one launch.
+// The work is about 4*M*D flops (4*M*D*T for T tiers) over an (M, D)
+// float32 matrix read once, about one flop per byte, far below the
+// H100's ~20 flops per byte balance point for float32 outside the tensor
+// cores (and below its float64 one).  At the paper's shapes (M = 5632
+// packed or 7200 rows, plus 2016 parity rows for the coded variant, D =
+// 500) those bytes take 3.4-5.5 us at 3.35 TB/s: short enough that a
+// second launch, CTA-wide barriers between a row's residual and its
+// accumulation, and each round trip to L2 at the end all show.
 //
 // What the design does about it:
-//   * X is read from device memory exactly once (once per chunk of tiers
-//     when T tiers' partials do not fit shared memory together).  Each
-//     CTA owns a contiguous range of kRowsPerCta rows and walks it in
-//     tiles of kTileRows rows.  A tile (contiguous in row-major X) is
-//     staged in shared memory with coalesced loads; each warp forms one
-//     row's residual with a warp-level dot over D; then every thread adds
-//     coef*x for its own columns of the tile into the CTA's D-wide
-//     partials (one per tier, in shared memory), so the tile is reused
-//     from shared memory for every tier.  The (M,) residual never exists
-//     in memory.
-//   * Hopper runs CTAs concurrently and in no order, while the TPU grid
-//     accumulated sequentially.  Instead of atomics, each CTA writes its
-//     (D,) partials to a (T, n_ctas, D) scratch and a second launch sums
-//     each tier's partials in a fixed order: for each column, warp k of
-//     the reducing CTA sums partials k, k+8, k+16, ... in turn, then the
-//     eight warp sums are added in warp order.  Both partitions depend
-//     only on the shapes, so two launches on the same inputs are
-//     bit-identical.
-//   * One device body (`accumulate_rows`) serves all three variants with
-//     the same CTA row ranges and the same reduce.  The flat gradient IS
-//     the tier kernel's one-tier instance with no mask (mask value 1.0f),
-//     and the tier kernel at T = 1 launches that same instance, so with
-//     an all-ones mask it computes coef * 1.0f, which is exact: the
-//     single-tier hierarchy is bit-equal to the flat path by
-//     construction.  The one-tier instance fixes its tier count at compile
-//     time; every other tier count is taken at run time.
+//   * One launch.  Each CTA owns a contiguous range of rows whose length
+//     is a function of the row count alone (about M / 128 rounded up to a
+//     multiple of its 8 warps; never the SM count or the occupancy), so
+//     every launch, card and instance sees one partition.  Warp w of the
+//     CTA takes rows w, w + 8, w + 16, ... of its range and streams them
+//     through its own ring of 2-4 rows in shared memory with cp.async
+//     (16-byte .cg copies when D % 4 == 0 and every base is 16-byte
+//     aligned, as at D = 500; else a 4-byte .ca instance of the same
+//     kernel), the row's y, w and tier masks riding along: the copies of
+//     its next rows are in flight while it forms one row's residual and
+//     adds coef * mask_t * x into its sums.  No barrier stands between
+//     the warps until the end.  beta is loaded once per CTA.
+//   * The sums are float64 and the result is rounded once to float32.
+//     The residual is a warp dot over D in float64 (beta held as float64
+//     in shared memory, each x converted once, four partial sums a lane,
+//     then a fixed xor-butterfly); lane l keeps the float64 sums of
+//     columns (l + 32 q) * 4 + e (float4) or l + 32 q of every tier in
+//     registers: 512 columns a CTA, so D > 512 runs ceil(D / 512) CTAs
+//     per row range (blockIdx.y), each forming the whole residual and
+//     summing its own columns; up to four tiers a launch, more in chunks
+//     of four, each a launch.  At the end the eight warps' sums are added
+//     in warp order into the CTA's float64 partial in device memory.
+//     float32 sums of M rows of magnitude |coef x| differ from the exact
+//     value, and from any other float32 order, by rounding that scales
+//     with those magnitudes, which at a cancelling column exceeds rtol
+//     1e-3 of the result: the float64 sums agree with the float64 value
+//     to the last float32 rounding, so the kernel differs from the plain
+//     float32 expression by that expression's own error.
+//   * The cross-CTA sum is fixed-order and inside the launch.  Each CTA
+//     writes its partial; one thread reads the generation word, runs
+//     __threadfence() and takes a ticket from the counter with one
+//     atomicAdd.  The last ticket holders are the reducers, one per 16
+//     column pairs (16 columns where D % 4 != 0), at most 32 and at most
+//     the CTAs; each sums 16 of them at a time over all partials in an
+//     order fixed by CTA index, never by arrival: thread group k sums
+//     partials k, k + 16, k + 32, ... in turn (eight loads in flight),
+//     then the 16 group sums are added in group order, and the total is
+//     rounded to float32.  The last arrival knows every partial is
+//     written: it resets the counter to 0 for the next launch and
+//     advances the generation; the other reducers wait on the generation
+//     (an acquire load).  They are resident (they hold a ticket) and the
+//     CTAs still to take one need no waiter to finish, so the launch
+//     finishes as long as those CTAs find a free slot.  The wrapper caps
+//     the reducers at a quarter of the CTAs of the instance that the
+//     device holds at once (occupancy times SMs, at least one): the
+//     waiters of up to four such launches in flight together, on any
+//     device, leave a slot free.  On an H100 (132 SMs, at least one CTA
+//     an SM) the cap stays at 32; on a slice of 32 SMs holding one CTA
+//     an SM it is 8.
+//     The order of the sums depends on the partials' count alone, so the
+//     cap changes no bit.  A wait that never ends (more launches in
+//     flight than that, or a fault) ends the launch with an error, not a
+//     hang.  Atomics touch the counter and the generation only, never a
+//     value.  The wrapper keeps one (counter, generation)
+//     pair per (device, stream), zeroed once: two calls in flight on two
+//     streams never share one, and calls on one stream run in order.
+//   * One device body (`stream_rows`) serves all variants with the same
+//     row ranges and the same reduce.  The flat gradient IS the tier
+//     kernel's one-tier instance with no mask (mask value 1.0f), and the
+//     tier kernel at T = 1 launches that same instance with an all-ones
+//     mask, so it computes coef * 1.0, which is exact: the single-tier
+//     hierarchy is bit-equal to the flat path by construction.  The
+//     least-squares gradient is the same instance with w == nullptr
+//     (w = 1), bit-equal to the flat one at w = None.  The instance (one
+//     tier or up to four) never changes a tier's arithmetic.
 //   * The coded variant launches CTAs over the concatenated row range:
-//     the first ceil(M / kRowsPerCta) own systematic rows, the rest
-//     parity rows, so no CTA straddles the two blocks; both blocks'
-//     partials are summed by the one fixed-order reduce.
-//   * Many small CTAs (16 rows each, several resident per SM) keep enough
-//     loads in flight to cover memory latency without a software
-//     pipeline, and the reduce spreads each column over eight warps so no
-//     thread walks a long chain of dependent loads.
-//   * Ragged edges (M not a multiple of the tile) are masked in the
-//     kernel; nothing is padded on the host.  w == nullptr means w = 1.
-//
-// A simple kernel that is right comes first: no cp.async/TMA pipeline.
+//     the first n_ctas(M) own systematic rows, the rest parity rows, so
+//     no CTA straddles the two blocks; both blocks' partials go through
+//     the one fixed-order reduce.
+//   * Ragged edges (M not a multiple of the rows, D of 4 or 512) are
+//     masked in the kernel; nothing is padded on the host.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include "kernel_api.cuh"
 
@@ -71,185 +110,520 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileRows = kWarps;   // one row per warp per tile
-constexpr int kRowsPerCta = 16;     // two tiles per CTA
-constexpr int kReduceCols = 32;     // columns per reducing CTA, one per lane
-constexpr int kReduceWarps = 8;     // partial slices per reducing CTA
-constexpr int kSmemBytes = 232448;  // the most one CTA may use (227 KB)
+constexpr int kMaxStages = 4;         // depth of each warp's ring
+constexpr int kTargetCtas = 128;      // the row partition aims at this many
+constexpr int kLaneCols = 16;         // columns a lane sums, per tier
+constexpr int kChunk = 32 * kLaneCols;  // columns a CTA sums (blockIdx.y)
+constexpr int kMaxTiers = 4;          // tiers a launch sums
+constexpr int kRedItems = 16;         // items a reducer pass takes
+constexpr int kRedSubsets = kThreads / kRedItems;  // partials' subsets
+constexpr int kRedBatch = 8;          // partials a reducer thread loads at once
+constexpr int kMaxReducers = 32;      // CTAs that sum the partials, at most
+// the dynamic shared memory one CTA may use (227 KB less the static)
+constexpr int kDynFloats = (232448 - 64) / 4;
+static_assert(kMaxStages >= 2 && kMaxStages <= 8, "ring depth");
+static_assert(kThreads % kRedItems == 0, "reducer threads");
 
-int ctas_for(int rows) { return (rows + kRowsPerCta - 1) / kRowsPerCta; }
+// -- host: the partition and the shared-memory plan ----------------------
 
-// Dynamic shared memory of one CTA with `nt` tier partials of width d:
-// beta (d), the partials (nt*d), the tile (kTileRows*d), the row
-// coefficients (nt*kTileRows).
-size_t smem_bytes(int d, int nt) {
-  return (static_cast<size_t>(1 + nt + kTileRows) * d +
-          static_cast<size_t>(nt) * kTileRows) * sizeof(float);
+__host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
+
+// Rows a CTA owns: ~rows / kTargetCtas, a multiple of the warps (warp w
+// takes rows w, w + kWarps, ...), a function of `rows` alone.
+int rows_per_cta(int rows) {
+  int r = (rows + kTargetCtas - 1) / kTargetCtas;
+  r = (r + kWarps - 1) / kWarps * kWarps;
+  return r < kWarps ? kWarps : r;
 }
 
-// Adds rows [row0, row_end) of (x, y, w) into `nt` partials, the t-th
-// scaled by row mask masks[t * mask_stride + row] (masks == nullptr: one
-// partial, mask 1.0f), and writes partial t to dst + t * dst_stride.
-// kNt > 0 fixes the tier count at compile time (nt == kNt), so the one-
-// tier loops unroll; kNt == 0 takes nt at run time.  The
-// arithmetic of each tier is the same in every instance.
-template <int kNt>
-__device__ __forceinline__ void accumulate_rows(
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ w, const float* __restrict__ masks,
-    int64_t mask_stride, int nt, const float* __restrict__ beta,
-    int64_t row0, int64_t row_end, int d, float* __restrict__ dst,
-    int64_t dst_stride) {
-  if (kNt > 0) nt = kNt;
-  extern __shared__ float smem[];
-  float* s_beta = smem;                       // (d,)
-  float* s_acc = s_beta + d;                  // (nt, d) this CTA's partials
-  float* s_tile = s_acc + nt * d;             // (kTileRows, d)
-  float* s_coef = s_tile + kTileRows * d;     // (nt, kTileRows)
+// CTAs over `rows` rows (one for an empty block, which adds a zero
+// partial).
+int ctas_for(int rows) {
+  const int rpc = rows_per_cta(rows);
+  const int n = (rows + rpc - 1) / rpc;
+  return n < 1 ? 1 : n;
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  // each thread owns columns tid, tid + kThreads, ... of every partial
-  for (int c = tid; c < d; c += kThreads) {
-    s_beta[c] = beta[c];
-    for (int t = 0; t < nt; ++t) s_acc[t * d + c] = 0.f;
+int chunks_for(int d) { return (d + kChunk - 1) / kChunk; }
+
+// Floats of one ring stage: a row of X, then its y, w and `nm` tier
+// masks.
+__host__ __device__ inline int stage_floats(int d, int nm) {
+  return pad4(d) + pad4(2 + nm);
+}
+
+// Dynamic shared memory of one CTA, in floats: beta (float64) and each
+// warp's ring (which the warps' float64 sums, kWarps x min(d, kChunk),
+// reuse at the end).
+int smem_floats(int d, int nm, int stages) {
+  const int n = 2 * pad4(d) + kWarps * stages * stage_floats(d, nm);
+  return n < kThreads * 4 ? kThreads * 4 : n;  // the reduce's scratch
+}
+
+// Ring depth: as deep as shared memory allows, at most kMaxStages and the
+// rows of a warp, at least 2.  0: not even 2 fit.
+int ring_stages(int d, int nm, int rpc) {
+  int s = rpc / kWarps;
+  s = s > kMaxStages ? kMaxStages : s < 2 ? 2 : s;
+  while (s >= 2 && smem_floats(d, nm, s) > kDynFloats) --s;
+  return s >= 2 ? s : 0;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// -- device helpers --------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <int kVec>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  if constexpr (kVec == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_addr(dst)), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_addr(dst)), "l"(src) : "memory");
   }
+}
 
-  for (int64_t t0 = row0; t0 < row_end; t0 += kTileRows) {
-    const int rows = static_cast<int>(min(static_cast<int64_t>(kTileRows),
-                                          row_end - t0));
-    __syncthreads();  // the previous tile is consumed; s_beta is ready
-    const float* src = x + t0 * d;
-    const int n = rows * d;
-#pragma unroll 4
-    for (int i = tid; i < n; i += kThreads) s_tile[i] = src[i];
-    __syncthreads();
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-    if (warp < rows) {
-      const float* xr = s_tile + warp * d;
-      float dot = 0.f;
-      for (int c = lane; c < d; c += 32) dot = fmaf(xr[c], s_beta[c], dot);
+template <int kN>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kN) : "memory");
+}
+
+// Wait until at most `n` (uniform, < kMaxStages - 1) of this thread's
+// newest commit groups are pending.
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 6: cp_async_wait<6>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 1: cp_async_wait<1>(); break;
+    default: cp_async_wait<0>(); break;
+  }
+}
+
+template <int kVec>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[kVec]) {
+  if constexpr (kVec == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// kW doubles (16 or 8 bytes) that bypass L1: the partials are written by
+// other CTAs of the same launch.
+template <int kW>
+__device__ __forceinline__ void load_cg(const double* p, double (&v)[kW]) {
+  if constexpr (kW == 2) {
+    const double2 q = __ldcg(reinterpret_cast<const double2*>(p));
+    v[0] = q.x; v[1] = q.y;
+  } else {
+    v[0] = __ldcg(p);
+  }
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The rows [row0, row_end) of (x, y, w, masks) one CTA streams.
+struct Rows {
+  const float* __restrict__ x;
+  const float* __restrict__ y;
+  const float* __restrict__ w;      // nullptr: w = 1
+  const float* __restrict__ masks;  // (nm, mask_stride) or nullptr
+  int64_t mask_stride;
+  int nm;                           // masks copied per row (0 or nt)
+  int64_t row0, row_end;
+  int d;
+};
+
+// Start copying row `r` into ring stage `stage` (the calling warp's
+// lanes): X's row, then y, w and the masks.  One commit group; empty
+// when `r` is past the rows.
+template <int kVec>
+__device__ __forceinline__ void issue_row(float* stage, int64_t r,
+                                          const Rows& rs, int lane) {
+  if (r < rs.row_end) {
+    const float* src = rs.x + r * rs.d;
+    for (int c = lane * kVec; c < rs.d; c += 32 * kVec)
+      cp_async<kVec>(stage + c, src + c);
+    float* meta = stage + pad4(rs.d);
+    if (lane == 0) cp_async<1>(meta, rs.y + r);
+    if (lane == 1 && rs.w != nullptr) cp_async<1>(meta + 1, rs.w + r);
+    for (int t = lane; t < rs.nm; t += 32)
+      cp_async<1>(meta + 2 + t, rs.masks + t * rs.mask_stride + r);
+  }
+  cp_async_commit();
+}
+
+// Streams the CTA's rows and writes its float64 partials of `nt` tiers
+// over columns [col0, col0 + kChunk), col0 = blockIdx.y * kChunk, to
+// dst + t * dst_stride.  Warp w takes rows row0 + w, row0 + w + kWarps,
+// ... through its own ring of `stages` rows in shared memory: the copies
+// of its next rows are in flight while it forms a row's residual (a warp
+// dot over all of D in float64: beta is float64 in shared memory, each x
+// is converted once; four partial sums a lane, then a fixed
+// xor-butterfly) and adds coef * mask_t * x into its own float64 sums,
+// with no barrier between warps.  Lane l sums columns col0 + (l + 32 q)
+// * kVec + e of each tier in registers (columns past D add exact zeros).
+// At the end the warps' sums are added in warp order into the CTA's
+// partial.
+template <int kNt, int kVec>
+__device__ __forceinline__ void stream_rows(const Rows& rs, int nt,
+                                            const float* __restrict__ beta,
+                                            int stages, double* dst,
+                                            int64_t dst_stride) {
+  constexpr int kQ = kLaneCols / kVec;  // register chunks a lane
+  const int d = rs.d;
+  const int col0 = blockIdx.y * kChunk;
+  const int sf = stage_floats(d, rs.nm);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  extern __shared__ __align__(16) float smem[];
+  double* s_beta = reinterpret_cast<double*>(smem);     // (d,)
+  float* ring = smem + 2 * pad4(d) + warp * stages * sf;  // this warp's
+
+  const int64_t first = rs.row0 + warp;
+  const int n_rows = rs.row_end > first ? static_cast<int>(
+      (rs.row_end - first + kWarps - 1) / kWarps) : 0;
+  for (int j = 0; j < stages - 1; ++j)
+    issue_row<kVec>(ring + j * sf, first + static_cast<int64_t>(j) * kWarps,
+                    rs, lane);
+
+  double acc[kNt][kLaneCols];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (lane < nt) {
-        const int64_t r = t0 + warp;
-        const float coef = (dot - y[r]) * ((w != nullptr) ? w[r] : 1.f);
-        // lanes split the tiers; each writes coef * mask (exact at 1.0f)
-        for (int t = lane; t < nt; t += 32) {
-          const float mk =
-              (masks != nullptr) ? masks[t * mask_stride + r] : 1.f;
-          s_coef[t * kTileRows + warp] = coef * mk;
+  for (int t = 0; t < kNt; ++t)
+#pragma unroll
+    for (int q = 0; q < kLaneCols; ++q) acc[t][q] = 0.0;
+  for (int i = tid; i < d; i += kThreads)
+    s_beta[i] = static_cast<double>(beta[i]);
+  __syncthreads();
+
+  for (int j = 0; j < n_rows; ++j) {
+    cp_async_wait_pending(stages - 2);  // this lane's copies of row j
+    __syncwarp();  // every lane's; row j - 1 is consumed
+    issue_row<kVec>(ring + ((j + stages - 1) % stages) * sf,
+                    first + static_cast<int64_t>(j + stages - 1) * kWarps,
+                    rs, lane);
+    const float* row = ring + (j % stages) * sf;
+    const float* meta = row + pad4(d);
+    // the residual: this CTA's columns first (kept as float64 for the
+    // sums), then the other chunks' in order; four partial sums a lane
+    double part[4] = {0.0, 0.0, 0.0, 0.0};
+    double xd[kLaneCols];
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const int c = col0 + (lane + 32 * q) * kVec;
+      float xv[kVec];
+      if (c < d) load_vec<kVec>(row + c, xv);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        xd[q * kVec + e] = c < d ? static_cast<double>(xv[e]) : 0.0;
+        if (c < d) part[q % 4] = fma(xd[q * kVec + e], s_beta[c + e],
+                                     part[q % 4]);
+      }
+    }
+    for (int ch = 0; ch < static_cast<int>(gridDim.y); ++ch) {
+      if (ch == static_cast<int>(blockIdx.y)) continue;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const int c = ch * kChunk + (lane + 32 * q) * kVec;
+        if (c < d) {
+          float xv[kVec];
+          load_vec<kVec>(row + c, xv);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e)
+            part[q % 4] = fma(static_cast<double>(xv[e]), s_beta[c + e],
+                              part[q % 4]);
         }
       }
     }
-    __syncthreads();
+    double dot = (part[0] + part[1]) + (part[2] + part[3]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    const double cf = (dot - static_cast<double>(meta[0])) *
+                      (rs.w != nullptr ? static_cast<double>(meta[1]) : 1.0);
+    double k[kNt];  // coef * mask, exact at mask 1.0f
+#pragma unroll
+    for (int t = 0; t < kNt; ++t)
+      k[t] = rs.nm > 0 && t < nt ? cf * static_cast<double>(meta[2 + t])
+                                 : cf;
+#pragma unroll
+    for (int t = 0; t < kNt; ++t)
+#pragma unroll
+      for (int q = 0; q < kLaneCols; ++q)
+        acc[t][q] = fma(k[t], xd[q], acc[t][q]);
+  }
+  cp_async_wait<0>();
 
-    // the tile is re-read from shared memory for each tier
-    for (int c = tid; c < d; c += kThreads) {
-      for (int t = 0; t < nt; ++t) {
-        const float* coef = s_coef + t * kTileRows;
-        float acc = s_acc[t * d + c];
-        for (int r = 0; r < rows; ++r)
-          acc = fmaf(coef[r], s_tile[r * d + c], acc);
-        s_acc[t * d + c] = acc;
+  // the CTA's partial, tier by tier: the warps' sums added in warp order
+  const int len = min(kChunk, d - col0);
+  double* s_part = reinterpret_cast<double*>(smem + 2 * pad4(d));  // rings
+#pragma unroll
+  for (int t = 0; t < kNt; ++t) {
+    if (t >= nt) break;
+    __syncthreads();  // the rings, or the last tier's sums, are consumed
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const int cl = (lane + 32 * q) * kVec;
+      if (col0 + cl < d) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          s_part[warp * len + cl + e] = acc[t][q * kVec + e];
       }
     }
+    __syncthreads();
+    for (int cl = tid; cl < len; cl += kThreads) {
+      double v = s_part[cl];
+      for (int g = 1; g < kWarps; ++g) v += s_part[g * len + cl];
+      dst[t * dst_stride + col0 + cl] = v;
+    }
   }
-  for (int c = tid; c < d; c += kThreads)
-    for (int t = 0; t < nt; ++t) dst[t * dst_stride + c] = s_acc[t * d + c];
 }
 
-// Flat and tiered: CTA b owns rows [b * kRowsPerCta, ...) of x and writes
-// tier t's partial to partials[(t * n_ctas + b) * d].
-template <int kNt>
-__global__ void __launch_bounds__(kThreads)
-tier_partial_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                    const float* __restrict__ w,
-                    const float* __restrict__ masks, int nt,
-                    const float* __restrict__ beta,
-                    float* __restrict__ partials, int m, int d) {
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRowsPerCta;
-  const int64_t row_end = min(static_cast<int64_t>(m), row0 + kRowsPerCta);
-  accumulate_rows<kNt>(x, y, w, masks, m, nt, beta, row0, row_end, d,
-                       partials + static_cast<int64_t>(blockIdx.x) * d,
-                       static_cast<int64_t>(gridDim.x) * d);
+// After every CTA of the launch (n_tickets of them) has written its
+// float64 partials: the CTAs of blockIdx.x = b at partials + (t * n_parts
+// + b) * d.  The last ticket holders (one per kRedItems items of kW
+// doubles, at most kMaxReducers and max_red, the host's cap >= 1) sum
+// them into out (nt, d) in a fixed order and round once to float32:
+// out[t, c] = sum over k = 0 .. kRedSubsets - 1 in order of (sum over
+// b = k, k + kRedSubsets, ... in order of partial b), an order that
+// depends on n_parts alone.  counter[0] counts the tickets and
+// counter[1] is a generation: the last arrival resets counter[0] to 0
+// for the next launch and advances counter[1], which the other reducers
+// wait on.
+template <int kW>
+__device__ __forceinline__ void reduce_partials(
+    const double* partials, float* __restrict__ out, unsigned* counter,
+    int n_parts, int n_tickets, int nt, int d, int max_red) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ unsigned s_ticket, s_gen;
+  __syncthreads();  // the CTA's partial is written
+  if (threadIdx.x == 0) {
+    s_gen = load_acquire(counter + 1);  // before the ticket: not yet advanced
+    __threadfence();  // (cumulative) the partial is visible before the ticket
+    s_ticket = atomicAdd(counter, 1u);
+  }
+  __syncthreads();
+  const int per_row = d / kW;
+  const int items = nt * per_row;
+  const unsigned n = static_cast<unsigned>(n_tickets);
+  unsigned n_red = static_cast<unsigned>(
+      (items + kRedItems - 1) / kRedItems);
+  if (n_red > kMaxReducers) n_red = kMaxReducers;
+  if (n_red > static_cast<unsigned>(max_red)) n_red = max_red;
+  if (n_red > n) n_red = n;
+  const unsigned ticket = s_ticket;
+  if (ticket + n_red < n) return;  // not a reducer
+  if (threadIdx.x == 0) {
+    if (ticket == n - 1) {  // the last arrival: every ticket is taken
+      __threadfence();
+      atomicExch(counter, 0u);
+      atomicAdd(counter + 1, 1u);  // releases the other reducers
+    } else {
+      // the other CTAs finish within microseconds; a generation that
+      // never advances ends the launch with an error, not a hang
+      for (unsigned spins = 0; load_acquire(counter + 1) == s_gen; ++spins) {
+        if (spins == (1u << 26)) __trap();
+        __nanosleep(32);
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();  // every partial is written
+
+  // thread (sub, it): item it of each pass, partials sub, sub +
+  // kRedSubsets, ..., kRedBatch loads in flight
+  const int it = threadIdx.x % kRedItems, sub = threadIdx.x / kRedItems;
+  const int per_slice = (items + static_cast<int>(n_red) - 1) /
+                        static_cast<int>(n_red);
+  const int i0 = static_cast<int>(ticket + n_red - n) * per_slice;
+  const int i1 = min(items, i0 + per_slice);
+  double* s_red = reinterpret_cast<double*>(smem);  // (subsets, items, kW)
+  for (int base = i0; base < i1; base += kRedItems) {
+    const int i = base + it;
+    const int t = i / per_row, c = (i - t * per_row) * kW;
+    double s[kW];
+#pragma unroll
+    for (int e = 0; e < kW; ++e) s[e] = 0.0;
+    if (i < i1) {
+      const double* p = partials + static_cast<int64_t>(t) * n_parts * d + c;
+      for (int b0 = sub; b0 < n_parts; b0 += kRedBatch * kRedSubsets) {
+        double v[kRedBatch][kW];
+#pragma unroll
+        for (int j = 0; j < kRedBatch; ++j) {
+          const int b = b0 + j * kRedSubsets;
+          if (b < n_parts) {
+            load_cg<kW>(p + static_cast<int64_t>(b) * d, v[j]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < kW; ++e) v[j][e] = 0.0;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kRedBatch; ++j)
+#pragma unroll
+          for (int e = 0; e < kW; ++e) s[e] += v[j][e];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kW; ++e) s_red[(sub * kRedItems + it) * kW + e] = s[e];
+    __syncthreads();
+    if (sub == 0 && i < i1) {
+      for (int k = 1; k < kRedSubsets; ++k)
+#pragma unroll
+        for (int e = 0; e < kW; ++e) s[e] += s_red[(k * kRedItems + it) * kW + e];
+#pragma unroll
+      for (int e = 0; e < kW; ++e)
+        out[static_cast<int64_t>(t) * d + c + e] = static_cast<float>(s[e]);
+    }
+    __syncthreads();
+  }
 }
 
-// Coded: CTAs [0, n_sys) own systematic rows, the rest parity rows; CTA b
-// writes its partial to partials[b * d].
+// Flat and tiered (nt <= kNt tiers): CTA (b, chunk) owns rows [b * rpc,
+// ...) of x and columns [chunk * kChunk, ...) of the partials, and writes
+// tier t's to partials[(t * n_ctas + b) * d]; the reducers sum them into
+// out (nt, d).
+template <int kNt, int kVec>
 __global__ void __launch_bounds__(kThreads)
-coded_partial_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                     const float* __restrict__ w, int m,
-                     const float* __restrict__ xp,
-                     const float* __restrict__ yp,
-                     const float* __restrict__ wp, int c,
-                     const float* __restrict__ beta,
-                     float* __restrict__ partials, int d) {
-  const int n_sys = (m + kRowsPerCta - 1) / kRowsPerCta;
+tier_round_grad_kernel(const float* __restrict__ x,
+                       const float* __restrict__ y,
+                       const float* __restrict__ w,
+                       const float* __restrict__ masks, int nt,
+                       const float* __restrict__ beta, double* partials,
+                       float* __restrict__ out, unsigned* counter, int m,
+                       int d, int rpc, int stages, int max_red) {
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rpc;
+  const Rows rs{x, y, w, masks, m, masks != nullptr ? nt : 0, row0,
+                min(static_cast<int64_t>(m), row0 + rpc), d};
+  stream_rows<kNt, kVec>(rs, nt, beta, stages,
+                         partials + static_cast<int64_t>(blockIdx.x) * d,
+                         static_cast<int64_t>(gridDim.x) * d);
+  reduce_partials<kVec == 4 ? 2 : 1>(partials, out, counter, gridDim.x,
+                                     gridDim.x * gridDim.y, nt, d, max_red);
+}
+
+// Coded: CTAs [0, n_sys) own systematic rows (rpc_sys each), the rest
+// parity rows (rpc_par each); CTA b writes its partial to partials[b * d].
+template <int kVec>
+__global__ void __launch_bounds__(kThreads)
+coded_round_grad_kernel(const float* __restrict__ x,
+                        const float* __restrict__ y,
+                        const float* __restrict__ w, int m,
+                        const float* __restrict__ xp,
+                        const float* __restrict__ yp,
+                        const float* __restrict__ wp, int c,
+                        const float* __restrict__ beta, double* partials,
+                        float* __restrict__ out, unsigned* counter, int d,
+                        int rpc_sys, int rpc_par, int n_sys, int stages,
+                        int max_red) {
   const int b = blockIdx.x;
   const bool sys = b < n_sys;
-  const int rows = sys ? m : c;
-  const int64_t row0 = static_cast<int64_t>(sys ? b : b - n_sys) * kRowsPerCta;
-  const int64_t row_end = min(static_cast<int64_t>(rows), row0 + kRowsPerCta);
-  accumulate_rows<1>(sys ? x : xp, sys ? y : yp, sys ? w : wp, nullptr, 0,
-                     1, beta, row0, row_end, d,
-                     partials + static_cast<int64_t>(b) * d, 0);
+  const int rpc = sys ? rpc_sys : rpc_par;
+  const int64_t row0 = static_cast<int64_t>(sys ? b : b - n_sys) * rpc;
+  const Rows rs{sys ? x : xp, sys ? y : yp, sys ? w : wp, nullptr, 0, 0,
+                row0, min(static_cast<int64_t>(sys ? m : c), row0 + rpc), d};
+  stream_rows<1, kVec>(rs, 1, beta, stages,
+                       partials + static_cast<int64_t>(b) * d, 0);
+  reduce_partials<kVec == 4 ? 2 : 1>(partials, out, counter, gridDim.x,
+                                     gridDim.x * gridDim.y, 1, d, max_red);
 }
 
-// out[t, c] = sum over k = 0..7 in order of (sum over p = k, k+8, ... in
-// order of partials[t, p, c]): a fixed order that depends only on n_parts.
-__global__ void __launch_bounds__(kReduceCols * kReduceWarps)
-reduce_kernel(const float* __restrict__ partials, float* __restrict__ out,
-              int n_parts, int d) {
-  __shared__ float s_sum[kReduceWarps][kReduceCols];
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int c = blockIdx.x * kReduceCols + lane;
-  partials += static_cast<int64_t>(blockIdx.y) * n_parts * d;
-  out += static_cast<int64_t>(blockIdx.y) * d;
-  float s = 0.f;
-  if (c < d) {
-#pragma unroll 4
-    for (int p = warp; p < n_parts; p += kReduceWarps)
-      s += partials[static_cast<int64_t>(p) * d + c];
-  }
-  s_sum[warp][lane] = s;
-  __syncthreads();
-  if (warp == 0 && c < d) {
-    float t = 0.f;
-#pragma unroll
-    for (int k = 0; k < kReduceWarps; ++k) t += s_sum[k][lane];
-    out[c] = t;
-  }
-}
-
+// Sets the kernel's dynamic shared memory to `floats` floats and returns
+// in *max_red the reducers a launch of it may have: a quarter of the CTAs
+// of it that the current device holds at once, at least one (see the
+// note at the top).  The count is cached per instance, device and size.
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+cudaError_t prepare(Kernel kernel, int floats, int* max_red) {
+  static std::mutex mu;
+  static std::map<std::pair<int, int>, int> caps;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const int bytes = floats * static_cast<int>(sizeof(float));
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_pair(dev, floats);
+  const auto it = caps.find(key);
+  if (it != caps.end()) {
+    *max_red = it->second;
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kThreads, bytes);
+  if (e != cudaSuccess) return e;
+  const int cap = sms * per_sm / 4;
+  *max_red = caps[key] = cap < 1 ? 1 : cap;
+  return cudaSuccess;
 }
 
-template <int kNt>
+// kNt tiers a launch: 1 (kernel 1's instance) or up to kMaxTiers (the
+// run-time tier count); the instance does not change a tier's arithmetic.
+template <int kNt, int kVec>
 cudaError_t launch_tiers(const float* x, const float* y, const float* w,
                          const float* masks, int nt, const float* beta,
-                         float* partials, int m, int d, int n_ctas,
-                         cudaStream_t s) {
-  const size_t smem = smem_bytes(d, nt);
-  cudaError_t e = allow_smem(tier_partial_kernel<kNt>, smem);
+                         double* partials, float* out, unsigned* counter,
+                         int m, int d, cudaStream_t s) {
+  const int rpc = rows_per_cta(m);
+  const int nm = masks != nullptr ? nt : 0;
+  const int stages = ring_stages(d, nm, rpc);
+  if (stages == 0) return cudaErrorInvalidValue;
+  const int floats = smem_floats(d, nm, stages);
+  auto kernel = tier_round_grad_kernel<kNt, kVec>;
+  int max_red = 1;
+  const cudaError_t e = prepare(kernel, floats, &max_red);
   if (e != cudaSuccess) return e;
-  tier_partial_kernel<kNt><<<n_ctas, kThreads, smem, s>>>(
-      x, y, w, masks, nt, beta, partials, m, d);
+  kernel<<<dim3(ctas_for(m), chunks_for(d)), kThreads,
+           floats * sizeof(float), s>>>(x, y, w, masks, nt, beta, partials,
+                                        out, counter, m, d, rpc, stages,
+                                        max_red);
   return cudaGetLastError();
 }
 
-cudaError_t reduce(const float* partials, float* out, int n_parts, int d,
-                   int nt, cudaStream_t s) {
-  dim3 grid((d + kReduceCols - 1) / kReduceCols, nt);
-  reduce_kernel<<<grid, kReduceCols * kReduceWarps, 0, s>>>(partials, out,
-                                                             n_parts, d);
+template <int kVec>
+cudaError_t launch_coded(const float* x, const float* y, const float* w,
+                         int m, const float* xp, const float* yp,
+                         const float* wp, int c, const float* beta,
+                         double* partials, float* out, unsigned* counter,
+                         int d, cudaStream_t s) {
+  const int rpc_sys = rows_per_cta(m), rpc_par = rows_per_cta(c);
+  const int n_sys = ctas_for(m);
+  const int stages = ring_stages(d, 0, rpc_sys > rpc_par ? rpc_sys : rpc_par);
+  if (stages == 0) return cudaErrorInvalidValue;
+  const int floats = smem_floats(d, 0, stages);
+  auto kernel = coded_round_grad_kernel<kVec>;
+  int max_red = 1;
+  const cudaError_t e = prepare(kernel, floats, &max_red);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(n_sys + ctas_for(c), chunks_for(d)), kThreads,
+           floats * sizeof(float), s>>>(x, y, w, m, xp, yp, wp, c, beta,
+                                        partials, out, counter, d, rpc_sys,
+                                        rpc_par, n_sys, stages, max_red);
   return cudaGetLastError();
 }
 
@@ -257,57 +631,59 @@ cudaError_t reduce(const float* partials, float* out, int n_parts, int d,
 
 extern "C" {
 
-// Rows of the (n_ctas, D) partials scratch of the flat and tiered
+// Rows of the (n_ctas, D) float64 partials scratch of the flat and tiered
 // variants (per tier); the coded variant needs rg_num_ctas(m) +
 // rg_num_ctas(c).
 int rg_num_ctas(int m) { return ctas_for(m); }
 
-// Largest D whose one-partial shared-memory footprint fits one CTA.
+// Largest D the kernels take at any tier count: a two-row ring a warp in
+// shared memory, each row carrying kMaxTiers masks.
 int rg_max_d() {
-  return (kSmemBytes / static_cast<int>(sizeof(float)) - kTileRows) /
-         (2 + kTileRows);
-}
-
-// Most tier partials of width d one CTA holds at once; more tiers run in
-// chunks of this many, each chunk a pass over X.
-int rg_max_tiers(int d) {
-  return (kSmemBytes / static_cast<int>(sizeof(float)) -
-          (1 + kTileRows) * d) / (d + kTileRows);
+  int d = 4 * kChunk * 2;
+  while (d > 0 && smem_floats(d, kMaxTiers, 2) > kDynFloats) --d;
+  return d;
 }
 
 // x (m, d), y (m,), w (m,) or nullptr, masks (nt, m) or nullptr (one
-// partial, mask 1), beta (d,), partials (nt, rg_num_ctas(m), d), out
-// (nt, d): all float32, contiguous, on the device of `stream`.
+// partial, mask 1), beta (d,), out (nt, d): float32; partials (nt,
+// rg_num_ctas(m), d): float64 scratch; counter: two zeroed uint32 that no
+// launch on another stream uses at the same time (each launch leaves the
+// first at 0); all contiguous, on the device of `stream`.
 int rg_tier_round_gradient(const float* x, const float* y, const float* w,
                            const float* masks, int nt, const float* beta,
-                           float* partials, float* out, int m, int d,
-                           void* stream) {
+                           double* partials, float* out, unsigned* counter,
+                           int m, int d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_ctas = ctas_for(m);
-  if (n_ctas > 0) {
-    const int chunk = (masks == nullptr) ? 1 : rg_max_tiers(d);
-    if (chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
-    for (int t0 = 0; t0 < nt; t0 += chunk) {
-      const int k = nt - t0 < chunk ? nt - t0 : chunk;
-      const float* mk =
-          masks == nullptr ? nullptr : masks + static_cast<int64_t>(t0) * m;
-      float* dst = partials + static_cast<int64_t>(t0) * n_ctas * d;
-      // one tier: kernel 1's instance; more: the run-time tier count
-      const cudaError_t e =
-          k == 1 ? launch_tiers<1>(x, y, w, mk, k, beta, dst, m, d, n_ctas, s)
-                 : launch_tiers<0>(x, y, w, mk, k, beta, dst, m, d, n_ctas, s);
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
+  const bool vec = d % 4 == 0 && aligned16(x) && aligned16(beta);
+  for (int t0 = 0; t0 < nt; t0 += kMaxTiers) {
+    const int k = nt - t0 < kMaxTiers ? nt - t0 : kMaxTiers;
+    const float* mk =
+        masks == nullptr ? nullptr : masks + static_cast<int64_t>(t0) * m;
+    double* part = partials + static_cast<int64_t>(t0) * n_ctas * d;
+    float* o = out + static_cast<int64_t>(t0) * d;
+    // one tier: kernel 1's instance; more: the run-time tier count
+    const cudaError_t e =
+        k == 1 ? (vec ? launch_tiers<1, 4>(x, y, w, mk, k, beta, part, o,
+                                           counter, m, d, s)
+                      : launch_tiers<1, 1>(x, y, w, mk, k, beta, part, o,
+                                           counter, m, d, s))
+               : (vec ? launch_tiers<kMaxTiers, 4>(x, y, w, mk, k, beta,
+                                                   part, o, counter, m, d, s)
+                      : launch_tiers<kMaxTiers, 1>(x, y, w, mk, k, beta,
+                                                   part, o, counter, m, d,
+                                                   s));
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  return static_cast<int>(reduce(partials, out, n_ctas, d, nt, s));
+  return 0;
 }
 
 // The flat masked round gradient: the tier variant at one tier, no mask.
 int rg_masked_round_gradient(const float* x, const float* y, const float* w,
-                             const float* beta, float* partials, float* out,
-                             int m, int d, void* stream) {
-  return rg_tier_round_gradient(x, y, w, nullptr, 1, beta, partials, out, m,
-                                d, stream);
+                             const float* beta, double* partials, float* out,
+                             unsigned* counter, int m, int d, void* stream) {
+  return rg_tier_round_gradient(x, y, w, nullptr, 1, beta, partials, out,
+                                counter, m, d, stream);
 }
 
 // Kernel 6, the least-squares gradient A^T (A beta - y) of the Pallas TPU
@@ -317,33 +693,31 @@ int rg_masked_round_gradient(const float* x, const float* y, const float* w,
 // same one-tier instance, row ranges and fixed-order reduce, so it is
 // bit-equal to rg_masked_round_gradient with w == nullptr.  It is bound
 // by bytes like the flat variant (one pass over A).  a (m, d), y (m,),
-// beta (d,), partials (rg_num_ctas(m), d), out (d,).
+// beta (d,), partials (rg_num_ctas(m), d), out (d,), counter as above.
 int rg_lsq_gradient(const float* a, const float* y, const float* beta,
-                    float* partials, float* out, int m, int d,
-                    void* stream) {
+                    double* partials, float* out, unsigned* counter, int m,
+                    int d, void* stream) {
   return rg_tier_round_gradient(a, y, nullptr, nullptr, 1, beta, partials,
-                                out, m, d, stream);
+                                out, counter, m, d, stream);
 }
 
 // x (m, d), y/w (m,) (w may be nullptr), xp (c, d), yp/wp (c,), beta
-// (d,), partials (rg_num_ctas(m) + rg_num_ctas(c), d), out (d,).
+// (d,), partials (rg_num_ctas(m) + rg_num_ctas(c), d) float64, out (d,),
+// counter as above.
 int rg_coded_round_gradient(const float* x, const float* y, const float* w,
                             int m, const float* xp, const float* yp,
                             const float* wp, int c, const float* beta,
-                            float* partials, float* out, int d,
-                            void* stream) {
+                            double* partials, float* out, unsigned* counter,
+                            int d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_ctas = ctas_for(m) + ctas_for(c);
-  if (n_ctas > 0) {
-    const size_t smem = smem_bytes(d, 1);
-    cudaError_t e = allow_smem(coded_partial_kernel, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    coded_partial_kernel<<<n_ctas, kThreads, smem, s>>>(
-        x, y, w, m, xp, yp, wp, c, beta, partials, d);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  return static_cast<int>(reduce(partials, out, n_ctas, d, 1, s));
+  const bool vec = d % 4 == 0 && aligned16(x) && aligned16(xp) &&
+                   aligned16(beta);
+  const cudaError_t e =
+      vec ? launch_coded<4>(x, y, w, m, xp, yp, wp, c, beta, partials, out,
+                            counter, d, s)
+          : launch_coded<1>(x, y, w, m, xp, yp, wp, c, beta, partials, out,
+                            counter, d, s);
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

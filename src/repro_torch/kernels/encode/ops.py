@@ -51,9 +51,40 @@ def _dispatch(device: torch.device):
     return build.load("encode", _SIGNATURES)
 
 
+# unit roundoff of float32
+U32 = 2.0 ** -24
+
+
+def float64_reference_and_bound(g: torch.Tensor, w: torch.Tensor,
+                                x: torch.Tensor
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """P = G diag(w) X in float64 and a bound on each entry's float32
+    error: |P - P64| <= 1.01 (L + 20) u (|G| |diag(w) X|), u = 2^-24.
+    Returns (P64, bound), both float64 (C, D) on the operands' device.
+
+    Any float32 route: w x rounds once (u), and a sum of L products in
+    any order adds at most (L - 1) u of the summed magnitudes.  The
+    kernel's 3xTF32 route (`csrc/encode.cu`): the split leaves out at
+    most ~12 u |g||w x| a product, and each of the 3 ceil(L / 8) tensor-
+    core products truncates its float32 sum, at most ~2 u of the partial
+    sum's magnitude each (Fasi, Higham, Mikaitis and Pranesh, "Numerical
+    behavior of NVIDIA tensor cores", PeerJ CS 2021): (0.75 L + 19) u.
+    Both are inside (L + 20) u for every L; 1.01 covers the second-order
+    terms.  One TF32 product per float32 product leaves out up to
+    2^-10 |g||w x| (4096 u) and falls outside.
+    """
+    f64 = torch.float64
+    wx = w.to(f64)[:, None] * x.to(f64)
+    g64 = g.to(f64)
+    bound = 1.01 * (g.shape[1] + 20) * U32 * (g64.abs() @ wx.abs())
+    return g64 @ wx, bound
+
+
 def encode_parity(g: torch.Tensor, w: torch.Tensor,
                   x: torch.Tensor) -> torch.Tensor:
-    """P = G diag(w) X in full float32.  g: (C, L), w: (L,), x: (L, D)."""
+    """P = G diag(w) X in float32 precision (3xTF32 tensor-core products
+    on the card, within `float64_reference_and_bound`).  g: (C, L),
+    w: (L,), x: (L, D)."""
     lib = _dispatch(g.device)
     if lib is None:
         return ref.encode_parity(g, w, x)

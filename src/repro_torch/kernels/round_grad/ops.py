@@ -9,7 +9,11 @@ the flat one at w = 1 behind a C entry point of its own
 versions (`ref.py`); CUDA tensors launch the kernel on the current
 stream or raise.  There is no fallback from a CUDA tensor to a plain
 version.  Each kernel has its own launch counter: `COUNTER` (flat),
-`CODED_COUNTER`, `TIER_COUNTER`, `LSQ_COUNTER`.
+`CODED_COUNTER`, `TIER_COUNTER`, `LSQ_COUNTER`.  Each launch sums its
+CTAs' float64 partials itself, in a fixed order, behind a ticket counter
+and a generation word: two zeroed int32 per (device, stream); every
+launch leaves the counter at 0.  The kernels sum in float64 and round
+once to float32.
 """
 from __future__ import annotations
 
@@ -29,12 +33,12 @@ LSQ_COUNTER = LaunchCounter()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES: build.Signatures = {
-    "rg_masked_round_gradient": ([_P] * 6 + [_I, _I, _P], _I),
-    "rg_tier_round_gradient": ([_P] * 4 + [_I] + [_P] * 3 + [_I, _I, _P],
+    "rg_masked_round_gradient": ([_P] * 7 + [_I, _I, _P], _I),
+    "rg_tier_round_gradient": ([_P] * 4 + [_I] + [_P] * 4 + [_I, _I, _P],
                                _I),
     "rg_coded_round_gradient": ([_P] * 3 + [_I] + [_P] * 3 + [_I]
-                                + [_P] * 3 + [_I, _P], _I),
-    "rg_lsq_gradient": ([_P] * 5 + [_I, _I, _P], _I),
+                                + [_P] * 4 + [_I, _P], _I),
+    "rg_lsq_gradient": ([_P] * 6 + [_I, _I, _P], _I),
     "rg_num_ctas": ([_I], _I),
     "rg_max_d": ([], _I),
 }
@@ -78,6 +82,23 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+# the in-launch reduce's (ticket counter, generation), one pair per
+# (device, stream)
+_TICKETS: dict[tuple[str, int], torch.Tensor] = {}
+
+
+def _ticket(device: torch.device) -> int:
+    """Address of the (ticket counter, generation) pair of `device`'s
+    current stream: two int32 zeroed once, on first use; every launch
+    leaves the counter at 0, and calls on two streams never share one."""
+    key = (str(device), _stream(device))
+    counter = _TICKETS.get(key)
+    if counter is None:
+        counter = _TICKETS[key] = torch.zeros(2, dtype=torch.int32,
+                                              device=device)
+    return counter.data_ptr()
+
+
 def masked_round_gradient(x: torch.Tensor, y: torch.Tensor,
                           w: torch.Tensor | None,
                           beta: torch.Tensor) -> torch.Tensor:
@@ -92,11 +113,12 @@ def masked_round_gradient(x: torch.Tensor, y: torch.Tensor,
     out = torch.empty(d, dtype=torch.float32, device=x.device)
     if d == 0:
         return out
-    partials = torch.empty((lib.rg_num_ctas(m), d), dtype=torch.float32,
+    partials = torch.empty((lib.rg_num_ctas(m), d), dtype=torch.float64,
                            device=x.device)
     status = lib.rg_masked_round_gradient(
         x.data_ptr(), y.data_ptr(), _ptr(w), beta.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), m, d, _stream(x.device))
+        partials.data_ptr(), out.data_ptr(), _ticket(x.device), m, d,
+        _stream(x.device))
     build.check_status(lib, status, "masked_round_gradient")
     COUNTER.launches += 1
     return out
@@ -117,11 +139,11 @@ def lsq_gradient(a: torch.Tensor, y: torch.Tensor,
     out = torch.empty(d, dtype=torch.float32, device=a.device)
     if d == 0:
         return out
-    partials = torch.empty((lib.rg_num_ctas(m), d), dtype=torch.float32,
+    partials = torch.empty((lib.rg_num_ctas(m), d), dtype=torch.float64,
                            device=a.device)
     status = lib.rg_lsq_gradient(
         a.data_ptr(), y.data_ptr(), beta.data_ptr(), partials.data_ptr(),
-        out.data_ptr(), m, d, _stream(a.device))
+        out.data_ptr(), _ticket(a.device), m, d, _stream(a.device))
     build.check_status(lib, status, "lsq_gradient")
     LSQ_COUNTER.launches += 1
     return out
@@ -155,12 +177,13 @@ def coded_round_gradient(x: torch.Tensor, y: torch.Tensor,
     if d == 0:
         return out
     n_parts = lib.rg_num_ctas(m) + lib.rg_num_ctas(c)
-    partials = torch.empty((n_parts, d), dtype=torch.float32,
+    partials = torch.empty((n_parts, d), dtype=torch.float64,
                            device=x.device)
     status = lib.rg_coded_round_gradient(
         x.data_ptr(), y.data_ptr(), _ptr(w), m, x_par.data_ptr(),
         y_par.data_ptr(), w_par.data_ptr(), c, beta.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), d, _stream(x.device))
+        partials.data_ptr(), out.data_ptr(), _ticket(x.device), d,
+        _stream(x.device))
     build.check_status(lib, status, "coded_round_gradient")
     CODED_COUNTER.launches += 1
     return out
@@ -191,12 +214,12 @@ def tier_masked_round_gradient(x: torch.Tensor, y: torch.Tensor,
     out = torch.empty((nt, d), dtype=torch.float32, device=x.device)
     if d == 0:
         return out
-    partials = torch.empty((nt, lib.rg_num_ctas(m), d), dtype=torch.float32,
+    partials = torch.empty((nt, lib.rg_num_ctas(m), d), dtype=torch.float64,
                            device=x.device)
     status = lib.rg_tier_round_gradient(
         x.data_ptr(), y.data_ptr(), _ptr(w), tier_masks.data_ptr(), nt,
-        beta.data_ptr(), partials.data_ptr(), out.data_ptr(), m, d,
-        _stream(x.device))
+        beta.data_ptr(), partials.data_ptr(), out.data_ptr(),
+        _ticket(x.device), m, d, _stream(x.device))
     build.check_status(lib, status, "tier_masked_round_gradient")
     TIER_COUNTER.launches += 1
     return out

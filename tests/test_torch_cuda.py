@@ -15,14 +15,24 @@ Bounds:
     component that cancels to nearly zero (seen on the card at (9, 3000)
     and (7200, 500)) misses an element-wise rtol 1e-3 / atol 1e-6 against
     the plain version although both lie as close to the float64 value.
-    Two launches must also be bit-identical: the cross-CTA reduction has
-    a fixed order.
+    Launches must also be bit-identical: the cross-CTA reduction inside
+    the launch has a fixed order, and its ticket counter is back at 0
+    after each launch (three calls in a row, and calls on two streams at
+    once, each equal to its single-stream result).  D = 3000 takes a
+    two-stage ring, D % 4 != 0 and misaligned views the 4-byte cp.async
+    instance; D = rg_max_d(), the widest admitted, runs at four tiers.
     The coded and tier-masked kernels are held the same way, each tier
     partial and the coded sum against their float64 expressions with S
     summed over the rows that enter them.  The tier kernel at T = 1 with
     an all-ones mask must be bit-equal (`torch.equal`) to the flat
     kernel on the same operands.
-  * encode: 2e-4 * max|ref|, as in `tests/test_torch_kernels.py`.
+  * encode: 2e-4 * max|ref|, as in `tests/test_torch_kernels.py`, and,
+    kernel and plain version alike, the float64 bound of
+    `kernels.encode.ops.float64_reference_and_bound` (1.01 (L + 20) u
+    |G| |diag(w) X|, stated before the 3xTF32 kernel first ran);
+    relaunches bit-identical; C, L and D ragged against the 128 x 64
+    tile, the step of 32 and the m16n8k8 shape; the 16-byte and 4-byte
+    copy instances (L or D % 4, misaligned views).
   * in-kernel-generator encode: the generator itself, exposed with
     X = I and w = 1, Rademacher entries `torch.equal` to the plain
     `prng.generator_values` on the card, normal entries within rtol 1e-6
@@ -76,7 +86,8 @@ def cuda():
 
 
 @pytest.mark.parametrize("m,d", [(1, 1), (7, 5), (37, 13), (5632, 500),
-                                 (7200, 500), (9, 3000)])
+                                 (7200, 500), (9, 3000), (700, 3000),
+                                 (700, 2999)])
 @pytest.mark.parametrize("weights", ["random", "zero_rows", "none"])
 def test_round_grad_kernel_matches_plain(cuda, m, d, weights):
     gen = torch.Generator(device=cuda).manual_seed(m + d)
@@ -205,6 +216,109 @@ def test_tier_kernel_single_tier_is_the_flat_kernel(cuda, m, d, weights):
     assert torch.equal(tiered[0], flat)
 
 
+@pytest.mark.parametrize("t", [1, 3, 4])
+def test_round_grad_kernels_at_the_widest_d(cuda, t):
+    """At D = rg_max_d(), the widest D the wrappers admit, the tier
+    kernel runs at T = 1, 3 and 4 (four masks a ring row, the most a
+    launch carries), the flat, least-squares and coded kernels run too,
+    each held to the float64 bound; one column more is refused."""
+    d = rg_ops._dispatch(cuda).rg_max_d()
+    assert d >= 3000
+    gen = torch.Generator(device=cuda).manual_seed(d + t)
+    x, y, w = _rg_operands(gen, cuda, 300, d, "random")
+    beta = torch.randn((d,), generator=gen, device=cuda)
+    tier_of = torch.randint(0, t, (300,), generator=gen, device=cuda)
+    masks = (torch.arange(t, device=cuda)[:, None]
+             == tier_of[None, :]).float()
+    tiers = rg_ops.tier_masked_round_gradient(x, y, w, masks, beta)
+    flat = rg_ops.masked_round_gradient(x, y, w, beta)
+    lsq = rg_ops.lsq_gradient(x, y, beta)
+    coded = rg_ops.coded_round_gradient(x[:200], y[:200], w[:200],
+                                        x[200:], y[200:], w[200:], beta)
+    torch.cuda.synchronize()
+    _held_to_float64("tiers", tiers, x, y, w, beta, masks=masks)
+    _held_to_float64("flat", flat, x, y, w, beta)
+    _held_to_float64("lsq", lsq, x, y, None, beta)
+    _held_to_float64("coded", coded, x, y, w, beta)
+    wide = torch.zeros((8, d + 1), device=cuda)
+    with pytest.raises(ValueError):
+        rg_ops.tier_masked_round_gradient(
+            wide, y[:8], None, torch.ones((t, 8), device=cuda),
+            torch.zeros((d + 1,), device=cuda))
+
+
+def _rg_calls(cuda, m=5632, d=500, seed=5):
+    """Each round-gradient kernel on one set of operands at the §IV
+    shape, as {name: call}."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x, y, w = _rg_operands(gen, cuda, m, d, "zero_rows")
+    xp, yp, _ = _rg_operands(gen, cuda, 2016, d, "none")
+    wp = torch.rand((2016,), generator=gen, device=cuda)
+    beta = torch.randn((d,), generator=gen, device=cuda)
+    tier_of = torch.randint(0, 3, (m,), generator=gen, device=cuda)
+    masks = (torch.arange(3, device=cuda)[:, None]
+             == tier_of[None, :]).float()
+    return {
+        "flat": lambda: rg_ops.masked_round_gradient(x, y, w, beta),
+        "coded": lambda: rg_ops.coded_round_gradient(x, y, w, xp, yp, wp,
+                                                     beta),
+        "tier": lambda: rg_ops.tier_masked_round_gradient(x, y, w, masks,
+                                                          beta),
+        "lsq": lambda: rg_ops.lsq_gradient(xp, yp, beta),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["flat", "coded", "tier", "lsq"])
+def test_round_grad_kernels_relaunch_bit_identical(cuda, kernel):
+    """Three calls in a row, bit-identical: the in-launch reduce's ticket
+    counter is back at 0 after each launch."""
+    call = _rg_calls(cuda)[kernel]
+    outs = [call() for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.parametrize("kernel", ["flat", "coded", "tier", "lsq"])
+def test_round_grad_kernels_on_two_streams(cuda, kernel):
+    """Two calls at once on two streams (each stream held by a sleep
+    kernel, then released together), each `torch.equal` to its result on
+    one stream: the two launches take separate ticket counters."""
+    calls = [_rg_calls(cuda, seed=s)[kernel] for s in (5, 6)]
+    alone = [call() for call in calls]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in calls]
+    outs = []
+    for stream, call in zip(streams, calls):
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(2**20)
+            outs.append([call() for _ in range(4)])
+    torch.cuda.synchronize()
+    for got, want in zip(outs, alone):
+        assert all(torch.equal(g, want) for g in got)
+
+
+def test_round_grad_kernels_on_a_misaligned_view(cuda):
+    """X as a contiguous view one float into its storage (D = 500, rows
+    not 16-byte aligned) takes the 4-byte instance: held to the float64
+    bound, relaunches bit-identical, T = 1 and lsq `torch.equal` to flat."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    m, d = 1000, 500
+    x = torch.randn((m * d + 1,), generator=gen, device=cuda)[1:].view(m, d)
+    y = torch.randn((m,), generator=gen, device=cuda)
+    beta = torch.randn((d,), generator=gen, device=cuda)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    flat = rg_ops.masked_round_gradient(x, y, None, beta)
+    again = rg_ops.masked_round_gradient(x, y, None, beta)
+    one = rg_ops.tier_masked_round_gradient(x, y, None,
+                                            torch.ones((1, m), device=cuda),
+                                            beta)
+    lsq = rg_ops.lsq_gradient(x, y, beta)
+    torch.cuda.synchronize()
+    _held_to_float64("misaligned flat", flat, x, y, None, beta)
+    assert torch.equal(flat, again)
+    assert torch.equal(one[0], flat) and torch.equal(lsq, flat)
+
+
 def test_round_grad_kernel_checks_operands(cuda):
     x = torch.randn((8, 4), device=cuda)
     y = torch.randn((8,), device=cuda)
@@ -227,18 +341,53 @@ def test_round_grad_kernel_checks_operands(cuda):
         rg_ops.coded_round_gradient(x, y, None, x[:3], y[:2], 1.0, beta)
 
 
+def _encode_held(g, w, x):
+    """Kernel 2 on (g, w, x) against the plain version within 2e-4 *
+    max|ref|, kernel and plain within the float64 bound, and a
+    bit-identical relaunch."""
+    got = enc_ops.encode_parity(g, w, x)
+    again = enc_ops.encode_parity(g, w, x)
+    want = enc_ref.encode_parity(g, w, x)
+    p64, bound64 = enc_ops.float64_reference_and_bound(g, w, x)
+    torch.cuda.synchronize()
+    bound = 2e-4 * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=bound)
+    for name, p in (("kernel", got), ("plain", want)):
+        err = (p.double() - p64).abs()
+        assert bool((err <= bound64).all()), \
+            f"{name}: max err/bound {float((err / bound64).max()):.3g}"
+    assert torch.equal(got, again)
+
+
 @pytest.mark.parametrize("c,ell,d", [(1, 1, 1), (5, 7, 3), (130, 17, 65),
-                                     (2016, 300, 501)])
+                                     (2016, 300, 501), (131, 37, 67),
+                                     (257, 9, 130), (2017, 301, 503),
+                                     (300, 64, 128), (2016, 300, 500)])
 def test_encode_kernel_matches_plain(cuda, c, ell, d):
+    """Ragged C, L and D (not multiples of the 128 x 64 tile, the step
+    of 32 or of 8) and both copy widths: L % 4 == 0 takes 16-byte copies
+    of G, D % 4 == 0 of X."""
     gen = torch.Generator(device=cuda).manual_seed(c + ell + d)
     g = torch.randn((c, ell), generator=gen, device=cuda)
     w = torch.rand((ell,), generator=gen, device=cuda)
     x = torch.randn((ell, d), generator=gen, device=cuda)
-    got = enc_ops.encode_parity(g, w, x)
-    want = enc_ref.encode_parity(g, w, x)
-    torch.cuda.synchronize()
-    bound = 2e-4 * float(want.abs().max())
-    torch.testing.assert_close(got, want, rtol=2e-4, atol=bound)
+    _encode_held(g, w, x)
+
+
+def test_encode_kernel_on_misaligned_operands(cuda):
+    """G and X as contiguous views one float into their storage: L and D
+    are multiples of 4, but the rows are not 16-byte aligned, so the
+    kernel takes its 4-byte copies; large operands (x 30) too."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    c, ell, d = 300, 64, 128
+    g = torch.randn((c * ell + 1,), generator=gen, device=cuda)[1:] \
+        .view(c, ell)
+    x = torch.randn((ell * d + 1,), generator=gen, device=cuda)[1:] \
+        .view(ell, d)
+    w = torch.rand((ell,), generator=gen, device=cuda)
+    assert g.is_contiguous() and g.data_ptr() % 16 != 0
+    _encode_held(g, w, x)
+    _encode_held(30.0 * g, w, 30.0 * x)
 
 
 @pytest.mark.parametrize("grad_path", ["fused", "reference"])

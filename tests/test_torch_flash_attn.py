@@ -17,7 +17,7 @@ path against the JAX package, on the CPU.
   * kernel 8's 3xTF32 arithmetic (`csrc/flash_attn.cu`: the TF32 split by
     `cvt.rna`, the three products of `mma_tf32.cuh` in their order with
     each tensor-core sum truncated, the online softmax over 64-key tiles)
-    emulated in plain torch and held to the unchanged float64 bound at
+    emulated in plain torch (the helpers of `test_torch_tf32.py`) and held to the unchanged float64 bound at
     D = 8, 16, 40 and 64, operands scaled x1 and x6 (`-s` prints the
     share, the proxy of the card's), with the rounding helper's own
     properties, and plain TF32 shown to fall outside the bound.
@@ -34,6 +34,9 @@ from repro.models import layers as JL
 from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.flash_attn import ref as fa_ref
 from repro_torch.models import layers as L
+from test_torch_tf32 import product3 as _product3
+from test_torch_tf32 import rna_tf32 as _rna_tf32
+from test_torch_tf32 import split_tf32 as _split
 
 
 def _normal(seed, *shapes):
@@ -124,44 +127,6 @@ def test_wrapper_checks_operands():
 # ---------------------------------------------------------------------------
 # kernel 8's 3xTF32 arithmetic, emulated in plain torch
 # ---------------------------------------------------------------------------
-
-def _rna_tf32(x):
-    """float32 `x` rounded to TF32 as `cvt.rna.tf32.f32` rounds it (to
-    nearest, ties away from zero): 0x1000 added to the bits, the low 13
-    cleared."""
-    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _split(x):
-    big = _rna_tf32(x)
-    return big, _rna_tf32(x - big)
-
-
-def _toward_zero(x64):
-    """float64 `x64` rounded to float32 toward zero, as a tensor core
-    truncates its sums (the worse of the two roundings)."""
-    x32 = x64.float()
-    over = x32.double().abs() > x64.abs()
-    return torch.where(over, torch.nextafter(x32, torch.zeros_like(x32)),
-                       x32)
-
-
-def _product3(a, b, acc, split=True):
-    """acc + a @ b as `tf32::mma3` forms it over k-steps of 8: in each,
-    small.big, big.small, big.big, each an exact sum of exact products
-    added to the float32 accumulator and truncated (split=False: big.big
-    alone, plain TF32)."""
-    (a_big, a_small), (b_big, b_small) = _split(a), _split(b)
-    terms = (((a_small, b_big), (a_big, b_small)) if split else ()) + (
-        (a_big, b_big),)
-    for kk in range(0, a.shape[-1], 8):
-        ka, kb = (..., slice(kk, kk + 8)), (..., slice(kk, kk + 8),
-                                            slice(None))
-        for x, y in terms:
-            acc = _toward_zero(acc.double()
-                               + x[ka].double() @ y[kb].double())
-    return acc
-
 
 def _emulate_kernel(q, k, v, split=True):
     """`csrc/flash_attn.cu`'s arithmetic on float32 CPU tensors: q scaled
