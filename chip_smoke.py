@@ -10,11 +10,12 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      `nvcc` per source, started together), print each kernel instance's
      `-Xptxas=-v` line (registers, static shared memory, spills) and
      kernel 8's dynamic shared memory; kernel 8, kernel 2's
-     `encode_kernel` instances and the round-gradient kernels (1, 4, 5,
-     6) must not spill (a library found built is compiled once more for
-     its report), and where the toolkit has `cuobjdump` the libraries of
-     kernels 8 and 2 must hold HMMA (tensor-core) instructions, whose
-     counts are printed;
+     `encode_kernel` instances, the round-gradient kernels (1, 4, 5, 6)
+     and kernel 7's `ssd_chunk_kernel` instances must not spill (a
+     library found built is compiled once more for its report), and
+     where the toolkit has `cuobjdump` the libraries of kernels 8, 2 and
+     7 must hold HMMA (tensor-core) instructions, whose counts are
+     printed;
   3. hold each kernel against its plain PyTorch version on the card at
      the main paths' shapes: the flat round gradient at (5632, 500) with
      random weights and at (7200, 500) with w = None (rtol 1e-3 / atol
@@ -124,7 +125,9 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      the in-kernel-generator encode's library time is `G @ (w X)` on a
      materialized G: it excludes the generation.  Kernel 7's library
      expression is `torch.matmul` on head-major views with the causal
-     mask by `torch.tril`, held to the kernel first.  Kernel 8's is
+     mask by `torch.tril`, held to the kernel first; beside it the same
+     with C B^T once per group, broadcast over the group's heads
+     (`library_grouped_ms`), also held to the kernel.  Kernel 8's is
      `repeat_interleave` of the key/value heads to the query heads, then
      `scaled_dot_product_attention(is_causal=True)` on the same float32
      operands, the expansion inside the timed span, held to the kernel
@@ -135,7 +138,9 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      kernel 8's products go through the tensor cores as three TF32
      products per float32 product (3xTF32), so its bound is three times
      its flops over 495 TFLOP/s, its float32-FMA bound kept beside it;
-     likewise kernel 2's (the parity encode).
+     likewise kernel 2's (the parity encode) and kernel 7's, whose flops
+     count the scores once per (chunk, group), the least work (the count
+     with the scores once per head is printed beside it).
 
 Any failed check raises, so the exit code is non-zero.  The line before
 the last is the kernels' JSON record; the last line is
@@ -162,7 +167,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 # H100 SXM data sheet: HBM3 bandwidth and the float32 rate outside the
 # tensor cores, and the dense TF32 tensor-core rate, which the 3xTF32
-# products of kernels 2 and 8 run at three TF32 products per float32 one
+# products of kernels 2, 7 and 8 run at three TF32 products per float32 one
 # (one TF32 product alone would miss their float32 bounds)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -1134,6 +1139,41 @@ def ssd_library(xh, dth, dah, bh, ch):
     return y, states
 
 
+def ssd_library_grouped(xg, dtg, dag, bg, cg):
+    """Kernel 7's function with C B^T once per group: `torch.matmul` on
+    the (B*nc*G, Q, N) views, broadcast over the group's heads for the
+    decay and `torch.tril`, then `torch.matmul` with dt x, and the state
+    against B broadcast the same way (the second library yardstick of the
+    timing phase; never used by the port)."""
+    n, G, rep, Q, P = xg.shape
+    cum = torch.cumsum(dag, dim=-1, dtype=torch.float64).float()
+    xw = xg * dtg[..., None]
+    scores = torch.matmul(cg, bg.transpose(1, 2)).view(n, G, 1, Q, Q)
+    lmat = torch.exp(cum[..., :, None] - cum[..., None, :])
+    y = torch.matmul(torch.tril(scores * lmat), xw)
+    dec = torch.exp(cum[..., -1:] - cum)
+    states = torch.matmul((xw * dec[..., None]).transpose(-1, -2),
+                          bg.view(n, G, 1, Q, bg.shape[-1]))
+    return y, states
+
+
+def group_major(ops) -> tuple:
+    """Kernel-7 operands as contiguous group-major views: x (B*nc, G, H/G,
+    Q, P), dt and da (B*nc, G, H/G, Q), B and C (B*nc*G, Q, N)."""
+    xc, dtc, da, bc, cc = ops
+    B, nc, Q, H, P = xc.shape
+    G, N = bc.shape[3], bc.shape[4]
+
+    def heads(t):  # (B, nc, Q, H, ...) -> (B * nc, G, H / G, Q, ...)
+        t = t.reshape(B * nc, Q, G, H // G, *t.shape[4:])
+        return t.movedim(1, 3).contiguous()
+
+    def groups(t):  # (B, nc, Q, G, N) -> (B * nc * G, Q, N)
+        return t.movedim(3, 2).reshape(B * nc * G, Q, N).contiguous()
+
+    return heads(xc), heads(dtc), heads(da), groups(bc), groups(cc)
+
+
 def head_major(ops) -> tuple:
     """Kernel-7 operands as contiguous (B*nc*H, Q, ...) views."""
     xc, dtc, da, bc, cc = per_head(ops)
@@ -1185,7 +1225,7 @@ def main() -> int:
           + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in built.items()))
     # the kernels that must not spill: {source: instance-name prefix}
     no_spill = {"flash_attn": "flash_attn_kernel", "encode": "encode_kernel",
-                "round_grad": ""}
+                "round_grad": "", "ssd": "ssd_chunk_kernel"}
     for name, info in built.items():
         log = info["log"]
         if name in no_spill and not log:  # found built: no report
@@ -1198,7 +1238,8 @@ def main() -> int:
     phase(f"  kernel 8 dynamic shared memory at D = {FLASH_SHAPE[4]}: "
           f"{fa_ops.smem_bytes(FLASH_SHAPE[4])} bytes a CTA, two CTAs an SM")
     hmma = {}
-    for name, kernel in (("flash_attn", "kernel 8"), ("encode", "kernel 2")):
+    for name, kernel in (("flash_attn", "kernel 8"), ("encode", "kernel 2"),
+                         ("ssd", "kernel 7")):
         hmma[name] = sass_count(build.library_path(name), "HMMA")
         phase(f"  {kernel} SASS ({name}.cu): {hmma[name]} HMMA instructions"
               if hmma[name] is not None else f"  {kernel} SASS: no "
@@ -1705,26 +1746,48 @@ def main() -> int:
     lib_err = max(float((lib_y - got_y.movedim(3, 2).reshape(lib_y.shape))
                         .abs().max()),
                   float((lib_s - got_s.reshape(lib_s.shape)).abs().max()))
+    del lib_y, lib_s
+    gm = group_major(ssd_inputs)
+    lib_y, lib_s = ssd_library_grouped(*gm)
+    lib_err = max(lib_err,
+                  float((lib_y - got_y.reshape(B * nc, Q, G, H // G, P)
+                         .movedim(1, 3)).abs().max()),
+                  float((lib_s - got_s.reshape(lib_s.shape)).abs().max()))
     lib_bound = 1e-4 * max(1.0, float(got_y.abs().max()),
                            float(got_s.abs().max()))
-    check(lib_err <= lib_bound, "the library expression of kernel 7 "
+    check(lib_err <= lib_bound, "a library expression of kernel 7 "
           f"disagrees with the kernel: {lib_err:.3e} > {lib_bound:.3e}")
+    del lib_y, lib_s, got_y, got_s
     ssd_lib = time_ms(ssd_library, cold_copies(hm), calls=4)
-    del hm, lib_y, lib_s, got_y, got_s
-    # the causal half of C B^T and of the product with x, and the state
-    ssd_flops = B * nc * H * (Q * (Q + 1) // 2 * 2 * (N + P)
-                              + 2 * Q * P * N)
+    del hm
+    ssd_lib_grouped = time_ms(ssd_library_grouped, cold_copies(gm), calls=4)
+    del gm
+    # the least work: C B^T once per (chunk, group) over its causal half,
+    # then per head the causal half of the product with dt x and the
+    # state; beside it the count with the scores once per head (the work
+    # of the head-major library expression)
+    tri = Q * (Q + 1) // 2
+    ssd_flops = B * nc * (G * tri * 2 * N + H * (tri * 2 * P + 2 * Q * P * N))
+    ssd_flops_per_head = B * nc * H * (tri * 2 * (N + P) + 2 * Q * P * N)
     ssd_bytes = 4 * (B * nc * Q * H * (2 * P + 2) + 2 * B * nc * Q * G * N
                      + B * nc * H * P * N)
+    # 3xTF32: three TF32 tensor-core products per float32 product
     ssd_terms = {"bytes": ssd_bytes / HBM_BYTES_PER_S,
-                 "operations": ssd_flops / FP32_FLOPS_PER_S}
+                 "operations": 3 * ssd_flops / TF32_FLOPS_PER_S}
     ssd_bound_by = max(ssd_terms, key=ssd_terms.get)
     ssd_bound = 1e3 * ssd_terms[ssd_bound_by]
+    ssd_bound_fp32 = 1e3 * ssd_flops / FP32_FLOPS_PER_S
+    ssd_bound_per_head = 1e3 * ssd_flops_per_head / FP32_FLOPS_PER_S
     phase(f"time ssd_chunk {list(SSD_SHAPE)} G={G} [{card}]: kernel "
           f"{ssd_ms!r} ms (L2 warm {ssd_warm!r} ms), plain {ssd_plain!r} "
-          f"ms, library matmul + tril on head-major views {ssd_lib!r} ms "
-          f"(max |library - kernel| {lib_err:.3e}), bound {ssd_bound!r} ms "
-          f"({ssd_bound_by}: flops {ssd_flops}, bytes {ssd_bytes})")
+          f"ms, library matmul + tril on head-major views {ssd_lib!r} ms, "
+          f"with C B^T once per group {ssd_lib_grouped!r} ms (max "
+          f"|library - kernel| {lib_err:.3e}), bound {ssd_bound!r} ms "
+          f"({ssd_bound_by}, 3xTF32 at 495 TFLOP/s: flops {ssd_flops} with "
+          f"the scores once per group, bytes {ssd_bytes}; on the float32 "
+          f"FMA pipes {ssd_bound_fp32!r} ms; the scores once per head "
+          f"{ssd_flops_per_head} flops, {ssd_bound_per_head!r} ms on the "
+          f"FMA pipes)")
     # kernel 8 at the serving shape (a 2048-token granite-8b prefill)
     B, Hq, Hkv, S, D = FLASH_SHAPE
     cold = cold_copies(flash_inputs)
@@ -1851,6 +1914,13 @@ def main() -> int:
          "max_abs_err": max(errs["ssd_chunk"], serve["model_err"]),
          "ms": ssd_ms, "plain_ms": ssd_plain, "bound_ms": ssd_bound,
          "bound_by": ssd_bound_by, "library_ms": ssd_lib,
+         "bound_route": "3xTF32: three TF32 products per float32 product "
+                        "at 495 TFLOP/s, the scores once per group",
+         "hmma": hmma["ssd"],
+         "library": "torch.matmul + torch.tril on head-major views",
+         "library_grouped_ms": ssd_lib_grouped,
+         "library_grouped": "torch.matmul with C B^T once per group, "
+                            "broadcast over its heads",
          "ms_l2_warm": ssd_warm, "shape": [*SSD_SHAPE[:5], G, N]},
         {"name": "causal_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn.cu",

@@ -12,7 +12,10 @@ reference's per-head layout (its `jnp.repeat`), so a call with the
 reference's operands works unchanged; the model passes G = n_groups and
 no per-head copy is made.  The kernel reads float32: x, dt, B and C are
 upcast here, as the Pallas kernel upcasts them on load (exact for bf16);
-da must be float32, as in the reference.
+da must be float32, as in the reference.  The kernel takes chunks of at
+most 256 rows (a CTA holds its query tile's scores for the whole chunk
+in shared memory); a longer chunk is refused before any launch, and
+nothing is counted.
 """
 from __future__ import annotations
 

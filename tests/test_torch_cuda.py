@@ -49,8 +49,15 @@ Bounds:
     the prefix sums of da in float64; at the model's own decays both are
     also held against the float64 value within the rounding bound of
     `kernels.ssd.ref.float64_reference_and_bound`.  Relaunches
-    bit-identical.  A reduced mamba2 prefill on the card within rtol 1e-4
-    / atol 1e-4 * max|ref| of the CPU one, one launch per layer.
+    bit-identical (three calls in a row, and calls on two streams at
+    once, each equal to its single-stream result).  The shapes cover the
+    3xTF32 kernel's edges: heads per group 3, 5 and 12 against its block
+    of 8 heads, Q = 200 and 97 against its 64-row tiles, P = 80, 130 and
+    N = 96, 136 against its 64- and 128-wide tiles, P and N not multiples
+    of 4 (the 4-byte cp.async instance), and the serving shape with one
+    group and with per-head B and C.  A chunk one row past the kernel's
+    256 is refused before a launch.  A reduced mamba2 prefill on the card within
+    rtol 1e-4 / atol 1e-4 * max|ref| of the CPU one, one launch per layer.
 """
 import numpy as np
 import pytest
@@ -619,11 +626,18 @@ def _ssd_plain(xc, dtc, da, bc, cc):
 # (B, nc, Q, H, P, N, G): the shapes of tests/test_kernels.py, the full
 # per-head shape, the reduced mamba2's (Q 16, P 32, N 16), an odd Q, and
 # the serving shape of mamba2-1.3b (a 2048-token prefill) with its one
-# group and with per-head B and C
+# group and with per-head B and C; then the 3xTF32 kernel's edges: three
+# heads a group, 5 and 12 heads against its block of 8, Q = 200 at the
+# serving P and N, P = 80 / N = 96 and P = 130 / N = 136 against its 64-
+# and 128-wide tiles, and P = 7 / N = 9 (4-byte copies)
 SSD_SHAPES = [(1, 1, 8, 1, 4, 4, 1), (2, 3, 32, 4, 16, 8, 4),
               (1, 2, 128, 2, 64, 32, 2), (1, 2, 256, 2, 64, 128, 2),
               (2, 3, 16, 16, 32, 16, 1), (1, 2, 97, 4, 64, 128, 2),
-              (1, 8, 256, 64, 64, 128, 1), (1, 8, 256, 64, 64, 128, 64)]
+              (1, 8, 256, 64, 64, 128, 1), (1, 8, 256, 64, 64, 128, 64),
+              (1, 2, 128, 6, 64, 64, 2), (1, 2, 96, 5, 32, 64, 1),
+              (1, 2, 256, 12, 64, 128, 1), (1, 2, 200, 4, 64, 128, 1),
+              (1, 2, 128, 2, 80, 96, 1), (1, 1, 64, 2, 130, 136, 1),
+              (1, 2, 45, 3, 7, 9, 1)]
 
 
 @pytest.mark.parametrize("B,nc,Q,H,P,N,G", SSD_SHAPES)
@@ -658,11 +672,13 @@ def test_ssd_kernel_checks_operands(cuda):
     with pytest.raises(ValueError, match="groups do not divide"):
         ssd_ops.ssd_chunk(xc, dtc, da, torch.cat([bc] * 3, 3),
                           torch.cat([cc] * 3, 3))
-    # a chunk longer than the kernel's shared memory holds (Q > 15552):
-    # the launch refuses it, and nothing is counted
+    # a chunk one row longer than the kernel's shared memory holds (Q =
+    # 257 > kMaxQ = 256 of csrc/ssd.cu, its query tile's scores for the
+    # whole chunk): the launch function refuses it before a launch, and
+    # nothing is counted
     n = ssd_ops.SSD_COUNTER.launches
     with pytest.raises(RuntimeError, match="launch failed"):
-        ssd_ops.ssd_chunk(*_ssd_operands(gen, cuda, 1, 1, 15616, 1, 1, 1, 1,
+        ssd_ops.ssd_chunk(*_ssd_operands(gen, cuda, 1, 1, 257, 1, 1, 1, 1,
                                          False))
     assert ssd_ops.SSD_COUNTER.launches == n
     # bf16 operands are upcast exactly, as the Pallas kernel does on load
@@ -671,6 +687,40 @@ def test_ssd_kernel_checks_operands(cuda):
     y0, s0 = ssd_ops.ssd_chunk(xc.bfloat16().float(), dtc, da,
                                bc.bfloat16().float(), cc.bfloat16().float())
     assert torch.equal(y, y0) and torch.equal(s, s0)
+
+
+def _ssd_serving_operands(cuda, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return _ssd_operands(gen, cuda, 1, 8, 256, 64, 64, 128, 1, True)
+
+
+def test_ssd_kernel_relaunch_bit_identical(cuda):
+    """Three calls in a row at the serving shape, bit-identical: every
+    sum has a fixed order and no atomics."""
+    ops = _ssd_serving_operands(cuda, 7)
+    outs = [ssd_ops.ssd_chunk(*ops) for _ in range(3)]
+    torch.cuda.synchronize()
+    for y, s in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(s, outs[0][1])
+
+
+def test_ssd_kernel_on_two_streams(cuda):
+    """Two calls at once on two streams (each stream held by a sleep
+    kernel, then released together), each `torch.equal` to its result on
+    one stream: a launch keeps nothing between calls."""
+    ops = [_ssd_serving_operands(cuda, s) for s in (5, 6)]
+    alone = [ssd_ops.ssd_chunk(*o) for o in ops]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in ops]
+    outs = []
+    for stream, o in zip(streams, ops):
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(2**20)
+            outs.append([ssd_ops.ssd_chunk(*o) for _ in range(4)])
+    torch.cuda.synchronize()
+    for got, want in zip(outs, alone):
+        assert all(torch.equal(y, want[0]) and torch.equal(s, want[1])
+                   for y, s in got)
 
 
 def test_ssd_prefill_on_the_card_matches_cpu(cuda):
