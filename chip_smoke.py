@@ -10,12 +10,12 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      `nvcc` per source, started together), print each kernel instance's
      `-Xptxas=-v` line (registers, static shared memory, spills) and
      kernel 8's dynamic shared memory; kernel 8, kernel 2's
-     `encode_kernel` instances, the round-gradient kernels (1, 4, 5, 6)
-     and kernel 7's `ssd_chunk_kernel` instances must not spill (a
-     library found built is compiled once more for its report), and
-     where the toolkit has `cuobjdump` the libraries of kernels 8, 2 and
-     7 must hold HMMA (tensor-core) instructions, whose counts are
-     printed;
+     `encode_kernel` and kernel 3's `encode_prng_kernel` instances, the
+     round-gradient kernels (1, 4, 5, 6) and kernel 7's
+     `ssd_chunk_kernel` instances must not spill (a library found built
+     is compiled once more for its report), and where the toolkit has
+     `cuobjdump` kernels 8, 2, 3 and 7 must hold HMMA (tensor-core)
+     instructions in their SASS, whose counts are printed;
   3. hold each kernel against its plain PyTorch version on the card at
      the main paths' shapes: the flat round gradient at (5632, 500) with
      random weights and at (7200, 500) with w = None (rtol 1e-3 / atol
@@ -35,9 +35,13 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      `torch.equal` to the flat kernel; the in-kernel-generator encode at
      X = I, w = 1 (c = 2016, ell = 300, a key of `split_keys`), which
      returns G itself: Rademacher `torch.equal` to the plain
-     `prng.generator_values`, normal within rtol 1e-6 / atol 1e-7; at
-     (2016, 300, 501) and at an odd c * ell, both kinds, within 2e-4 *
-     max|ref|, relaunches bit-identical; the least-squares gradient at
+     `prng.generator_values`, normal within rtol 1e-6 / atol 1e-7 (the
+     3xTF32 products return big + small of each entry, so the bit-equal
+     share is printed but not held to 1); at (2016, 300, 501) and at an
+     odd c * ell, both kinds, within 2e-4 * max|ref|, relaunches
+     bit-identical, and at (2016, 300, 501) kernel and plain version
+     both within the float64 bound of the encode (G the plain
+     generator), stated before the first run of the 3xTF32 kernel 3; the least-squares gradient at
      (2016, 500) within the float64 bound, relaunches bit-identical and
      `torch.equal` to the flat kernel at w = None; the SSD intra-chunk
      step (kernel 7) at the serving shape of mamba2-1.3b (B, nc, Q, H,
@@ -140,7 +144,10 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      its flops over 495 TFLOP/s, its float32-FMA bound kept beside it;
      likewise kernel 2's (the parity encode) and kernel 7's, whose flops
      count the scores once per (chunk, group), the least work (the count
-     with the scores once per head is printed beside it).
+     with the scores once per head is printed beside it); kernel 3's
+     operations are the larger of its 3xTF32 products and one threefry
+     hash per generator entry over the card's INT32 rate, its
+     float32-FMA bound printed beside it.
 
 Any failed check raises, so the exit code is non-zero.  The line before
 the last is the kernels' JSON record; the last line is
@@ -167,7 +174,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 # H100 SXM data sheet: HBM3 bandwidth and the float32 rate outside the
 # tensor cores, and the dense TF32 tensor-core rate, which the 3xTF32
-# products of kernels 2, 7 and 8 run at three TF32 products per float32 one
+# products of kernels 2, 3, 7 and 8 run at three TF32 products per float32
+# one
 # (one TF32 product alone would miss their float32 bounds)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -199,7 +207,6 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # integer operations of one threefry2x32 hash with its counter pairing
 # (20 rounds of add, funnel shift and xor, five key injections)
 HASH_INT_OPS = 80
-PRNG_COLS_PER_CTA = 512  # csrc/encode.cu kBD: each CTA's output columns
 # phase 11: mamba2-1.3b at full width through ServeEngine (random weights
 # from a seed), six requests on four slots, 24 new tokens each
 SERVE_ARCH, SERVE_SEED, SERVE_PARAMS = "mamba2-1.3b", 0, 1_446_714_368
@@ -281,9 +288,10 @@ def ptxas_log_again(name: str) -> str:
     return log
 
 
-def sass_count(library, opcode: str):
-    """How many `opcode` instructions `cuobjdump -sass` lists in
-    `library`, or None where the toolkit has no cuobjdump."""
+def sass_count(library, opcode: str, function: str = ""):
+    """How many `opcode` instructions `cuobjdump -sass` lists in the
+    functions of `library` whose mangled names contain `function`, or
+    None where the toolkit has no cuobjdump."""
     from repro_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -291,7 +299,9 @@ def sass_count(library, opcode: str):
         return None
     out = subprocess.run([tool, "-sass", str(library)], capture_output=True,
                          text=True, check=True).stdout
-    return sum(opcode in line for line in out.splitlines())
+    return sum(sum(opcode in line for line in body.splitlines())
+               for body in out.split("Function :")[1:]
+               if function in body.split("\n", 1)[0])
 
 
 def card_line() -> str:
@@ -397,7 +407,8 @@ def check_prng_kernel(dev, gen, errs: dict) -> tuple:
     c, ell, d1 = 2016, 300, 501
     key = prng.split_keys(prng.prng_key(FLEET_KEY_SEED), 24)[0]
     ones, eye = torch.ones(ell, device=dev), torch.eye(ell, device=dev)
-    for kind in prng.KINDS:  # X = I, w = 1: the kernel returns G
+    for kind in prng.KINDS:  # X = I, w = 1: the kernel returns G (big +
+        # small of each normal entry, within 2^-22 |g|)
         got = enc_ops.encode_parity_prng(key, ones, eye, c, kind)
         want = prng.generator_values(key, c, ell, kind, device=dev)
         torch.cuda.synchronize()
@@ -429,6 +440,21 @@ def check_prng_kernel(dev, gen, errs: dict) -> tuple:
             check(torch.equal(got, again), "encode_prng not deterministic")
             if cc == c:
                 errs[f"encode_prng_{kind}"] = err
+    for kind in prng.KINDS:  # the float64 bound, G the plain generator
+        g = prng.generator_values(key, c, ell, kind, device=dev)
+        p64, bound = enc_ops.float64_reference_and_bound(g, w, x)
+        del g
+        shares = {
+            label: float(((p.double() - p64).abs() / bound).max())
+            for label, p in (
+                ("kernel", enc_ops.encode_parity_prng(key, w, x, c, kind)),
+                ("plain", enc_ref.encode_parity_prng(key, w, x, c, kind)))}
+        del p64, bound
+        phase(f"check encode_prng ({c}, {ell}, {d1}) {kind}: worst element "
+              f"at {shares['kernel']:.4f} (kernel) and "
+              f"{shares['plain']:.4f} (plain) of the float64 bound")
+        check(shares["kernel"] <= 1.0 and shares["plain"] <= 1.0,
+              f"encode_prng {kind} outside its float64 bound")
     return key, w, x
 
 
@@ -1223,9 +1249,10 @@ def main() -> int:
     built = build.build(build.SOURCES)
     phase(f"build: {time.perf_counter() - t0:.2f} s wall for "
           + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in built.items()))
-    # the kernels that must not spill: {source: instance-name prefix}
-    no_spill = {"flash_attn": "flash_attn_kernel", "encode": "encode_kernel",
-                "round_grad": "", "ssd": "ssd_chunk_kernel"}
+    # the kernels that must not spill: {source: instance-name prefixes}
+    no_spill = {"flash_attn": ("flash_attn_kernel",),
+                "encode": ("encode_kernel", "encode_prng_kernel"),
+                "round_grad": ("",), "ssd": ("ssd_chunk_kernel",)}
     for name, info in built.items():
         log = info["log"]
         if name in no_spill and not log:  # found built: no report
@@ -1237,14 +1264,19 @@ def main() -> int:
                   f"{name}.cu kernels spill registers: {spills}")
     phase(f"  kernel 8 dynamic shared memory at D = {FLASH_SHAPE[4]}: "
           f"{fa_ops.smem_bytes(FLASH_SHAPE[4])} bytes a CTA, two CTAs an SM")
-    hmma = {}
-    for name, kernel in (("flash_attn", "kernel 8"), ("encode", "kernel 2"),
-                         ("ssd", "kernel 7")):
-        hmma[name] = sass_count(build.library_path(name), "HMMA")
-        phase(f"  {kernel} SASS ({name}.cu): {hmma[name]} HMMA instructions"
-              if hmma[name] is not None else f"  {kernel} SASS: no "
-              "cuobjdump beside nvcc, HMMA not counted")
-        check(hmma[name] is None or hmma[name] > 0,
+    hmma = {}  # {kernel: HMMA count}, by its source and mangled name
+    for kernel, name, function in (
+            ("kernel 8", "flash_attn", ""),
+            ("kernel 2", "encode", "13encode_kernel"),
+            ("kernel 3", "encode", "18encode_prng_kernel"),
+            ("kernel 7", "ssd", "")):
+        hmma[kernel] = sass_count(build.library_path(name), "HMMA",
+                                  function)
+        phase(f"  {kernel} SASS ({name}.cu): {hmma[kernel]} HMMA "
+              "instructions" if hmma[kernel] is not None else
+              f"  {kernel} SASS: no cuobjdump beside nvcc, HMMA not "
+              "counted")
+        check(hmma[kernel] is None or hmma[kernel] > 0,
               f"{kernel} issues no HMMA instruction")
 
     # -- 3. kernels against their plain versions -------------------------
@@ -1695,21 +1727,28 @@ def main() -> int:
                         cold_copies((g_mat, w_p, x_p)))
         del g_mat
         p_flops = 2 * c * ell * d1 + ell * d1
-        p_hash_ops = HASH_INT_OPS * c * ell * -(-d1 // PRNG_COLS_PER_CTA)
+        # one hash per generator entry: the least work (the kernel's CTAs
+        # span 512 columns, so at d1 <= 512 it hashes each entry once)
+        p_hash_ops = HASH_INT_OPS * c * ell
         p_bytes = 4 * (ell + ell * d1 + c * d1)
+        # 3xTF32: three TF32 tensor-core products per float32 product
         terms = {"bytes": p_bytes / HBM_BYTES_PER_S,
-                 "operations": max(p_flops / FP32_FLOPS_PER_S,
+                 "operations": max(3 * 2 * c * ell * d1 / TF32_FLOPS_PER_S,
                                    p_hash_ops / INT32_OPS_PER_S)}
         bound_by = max(terms, key=terms.get)
+        p_bound_fp32 = 1e3 * max(p_flops / FP32_FLOPS_PER_S,
+                                 p_hash_ops / INT32_OPS_PER_S)
         prng_rec[kind] = {"ms": p_ms, "warm": p_warm, "plain": p_plain,
                           "lib": p_lib, "bound": 1e3 * terms[bound_by],
                           "bound_by": bound_by}
-        phase(f"time encode_prng {kind} ({c}, {ell}, {d1}): kernel "
-              f"{p_ms!r} ms (L2 warm {p_warm!r} ms), plain {p_plain!r} ms, "
-              f"library G @ (w X) on a materialized G (no generation) "
-              f"{p_lib!r} ms, bound {1e3 * terms[bound_by]!r} ms "
-              f"({bound_by}: flops {p_flops}, hash integer ops "
-              f"{p_hash_ops}, bytes {p_bytes})")
+        phase(f"time encode_prng {kind} ({c}, {ell}, {d1}) [{card}]: "
+              f"kernel {p_ms!r} ms (L2 warm {p_warm!r} ms), plain "
+              f"{p_plain!r} ms, library G @ (w X) on a materialized G (no "
+              f"generation) {p_lib!r} ms, bound {1e3 * terms[bound_by]!r} "
+              f"ms ({bound_by}, the larger of 3xTF32 at 495 TFLOP/s and "
+              f"the hashes at the INT32 rate: flops {p_flops}, hash "
+              f"integer ops {p_hash_ops}, bytes {p_bytes}; on the float32 "
+              f"FMA pipes {p_bound_fp32!r} ms)")
 
     # the least-squares gradient at the §IV parity block (2016, 500)
     a, y, beta = lsq_inputs
@@ -1864,7 +1903,7 @@ def main() -> int:
          "bound_by": enc_bound_by, "library_ms": enc_lib,
          "bound_route": "3xTF32: three TF32 products per float32 product "
                         "at 495 TFLOP/s",
-         "hmma": hmma["encode"], "ms_l2_warm": enc_warm,
+         "hmma": hmma["kernel 2"], "ms_l2_warm": enc_warm,
          "shape": enc_shape},
         {"name": "coded_round_gradient", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/round_grad.cu",
@@ -1895,6 +1934,10 @@ def main() -> int:
          "bound_ms": prng_rec["normal"]["bound"],
          "bound_by": prng_rec["normal"]["bound_by"],
          "library_ms": prng_rec["normal"]["lib"],
+         "bound_route": "the larger of 3xTF32 (three TF32 products per "
+                        "float32 product at 495 TFLOP/s) and one threefry "
+                        "hash per generator entry at the INT32 rate",
+         "hmma": hmma["kernel 3"],
          "ms_l2_warm": prng_rec["normal"]["warm"],
          "bernoulli": {k: prng_rec["bernoulli"][k] for k in
                        ("ms", "warm", "plain", "lib", "bound")},
@@ -1916,7 +1959,7 @@ def main() -> int:
          "bound_by": ssd_bound_by, "library_ms": ssd_lib,
          "bound_route": "3xTF32: three TF32 products per float32 product "
                         "at 495 TFLOP/s, the scores once per group",
-         "hmma": hmma["ssd"],
+         "hmma": hmma["kernel 7"],
          "library": "torch.matmul + torch.tril on head-major views",
          "library_grouped_ms": ssd_lib_grouped,
          "library_grouped": "torch.matmul with C B^T once per group, "
@@ -1931,7 +1974,7 @@ def main() -> int:
          "bound_by": flash_bound_by, "library_ms": flash_lib,
          "bound_route": "3xTF32: three TF32 products per float32 product "
                         "at 495 TFLOP/s",
-         "hmma": hmma["flash_attn"],
+         "hmma": hmma["kernel 8"],
          "library": "repeat_interleave + scaled_dot_product_attention "
                     f"on {backend}",
          "library_gqa_ms": flash_lib_gqa,

@@ -357,42 +357,72 @@ bool aligned16(const void* p) {
 // with every product and sum rounded on its own (__fmul_rn, __fadd_rn:
 // no contraction into fma) and log1pf.
 //
-// What bounds it on this card: operations, two kinds.  The product is
-// 2*C*L*D float32 flops (0.61 GFLOP at C = 2016, L = 300, D = 501: 9.05 us
-// at 67 TFLOP/s).  Each generator entry costs one threefry2x32 hash, about
-// 80 integer operations (20 rounds of add, funnel-shift, xor and five key
-// injections, plus the counter pairing), and for normal entries about 25
-// float operations more; C*L = 604,800 hashes are 48 M integer operations,
-// 2.9 us at the card's 16.7 T INT32 op/s (64 lanes per SM x 132 SMs x
-// 1.98 GHz), if each entry is hashed once.  The bytes (X, w, P: 4.6 MB)
-// take 1.4 us.
+// What bounds it on this card: operations, two kinds on separate pipes.
+// The product is kernel 2's: 2*C*L*D flops, three TF32 tensor-core
+// products per float32 product (3xTF32, as encode_kernel), 3 x 0.61 GFLOP
+// at C = 2016, L = 300, D = 501: 3.7 us at 495 TFLOP/s (9.05 us on the
+// float32 FMA pipes).  Each generator entry costs one threefry2x32 hash,
+// about 80 integer operations (20 rounds of add, funnel-shift and xor,
+// five key injections, the counter pairing), and for normal entries about
+// 25 float operations more; C*L = 604,800 hashes are 48 M integer
+// operations, 2.9 us at the card's 16.7 T INT32 op/s, if each entry is
+// hashed once.  The bytes (X, w, P: 4.6 MB) take 1.4 us.  What the
+// earlier designs of this kernel lost time to, beyond these: a CTA that
+// covers all of D must read all of X (126 x 601 KB of L2 reads at the
+// paper's shapes), one 4-byte copy instruction per X element and lane
+// (X's rows are not 16-byte aligned at D = 501), and the hash's long
+// chain of dependent operations in the warps that issue the products.
 //
 // What the design does about it:
-//   * Each 256-thread CTA owns kBC = 16 output rows by up to kBD = 512
-//     columns, so one CTA covers the whole D = 501 of the paper's shapes
-//     and every generator entry is hashed exactly once per launch: the
-//     regeneration factor is ceil(D / 512), 1 for D <= 512.  (The Pallas
-//     grid regenerates each tile once per d-block; a 64-wide column tile
-//     would hash each entry 8 times and let the hash outweigh the
-//     products.)  C = 2016 gives 126 CTAs, one wave on 132 SMs.
-//   * The CTA walks L in steps of kBL = 16: each thread hashes one G
-//     entry of the (16 x 16) tile, scales it by w[k], and loads 32
-//     elements of the (16 x 512) X tile, all into registers while the
-//     previous step's products run, then stores them to shared memory.
-//     diag(w) goes on the G side, one multiply per hashed entry: X is
-//     read straight into registers, so its 32 loads stay independent and
-//     in flight together (a multiply per X element at load time, as
-//     encode_kernel fuses it, serialized them under this kernel's
-//     register pressure).  Each thread accumulates an 8 x 4 register
-//     block (rows read as two broadcast float4, columns strided by 128
-//     so a warp reads 32 neighbouring floats): 32 fma per 6 shared
-//     loads.
-//   * Entries past L (or rows past C) are 0 and the X tile is 0 past L,
-//     so the ragged edges add exactly 0; nothing is padded on the host.
-//     (G diag(w)) X rounds each product as g*w, then times x, where the
-//     plain version forms w*x first: the two differ by rounding, held to
-//     the reference's 2e-4 * max|ref|; at w = 1 the kernel returns G
-//     exactly for X = I.
+//   * A cluster of two CTAs along D covers 32 output rows (two m16
+//     tiles) by 512 columns, each CTA 256 of them; at C = 2016, D = 501
+//     that is 63 pairs, 126 CTAs, one wave on 132 SMs.  Each CTA hashes
+//     one m16 tile of the pair's generator rows and stores its split
+//     words into both CTAs' shared memory, so every entry is hashed once
+//     per launch (ceil(D / 512) times for wider D), and each X element a
+//     CTA loads and splits feeds two m16 tiles.
+//   * Hash warps beside 8 product warps (8 of them where X comes in by
+//     bulk copies, 4 beside the rings, as registers allow).  A hash
+//     thread forms two (four) entries of one lane's A fragment of one k8
+//     sub-step: their threefry chains first, side by side, then the
+//     generator values (the erfinv with compile-time coefficients and
+//     no branch around its square root); it scales each by w[k] (one
+//     multiply per entry, rounded on its own), splits it into big and
+//     small TF32 words once and stores them in the fragment layout, so
+//     a product warp reads a sub-step's fragments as 16-byte loads.  No
+//     entry goes to device memory.  The hash warps run up to two (three)
+//     steps of 32 along L ahead, on a ring of buffers with an mbarrier
+//     pair each.  Full: this CTA's hash threads arrive; the partner's
+//     fragments (st.async) and the bulk copies complete bytes on it, so
+//     no fence crosses the pair.  Empty: every product warp of the pair
+//     arrives.  No barrier spans the CTA or the pair in the loop.
+//   * X, where it is 16-byte aligned and D <= 512: a step's 32 rows lie
+//     whole and contiguous in memory, 16-byte aligned at every step, so
+//     each CTA copies 16 of them into both CTAs' buffer with one
+//     multicast bulk copy (the last floats past a multiple of 4 one by
+//     one): a copy instruction per CTA and step instead of one per
+//     element, and X read from L2 once per pair (38 MB).  Elsewhere
+//     (misaligned X, wider D) each product warp streams its 32 columns
+//     through its own ring by 4-byte cp.async, a step ahead, a sub-step's
+//     rows at a time behind that sub-step's fragment loads.
+//   * Each product warp owns 32 columns (4 n8 tiles by 2 m16 tiles) and
+//     splits each X element it reads once; the products are 3xTF32
+//     mma.sync.m16n8k8 (`mma_tf32.cuh`), one fixed chain over L in steps
+//     of 8 (small.big, big.small, big.big, issued term by term across the
+//     warp's 8 tiles), so relaunches are bit-identical.
+//   * The output tile goes out through shared memory, each warp writing
+//     whole row segments of its 32 columns.
+//   * Entries past L (or rows past C) are 0 and X is 0 past L (zero-
+//     filled copies, or zeroed rows of the last bulk step), so the ragged
+//     edges add exactly 0; columns past D are computed and not stored;
+//     nothing is padded on the host.  (G diag(w)) X rounds each g * w,
+//     then splits it, where the plain version forms w * x first: the two
+//     differ by rounding, within the float64 bound of
+//     ops.float64_reference_and_bound, 1.01 (L + 20) u (|G| |diag(w) X|),
+//     and the reference's 2e-4 * max|ref|.  At X = I and w = 1 the kernel
+//     returns big + small of each normal entry (exact in the
+//     accumulator), within 2^-22 |g| of G, and each Rademacher entry
+//     exactly (+-1 splits with small = 0).
 //     The flat index is 32-bit, as in the reference; the wrapper raises
 //     when C * L reaches 2^31.
 //   * accumulate != 0 adds the tile into `out` (out + P, one rounding),
@@ -401,29 +431,59 @@ bool aligned16(const void* p) {
 
 namespace prng {
 
-constexpr int kBC = 16;    // output rows per CTA (C axis)
-constexpr int kBD = 512;   // output columns per CTA (D axis)
-constexpr int kBL = 16;    // contraction step (L axis)
-constexpr int kThreads = 256;
-constexpr int kTM = 8;                   // rows per thread
-constexpr int kTN = 4;                   // columns per thread
-constexpr int kColThreads = kBD / kTN;   // 128: column stride of a thread
-constexpr int kXLoads = kBL * kBD / kThreads;  // 32 X elements per thread
-static_assert(kBC * kBL == kThreads, "one generator entry per thread");
-static_assert((kBC / kTM) * kColThreads == kThreads, "thread layout");
+constexpr int kPair = 2;         // CTAs of a cluster, along D
+constexpr int kBC = 32;          // output rows per CTA: two m16 tiles
+constexpr int kBD = 256;         // output columns per CTA
+constexpr int kMmaWarps = 8;     // X and the products, 32 columns each
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kWN = kBD / kMmaWarps;  // a product warp's columns
+constexpr int kNT = kWN / 8;          // its n8 tiles
+constexpr int kLaneCols = kWN / 32;   // columns a lane copies and stores
+constexpr int kMT = kBC / 16;         // m16 tiles, one hashed by each CTA
+constexpr int kBL = 32;               // step along L
+constexpr int kSub = kBL / 8;         // k8 sub-steps a step
+constexpr int kStages = 3;            // X steps in a warp's ring
+constexpr int kXStride = kWN + 8;     // ring rows: 8t + g distinct banks
+constexpr int kXStage = kBL * kXStride;  // floats of one step in a ring
+constexpr int kAWords = kSub * 32 * 4;   // a step's big (or small) words
+constexpr int kATile = kMT * 2 * kAWords;  // a step's A fragments
+// The two instances' shared memory.  kBulk: a ring of kBufs<true>
+// buffers, each a step's A tile and its X rows (up to kBulkMaxD columns,
+// whole rows, as they lie in memory, and room for the reads past D of
+// the last row); otherwise each product warp's X ring, then a ring of
+// kBufs<false> A tiles.  Then an mbarrier pair per buffer.
+constexpr int kBulkMaxD = 512;
+constexpr int kBulkStage = kBL * kBulkMaxD + kPair * kBD;
+template <bool kBulk>
+constexpr int kBufs = kBulk ? 3 : 4;
+template <bool kBulk>
+constexpr int kBufFloats = kATile + (kBulk ? kBulkStage : 0);
+template <bool kBulk>
+constexpr int kRingFloats = kBulk ? 0 : kMmaWarps * kStages * kXStage;
+template <bool kBulk>
+constexpr int kSmemBytes =
+    (kRingFloats<kBulk> + kBufs<kBulk> * kBufFloats<kBulk>) * 4 +
+    2 * kBufs<kBulk> * 8;
+static_assert(kMT == kPair, "each CTA of the pair hashes one m16 tile");
+// the generator's warps, beside the product warps: as many as the
+// registers of one CTA an SM allow the instance
+template <bool kBulk>
+constexpr int kHashWarps = kBulk ? 8 : 4;
+template <bool kBulk>
+constexpr int kThreads = kMmaThreads + 32 * kHashWarps<kBulk>;
+template <bool kBulk>
+constexpr int kEntries = kAWords / (32 * kHashWarps<kBulk>);  // a thread's
+static_assert((kEntries<true> == 2 || kEntries<true> == 4) &&
+                  (kEntries<false> == 2 || kEntries<false> == 4),
+              "a hash thread forms half a fragment or a whole one");
+static_assert(kBC * kXStride <= kStages * kXStage, "output tile in a ring");
+static_assert(kMmaWarps * kBC * kXStride <= kBulkStage,
+              "output tiles in a stage");
+static_assert(kSmemBytes<true> <= 232448 && kSmemBytes<false> <= 232448,
+              "shared memory of one CTA");
 
 constexpr int kNormal = 0;      // generator kinds, as ops.py codes them
 constexpr int kBernoulli = 1;
-
-// Giles' float32 erfinv coefficients (XLA's ErfInv32), highest power first
-__constant__ float kWLt5[9] = {2.81022636e-08f, 3.43273939e-07f,
-                               -3.5233877e-06f, -4.39150654e-06f,
-                               0.00021858087f, -0.00125372503f,
-                               -0.00417768164f, 0.246640727f, 1.50140941f};
-__constant__ float kWGe5[9] = {-0.000200214257f, 0.000100950558f,
-                               0.00134934322f, -0.00367342844f,
-                               0.00573950773f, -0.0076224613f,
-                               0.00943887047f, 1.00167406f, 2.83297682f};
 
 __device__ __forceinline__ uint32_t rotl(uint32_t v, int r) {
   return __funnelshift_l(v, v, r);
@@ -468,116 +528,501 @@ __device__ __forceinline__ uint32_t bits_at(uint32_t k0, uint32_t k1,
 }
 
 // Giles' float32 erfinv for |x| < 1, each operation rounded on its own.
+// The coefficients are compile-time constants and the square root is
+// taken for every entry, so that the entries of a hash thread run side by
+// side with no load and no branch between them.
 __device__ __forceinline__ float erfinv_f32(float x) {
+  // XLA's ErfInv32 coefficients, highest power first
+  constexpr float kLt5[9] = {
+      2.81022636e-08f, 3.43273939e-07f, -3.5233877e-06f, -4.39150654e-06f,
+      0.00021858087f, -0.00125372503f, -0.00417768164f, 0.246640727f,
+      1.50140941f};
+  constexpr float kGe5[9] = {
+      -0.000200214257f, 0.000100950558f, 0.00134934322f, -0.00367342844f,
+      0.00573950773f, -0.0076224613f, 0.00943887047f, 1.00167406f,
+      2.83297682f};
   float w = -log1pf(__fmul_rn(-x, x));
   const bool lt = w < 5.0f;
-  w = lt ? __fsub_rn(w, 2.5f) : __fsub_rn(sqrtf(w), 3.0f);
-  float p = lt ? kWLt5[0] : kWGe5[0];
+  const float sq = sqrtf(w);
+  w = lt ? __fsub_rn(w, 2.5f) : __fsub_rn(sq, 3.0f);
+  float p = lt ? kLt5[0] : kGe5[0];
 #pragma unroll
   for (int i = 1; i < 9; ++i)
-    p = __fadd_rn(lt ? kWLt5[i] : kWGe5[i], __fmul_rn(p, w));
+    p = __fadd_rn(lt ? kLt5[i] : kGe5[i], __fmul_rn(p, w));
   return __fmul_rn(p, x);
 }
 
 // uint32 bits -> generator entry: jax.random's mantissa fill in [1, 2),
 // then +-1 (Rademacher) or sqrt(2) * erfinv over [nextafter(-1, 0), 1).
-__device__ __forceinline__ float bits_to_generator(uint32_t bits, int kind) {
+template <int kKind>
+__device__ __forceinline__ float bits_to_generator(uint32_t bits) {
   const float f = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-  if (kind == kBernoulli) return fmaxf(0.0f, f) < 0.5f ? 1.0f : -1.0f;
-  constexpr float kLo = -0.99999994f;  // nextafter(-1, 0)
-  const float u = fmaxf(kLo, __fadd_rn(__fmul_rn(f, 1.0f - kLo), kLo));
-  return __fmul_rn(1.41421356f, erfinv_f32(u));
+  if constexpr (kKind == kBernoulli) {
+    return fmaxf(0.0f, f) < 0.5f ? 1.0f : -1.0f;
+  } else {
+    constexpr float kLo = -0.99999994f;  // nextafter(-1, 0)
+    const float u = fmaxf(kLo, __fadd_rn(__fmul_rn(f, 1.0f - kLo), kLo));
+    return __fmul_rn(1.41421356f, erfinv_f32(u));
+  }
 }
 
-// Step `step`'s generator entry (row g_row, column step + g_col), scaled
-// by w, and X tile elements into registers; element t of thread tid is
-// flat index tid + t * kThreads of the (kBL, kBD) tile.
-__device__ __forceinline__ void load_step(
-    uint32_t k0, uint32_t k1, const float* __restrict__ w,
-    const float* __restrict__ x, int c, int l, int d, int col0, int g_row,
-    int g_col, int step, int kind, int tid, float& g_reg,
-    float (&x_reg)[kXLoads]) {
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of shared::cta address `addr` in CTA `rank`
+// of the cluster.
+__device__ __forceinline__ uint32_t map_to(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Stores into the partner's shared memory at `addr` that complete their
+// bytes on its mbarrier at `bar` (both shared::cluster addresses): the
+// barrier's phase carries them, no fence is needed.
+__device__ __forceinline__ void st_async(uint32_t addr, uint4 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n"
+      ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t addr, uint2 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], "
+      "{%1, %2}, [%3];\n"
+      ::"r"(addr), "r"(v.x), "r"(v.y), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t addr, float v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n"
+      ::"r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+
+// Every thread of the pair meets here: what each wrote to either CTA's
+// shared memory before is visible to all after.
+__device__ __forceinline__ void pair_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// mbarriers (shared::cta addresses; a partner's through map_to)
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n"
+      ".reg .b64 state;\n"
+      "mbarrier.arrive.release.cta.shared::cta.b64 state, [%0];\n"
+      "}\n" ::"r"(bar) : "memory");
+}
+
+// Arrive on the partner's barrier at `bar` (shared::cluster): a product
+// warp's word that it has read a buffer.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of barrier `bar` completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// global `src` to shared `dst` of both CTAs of the pair, each copy
+// completing its bytes on the mbarrier at `bar` of its CTA.
+__device__ __forceinline__ void bulk_to_pair(uint32_t dst, const float* src,
+                                             uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar),
+      "h"(static_cast<uint16_t>(3u)) : "memory");
+}
+
+// Floats of X that half h (rows 16 h .. 16 h + 15) of step q holds.
+__device__ __forceinline__ int half_floats(int l, int d, int q, int h) {
+  return max(0, min(kBL / 2, l - kBL * q - (kBL / 2) * h)) * d;
+}
+
+// Step q's X rows into the stage of both CTAs of the pair (kBulk): this
+// CTA's half by one multicast bulk copy (completing on each CTA's `full`
+// barrier), its last floats past a multiple of 4 one by one.  `stage` is
+// this CTA's, `remote` and `remote_full` the partner's (shared::cluster).
+__device__ __forceinline__ void stage_step(float* stage, uint32_t remote,
+                                           uint32_t full,
+                                           uint32_t remote_full,
+                                           const float* __restrict__ x,
+                                           int l, int d, int q, int rank) {
+  const int f = half_floats(l, d, q, rank), fb = f & ~3;
+  const int off = (kBL / 2) * rank * d;  // the half's first float
+  const float* src = x + static_cast<int64_t>(kBL * q) * d + off;
+  if (fb > 0) bulk_to_pair(smem_addr(stage + off), src, 4u * fb, full);
+  for (int i = fb; i < f; ++i) {
+    const float v = src[i];
+    stage[off + i] = v;
+    st_async(remote + 4u * (off + i), v, remote_full);
+  }
+}
+
+// The bytes that step q brings into a CTA's buffer from elsewhere than
+// its own threads' stores: the partner's m16 tile of A fragments and,
+// kBulk, both halves' bulk copies and the partner's last floats.
+template <bool kBulk>
+__device__ __forceinline__ uint32_t step_tx(int l, int d, int q,
+                                            int partner) {
+  uint32_t bytes = 4u * 2 * kAWords;
+  if constexpr (kBulk)
+    bytes += 4u * ((half_floats(l, d, q, 0) & ~3) +
+                   (half_floats(l, d, q, 1) & ~3) +
+                   (half_floats(l, d, q, partner) & 3));
+  return bytes;
+}
+
+// kE entries of one lane's A fragment of one k8 sub-step, (row, k) its
+// a0: elements part * kE .. part * kE + kE - 1 of a0 (row, k), a1
+// (row + 8, k), a2 (row, k + 4), a3 (row + 8, k + 4), each G's entry
+// times w[k] rounded once (0 past C or L), split, and their big and small
+// words stored at word `at` and at + kAWords of this CTA's buffers and,
+// through `remote`, of the partner's, completing on its barrier at
+// `remote_full`.  All the entries' threefry hashes
+// come first, so that they run side by side: the erfinv's branches would
+// keep the entries apart.
+template <int kKind, int kE>
+__device__ __forceinline__ void hash_entries(uint32_t* bufs, int at,
+                                             uint32_t remote, uint32_t k0,
+                                             uint32_t k1,
+                                             const float* __restrict__ w,
+                                             int c, int l, uint32_t size,
+                                             int row, int k, int part,
+                                             uint32_t remote_full) {
+  uint32_t bits[kE];
+  float wk[kE];
+  bool in[kE];
 #pragma unroll
-  for (int t = 0; t < kXLoads; ++t) {
-    const int i = tid + t * kThreads;
-    const int gk = step + i / kBD, gn = col0 + i % kBD;
-    x_reg[t] = (gk < l && gn < d) ? x[static_cast<int64_t>(gk) * d + gn]
-                                  : 0.f;
+  for (int e = 0; e < kE; ++e) {
+    const int el = part * kE + e;
+    const int r = row + 8 * (el & 1), kk = k + 4 * (el >> 1);
+    in[e] = r < c && kk < l;
+    wk[e] = in[e] ? w[kk] : 0.f;
+    bits[e] = bits_at(k0, k1,
+                      static_cast<uint32_t>(r) * static_cast<uint32_t>(l) +
+                          static_cast<uint32_t>(kk),
+                      size);
   }
-  const int gk = step + g_col;
-  g_reg = 0.f;
-  if (g_row < c && gk < l) {
-    const uint32_t size = static_cast<uint32_t>(c) * static_cast<uint32_t>(l);
-    const uint32_t idx = static_cast<uint32_t>(g_row) *
-                             static_cast<uint32_t>(l) + static_cast<uint32_t>(gk);
-    g_reg = bits_to_generator(bits_at(k0, k1, idx, size), kind) * w[gk];
+  uint32_t big[kE], small[kE];
+#pragma unroll
+  for (int e = 0; e < kE; ++e) {
+    const float v = __fmul_rn(bits_to_generator<kKind>(bits[e]), wk[e]);
+    tf32::split(in[e] ? v : 0.f, big[e], small[e]);
+  }
+  if constexpr (kE == 4) {
+    const uint4 vb = make_uint4(big[0], big[1], big[2], big[3]);
+    const uint4 vs = make_uint4(small[0], small[1], small[2], small[3]);
+    *reinterpret_cast<uint4*>(bufs + at) = vb;
+    *reinterpret_cast<uint4*>(bufs + at + kAWords) = vs;
+    st_async(remote + 4u * at, vb, remote_full);
+    st_async(remote + 4u * (at + kAWords), vs, remote_full);
+  } else {
+    const uint2 vb = make_uint2(big[0], big[1]);
+    const uint2 vs = make_uint2(small[0], small[1]);
+    *reinterpret_cast<uint2*>(bufs + at) = vb;
+    *reinterpret_cast<uint2*>(bufs + at + kAWords) = vs;
+    st_async(remote + 4u * at, vb, remote_full);
+    st_async(remote + 4u * (at + kAWords), vs, remote_full);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Start this lane's copies of X rows k0 .. k0 + 7 at columns n + 32 h
+// (zero-filled past L and D) into rows r0 .. r0 + 7 of its warp's ring
+// stage.
+__device__ __forceinline__ void issue_rows(float* stage,
+                                           const float* __restrict__ x,
+                                           int l, int d, int k0, int r0,
+                                           int n, int lane) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int h = 0; h < kLaneCols; ++h) {
+      const bool in = k0 + r < l && n + 32 * h < d;
+      cp_async<1>(stage + (r0 + r) * kXStride + lane + 32 * h,
+                  in ? x + static_cast<int64_t>(k0 + r) * d + n + 32 * h
+                     : x, in);
+    }
+  }
+}
+
+template <int kKind, bool kBulk>
+__global__ void __launch_bounds__(kThreads<kBulk>, 1)
 encode_prng_kernel(uint32_t k0, uint32_t k1, const float* __restrict__ w,
                    const float* __restrict__ x, float* __restrict__ out,
-                   int c, int l, int d, int kind, int accumulate) {
-  __shared__ __align__(16) float s_g[kBL][kBC];  // G diag(w) tile, transposed
-  __shared__ float s_x[kBL][kBD];                // X tile
-
-  const int tid = threadIdx.x;
-  const int tx = tid % kColThreads;
-  const int ty = tid / kColThreads;
+                   int c, int l, int d, int accumulate) {
+  constexpr int kB = kBufs<kBulk>;
+  constexpr int kBuf = kBufFloats<kBulk>;
+  extern __shared__ __align__(16) float smem[];
+  // buffer b: bufs + b * kBuf, its A tile, then (kBulk) its X stage
+  float* bufs = smem + kRingFloats<kBulk>;
+  // full[b] and empty[b] of each buffer, 8 bytes each
+  const uint32_t bars = smem_addr(bufs + kB * kBuf);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = blockIdx.x * kBC;
-  const int col0 = blockIdx.y * kBD;
-  const int g_row = row0 + tid / kBL;  // this thread's generator entry
-  const int g_col = tid % kBL;
-
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-
-  float g_reg, x_reg[kXLoads];
-  load_step(k0, k1, w, x, c, l, d, col0, g_row, g_col, 0, kind, tid, g_reg,
-            x_reg);
-  for (int step = 0; step < l; step += kBL) {
-    s_g[g_col][tid / kBL] = g_reg;
-#pragma unroll
-    for (int t = 0; t < kXLoads; ++t) {
-      const int i = tid + t * kThreads;
-      s_x[i / kBD][i % kBD] = x_reg[t];
+  const int n_steps = (l + kBL - 1) / kBL;
+  const uint32_t size = static_cast<uint32_t>(c) * static_cast<uint32_t>(l);
+  const uint32_t rank = cluster_rank();  // blockIdx.y % kPair
+  const uint32_t partner = rank ^ 1u;
+  const uint32_t remote_bars = map_to(bars, partner);
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < kB; ++b) {
+      // full: this CTA's hash threads, and the bytes from elsewhere
+      // (step_tx); empty: every product warp of the pair
+      mbar_init(bars + 8 * b, 32 * kHashWarps<kBulk>);
+      mbar_init(bars + 8 * (kB + b), 2 * kMmaWarps);
     }
-    __syncthreads();
-    if (step + kBL < l)  // the next step's hashes and loads overlap this one
-      load_step(k0, k1, w, x, c, l, d, col0, g_row, g_col, step + kBL, kind,
-                tid, g_reg, x_reg);
-#pragma unroll
-    for (int k = 0; k < kBL; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&s_g[k][ty * kTM]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&s_g[k][ty * kTM + 4]);
-      const float a[kTM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      float b[kTN];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) b[j] = s_x[k][tx + j * kColThreads];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  pair_barrier();  // both CTAs run and their barriers are set
+
+  if (warp >= kMmaWarps) {
+    // hash warps: this CTA's m16 tile of the pair's generator rows, each
+    // thread one lane's A fragment of one sub-step, into both CTAs'
+    // buffers, up to kB steps ahead of the products
+    constexpr int kE = kEntries<kBulk>;
+    const int p = threadIdx.x - kMmaThreads;
+    const int slot = p / (4 / kE), part = p % (4 / kE);  // (sub-step, lane)
+    const int row = row0 + 16 * static_cast<int>(rank) + (slot % 32) / 4;
+    const int k = 8 * (slot / 32) + slot % 4;
+    const int at = static_cast<int>(rank) * 2 * kAWords + 4 * slot + kE * part;
+    const uint32_t remote = map_to(smem_addr(bufs), partner);
+    for (int q = 0; q < n_steps; ++q) {
+      const int b = q % kB, u = q / kB;
+      if (u > 0)  // both CTAs' product warps are done with its last use
+        mbar_wait(bars + 8 * (kB + b), (u - 1) & 1);
+      if (p == 0) {
+        mbar_expect_tx(bars + 8 * b,
+                       step_tx<kBulk>(l, d, q, static_cast<int>(partner)));
+        if constexpr (kBulk)
+          stage_step(bufs + b * kBuf + kATile,
+                     remote + 4u * (b * kBuf + kATile), bars + 8 * b,
+                     remote_bars + 8 * b, x, l, d, q,
+                     static_cast<int>(rank));
+      }
+      hash_entries<kKind, kE>(reinterpret_cast<uint32_t*>(bufs),
+                              b * kBuf + at, remote, k0, k1, w, c, l, size,
+                              row, q * kBL + k, part, remote_bars + 8 * b);
+      mbar_arrive(bars + 8 * b);
     }
-    __syncthreads();
+    pair_barrier();  // nothing of the pair reaches into this CTA any more
+    return;
   }
 
+  const int g = lane / 4, t = lane % 4;
+  // this lane's columns: n + 32 h, h < kLaneCols
+  const int n = blockIdx.y * kBD + warp * kWN + lane;
+  float* ring = smem + warp * kStages * kXStage;  // (not kBulk)
+  if constexpr (!kBulk) {
+    for (int s = 0; s < kStages - 1; ++s) {
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = row0 + ty * kTM + i;
-    if (r >= c) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int n = col0 + tx + j * kColThreads;
-      if (n >= d) continue;
-      float* dst = out + static_cast<int64_t>(r) * d + n;
-      *dst = accumulate ? *dst + acc[i][j] : acc[i][j];
+      for (int j = 0; j < kSub; ++j)
+        issue_rows(ring + s * kXStage, x, l, d, s * kBL + 8 * j, 8 * j, n,
+                   lane);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
   }
+
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  for (int q = 0; q < n_steps; ++q) {
+    const int b = q % kB;
+    // X (k, column o) of the step: the warp's ring stage, row stride
+    // kXStride, column o - n + lane; or the buffer's stage, whole rows
+    const float* xs;
+    int x_stride, x_col;
+    if constexpr (kBulk) {
+      mbar_wait(bars + 8 * b, (q / kB) & 1);  // A hashed and X landed
+      float* stage = bufs + b * kBuf + kATile;
+      if (q == n_steps - 1) {  // rows past L: zeros, in this warp's columns
+        for (int r = l - kBL * q; r < kBL; ++r)
+#pragma unroll
+          for (int h = 0; h < kLaneCols; ++h) stage[r * d + n + 32 * h] = 0.f;
+        __syncwarp();
+      }
+      xs = stage;
+      x_stride = d;
+      x_col = n - lane;
+    } else {
+      cp_async_wait<kStages - 2>();  // this lane's copies of step q
+      __syncwarp();  // every lane's; step q - 1's stage is read
+      mbar_wait(bars + 8 * b, (q / kB) & 1);  // both halves of A hashed
+      xs = ring + (q % kStages) * kXStage;
+      x_stride = kXStride;
+      x_col = 0;
+    }
+    float* next = ring + ((q + kStages - 1) % kStages) * kXStage;
+    const uint32_t* a_step = reinterpret_cast<const uint32_t*>(bufs) +
+                             b * kBuf;
+#pragma unroll
+    for (int j = 0; j < kSub; ++j) {
+      uint32_t fa_big[kMT][4], fa_small[kMT][4], fb_big[kNT][2],
+          fb_small[kNT][2];
+      float xv[kNT][2];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        const int fa = mt * 2 * kAWords + 4 * (32 * j + lane);
+        const uint4 ab = *reinterpret_cast<const uint4*>(a_step + fa);
+        const uint4 as =
+            *reinterpret_cast<const uint4*>(a_step + fa + kAWords);
+        fa_big[mt][0] = ab.x; fa_big[mt][1] = ab.y;
+        fa_big[mt][2] = ab.z; fa_big[mt][3] = ab.w;
+        fa_small[mt][0] = as.x; fa_small[mt][1] = as.y;
+        fa_small[mt][2] = as.z; fa_small[mt][3] = as.w;
+      }
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        // X (k = t, n = g) and (k = t + 4, n = g) of the sub-step
+        const int o = (8 * j + t) * x_stride + x_col + nt * 8 + g;
+        xv[nt][0] = xs[o];
+        xv[nt][1] = xs[o + 4 * x_stride];
+      }
+      if constexpr (!kBulk)  // a step ahead's copies, a sub-step's rows
+        issue_rows(next, x, l, d, (q + kStages - 1) * kBL + 8 * j, 8 * j,
+                   n, lane);
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        tf32::split(xv[nt][0], fb_big[nt][0], fb_small[nt][0]);
+        tf32::split(xv[nt][1], fb_big[nt][1], fb_small[nt][1]);
+      }
+      // mma3's order on each tile (small.big, big.small, big.big), term by
+      // term across the warp's tiles
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+          tf32::mma(acc[mt][nt], fa_small[mt], fb_big[nt]);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+          tf32::mma(acc[mt][nt], fa_big[mt], fb_small[nt]);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+          tf32::mma(acc[mt][nt], fa_big[mt], fb_big[nt]);
+    }
+    if constexpr (!kBulk)
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    __syncwarp();  // every lane's reads of buffer b are done
+    if (lane == 0 && q + kB < n_steps) {  // a hash step will reuse it
+      mbar_arrive(bars + 8 * (kB + b));
+      mbar_arrive_remote(remote_bars + 8 * (kB + b));
+    }
+  }
+  if constexpr (!kBulk) cp_async_wait<0>();
+  pair_barrier();  // nothing of the pair reaches into this CTA any more
+
+  // the warp's 32 x 32 tile goes out through shared memory, whole rows
+  float* s_out = (kBulk ? bufs + kATile : smem) + warp * kBC * kXStride;
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int r = mt * 16 + g;
+      *reinterpret_cast<float2*>(s_out + r * kXStride + nt * 8 + 2 * t) =
+          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(s_out + (r + 8) * kXStride + nt * 8 +
+                                 2 * t) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int h = 0; h < kLaneCols; ++h) {
+    if (n + 32 * h >= d) break;
+#pragma unroll 4
+    for (int r = 0; r < kBC; ++r) {
+      if (row0 + r < c) {
+        float* dst = out + static_cast<int64_t>(row0 + r) * d + n + 32 * h;
+        const float v = s_out[r * kXStride + lane + 32 * h];
+        *dst = accumulate ? *dst + v : v;
+      }
+    }
+  }
+}
+
+template <int kKind, bool kBulk>
+cudaError_t launch_prng(uint32_t k0, uint32_t k1, const float* w,
+                        const float* x, float* out, int c, int l, int d,
+                        int accumulate, cudaStream_t s) {
+  auto kernel = encode_prng_kernel<kKind, kBulk>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes<kBulk>);
+  if (e != cudaSuccess) return e;
+  // whole pairs along D: a CTA past D hashes its half of the generator
+  // rows (and stages its half of X) for its partner and stores nothing
+  const int col_ctas = (d + kBD - 1) / kBD;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((c + kBC - 1) / kBC,
+                     (col_ctas + kPair - 1) / kPair * kPair);
+  cfg.blockDim = dim3(kThreads<kBulk>);
+  cfg.dynamicSmemBytes = kSmemBytes<kBulk>;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = kPair;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e2 = cudaLaunchKernelEx(&cfg, kernel, k0, k1, w, x, out,
+                                            c, l, d, accumulate);
+  return e2 != cudaSuccess ? e2 : cudaGetLastError();
+}
+
+// Kind and instance: whole rows of X by bulk copies where X is 16-byte
+// aligned and D <= kBulkMaxD (every step's rows then start 16-byte
+// aligned: 32 rows of D floats are a multiple of 4), else 4-byte copies
+// through the product warps' rings.
+template <int kKind>
+cudaError_t launch_prng(uint32_t k0, uint32_t k1, const float* w,
+                        const float* x, float* out, int c, int l, int d,
+                        int accumulate, cudaStream_t s) {
+  return d <= kBulkMaxD && aligned16(x)
+             ? launch_prng<kKind, true>(k0, k1, w, x, out, c, l, d,
+                                        accumulate, s)
+             : launch_prng<kKind, false>(k0, k1, w, x, out, c, l, d,
+                                         accumulate, s);
 }
 
 }  // namespace prng
@@ -608,14 +1053,15 @@ int enc_encode_parity(const float* g, const float* w, const float* x,
 int enc_encode_parity_prng(uint32_t k0, uint32_t k1, const float* w,
                            const float* x, float* out, int c, int l, int d,
                            int kind, int accumulate, void* stream) {
-  if (kind != prng::kNormal && kind != prng::kBernoulli)
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((c + prng::kBC - 1) / prng::kBC,
-                  (d + prng::kBD - 1) / prng::kBD);
-  prng::encode_prng_kernel<<<grid, prng::kThreads, 0, s>>>(
-      k0, k1, w, x, out, c, l, d, kind, accumulate);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t e = cudaErrorInvalidValue;
+  if (kind == prng::kNormal)
+    e = prng::launch_prng<prng::kNormal>(k0, k1, w, x, out, c, l, d,
+                                         accumulate, s);
+  else if (kind == prng::kBernoulli)
+    e = prng::launch_prng<prng::kBernoulli>(k0, k1, w, x, out, c, l, d,
+                                            accumulate, s);
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

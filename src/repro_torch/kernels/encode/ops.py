@@ -62,9 +62,11 @@ def float64_reference_and_bound(g: torch.Tensor, w: torch.Tensor,
     error: |P - P64| <= 1.01 (L + 20) u (|G| |diag(w) X|), u = 2^-24.
     Returns (P64, bound), both float64 (C, D) on the operands' device.
 
-    Any float32 route: w x rounds once (u), and a sum of L products in
-    any order adds at most (L - 1) u of the summed magnitudes.  The
-    kernel's 3xTF32 route (`csrc/encode.cu`): the split leaves out at
+    Any float32 route: w x (or, in kernel 3, g w) rounds once (u), and
+    a sum of L products in any order adds at most (L - 1) u of the
+    summed magnitudes.  The kernels' 3xTF32 route (`csrc/encode.cu`,
+    kernels 2 and 3; for kernel 3, G is the plain generator
+    `prng.generator_values`): the split leaves out at
     most ~12 u |g||w x| a product, and each of the 3 ceil(L / 8) tensor-
     core products truncates its float32 sum, at most ~2 u of the partial
     sum's magnitude each (Fasi, Higham, Mikaitis and Pranesh, "Numerical
@@ -138,7 +140,8 @@ def _launch_prng(lib, key, w: torch.Tensor, x: torch.Tensor, c: int,
 def encode_parity_prng(key, w: torch.Tensor, x: torch.Tensor, c: int,
                        kind: str = "normal") -> torch.Tensor:
     """P = G diag(w) X with G = `prng.generator_values(key, c, L, kind)`
-    regenerated inside the kernel and never stored.
+    regenerated inside the kernel and never stored (3xTF32 tensor-core
+    products on the card, within `float64_reference_and_bound`).
 
     key: (2,) uint32; w: (L,), x: (L, D) float32 -> (C, D) float32.
     Raises ValueError when c * L reaches 2**31."""

@@ -37,8 +37,13 @@ Bounds:
     X = I and w = 1, Rademacher entries `torch.equal` to the plain
     `prng.generator_values` on the card, normal entries within rtol 1e-6
     / atol 1e-7 (both evaluate Giles' float32 erfinv operation by
-    operation; `log1pf` may differ from torch's `log1p` by an ulp); the
-    product within 2e-4 * max|ref|; relaunches bit-identical; the fleet
+    operation; `log1pf` may differ from torch's `log1p` by an ulp, and
+    the 3xTF32 products return big + small of each entry, within 2^-22
+    |g|); the product within 2e-4 * max|ref| and, kernel and plain
+    version alike, within the float64 bound of the encode (G the plain
+    generator), at the §IV width, ragged C, L and D against the 16 x 512
+    CTA, the step of 32 and the m16n8k8 shape, D > 512, an odd C * L and
+    the fleet-scale 128 x 8 x 33; relaunches bit-identical; the fleet
     encoders' one-tier tiered run `torch.equal` to the flat one.
   * least-squares gradient: the float64 bound of the round gradient, and
     `torch.equal` to the flat kernel at w = None (the same instance).
@@ -535,6 +540,49 @@ def test_prng_kernel_matches_plain(cuda, c, ell, d, kind):
     assert torch.equal(got, again)
     bound = 2e-4 * float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=2e-4, atol=bound)
+
+
+@pytest.mark.parametrize("kind", ["bernoulli", "normal"])
+@pytest.mark.parametrize("c,ell,d", [(1, 1, 1), (5, 7, 3), (37, 13, 5),
+                                     (130, 17, 513), (2016, 300, 501),
+                                     (2017, 299, 33), (128, 8, 33),
+                                     (17, 40, 1100)])
+def test_prng_kernel_within_the_float64_bound(cuda, c, ell, d, kind):
+    """Kernel 3 and the plain version both within the encode's float64
+    bound, G the plain generator; relaunches bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(c + ell + d + 1)
+    w = torch.rand((ell,), generator=gen, device=cuda)
+    x = torch.randn((ell, d), generator=gen, device=cuda)
+    key = prng.prng_key(c * d + 1)
+    got = enc_ops.encode_parity_prng(key, w, x, c, kind)
+    again = enc_ops.encode_parity_prng(key, w, x, c, kind)
+    plain = enc_ref.encode_parity_prng(key, w, x, c, kind)
+    g = prng.generator_values(key, c, ell, kind, device=cuda)
+    p64, bound64 = enc_ops.float64_reference_and_bound(g, w, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for name, p in (("kernel", got), ("plain", plain)):
+        err = (p.double() - p64).abs()
+        assert bool((err <= bound64).all()), \
+            f"{name}: max err/bound {float((err / bound64).max()):.3g}"
+
+
+def test_prng_kernel_on_a_misaligned_view(cuda):
+    """X and w as contiguous views one float into their storage, D a
+    multiple of 4: the kernel's 4-byte copies take any alignment."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    c, ell, d = 300, 64, 128
+    x = torch.randn((ell * d + 1,), generator=gen, device=cuda)[1:] \
+        .view(ell, d)
+    w = torch.rand((ell + 1,), generator=gen, device=cuda)[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    key = prng.prng_key(9)
+    for kind in prng.KINDS:
+        got = enc_ops.encode_parity_prng(key, w, x, c, kind)
+        want = enc_ops.encode_parity_prng(key, w.clone(), x.clone(), c,
+                                          kind)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def test_prng_kernel_guards(cuda):
