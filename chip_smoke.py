@@ -147,7 +147,41 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      with the scores once per head is printed beside it); kernel 3's
      operations are the larger of its 3xTF32 products and one threefry
      hash per generator entry over the card's INT32 rate, its
-     float32-FMA bound printed beside it.
+     float32-FMA bound printed beside it;
+ 14. gradient coding through the registry (`make_strategy("gradcode",
+     r=...)`) on the §IV fleet and the quickstart's data, lr 0.0085, 600
+     epochs: r = 2 and r = 3 each exactly 600 round-gradient launches at
+     (7200, 500) and no other kernel, the reference gradient path within
+     rtol 1e-4 with identical clocks; `HierarchicalCFL` over r = 2 at
+     T = 3 (600 tier-masked launches, no other kernel) and T = 1 (NMSE
+     trace bit-equal to the flat r = 2 one); `run_gradient_coding` for
+     the same generator bit-equal to the `Session` run;
+ 15. StochasticCodedFL through the registry with an (epsilon, delta)
+     budget (epsilon 2.0, delta 1e-5, 600 rounds, rho 0.8, fixed_c
+     2016), the noise calibrated and the plan solved on the card: the
+     port's own `epsilon_spent` at the calibrated sigma at most 2.0 and
+     within 1e-3 relative of it, `srv_weight == rho / (1 + sigma^2)`,
+     exactly 24 encode and 600 coded round-gradient launches, the
+     reference gradient path within rtol 1e-4 with identical clocks, the
+     `epsilon_schedule` of shape (600,), non-decreasing and ending at
+     `epsilon_spent`, and `privacy_budget() == (epsilon_spent, 1e-5)`;
+ 16. LowLatencyCFL through the registry on `wireless_fleet(0.2, 0.2,
+     nu_erasure=0.3, seed=0)` (`benchmarks/fig_schemes.py`'s
+     lowlat_session at delta = 0.28: chunks 8, fixed_c 2016) over the
+     quickstart's data: the partial-return plan on the card (loads within
+     their caps, the expected aggregate at its target, t* printed),
+     exactly 24 encode and 600 round-gradient launches, the reference
+     gradient path within rtol 1e-4 with identical clocks; chunks = 1
+     against `make_strategy("cfl", ...)` with the same key and c (the
+     encode through the kernel on both sides): t* equal, parity
+     `torch.equal`, NMSE within rtol 1e-5 (bit-equality printed),
+     `setup_time` equal; `HierarchicalCFL` over it at T = 3, 600
+     tier-masked launches.
+
+Every run of phases 4-16 is counted from 0 just before it.  The kernels
+line's `launches` sums the driven runs: kernel 1 over phases 4, 14 (r = 2
+and 3) and 16; kernel 2 over phases 4, 15 and 16; kernel 4 over phases 6
+and 15; kernel 5 over the T = 3 runs of phases 7, 14 and 16.
 
 Any failed check raises, so the exit code is non-zero.  The line before
 the last is the kernels' JSON record; the last line is
@@ -238,6 +272,14 @@ FLASH_CASES = {"serving shape": FLASH_SHAPE,
                "D = 64": (2, 4, 2, 77, 64),
                "R = 1": (1, 8, 8, 300, 128),
                "R = 3": (1, 12, 4, 257, 128)}
+# phase 14: GradientCodingFL at the replication factors of
+# benchmarks/ablation_baselines.py
+GC_REPLICATION = (2, 3)
+# phase 15: StochasticCodedFL calibrated to an (epsilon, delta) budget over
+# the run's 600 rounds (benchmarks/fig_privacy.py's sample_frac and delta)
+DP_FIXED_C, DP_EPSILON, DP_DELTA, DP_RHO = 2016, 2.0, 1e-5, 0.8
+# phase 16: benchmarks/fig_schemes.py's lowlat_session at delta = 0.28
+LL_KEY_SEED, LL_CHUNKS, LL_DELTA = 7, 8, 0.28
 L2_BYTES = 50 * 2**20
 TIMING_REPEATS = 15   # timed runs per call; the median is kept
 TIMING_CALLS = 40     # back-to-back calls per timed run
@@ -518,6 +560,26 @@ def check_tiered_against_flat(label: str, tiered, flat, scale) -> None:
     check(worst <= 1.0, f"{label}: tiered encode outside its bound")
 
 
+def check_against_reference(label, fused, ref) -> None:
+    """A fused-path run against its reference-path run: NMSE within rtol
+    1e-4, clocks identical."""
+    rel = float(np.max(np.abs(ref.nmse - fused.nmse) / np.abs(ref.nmse)))
+    same_clock = bool(np.array_equal(ref.times, fused.times))
+    phase(f"{label}: fused vs reference max rel NMSE diff {rel:.3e} "
+          f"(bound 1e-4); times identical {same_clock}")
+    check(np.allclose(fused.nmse, ref.nmse, rtol=1e-4, atol=0.0),
+          f"{label}: fused and reference traces disagree")
+    check(same_clock, f"{label}: clocks differ")
+
+
+def check_trace(rep) -> None:
+    check(rep.nmse.shape == (601,)
+          and bool(np.all(np.isfinite(rep.nmse))),
+          f"{rep.label}: NMSE trace not finite or wrong shape")
+    check(rep.nmse[600] < rep.nmse[300] < rep.nmse[0],
+          f"{rep.label}: NMSE trace does not descend")
+
+
 def fleet_width_phase(out, reset_counters, read_counters) -> dict:
     """Phase 8: the tiered in-kernel-generator encode of the quickstart's
     data at T = 3, the flat encode and T = 1."""
@@ -708,6 +770,250 @@ def legacy_phase(out, dev, reset_counters, read_counters) -> dict:
     check(np.allclose(fused, plain, rtol=1e-4, atol=0.0),
           "legacy kernel and plain traces disagree")
     return {"launches": counts["lsq_gradient"], "seconds": seconds}
+
+
+def timed_run(session, data, state=None, seed: int = 0):
+    """One `Session.run` with a fresh generator; returns (report, host
+    seconds ending in a device sync)."""
+    t0 = time.perf_counter()
+    rep = session.run(data, rng=np.random.default_rng(seed), state=state)
+    torch.cuda.synchronize()
+    return rep, time.perf_counter() - t0
+
+
+def gradcode_phase(out, dev, card: str, expect, reset_counters,
+                   read_counters) -> dict:
+    """Phase 14: GradientCodingFL through the registry on the §IV fleet and
+    the quickstart's data, r = 2 and 3, flat and under the tiers."""
+    from repro_torch.api import Session, make_strategy
+    from repro_torch.core.gradient_coding import run_gradient_coding
+    from repro_torch.fleet import FleetTopology, HierarchicalCFL, HierState
+
+    fleet, data = out["fleet"], out["data"]
+    lr, epochs = 0.0085, 600
+    reports, seconds, launches = {}, {}, {}
+    for r in GC_REPLICATION:
+        strategy = make_strategy("gradcode", r=r)
+        sess = Session(strategy, fleet, lr, epochs, device=dev)
+        state = sess.plan(data)
+        check(tuple(strategy.device_state(state, data)["x"].shape)
+              == (data.m, data.d), "gradcode streams other than all m rows")
+        reset_counters()
+        rep, secs = timed_run(sess, data, state)
+        counts = read_counters()
+        phase(f"gradcode r={r} [{card}]: 600 epochs {secs:.4f} s wall; "
+              f"{state.n_groups} groups, shard time {state.shard_time!r} s; "
+              f"final NMSE {rep.final_nmse():.3e} at {rep.times[-1]:.1f} s "
+              f"simulated; launches {counts}")
+        check_trace(rep)
+        check(counts == expect(round_grad=epochs),
+              f"unexpected gradcode r={r} launch counts {counts}")
+        before = read_counters()
+        ref, _ = timed_run(Session(make_strategy(
+            "gradcode", r=r, grad_path="reference"), fleet, lr, epochs,
+            device=dev), data, state)
+        check(read_counters() == before,
+              "the reference path launched a kernel")
+        check_against_reference(f"gradcode r={r}", rep, ref)
+        reports[r], seconds[f"r={r}"] = rep, secs
+        launches[f"r={r}"] = counts["round_grad"]
+
+    r = GC_REPLICATION[0]
+    base = make_strategy("gradcode", r=r)
+    state = base.plan(fleet, data)
+    for nt in (HIER_TIERS, 1):
+        topo = FleetTopology.uniform(data.n, nt)
+        hier = make_strategy("hierarchical", base=base, topology=topo)
+        reset_counters()
+        rep, secs = timed_run(Session(hier, fleet, lr, epochs, device=dev),
+                              data, HierState(state, topo))
+        counts = read_counters()
+        phase(f"gradcode r={r} hierarchical T={nt} [{card}]: 600 epochs "
+              f"{secs:.4f} s wall; final NMSE {rep.final_nmse():.3e}; "
+              f"launches {counts}")
+        check_trace(rep)
+        check(counts == expect(tier_round_grad=epochs),
+              f"unexpected gradcode hierarchical launch counts {counts}")
+        if nt == HIER_TIERS:
+            seconds[f"T={nt}"] = secs
+            launches[f"T={nt}"] = counts["tier_round_grad"]
+        else:
+            equal = bool(np.array_equal(rep.nmse, reports[r].nmse))
+            phase(f"gradcode T=1 NMSE trace bit-equal to the flat r={r} "
+                  f"trace: {equal}")
+            check(equal, "T = 1 gradcode trace differs from the flat one")
+            check(np.array_equal(rep.times, reports[r].times),
+                  "T = 1 gradcode clocks")
+
+    reset_counters()
+    shim = run_gradient_coding(fleet, data.xs, data.ys, data.beta_true, lr,
+                               epochs, np.random.default_rng(0), r=r,
+                               device=dev)
+    counts = read_counters()
+    equal = bool(np.array_equal(shim.nmse, reports[r].nmse)
+                 and np.array_equal(shim.times, reports[r].times))
+    phase(f"run_gradient_coding r={r}: trace bit-equal to the Session run "
+          f"{equal}; launches {counts}")
+    check(equal, "run_gradient_coding differs from the Session run")
+    check(counts == expect(round_grad=epochs),
+          f"unexpected run_gradient_coding launch counts {counts}")
+    return {"seconds": seconds, "launches": launches}
+
+
+def dp_scfl_phase(out, dev, card: str, expect, reset_counters,
+                  read_counters) -> dict:
+    """Phase 15: StochasticCodedFL calibrated to an (epsilon, delta)
+    budget through the registry, calibration and planning on the card."""
+    from repro_torch.api import Session, make_strategy
+    from repro_torch.privacy import epsilon_spent
+
+    fleet, data = out["fleet"], out["data"]
+    lr, epochs = 0.0085, 600
+    t0 = time.perf_counter()
+    scfl = make_strategy("stochastic", key_seed=1, fixed_c=DP_FIXED_C,
+                         epsilon_target=DP_EPSILON, delta=DP_DELTA,
+                         rounds=epochs, sample_frac=DP_RHO,
+                         include_upload_delay=False)
+    calib_s = time.perf_counter() - t0
+    sigma = scfl.noise_multiplier
+    eps_at = epsilon_spent(sigma, DP_RHO, epochs, DP_DELTA, device=dev)
+    phase(f"dp scfl [{card}]: calibrated noise multiplier {sigma!r} for "
+          f"epsilon {DP_EPSILON} at delta {DP_DELTA}, {epochs} rounds, "
+          f"rho {DP_RHO} in {calib_s:.4f} s; epsilon_spent(sigma) "
+          f"{eps_at!r}; srv_weight {scfl.srv_weight!r}")
+    check(eps_at <= DP_EPSILON, "the calibrated sigma overspends the budget")
+    check(abs(eps_at - DP_EPSILON) <= 1e-3 * DP_EPSILON,
+          "the calibrated sigma misses the budget by more than 1e-3")
+    check(scfl.srv_weight == DP_RHO / (1.0 + sigma * sigma),
+          "srv_weight != sample_frac / (1 + sigma^2)")
+    sess = Session(scfl, fleet, lr, epochs, device=dev)
+    reset_counters()
+    t0 = time.perf_counter()
+    state = sess.plan(data)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    rep, run_s = timed_run(sess, data, state)
+    counts = read_counters()
+    plan = state.plan
+    phase(f"dp scfl [{card}]: plan+encode {plan_s:.4f} s, 600 epochs "
+          f"{run_s:.4f} s wall; plan c={plan.c} t*={plan.t_star!r} "
+          f"loads={plan.loads.tolist()}; final NMSE {rep.final_nmse():.3e} "
+          f"(min {float(np.min(rep.nmse)):.3e}) at {rep.times[-1]:.1f} s "
+          f"simulated; launches {counts}")
+    check(plan.c == DP_FIXED_C, "dp scfl plan c")
+    check(np.all(plan.loads <= data.ell) and np.all(plan.loads >= 0),
+          "dp scfl loads outside their caps")
+    check(rep.nmse.shape == (epochs + 1,)
+          and bool(np.all(np.isfinite(rep.nmse))),
+          "dp scfl NMSE trace not finite or wrong shape")
+    check(counts == expect(coded_round_grad=epochs, encode=data.n),
+          f"unexpected dp scfl launch counts {counts}")
+    before = read_counters()
+    ref, _ = timed_run(Session(
+        dataclasses.replace(scfl, grad_path="reference"), fleet, lr, epochs,
+        device=dev), data, state)
+    check(read_counters() == before, "the reference path launched a kernel")
+    check_against_reference("dp scfl", rep, ref)
+    sched = rep.extras["epsilon_schedule"]
+    budget = rep.privacy_budget()
+    phase(f"dp scfl: epsilon_schedule shape {sched.shape}, first "
+          f"{sched[0]!r}, last {sched[-1]!r}; privacy_budget() {budget}")
+    check(sched.shape == (epochs,) and bool(np.all(np.diff(sched) >= 0.0)),
+          "epsilon_schedule of the wrong shape or decreasing")
+    check(sched[-1] == rep.extras["epsilon_spent"],
+          "epsilon_schedule does not end at epsilon_spent")
+    check(budget == (rep.extras["epsilon_spent"], DP_DELTA),
+          "privacy_budget() != (epsilon_spent, delta)")
+    check(rep.extras["epsilon_target"] == DP_EPSILON
+          and rep.extras["accounting_rounds"] == epochs,
+          "dp scfl extras")
+    return {"seconds": {"calibrate": calib_s, "plan": plan_s, "run": run_s},
+            "launches": counts, "sigma": sigma}
+
+
+def lowlat_phase(out, dev, card: str, expect, reset_counters,
+                 read_counters) -> dict:
+    """Phase 16: LowLatencyCFL through the registry on the wireless §IV
+    fleet (`benchmarks/fig_schemes.py`'s lowlat_session at delta = 0.28):
+    the partial-return plan on the card, training, chunks = 1 against
+    CodedFL, and the tiers."""
+    from repro_torch.api import Session, make_strategy
+    from repro_torch.fleet import FleetTopology, HierState
+    from repro_torch.sim.network import wireless_fleet
+
+    data = out["data"]
+    fleet = wireless_fleet(0.2, 0.2, nu_erasure=0.3, seed=0)
+    lr, epochs = 0.0085, 600
+    kw = {"key_seed": LL_KEY_SEED, "fixed_c": int(LL_DELTA * data.m),
+          "include_upload_delay": False}
+    ll = make_strategy("lowlatency", chunks=LL_CHUNKS, **kw)
+    sess = Session(ll, fleet, lr, epochs, device=dev)
+    reset_counters()
+    t0 = time.perf_counter()
+    state = sess.plan(data)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    rep, run_s = timed_run(sess, data, state)
+    counts = read_counters()
+    plan = state.plan
+    phase(f"lowlat chunks={LL_CHUNKS} [{card}]: plan+encode {plan_s:.4f} s, "
+          f"600 epochs {run_s:.4f} s wall; t*={plan.t_star!r} c={plan.c} "
+          f"expected aggregate {plan.expected_agg!r} (target {data.m}); "
+          f"loads={plan.loads.tolist()}; mean chunk probability "
+          f"{rep.extras['mean_chunk_prob']!r}; final NMSE "
+          f"{rep.final_nmse():.3e} at {rep.times[-1]:.1f} s simulated; "
+          f"launches {counts}")
+    check(np.all(plan.loads <= data.ell) and np.all(plan.loads >= 0),
+          "lowlat loads outside their caps")
+    check(plan.expected_agg >= data.m,
+          "the partial-return plan misses its aggregate target")
+    check(plan.c == kw["fixed_c"], "lowlat plan c")
+    check_trace(rep)
+    check(counts == expect(round_grad=epochs, encode=data.n),
+          f"unexpected lowlat launch counts {counts}")
+    before = read_counters()
+    ref, _ = timed_run(Session(dataclasses.replace(ll, grad_path="reference"),
+                               fleet, lr, epochs, device=dev), data, state)
+    check(read_counters() == before, "the reference path launched a kernel")
+    check_against_reference(f"lowlat chunks={LL_CHUNKS}", rep, ref)
+
+    # chunks = 1 against CodedFL with the same key and c (the encode
+    # through the kernel on both sides)
+    one = make_strategy("lowlatency", chunks=1, **kw)
+    cfl = make_strategy("cfl", use_kernel=True, **kw)
+    st_1, st_c = one.plan(fleet, data), cfl.plan(fleet, data)
+    r_1, _ = timed_run(Session(one, fleet, lr, epochs, device=dev), data,
+                       st_1)
+    r_c, _ = timed_run(Session(cfl, fleet, lr, epochs, device=dev), data,
+                       st_c)
+    same_parity = torch.equal(st_1.x_parity, st_c.x_parity) \
+        and torch.equal(st_1.y_parity, st_c.y_parity)
+    rel = float(np.max(np.abs(r_1.nmse - r_c.nmse) / np.abs(r_c.nmse)))
+    bit_equal = bool(np.array_equal(r_1.nmse, r_c.nmse))
+    phase(f"lowlat chunks=1 vs cfl: t* {st_1.plan.t_star!r} / "
+          f"{st_c.plan.t_star!r}; parity torch.equal {same_parity}; max rel "
+          f"NMSE diff {rel:.3e} (bound 1e-5), bit-equal {bit_equal}; "
+          f"setup_time {r_1.setup_time!r} / {r_c.setup_time!r}")
+    check(st_1.plan.t_star == st_c.plan.t_star, "chunks = 1 t* != CodedFL's")
+    check(same_parity, "chunks = 1 parity differs from CodedFL's")
+    check(np.allclose(r_1.nmse, r_c.nmse, rtol=1e-5, atol=1e-8),
+          "chunks = 1 trace differs from CodedFL's past rtol 1e-5")
+    check(r_1.setup_time == r_c.setup_time, "chunks = 1 setup_time")
+
+    topo = FleetTopology.uniform(data.n, HIER_TIERS)
+    hier = make_strategy("hierarchical", base=ll, topology=topo)
+    reset_counters()
+    r_h, hier_s = timed_run(Session(hier, fleet, lr, epochs, device=dev),
+                            data, HierState(state, topo))
+    hier_counts = read_counters()
+    phase(f"lowlat hierarchical T={HIER_TIERS} [{card}]: 600 epochs "
+          f"{hier_s:.4f} s wall; final NMSE {r_h.final_nmse():.3e}; "
+          f"launches {hier_counts}")
+    check_trace(r_h)
+    check(hier_counts == expect(tier_round_grad=epochs),
+          f"unexpected lowlat hierarchical launch counts {hier_counts}")
+    return {"seconds": {"plan": plan_s, "run": run_s, "hier": hier_s},
+            "launches": counts, "hier_launches": hier_counts}
 
 
 def ssd_operands(gen, dev, B, nc, Q, H, P, N, G) -> tuple:
@@ -1489,22 +1795,6 @@ def main() -> int:
           "fused and reference coded traces disagree")
     check(np.array_equal(res_r.times, res_c.times), "clocks differ")
 
-    def check_against_reference(label, fused, ref):
-        rel = float(np.max(np.abs(ref.nmse - fused.nmse) / np.abs(ref.nmse)))
-        same_clock = bool(np.array_equal(ref.times, fused.times))
-        phase(f"{label}: fused vs reference max rel NMSE diff {rel:.3e} "
-              f"(bound 1e-4); times identical {same_clock}")
-        check(np.allclose(fused.nmse, ref.nmse, rtol=1e-4, atol=0.0),
-              f"{label}: fused and reference traces disagree")
-        check(same_clock, f"{label}: clocks differ")
-
-    def check_trace(rep):
-        check(rep.nmse.shape == (601,)
-              and bool(np.all(np.isfinite(rep.nmse))),
-              f"{rep.label}: NMSE trace not finite or wrong shape")
-        check(rep.nmse[600] < rep.nmse[300] < rep.nmse[0],
-              f"{rep.label}: NMSE trace does not descend")
-
     # -- 6. the StochasticCodedFL path -----------------------------------
     data = out["data"]
     scfl = StochasticCodedFL(key=1, fixed_c=quickstart.FIXED_C,
@@ -1886,19 +2176,51 @@ def main() -> int:
           f"{fleet_scale['growth']:.3f}), legacy 600 epochs "
           f"{legacy['seconds']:.4f}")
 
+    # -- 14. gradient coding ----------------------------------------------
+    gradcode = gradcode_phase(out, dev, card, expect, reset_counters,
+                              read_counters)
+
+    # -- 15. StochasticCodedFL calibrated to a DP budget ------------------
+    dp = dp_scfl_phase(out, dev, card, expect, reset_counters,
+                       read_counters)
+
+    # -- 16. low latency ---------------------------------------------------
+    lowlat = lowlat_phase(out, dev, card, expect, reset_counters,
+                          read_counters)
+    phase(f"phases 14-16 host seconds [{card}]: " + ", ".join(
+        [f"gradcode {k} {v:.4f}" for k, v in gradcode["seconds"].items()]
+        + [f"dp scfl {k} {v:.4f}" for k, v in dp["seconds"].items()]
+        + [f"lowlat {k} {v:.4f}" for k, v in lowlat["seconds"].items()]))
+
+    # launches on the driven paths: phase 4 and the new paths' runs
+    # (kernel 1), phases 4, 15, 16 (kernel 2), 6 and 15 (kernel 4), 7, 14
+    # and 16 at T = 3 (kernel 5)
+    driven = {
+        "round_grad": launches["round_grad"] + sum(
+            gradcode["launches"][f"r={r}"] for r in GC_REPLICATION)
+        + lowlat["launches"]["round_grad"],
+        "encode": launches["encode"] + dp["launches"]["encode"]
+        + lowlat["launches"]["encode"],
+        "coded_round_grad": scfl_launches["coded_round_grad"]
+        + dp["launches"]["coded_round_grad"],
+        "tier_round_grad": hier_launches["tier_round_grad"]
+        + gradcode["launches"][f"T={HIER_TIERS}"]
+        + lowlat["hier_launches"]["tier_round_grad"]}
+    phase(f"launches on the driven paths: {driven}")
+
     label, m, d, ms, warm, plain, lib, bound_ms = records[0]
     kernels = [
         {"name": "masked_round_gradient", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/round_grad.cu",
          "replaces": "src/repro/kernels/round_grad/round_grad.py:81",
-         "launches": launches["round_grad"],
+         "launches": driven["round_grad"],
          "max_abs_err": errs["round_grad_coded"], "ms": ms,
          "plain_ms": plain, "bound_ms": bound_ms, "bound_by": "bytes",
          "library_ms": lib, "ms_l2_warm": warm, "shape": [m, d]},
         {"name": "encode_parity", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/encode.cu",
          "replaces": "src/repro/kernels/encode/encode.py:61",
-         "launches": launches["encode"], "max_abs_err": errs["encode"],
+         "launches": driven["encode"], "max_abs_err": errs["encode"],
          "ms": enc_ms, "plain_ms": enc_plain, "bound_ms": enc_bound,
          "bound_by": enc_bound_by, "library_ms": enc_lib,
          "bound_route": "3xTF32: three TF32 products per float32 product "
@@ -1908,7 +2230,7 @@ def main() -> int:
         {"name": "coded_round_gradient", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/round_grad.cu",
          "replaces": "src/repro/kernels/round_grad/round_grad.py:134",
-         "launches": scfl_launches["coded_round_grad"],
+         "launches": driven["coded_round_grad"],
          "max_abs_err": errs["coded_round_grad"], "ms": coded_ms,
          "plain_ms": coded_plain, "bound_ms": coded_bound,
          "bound_by": "bytes", "library_ms": coded_lib,
@@ -1918,7 +2240,7 @@ def main() -> int:
         {"name": "tier_masked_round_gradient", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/round_grad.cu",
          "replaces": "src/repro/kernels/round_grad/round_grad.py:190",
-         "launches": hier_launches["tier_round_grad"],
+         "launches": driven["tier_round_grad"],
          "max_abs_err": errs["tier_round_grad"], "ms": tier_ms,
          "plain_ms": tier_plain, "bound_ms": tier_bound,
          "bound_by": "bytes", "library_ms": tier_lib,

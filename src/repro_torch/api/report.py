@@ -29,7 +29,8 @@ class TraceReport:
     uplink_bits_total: total bits moved device -> server over the whole run
     extras:          strategy-specific diagnostics from the optional
                      `report_extras(state)` hook (StochasticCodedFL's noise
-                     knobs, HierarchicalCFL's tiers); empty without it
+                     knobs and DP spend, HierarchicalCFL's tiers); empty
+                     without it
     beta:            final model iterate (model_dim,), or None
     """
 
@@ -44,6 +45,19 @@ class TraceReport:
 
     def final_nmse(self) -> float:
         return float(self.nmse[-1])
+
+    def privacy_budget(self):
+        """(epsilon_spent, delta) when the strategy reported DP accounting
+        (`StochasticCodedFL` with an accounting horizon), else None.
+
+        The extras schema for privacy-accounting strategies:
+        `epsilon_spent` (composed total), `delta`, `accounting_rounds`,
+        `epsilon_schedule` ((rounds,) cumulative per-round epsilon), and
+        `epsilon_target` when the noise was calibrated to a budget."""
+        eps = self.extras.get("epsilon_spent")
+        if eps is None:
+            return None
+        return float(eps), float(self.extras["delta"])
 
     @property
     def epochs(self) -> int:

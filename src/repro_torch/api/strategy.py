@@ -1,6 +1,6 @@
-"""The `Strategy` protocol and the §IV strategies (counterpart of
+"""The `Strategy` protocol and the built-in strategies (counterpart of
 `repro/api/strategy.py`: `TrainData`, `EpochSchedule`, `UncodedFL`,
-`CodedFL`).
+`CodedFL`, `GradientCodingFL`).
 
 A strategy answers two questions:
 
@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.core import aggregation, cfl
 from repro_torch.core.delay_model import sample_total
+from repro_torch.core.gradient_coding import GradCodingPlan, make_plan
 from repro_torch.core.redundancy import RedundancyPlan
 from repro_torch.data.synthetic import linreg_dataset
 from repro_torch.device import resolve_device
@@ -335,3 +336,95 @@ class CodedFL:
     def uplink_bits(self, state: cfl.CFLState, fleet: "FleetSpec",
                     epochs: int) -> float:
         return cfl.coded_uplink_bits(state, fleet, epochs)
+
+
+# ---------------------------------------------------------------------------
+# Gradient coding (Tandon et al., the paper's ref [5])
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class GradCodingState:
+    plan: GradCodingPlan
+    n_groups: int
+    ell: int            # local shard size (each client computes r * ell)
+    share_bits: float   # per-client raw-data sharing cost (one-time)
+    shard_time: float
+
+
+@dataclasses.dataclass(frozen=True)
+class GradientCodingFL:
+    """Fractional-repetition gradient coding with replication factor r.
+
+    Client i holds its whole group's data (r shards) and returns the
+    group-sum gradient; an epoch ends when every group has >= 1 returner,
+    and the server then recovers the EXACT full gradient.  The round
+    gradient runs over all m rows with w = group_ok[row_group]: on the
+    fused path one launch of the round-gradient kernel (of the
+    tier-masked one under `HierarchicalCFL`).
+    """
+
+    r: int
+    label: str = "gradcode"
+    grad_path: str = aggregation.FUSED
+
+    def plan(self, fleet: "FleetSpec", data: TrainData) -> GradCodingState:
+        plan = make_plan(data.n, self.r)
+        n_groups = int(plan.groups.max()) + 1
+        # one-time cost: each client receives (r-1) shards of raw data from
+        # its group peers (the privacy-relevant transfer CFL avoids)
+        share_bits = (self.r - 1) * data.ell * (data.d + 1) * 32 * 1.1
+        shard_time = float(np.max(share_bits / fleet.link_rates))
+        return GradCodingState(plan=plan, n_groups=n_groups, ell=data.ell,
+                               share_bits=share_bits, shard_time=shard_time)
+
+    def sample_epochs(self, state: GradCodingState, fleet: "FleetSpec",
+                      epochs: int, rng: np.random.Generator) -> EpochSchedule:
+        n = fleet.edge.n
+        # each client processes its whole group's data: r * ell points
+        loads = np.full(n, state.plan.r * state.ell)
+        t_all = np.empty((epochs, n))
+        # the per-epoch host loop keeps the reference's draw order; the
+        # group reduction below runs over all epochs at once
+        for e in range(epochs):
+            t_all[e] = sample_total(fleet.edge, loads, rng)
+        groups = np.asarray(state.plan.groups)
+        per_group = np.full((epochs, state.n_groups), np.inf)
+        np.minimum.at(per_group,
+                      (np.arange(epochs)[:, None], groups[None, :]), t_all)
+        # each epoch ends when the last group's first returner lands
+        durations = per_group.max(axis=1)
+        group_ok = np.ones((epochs, state.n_groups), dtype=np.float32)
+        return EpochSchedule(durations=durations,
+                             arrivals={"group_ok": group_ok},
+                             setup_time=state.shard_time,
+                             t0=state.shard_time)
+
+    def device_state(self, state: GradCodingState,
+                     data: TrainData) -> Dict[str, torch.Tensor]:
+        row_group = torch.as_tensor(state.plan.groups, dtype=torch.long,
+                                    device=data.device) \
+            .repeat_interleave(data.ell)
+        return {"x": data.xs.reshape(data.m, data.d),
+                "y": data.ys.reshape(data.m),
+                "row_group": row_group}
+
+    def round_contributions(self, state, dev, beta, arrivals):
+        # groups with >= 1 returner contribute their exact group-sum
+        # gradient; with every group reporting it is the full gradient
+        w = arrivals["group_ok"][dev["row_group"]]
+        return aggregation.round_gradient(
+            dev["x"], dev["y"], beta, w=w,
+            path=aggregation.resolve_grad_path(self.grad_path))
+
+    def tiered_contributions(self, state, dev, beta, arrivals, tier_masks):
+        # every contribution is client-resident (the decoded group sums),
+        # so the whole gradient reduces through the edge tiers
+        w = arrivals["group_ok"][dev["row_group"]]
+        return aggregation.tiered_round_gradient(
+            dev["x"], dev["y"], beta, w, tier_masks,
+            path=aggregation.resolve_grad_path(self.grad_path)), None
+
+    def uplink_bits(self, state: GradCodingState, fleet: "FleetSpec",
+                    epochs: int) -> float:
+        n = fleet.edge.n
+        return n * state.share_bits + epochs * n * 2 * fleet.packet_bits

@@ -1,7 +1,8 @@
 """Compute & communication delay model (paper §II-A).
 
-NumPy copy of `repro/core/delay_model.py` (the parts the §IV path
-needs), bit-for-bit on the same inputs and generators.
+NumPy copy of `repro/core/delay_model.py` (the parts the §IV path and
+the low-latency scheme need), bit-for-bit on the same inputs and
+generators.
 
 Per-device total round-trip time for one epoch:
 
@@ -131,6 +132,52 @@ def total_cdf(params: DeviceDelayParams, ell, t) -> np.ndarray:
     cdf_k = np.where(zero_load, (t_resid >= 0).astype(np.float64), cdf_k)
     mix = np.sum(pmf * cdf_k, axis=-1)                  # (..., n)
     return np.where(comm, mix, base)
+
+
+def partial_cdf(params: DeviceDelayParams, ell, t, chunks: int) -> np.ndarray:
+    """Pr{chunk q of an assignment `ell` is done by t}, for q = 1..chunks.
+
+    The low-latency wireless model (arXiv:2011.06223 as reproduced here):
+    a device assigned `ell` points uploads `chunks` incremental partial
+    results; chunk q covers its first q*ell/chunks points, so its compute
+    shift is (q/chunks)*ell*a_i while the stochastic memory-access rate
+    stays mu_i/ell (the slowdown scales with the FULL assignment — this is
+    what keeps over-assignment costly and the load allocation nontrivial).
+    The communication legs (retransmission mixture) are shared by every
+    chunk exactly as in `total_cdf`.
+
+    ell: (n,) assignments; t scalar.  Returns (n, chunks); `chunks == 1`
+    reduces to `total_cdf` exactly.
+    """
+    ell = np.broadcast_to(np.asarray(ell, dtype=np.float64), params.a.shape)
+    t = float(t)
+    fracs = np.arange(1, chunks + 1, dtype=np.float64) / chunks    # (Q,)
+    shift = fracs[None, :] * (ell * params.a)[:, None]             # (n, Q)
+    gamma = (params.mu / np.maximum(ell, 1.0))[:, None, None]      # (n, 1, 1)
+
+    comm = params.tau > 0
+    # compute-only CDF (tau == 0, server-style devices)
+    s0 = t - shift
+    base = np.where(
+        s0 > 0,
+        -np.expm1(-np.minimum(gamma[..., 0] * np.maximum(s0, 0.0), 700.0)),
+        0.0)
+    base = np.where((ell > 0)[:, None], base, (t >= 0.0))
+    if not np.any(comm):
+        return base
+
+    ks = np.arange(2, 2 + K_MAX, dtype=np.float64)       # (K,)
+    pmf = _nbinom_pmf(params.p[:, None], ks[None, :])    # (n, K)
+    t_resid = t - ks[None, :] * params.tau[:, None]      # (n, K)
+    s = t_resid[:, None, :] - shift[:, :, None]          # (n, Q, K)
+    cdf_k = np.where(
+        s > 0,
+        -np.expm1(-np.minimum(gamma * np.maximum(s, 0.0), 700.0)),
+        0.0)
+    zero_load = (ell <= 0)[:, None, None]
+    cdf_k = np.where(zero_load, (t_resid >= 0.0)[:, None, :], cdf_k)
+    mix = np.sum(pmf[:, None, :] * cdf_k, axis=-1)       # (n, Q)
+    return np.where(comm[:, None], mix, base)
 
 
 def sample_total(params: DeviceDelayParams, ell, rng: np.random.Generator,

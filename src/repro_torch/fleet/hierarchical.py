@@ -2,7 +2,8 @@
 (counterpart of `repro/fleet/hierarchical.py`).
 
 Wraps any strategy implementing the `tiered_contributions` hook
-(`UncodedFL`, `CodedFL`, `StochasticCodedFL`) and runs its gradient round
+(`UncodedFL`, `CodedFL`, `GradientCodingFL`, `StochasticCodedFL`,
+`LowLatencyCFL`) and runs its gradient round
 hierarchically over a `FleetTopology`:
 
   1. **edge stage** — per-tier weighted reduce: each tier partial is the

@@ -24,9 +24,11 @@ there:
     solver's by the refinement tolerance, not bit for bit;
   * the load axis is a power-of-two bucket (floor 8), padded devices
     carry cap 0 and add exactly 0.0, and `srv_weight` weighs the
-    server's return as in `PlanRequest`.  `edge_chunks > 1` raises
-    `NotImplementedError` (from `PlanRequest`, as for the batched
-    planner); partial CDFs come with `LowLatencyCFL`.
+    server's return as in `PlanRequest`, and `edge_chunks > 1` takes the
+    partial-return objective of `LowLatencyCFL` (the Q chunk CDFs added
+    in index order, then divided by Q, as in the batched planner).
+    `mec_comm=True` raises `NotImplementedError` from `PlanRequest`
+    (ROADMAP §1 item 4).
 
 The reference's `while_loop`s become Python loops that read one scalar
 per probe from the device: planning is one-time set-up.
@@ -91,6 +93,7 @@ def solve_fleet(request: PlanRequest, eps_rel: float = 1e-3,
     srv_a, srv_mu = float(req.server.a[0]), float(req.server.mu[0])
     srv_w, srv_cap = float(req.srv_weight), float(req.server_cap)
     target = float(req.m)
+    edge_chunks = int(req.edge_chunks)
     one = torch.ones((), dtype=torch.float64, device=dev)
     neg_inf = torch.full((), float("-inf"), dtype=torch.float64, device=dev)
 
@@ -123,9 +126,19 @@ def solve_fleet(request: PlanRequest, eps_rel: float = 1e-3,
         shift_c, gamma_c = shift[sl], gamma[sl]
 
         def load_cdf(t_res):
-            """(T', chunk) residual times -> (T', chunk, L) per-load CDF."""
-            cdf = _shifted_exp_cdf(gamma_c[None], t_res[..., None]
-                                   - shift_c[None])
+            """(T', chunk) residual times -> (T', chunk, L) per-load CDF
+            (the mean of the Q chunk CDFs when edge_chunks = Q > 1)."""
+            if edge_chunks == 1:
+                cdf = _shifted_exp_cdf(gamma_c[None], t_res[..., None]
+                                       - shift_c[None])
+            else:
+                cdf = torch.zeros(t_res.shape + (ell_e.shape[0],),
+                                  dtype=torch.float64, device=dev)
+                for j in range(edge_chunks):
+                    fq = (float(j) + 1.0) / edge_chunks
+                    cdf = cdf + _shifted_exp_cdf(
+                        gamma_c[None], t_res[..., None] - fq * shift_c[None])
+                cdf = cdf / edge_chunks
             return torch.where(ell_e > 0.0, cdf,
                                (t_res[..., None] >= 0.0).to(torch.float64))
 

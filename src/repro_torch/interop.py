@@ -11,11 +11,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.api.strategy import TrainData
+from repro_torch.api.strategy import GradCodingState, TrainData
 from repro_torch.core.cfl import CFLState
 from repro_torch.core.delay_model import DeviceDelayParams
+from repro_torch.core.gradient_coding import GradCodingPlan
 from repro_torch.core.redundancy import RedundancyPlan
 from repro_torch.fleet.topology import FleetTopology
+from repro_torch.schemes.lowlatency import LowLatencyState
 from repro_torch.schemes.stochastic import StochasticState
 from repro_torch.sim.network import FleetSpec
 
@@ -84,6 +86,32 @@ def stochastic_state(plan: RedundancyPlan, load_mask, x_parity, y_parity,
                            server=server, noise_scale_x=float(noise_scale_x),
                            noise_scale_y=float(noise_scale_y),
                            srv_weight=float(srv_weight))
+
+
+def gradcoding_state(r: int, groups, n_groups: int, ell: int,
+                     share_bits: float, shard_time: float) -> GradCodingState:
+    """`GradCodingState` from the reference's replication factor, (n,)
+    group ids and its float64 sharing cost and time."""
+    return GradCodingState(
+        plan=GradCodingPlan(r=int(r),
+                            groups=np.array(groups, dtype=np.int64)),
+        n_groups=int(n_groups), ell=int(ell), share_bits=float(share_bits),
+        shard_time=float(shard_time))
+
+
+def lowlatency_state(plan: RedundancyPlan, load_mask, x_parity, y_parity,
+                     edge: DeviceDelayParams, server: DeviceDelayParams,
+                     chunk_probs, row_chunk, device) -> LowLatencyState:
+    """`LowLatencyState` from the reference's (n, ell) load mask, its
+    (c, d) / (c,) composite parity, its (n, Q) chunk probabilities and
+    (n, ell) chunk ids, placed on `device`."""
+    return LowLatencyState(plan=plan, load_mask=_f32(load_mask, device),
+                           x_parity=_f32(x_parity, device),
+                           y_parity=_f32(y_parity, device), edge=edge,
+                           server=server,
+                           chunk_probs=np.array(chunk_probs,
+                                                dtype=np.float64),
+                           row_chunk=np.array(row_chunk, dtype=np.int32))
 
 
 def fleet_topology(tier_of, sample_frac) -> FleetTopology:

@@ -18,13 +18,22 @@ bracket; the final load/aggregate extraction runs in float64 (see
 `_solve_grid`).  Return probabilities are re-evaluated on the host with
 `core.delay_model.total_cdf`, as the reference does.
 
-The objective takes the base CFL form and the stochastic-CFL server
-discount `srv_weight` (a `(B,)` input: a parity row counts `srv_weight`
-rows of value in the aggregate, while the server's completion
-probability is still evaluated at the full row load; 1.0 multiplies
-exactly, so it is the base objective bit for bit).  `PlanRequest` raises
-`NotImplementedError` for the other scheme objectives (`edge_chunks > 1`,
-`mec_comm=True`).  The `while_loop`s of the reference
+The objective takes the base CFL form and two scheme evaluators:
+
+  * `srv_weight`, the stochastic-CFL server discount (a `(B,)` input: a
+    parity row counts `srv_weight` rows of value in the aggregate, while
+    the server's completion probability is still evaluated at the full
+    row load; 1.0 multiplies exactly, so it is the base objective bit for
+    bit);
+  * `edge_chunks`, the partial-return objective of `LowLatencyCFL`: a
+    device assigned `ell` points uploads Q incremental chunks, and its
+    expected return is `(ell/Q) * sum_q Pr{chunk q done by t}` — Q
+    shifted copies of the base CDF grid, added one at a time in index
+    order as in the reference.  A shape fact, so requests group by
+    `(padded n, edge_chunks)`; `edge_chunks == 1` is the base code path.
+
+`mec_comm=True` (CodedFedL's delay model) raises `NotImplementedError`:
+it arrives with ROADMAP §1 item 4.  The `while_loop`s of the reference
 become Python loops whose conditions read one boolean from the device per
 iteration — planning is one-time set-up, not the per-epoch hot loop.
 """
@@ -62,8 +71,10 @@ class PlanRequest:
     t_hi:       optional initial deadline bracket override
     srv_weight: effective rows per parity row in the aggregate return,
                 in [0, 1] (the stochastic-CFL discount; 1.0 = base CFL)
-    edge_chunks, mec_comm: the other scheme objectives of the reference;
-                only their base values (1, False) are ported so far
+    edge_chunks: per-epoch partial-upload chunks per device (the
+                low-latency objective; 1 = all-or-nothing base CFL)
+    mec_comm:   CodedFedL's MEC communication legs; not ported yet (True
+                raises `NotImplementedError`)
     """
 
     edge: DeviceDelayParams
@@ -82,11 +93,17 @@ class PlanRequest:
         if not (0.0 <= float(self.srv_weight) <= 1.0):
             raise ValueError(
                 f"srv_weight must be in [0, 1], got {self.srv_weight}")
-        if int(self.edge_chunks) != 1 or self.mec_comm:
+        if int(self.edge_chunks) < 1:
+            raise ValueError(
+                f"edge_chunks must be >= 1, got {self.edge_chunks}")
+        if self.mec_comm and int(self.edge_chunks) > 1:
+            raise ValueError(
+                "mec_comm models whole-assignment uploads; combining it "
+                "with edge_chunks > 1 partial uploads is not defined")
+        if self.mec_comm:
             raise NotImplementedError(
-                "repro_torch plans the base and srv_weight objectives only: "
-                "edge_chunks and mec_comm arrive with LowLatencyCFL and "
-                "CodedFedL")
+                "the mec_comm objective (CodedFedL's delay model) is not "
+                "ported yet: ROADMAP §1 item 4")
         if self.server.n != 1:
             raise ValueError("server params must describe exactly one device")
         if float(self.server.tau[0]) != 0.0:
@@ -125,7 +142,8 @@ def _shifted_exp_cdf(gamma: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 def _solve_grid(a, mu, tau, p, srv_a, srv_mu, srv_w, caps, srv_cap, target,
                 t_hi0, eps_rel, ell_e, ell_s, ks_search, ks_extract,
-                mask_search, mask_extract, frac, search_f32=True):
+                mask_search, mask_extract, frac, search_f32=True,
+                edge_chunks=1):
     """Batched grid solve.  All tensors float64 except integer caps.
 
     a/mu/tau/p: (B, n) edge delay params    srv_a/srv_mu: (B,) server params
@@ -138,6 +156,7 @@ def _solve_grid(a, mu, tau, p, srv_a, srv_mu, srv_w, caps, srv_cap, target,
         deadline search and the final extraction, with (B, K) / (B, K')
         0/1 masks truncating each row's series at its own length (masked
         terms add exactly 0.0: a plan is the same solo or batched)
+    edge_chunks: partial-return chunk count (1 = all-or-nothing)
 
     Returns (t_star (B,), loads (B, n), s_load (B,), agg (B,),
     feasible (B,)).  Term for term the reference's `_solve_grid`.
@@ -172,13 +191,29 @@ def _solve_grid(a, mu, tau, p, srv_a, srv_mu, srv_w, caps, srv_cap, target,
             pmf_total = pmf_total + pmf[:, :, i]
         snap_tol = 1e-4 if dtype == torch.float32 else 1e-13
         snap_ok = pmf_total >= 1.0 - snap_tol                   # (B, n)
+        # chunk q's share of the compute shift, q/Q, in `dtype`
+        fqs = (torch.arange(edge_chunks, dtype=dtype, device=a.device)
+               + 1.0) / edge_chunks
 
         def _load_cdf(t_res):
-            """Pr{the whole assignment is done}.
+            """Per-load completion CDF at residual time `t_res`.
 
+            edge_chunks == 1: Pr{the whole assignment is done}.
+            edge_chunks == Q > 1: the mean over q of Pr{chunk q (the first
+            q*ell/Q points) is done} — chunk q shifts the compute by
+            (q/Q)*ell*a while the stochastic rate stays mu/ell; the Q
+            terms are added in index order, then divided by Q.
             t_res: (B, T', n) -> (B, T', n, L)."""
-            s = t_res[..., None] - shift[:, None, :, :]
-            cdf = _shifted_exp_cdf(gamma[:, None], s)
+            if edge_chunks == 1:
+                s = t_res[..., None] - shift[:, None, :, :]
+                cdf = _shifted_exp_cdf(gamma[:, None], s)
+            else:
+                cdf = torch.zeros(t_res.shape + (n_loads,), dtype=dtype,
+                                  device=a.device)
+                for j in range(edge_chunks):
+                    s = t_res[..., None] - fqs[j] * shift[:, None, :, :]
+                    cdf = cdf + _shifted_exp_cdf(gamma[:, None], s)
+                cdf = cdf / edge_chunks
             return torch.where(ell_e_ > 0.0, cdf,
                                (t_res[..., None] >= 0.0).to(dtype))
 
@@ -311,23 +346,24 @@ def solve_redundancy_batched(requests: Sequence[PlanRequest],
                              device=None) -> list[RedundancyPlan]:
     """Plan a whole sweep of fleets/budgets in one vectorized solve.
 
-    Requests are grouped by padded device count; each group runs as one
-    `(B, n)` solve on `device` (None: the CUDA device).  Raises
-    RuntimeError if any request's fleet cannot reach its target.
+    Requests are grouped by (padded device count, edge_chunks); each
+    group runs as one `(B, n)` solve on `device` (None: the CUDA device).
+    Raises RuntimeError if any request's fleet cannot reach its target.
     """
     dev = resolve_device(device)
     requests = list(requests)
     plans: list[Optional[RedundancyPlan]] = [None] * len(requests)
-    groups: dict[int, list[int]] = {}
+    groups: dict[tuple[int, int], list[int]] = {}
     for i, req in enumerate(requests):
-        groups.setdefault(_bucket(req.edge.n, _N_BUCKET), []).append(i)
+        key = (_bucket(req.edge.n, _N_BUCKET), int(req.edge_chunks))
+        groups.setdefault(key, []).append(i)
 
     def f64(arr) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr, dtype=np.float64), device=dev)
 
     frac = np.arange(1, grid_points + 1, dtype=np.float64) / grid_points
 
-    for n_pad, idxs in groups.items():
+    for (n_pad, edge_chunks), idxs in groups.items():
         grp = [requests[i] for i in idxs]
         b = len(grp)
 
@@ -377,7 +413,7 @@ def solve_redundancy_batched(requests: Sequence[PlanRequest],
             torch.arange(2, 2 + max(k_extract), dtype=torch.float64,
                          device=dev),
             f64(k_mask(k_search)), f64(k_mask(k_extract)), f64(frac),
-            search_f32=search_f32)
+            search_f32=search_f32, edge_chunks=edge_chunks)
         t_star, loads, s_load, agg, feasible = \
             (o.cpu().numpy() for o in out)
 

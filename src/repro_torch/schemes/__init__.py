@@ -1,10 +1,13 @@
 """Coded follow-up schemes (counterpart of `repro.schemes`).
 
-Ported so far: `StochasticCodedFL` (noisy shared parity and per-round
-stochastic parity sampling).  `LowLatencyCFL` and `CodedFedL` are still
-to port (ROADMAP item 8).
+Ported: `StochasticCodedFL` (noisy shared parity, per-round stochastic
+parity sampling and its (epsilon, delta)-DP accounting) and
+`LowLatencyCFL` (partial-return uploads over wireless fleets).
+`CodedFedL` is still to port (ROADMAP §1 item 4).
 """
 from .base import CodedSchemeState
+from .lowlatency import LowLatencyCFL, LowLatencyState, row_chunks
 from .stochastic import StochasticCodedFL, StochasticState
 
-__all__ = ["CodedSchemeState", "StochasticCodedFL", "StochasticState"]
+__all__ = ["CodedSchemeState", "LowLatencyCFL", "LowLatencyState",
+           "StochasticCodedFL", "StochasticState", "row_chunks"]

@@ -32,15 +32,20 @@ parity row streams share one launch of the coded round-gradient kernel,
 the 1/(c*rho) normalization folded into the parity row weights; at
 `sample_frac == 1` the parity term is Gram-folded as in `CodedFL`.
 
-Not ported yet (ROADMAP item 9, privacy): the (epsilon, delta)-DP
-accounting.  `epsilon_target=` and `rounds=` raise `NotImplementedError`
-instead of being ignored, and `report_extras` carries the noise knobs
-only.
+Privacy accounting (`repro_torch.privacy`): construct by budget —
+`StochasticCodedFL(key=..., epsilon_target=2.0, delta=1e-5, rounds=600)`
+— and the smallest adequate `noise_multiplier` is calibrated at
+construction (`privacy.calibrate_noise`, float64 on `device`); or set
+`noise_multiplier` and pass `rounds=` to have the spend priced.  Either
+way `report_extras` carries the cumulative per-round `epsilon_schedule`
+and the composed `epsilon_spent`, the reference's schema.  Each training
+round is one release of a Poisson-subsampled Gaussian mechanism at
+`(noise_multiplier, sample_frac)`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Dict, Optional, Union
+from typing import TYPE_CHECKING, Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -51,16 +56,13 @@ from repro_torch.core.delay_model import sample_total
 from repro_torch.core.redundancy import RedundancyPlan, systematic_weights
 from repro_torch.plan import (PlanRequest, effective_srv_weight,
                               solve_redundancy_batched)
+from repro_torch.privacy import calibrate_noise, epsilon_schedule
 
 from .base import (CodedSchemeState, coded_device_state, coded_uplink_bits,
                    fused_coded_device_state, sample_parity_upload_time)
 
 if TYPE_CHECKING:
     from repro_torch.sim.network import FleetSpec
-
-_PRIVACY_TODO = ("the (epsilon, delta)-DP accounting of StochasticCodedFL "
-                 "is not ported yet (ROADMAP item 9, privacy): set "
-                 "noise_multiplier= directly and leave {} unset")
 
 
 @dataclasses.dataclass
@@ -96,15 +98,22 @@ class StochasticCodedFL:
                       device) that draws the generator matrices and then
                       the privacy noise, or that generator itself
     noise_multiplier: privacy-noise std relative to the coded data's RMS
-                      (0 = no noise); defaults to 0.5
+                      (0 = no noise); defaults to 0.5 when neither it nor
+                      `epsilon_target` is given
     sample_frac:      per-round Bernoulli parity-row sampling probability
                       (1 = every row every round, with no extra draws
                       from the epoch generator)
     fixed_c / c_up / include_upload_delay / generator: as in `CodedFL`
     redundancy_plan:  pre-solved plan; `plan` then only encodes
-    epsilon_target / rounds: the DP budget of the reference; not ported
-                      yet (either raises `NotImplementedError`)
+    epsilon_target:   (epsilon, delta)-DP budget to train within; the
+                      noise multiplier is then calibrated at construction
+                      (requires `rounds`)
+    delta:            DP delta for accounting and calibration
+    rounds:           accounting horizon (training rounds composed); when
+                      set, `report_extras` prices the run
     grad_path:        "fused" (default) or "reference"
+    device:           where the calibration and the accounting run
+                      (None: the card)
     """
 
     key: Union[int, torch.Generator]
@@ -117,18 +126,38 @@ class StochasticCodedFL:
     label: str = "scfl"
     redundancy_plan: Optional[RedundancyPlan] = None
     epsilon_target: Optional[float] = None
+    delta: float = 1e-5
     rounds: Optional[int] = None
     grad_path: str = aggregation.FUSED
+    device: Optional[Union[str, torch.device]] = None
 
     def __post_init__(self):
         if not (0.0 < self.sample_frac <= 1.0):
             raise ValueError(
                 f"sample_frac must be in (0, 1], got {self.sample_frac}")
+        if not (0.0 < self.delta < 1.0):
+            raise ValueError(f"delta must be in (0, 1), got {self.delta}")
+        if self.rounds is not None and int(self.rounds) < 1:
+            raise ValueError(f"rounds must be >= 1, got {self.rounds}")
         if self.epsilon_target is not None:
-            raise NotImplementedError(_PRIVACY_TODO.format("epsilon_target"))
-        if self.rounds is not None:
-            raise NotImplementedError(_PRIVACY_TODO.format("rounds"))
-        if self.noise_multiplier is None:
+            if self.rounds is None:
+                raise ValueError(
+                    "epsilon_target needs rounds=<training rounds>: the "
+                    "budget composes over the whole run")
+            sigma = float(calibrate_noise(
+                self.epsilon_target, delta=self.delta, rounds=self.rounds,
+                sample_frac=self.sample_frac, device=self.device))
+            # noise_multiplier equal to the calibrated value is what
+            # `dataclasses.replace` on a budget-built strategy passes
+            if self.noise_multiplier is not None \
+                    and self.noise_multiplier != sigma:
+                raise ValueError(
+                    "pass either epsilon_target= (calibrated noise) or "
+                    "noise_multiplier= (manual noise), not both; to "
+                    "recalibrate after changing the budget fields, pass "
+                    "noise_multiplier=None explicitly")
+            object.__setattr__(self, "noise_multiplier", sigma)
+        elif self.noise_multiplier is None:
             object.__setattr__(self, "noise_multiplier", 0.5)
         if self.noise_multiplier < 0:
             raise ValueError(
@@ -312,10 +341,24 @@ class StochasticCodedFL:
                     epochs: int) -> float:
         return coded_uplink_bits(state, fleet, epochs)
 
-    def report_extras(self, state: StochasticState) -> Dict[str, float]:
-        """The privacy/accuracy knobs on every TraceReport."""
-        return {"noise_multiplier": float(self.noise_multiplier),
-                "sample_frac": float(self.sample_frac),
-                "srv_weight": float(state.srv_weight),
-                "noise_scale_x": float(state.noise_scale_x),
-                "noise_scale_y": float(state.noise_scale_y)}
+    def report_extras(self, state: StochasticState) -> Dict[str, Any]:
+        """The privacy/accuracy knobs on every TraceReport and, with an
+        accounting horizon, the composed (epsilon, delta) spend: `delta`,
+        `accounting_rounds`, the cumulative `epsilon_schedule` (rounds,),
+        `epsilon_spent`, and `epsilon_target` when calibrated."""
+        extras = {"noise_multiplier": float(self.noise_multiplier),
+                  "sample_frac": float(self.sample_frac),
+                  "srv_weight": float(state.srv_weight),
+                  "noise_scale_x": float(state.noise_scale_x),
+                  "noise_scale_y": float(state.noise_scale_y)}
+        if self.rounds is not None:
+            sched = epsilon_schedule(self.noise_multiplier,
+                                     self.sample_frac, self.rounds,
+                                     self.delta, device=self.device)
+            extras["delta"] = float(self.delta)
+            extras["accounting_rounds"] = int(self.rounds)
+            extras["epsilon_schedule"] = sched   # cumulative, per round
+            extras["epsilon_spent"] = float(sched[-1])
+            if self.epsilon_target is not None:
+                extras["epsilon_target"] = float(self.epsilon_target)
+        return extras

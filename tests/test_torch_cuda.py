@@ -63,7 +63,15 @@ Bounds:
     group and with per-head B and C.  A chunk one row past the kernel's
     256 is refused before a launch.  A reduced mamba2 prefill on the card within
     rtol 1e-4 / atol 1e-4 * max|ref| of the CPU one, one launch per layer.
+  * the strategies built through `make_strategy` (GradientCodingFL,
+    StochasticCodedFL from an (epsilon, delta) budget, LowLatencyCFL with
+    its partial-return plan solved on the card), flat and at T = 3:
+    exact launch counts, the reference path launching nothing, identical
+    clocks and NMSE within rtol 1e-4 (the fused path against the
+    reference path, and gradient coding against the CPU run).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -486,6 +494,134 @@ def test_scfl_on_the_card_matches_cpu(cuda, grad_path, tiers):
     np.testing.assert_array_equal(gpu_rep.times, cpu_rep.times)
     np.testing.assert_allclose(gpu_rep.nmse, cpu_rep.nmse, rtol=1e-4)
     assert gpu_rep.extras == cpu_rep.extras
+
+
+def _counted(counters):
+    before = [k.launches for k in counters]
+    return lambda: [k.launches - b for k, b in zip(counters, before)]
+
+
+@pytest.mark.parametrize("tiers", [0, 3])
+@pytest.mark.parametrize("r", [2, 4])
+def test_gradcode_on_the_card(cuda, r, tiers):
+    """GradientCodingFL on the card: the fused run launches the flat
+    round-gradient kernel once per epoch (the tier-masked one under
+    HierarchicalCFL) and nothing else; the reference path launches
+    nothing, with identical clocks and NMSE within rtol 1e-4 of the fused
+    run and of the CPU run."""
+    fleet, cpu_data, gpu_data = _small_problem(cuda)
+    counters = (rg_ops.COUNTER, rg_ops.CODED_COUNTER, rg_ops.TIER_COUNTER,
+                enc_ops.COUNTER)
+    reps = {}
+    for grad_path in ("fused", "reference"):
+        strategy = api.make_strategy("gradcode", r=r, grad_path=grad_path)
+        state = strategy.plan(fleet, gpu_data)
+        if tiers:
+            topo = FleetTopology.uniform(8, tiers)
+            strategy = HierarchicalCFL(strategy, topo)
+            state = HierState(state, topo)
+        launched = _counted(counters)
+        reps[grad_path] = api.Session(strategy, fleet, 0.3, 30,
+                                      device=cuda).run(
+            gpu_data, rng=np.random.default_rng(0), state=state)
+        torch.cuda.synchronize()
+        if grad_path == "reference":
+            assert launched() == [0, 0, 0, 0]
+        else:
+            assert launched() == ([0, 0, 30, 0] if tiers else [30, 0, 0, 0])
+    cpu = api.Session(api.make_strategy("gradcode", r=r), fleet, 0.3, 30,
+                      device="cpu").run(cpu_data,
+                                        rng=np.random.default_rng(0))
+    for other in (reps["reference"], cpu):
+        np.testing.assert_array_equal(reps["fused"].times, other.times)
+        np.testing.assert_allclose(reps["fused"].nmse, other.nmse,
+                                   rtol=1e-4)
+
+
+def test_dp_scfl_on_the_card(cuda):
+    """StochasticCodedFL built from an (epsilon, delta) budget with the
+    calibration, the accounting and the plan on the card: the calibrated
+    sigma within 1e-9 relative of the CPU's, its spend within the budget;
+    one encode launch per client, one coded launch per epoch; the
+    reference path launches nothing, identical clocks, NMSE within rtol
+    1e-4."""
+    from repro_torch.privacy import calibrate_noise, epsilon_spent
+    fleet, _, gpu_data = _small_problem(cuda)
+    strategy = api.make_strategy("stochastic", key_seed=1, fixed_c=143,
+                                 epsilon_target=4.0, rounds=30,
+                                 sample_frac=0.5,
+                                 include_upload_delay=False)
+    sigma = strategy.noise_multiplier
+    cpu_sigma = calibrate_noise(4.0, rounds=30, sample_frac=0.5,
+                                device="cpu")
+    assert abs(sigma - cpu_sigma) <= 1e-9 * cpu_sigma
+    assert epsilon_spent(sigma, 0.5, 30, 1e-5) <= 4.0
+    counters = (rg_ops.COUNTER, rg_ops.CODED_COUNTER, rg_ops.TIER_COUNTER,
+                enc_ops.COUNTER)
+    launched = _counted(counters)
+    state = strategy.plan(fleet, gpu_data)
+    fused = api.Session(strategy, fleet, 0.3, 30, device=cuda).run(
+        gpu_data, rng=np.random.default_rng(0), state=state)
+    torch.cuda.synchronize()
+    assert launched() == [0, 30, 0, 8]
+    launched = _counted(counters)
+    ref = api.Session(dataclasses.replace(strategy, grad_path="reference"),
+                      fleet, 0.3, 30, device=cuda).run(
+        gpu_data, rng=np.random.default_rng(0), state=state)
+    assert launched() == [0, 0, 0, 0]
+    np.testing.assert_array_equal(fused.times, ref.times)
+    np.testing.assert_allclose(fused.nmse, ref.nmse, rtol=1e-4)
+    eps, delta = fused.privacy_budget()
+    assert eps <= 4.0 and delta == 1e-5
+    assert fused.extras["epsilon_schedule"].shape == (30,)
+
+
+@pytest.mark.parametrize("tiers", [0, 3])
+def test_lowlatency_on_the_card(cuda, tiers):
+    """LowLatencyCFL with the partial-return plan solved on the card (loads
+    and c equal to the CPU plan's, t* within rtol 1e-6): one encode launch
+    per client, one round-gradient launch per epoch (the tier-masked one
+    under HierarchicalCFL); the reference path launches nothing,
+    identical clocks, NMSE within rtol 1e-4; at chunks = 1 the parity is
+    CodedFL's (`torch.equal`)."""
+    fleet, cpu_data, gpu_data = _small_problem(cuda)
+    strategy = api.make_strategy("lowlatency", key_seed=1, fixed_c=143,
+                                 chunks=4, include_upload_delay=False)
+    counters = (rg_ops.COUNTER, rg_ops.CODED_COUNTER, rg_ops.TIER_COUNTER,
+                enc_ops.COUNTER)
+    launched = _counted(counters)
+    state = strategy.plan(fleet, gpu_data)
+    torch.cuda.synchronize()
+    assert launched() == [0, 0, 0, 8]
+    cpu_plan = strategy.plan(fleet, cpu_data).plan
+    np.testing.assert_array_equal(state.plan.loads, cpu_plan.loads)
+    assert state.plan.c == cpu_plan.c == 143
+    np.testing.assert_allclose(state.plan.t_star, cpu_plan.t_star,
+                               rtol=1e-6)
+    run_strategy, run_state = strategy, state
+    if tiers:
+        topo = FleetTopology.uniform(8, tiers)
+        run_strategy = HierarchicalCFL(strategy, topo)
+        run_state = HierState(state, topo)
+    launched = _counted(counters)
+    fused = api.Session(run_strategy, fleet, 0.3, 30, device=cuda).run(
+        gpu_data, rng=np.random.default_rng(0), state=run_state)
+    torch.cuda.synchronize()
+    assert launched() == ([0, 0, 30, 0] if tiers else [30, 0, 0, 0])
+    ref_base = dataclasses.replace(strategy, grad_path="reference")
+    ref_strategy = HierarchicalCFL(ref_base, topo) if tiers else ref_base
+    launched = _counted(counters)
+    ref = api.Session(ref_strategy, fleet, 0.3, 30, device=cuda).run(
+        gpu_data, rng=np.random.default_rng(0), state=run_state)
+    assert launched() == [0, 0, 0, 0]
+    np.testing.assert_array_equal(fused.times, ref.times)
+    np.testing.assert_allclose(fused.nmse, ref.nmse, rtol=1e-4)
+    one = api.make_strategy("lowlatency", key_seed=1, fixed_c=143, chunks=1)
+    cfl = api.make_strategy("cfl", key_seed=1, fixed_c=143, use_kernel=True)
+    st_1, st_c = one.plan(fleet, gpu_data), cfl.plan(fleet, gpu_data)
+    assert st_1.plan.t_star == st_c.plan.t_star
+    assert torch.equal(st_1.x_parity, st_c.x_parity)
+    assert torch.equal(st_1.y_parity, st_c.y_parity)
 
 
 def test_single_tier_on_the_card_is_the_flat_run(cuda):

@@ -376,9 +376,22 @@ def test_solve_fleet_scales_past_the_oracle_ceiling():
     assert 0 <= plan.c <= 256 and plan.p_return.shape == (n + 1,)
 
 
-def test_solve_fleet_rejects_the_partial_objective():
-    with pytest.raises(NotImplementedError):
-        solve_fleet(_paper_request(edge_chunks=4, fixed_c=64), device="cpu")
+def test_solve_fleet_partial_objective_matches_batched_solver():
+    """edge_chunks = 4 (the low-latency objective) on the request of the
+    batched-solver comparison above, at the same bounds."""
+    req = _paper_request(edge_chunks=4, fixed_c=64)
+    batched = solve_redundancy_batched([req], eps_rel=1e-6, device="cpu")[0]
+    fleet = solve_fleet(req, eps_rel=1e-6, device="cpu")
+    np.testing.assert_array_equal(fleet.loads, batched.loads)
+    assert fleet.c == batched.c == 64
+    assert fleet.t_star == pytest.approx(batched.t_star, rel=1e-4)
+    np.testing.assert_allclose(fleet.p_return, batched.p_return, rtol=1e-6,
+                               atol=1e-9)
+    assert fleet.expected_agg >= req.m * (1.0 - 1e-9)
+    # partial uploads return part of a straggler's work: an earlier t*
+    base = solve_fleet(_paper_request(fixed_c=64), eps_rel=1e-6,
+                       device="cpu")
+    assert fleet.t_star < base.t_star
 
 
 # ---------------------------------------------------------------------------

@@ -283,18 +283,27 @@ def test_effective_srv_weight_bit_equal():
 
 
 def test_unported_objectives_and_privacy_raise():
+    """Only mec_comm (CodedFedL, ROADMAP §1 item 4) still raises; the
+    partial-return objective and the privacy budget construct now
+    (`tests/test_torch_lowlatency.py`, `tests/test_torch_privacy.py` hold
+    them to the reference)."""
     fleet = paper_fleet(seed=0, n=4, d=8)
     sizes = np.full(4, 8)
-    for kw in ({"edge_chunks": 2}, {"mec_comm": True}):
-        with pytest.raises(NotImplementedError):
-            PlanRequest(fleet.edge, fleet.server, sizes, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
+        PlanRequest(fleet.edge, fleet.server, sizes, mec_comm=True)
+    assert PlanRequest(fleet.edge, fleet.server, sizes,
+                       edge_chunks=2).edge_chunks == 2
+    with pytest.raises(ValueError, match="edge_chunks"):
+        PlanRequest(fleet.edge, fleet.server, sizes, edge_chunks=0)
     for bad in (-0.1, 1.5):
         with pytest.raises(ValueError, match="srv_weight"):
             PlanRequest(fleet.edge, fleet.server, sizes, srv_weight=bad)
-    for kw in ({"epsilon_target": 2.0}, {"rounds": 600},
-               {"epsilon_target": 2.0, "rounds": 600}):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-            TSCFL(key=0, **kw)
+    priced = TSCFL(key=0, rounds=600)
+    assert priced.noise_multiplier == 0.5 and priced.rounds == 600
+    with pytest.raises(ValueError, match="rounds"):
+        TSCFL(key=0, epsilon_target=2.0)
+    budgeted = TSCFL(key=0, epsilon_target=2.0, rounds=600, device="cpu")
+    assert budgeted.noise_multiplier > 0.5 and budgeted.delta == 1e-5
     for kw in ({"sample_frac": 0.0}, {"sample_frac": 1.2},
                {"noise_multiplier": -1.0}):
         with pytest.raises(ValueError):
