@@ -176,12 +176,35 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      encode through the kernel on both sides): t* equal, parity
      `torch.equal`, NMSE within rtol 1e-5 (bit-equality printed),
      `setup_time` equal; `HierarchicalCFL` over it at T = 3, 600
-     tier-masked launches.
+     tier-masked launches;
+ 17. CodedFedL through the registry: (a) `repro_torch.nonlinear_quickstart.
+     run` (`wireless_fleet(0.3, 0.3, nu_erasure=0.3, seed=0, n=12,
+     d=256)`, 12 x (100 + 50) rows of 6 raw dimensions from the RBF
+     teacher, d_feat 256, rff_gamma 2/6, c = int(0.3 * 1200) = 359 as the
+     example computes it, lr 0.5, 300 epochs): the MEC plan on the card
+     (loads within their caps, `p_return` equal to `mec_total_cdf` at
+     the plan), exactly 12 encode and 300 round-gradient launches, the
+     features within 5e-6 of the float64 RFF oracle, the reference
+     gradient path within rtol 1e-4 with identical clocks, the kernel
+     head's held-out accuracy above the best linear model's; then
+     `fed.train_coded_head` on the same data (the uncoded baseline on the
+     same features, then its coded arm: 12 encode and 600 round-gradient
+     launches);
+     (b) `wireless_fleet(0.2, 0.2, nu_erasure=0.3, seed=0, d=512)`, 24 x
+     (300 + 150) rows, d_feat 512, c = 2160, lr 0.5, 600 epochs: exactly
+     24 encode launches at (2160, 300, 513) and 600 round-gradient ones,
+     the reference path within rtol 1e-4, `HierarchicalCFL` at T = 3 (600
+     tier-masked launches, its reference path within rtol 1e-4) and T = 1
+     (trace and clocks bit-equal to the flat run), held-out accuracy
+     printed; (c) `CodedFedL(d_feat=None)` against
+     `make_strategy("cfl", ...)` with the same key and c on phase 4's
+     data: t*, parity (`torch.equal`), NMSE trace and `setup_time`
+     bit-equal (24 encode and 600 round-gradient launches each).
 
-Every run of phases 4-16 is counted from 0 just before it.  The kernels
+Every run of phases 4-17 is counted from 0 just before it.  The kernels
 line's `launches` sums the driven runs: kernel 1 over phases 4, 14 (r = 2
-and 3) and 16; kernel 2 over phases 4, 15 and 16; kernel 4 over phases 6
-and 15; kernel 5 over the T = 3 runs of phases 7, 14 and 16.
+and 3), 16 and 17; kernel 2 over phases 4, 15, 16 and 17; kernel 4 over
+phases 6 and 15; kernel 5 over the T = 3 runs of phases 7, 14, 16 and 17.
 
 Any failed check raises, so the exit code is non-zero.  The line before
 the last is the kernels' JSON record; the last line is
@@ -280,6 +303,16 @@ GC_REPLICATION = (2, 3)
 DP_FIXED_C, DP_EPSILON, DP_DELTA, DP_RHO = 2016, 2.0, 1e-5, 0.8
 # phase 16: benchmarks/fig_schemes.py's lowlat_session at delta = 0.28
 LL_KEY_SEED, LL_CHUNKS, LL_DELTA = 7, 8, 0.28
+# phase 17: CodedFedL. (a) the nonlinear quickstart's own configuration
+# (repro_torch.nonlinear_quickstart); (b) the §IV fleet size at the widest
+# width benchmarks/fig_nonlinear.py drives: 24 clients x (300 train + 150
+# held-out) rows of 6 raw dimensions from the quickstart's teacher, 512
+# Fourier features, c = 0.3 m, 600 epochs; (c) d_feat=None against CFL
+CFEDL_N, CFEDL_ELL, CFEDL_ELL_TEST, CFEDL_D_FEAT = 24, 300, 150, 512
+CFEDL_FIXED_C, CFEDL_EPOCHS, CFEDL_LR = 2160, 600, 0.5
+# the reference's own bound between the float32 RFF map and its float64
+# oracle (tests/test_nonlinear.py): TF32 in the product would miss it
+RFF_ATOL = 5e-6
 L2_BYTES = 50 * 2**20
 TIMING_REPEATS = 15   # timed runs per call; the median is kept
 TIMING_CALLS = 40     # back-to-back calls per timed run
@@ -1014,6 +1047,239 @@ def lowlat_phase(out, dev, card: str, expect, reset_counters,
           f"unexpected lowlat hierarchical launch counts {hier_counts}")
     return {"seconds": {"plan": plan_s, "run": run_s, "hier": hier_s},
             "launches": counts, "hier_launches": hier_counts}
+
+
+def check_mec_plan(label: str, plan, fleet, ell: int, c: int) -> None:
+    """A MEC plan: loads within their caps, c as asked, and the Eq.-17
+    probabilities equal to `mec_total_cdf` at the plan."""
+    from repro_torch.core.delay_model import mec_total_cdf
+
+    same = bool(np.array_equal(
+        plan.p_return[:-1],
+        mec_total_cdf(fleet.edge, plan.loads, plan.t_star)))
+    phase(f"{label}: MEC plan t*={plan.t_star!r} c={plan.c} "
+          f"loads={plan.loads.tolist()}; p_return equal to mec_total_cdf "
+          f"at the plan: {same}")
+    check(np.all(plan.loads <= ell) and np.all(plan.loads >= 0),
+          f"{label}: loads outside their caps")
+    check(plan.c == c, f"{label}: plan c")
+    check(same, f"{label}: p_return differs from mec_total_cdf")
+
+
+def check_rff_on_card(label: str, strategy, data, dev) -> None:
+    """The strategy's features on the card against the float64 oracle of
+    the same weight draw, within the reference's 5e-6."""
+    from repro_torch.data import rff_map_reference
+    from repro_torch.schemes import rff_seed
+
+    phi = strategy.features(data)
+    ref = rff_map_reference(data.xs.cpu().numpy(), strategy.d_feat,
+                            rff_seed(strategy.key), gamma=strategy.rff_gamma,
+                            device=dev)
+    err = float(np.max(np.abs(phi.cpu().numpy() - ref)))
+    phase(f"{label}: RFF features {tuple(phi.shape)} on the card vs the "
+          f"float64 oracle max_abs_err {err:.3e} (bound {RFF_ATOL})")
+    check(err <= RFF_ATOL, f"{label}: RFF features outside {RFF_ATOL}")
+
+
+def codedfedl_phase(out, dev, card: str, expect, reset_counters,
+                    read_counters) -> dict:
+    """Phase 17: CodedFedL — (a) the nonlinear quickstart and the uncoded
+    baseline through `train_coded_head`, (b) the §IV fleet size at
+    d_feat 512 flat and under the tiers, (c) d_feat=None against CFL."""
+    from repro_torch import nonlinear_quickstart as nq
+    from repro_torch.api import Session, TrainData, make_strategy
+    from repro_torch.data import classification_dataset, one_vs_rest_targets
+    from repro_torch.fed import (head_accuracy, reference_head,
+                                 train_coded_head)
+    from repro_torch.fleet import FleetTopology, HierState
+    from repro_torch.sim.network import wireless_fleet
+
+    seconds, launches = {}, {}
+
+    def reference_of(strategy):
+        return dataclasses.replace(strategy, use_kernel=False,
+                                   grad_path="reference")
+
+    # (a) the nonlinear quickstart, counted from its data to its report
+    epochs = 300
+    reset_counters()
+    t0 = time.perf_counter()
+    nl = nq.run(epochs=epochs, device=dev)
+    torch.cuda.synchronize()
+    seconds["quickstart"] = time.perf_counter() - t0
+    counts = read_counters()
+    strategy, data, state = nl["strategy"], nl["data"], nl["state"]
+    rep = nl["report"]
+    phase(f"cfedl quickstart [{card}]: {seconds['quickstart']:.4f} s wall "
+          f"(" + ", ".join(f"{k} {v:.4f}" for k, v in nl["seconds"].items())
+          + f"); final NMSE {rep.final_nmse():.4f} at {rep.times[-1]:.1f} s "
+          f"simulated; held-out accuracy kernel {nl['accuracy']:.4f} vs "
+          f"best-linear {nl['linear_accuracy']:.4f}; launches {counts}")
+    check_mec_plan("cfedl quickstart", state.plan, nl["fleet"], nq.ELL,
+                   nq.FIXED_C)
+    check(rep.nmse.shape == (epochs + 1,)
+          and bool(np.all(np.isfinite(rep.nmse)))
+          and rep.nmse[-1] < rep.nmse[0],
+          "cfedl quickstart: NMSE trace not finite or not descending")
+    check(counts == expect(round_grad=epochs, encode=nq.N),
+          f"unexpected cfedl quickstart launch counts {counts}")
+    launches["quickstart"] = counts
+    check(nl["accuracy"] > nl["linear_accuracy"],
+          "the kernel head does not beat the best linear model")
+    check_rff_on_card("cfedl quickstart", strategy, data, dev)
+    check(torch.equal(strategy.features(data), state.features),
+          "the state's features differ from the map")
+    before = read_counters()
+    ref, _ = timed_run(Session(reference_of(strategy), nl["fleet"], nq.LR,
+                               epochs, device=dev), data, state)
+    check(read_counters() == before, "the reference path launched a kernel")
+    check_against_reference("cfedl quickstart", rep, ref)
+
+    # the uncoded baseline on the same features, through the coded head
+    # (its coded arm encodes through kernel 2, as the quickstart's does)
+    reset_counters()
+    t0 = time.perf_counter()
+    heads = train_coded_head(
+        nl["fleet"], None, data.xs, data.ys,
+        torch.zeros(nq.D_RAW, device=dev), lr=nq.LR, epochs=epochs,
+        key=nq.KEY_SEED, rng=np.random.default_rng(0),
+        fixed_c=nq.FIXED_C, d_feat=nq.D_FEAT,
+        rff_gamma=nq.TEACHER_GAMMA / nq.D_RAW)
+    torch.cuda.synchronize()
+    seconds["coded_head"] = time.perf_counter() - t0
+    counts = read_counters()
+    acc_u = head_accuracy(strategy, heads["uncoded"].beta, nl["xs_te"],
+                          nl["y_te"])
+    acc_h = head_accuracy(strategy, heads["cfedl"].beta, nl["xs_te"],
+                          nl["y_te"])
+    h_u, h_c = heads["uncoded"], heads["cfedl"]
+    phase(f"cfedl coded head [{card}]: {seconds['coded_head']:.4f} s wall "
+          f"(uncoded then coded, {epochs} epochs each); uncoded final NMSE "
+          f"{h_u.final_nmse():.4f} at {h_u.times[-1]:.1f} s simulated, "
+          f"held-out accuracy {acc_u:.4f}; coded {h_c.final_nmse():.4f} at "
+          f"{h_c.times[-1]:.1f} s, accuracy {acc_h:.4f}; launches {counts}")
+    check(counts == expect(round_grad=2 * epochs, encode=nq.N),
+          f"unexpected coded head launch counts {counts}")
+    for r in (h_u, h_c):
+        check(bool(np.all(np.isfinite(r.nmse))) and r.nmse[-1] < r.nmse[0],
+              f"coded head {r.label}: NMSE trace not finite or rising")
+    launches["coded_head"] = counts
+
+    # (b) the §IV fleet size at d_feat 512
+    fleet = wireless_fleet(0.2, 0.2, nu_erasure=0.3, seed=0,
+                           d=CFEDL_D_FEAT)
+    xs, labels = classification_dataset(
+        torch.Generator(device=dev).manual_seed(nq.DATA_SEED), CFEDL_N,
+        CFEDL_ELL + CFEDL_ELL_TEST, nq.D_RAW, n_classes=2, centers=32,
+        gamma=nq.TEACHER_GAMMA)
+    ys = one_vs_rest_targets(labels, 1)
+    xs_tr, xs_te = (xs[:, :CFEDL_ELL].contiguous(),
+                    xs[:, CFEDL_ELL:].contiguous())
+    y_tr, y_te = (ys[:, :CFEDL_ELL].contiguous(),
+                  ys[:, CFEDL_ELL:].contiguous())
+    wide = make_strategy("codedfedl", key_seed=nq.KEY_SEED,
+                         d_feat=CFEDL_D_FEAT,
+                         rff_gamma=nq.TEACHER_GAMMA / nq.D_RAW,
+                         fixed_c=CFEDL_FIXED_C, use_kernel=True)
+    wdata = TrainData(xs=xs_tr, ys=y_tr,
+                      beta_true=reference_head(wide, xs_tr, y_tr))
+    check_rff_on_card("cfedl §IV size", wide, wdata, dev)
+    sess = Session(wide, fleet, CFEDL_LR, CFEDL_EPOCHS, device=dev)
+    reset_counters()
+    t0 = time.perf_counter()
+    wstate = sess.plan(wdata)
+    torch.cuda.synchronize()
+    seconds["plan"] = time.perf_counter() - t0
+    wrep, seconds["run"] = timed_run(sess, wdata, wstate)
+    counts = read_counters()
+    acc = head_accuracy(wide, wrep.beta, xs_te, y_te)
+    phase(f"cfedl §IV size [{card}]: {CFEDL_N} x ({CFEDL_ELL} + "
+          f"{CFEDL_ELL_TEST}) x {nq.D_RAW} -> d_feat {CFEDL_D_FEAT}; "
+          f"plan+encode {seconds['plan']:.4f} s, {CFEDL_EPOCHS} epochs "
+          f"{seconds['run']:.4f} s wall; final NMSE {wrep.final_nmse():.4f} "
+          f"at {wrep.times[-1]:.1f} s simulated; held-out accuracy "
+          f"{acc:.4f}; launches {counts}")
+    check_mec_plan("cfedl §IV size", wstate.plan, fleet, CFEDL_ELL,
+                   CFEDL_FIXED_C)
+    check(tuple(wstate.x_parity.shape) == (CFEDL_FIXED_C, CFEDL_D_FEAT)
+          and tuple(wstate.features.shape)
+          == (CFEDL_N, CFEDL_ELL, CFEDL_D_FEAT),
+          "cfedl §IV size: encode shapes")
+    check_trace(wrep)
+    check(counts == expect(round_grad=CFEDL_EPOCHS, encode=CFEDL_N),
+          f"unexpected cfedl §IV size launch counts {counts}")
+    launches["wide"] = counts
+    before = read_counters()
+    wref, _ = timed_run(Session(reference_of(wide), fleet, CFEDL_LR,
+                                CFEDL_EPOCHS, device=dev), wdata, wstate)
+    check(read_counters() == before, "the reference path launched a kernel")
+    check_against_reference("cfedl §IV size", wrep, wref)
+
+    for nt in (HIER_TIERS, 1):
+        topo = FleetTopology.uniform(CFEDL_N, nt)
+        hier = make_strategy("hierarchical", base=wide, topology=topo)
+        reset_counters()
+        r_h, h_s = timed_run(Session(hier, fleet, CFEDL_LR, CFEDL_EPOCHS,
+                                     device=dev), wdata,
+                             HierState(wstate, topo))
+        counts = read_counters()
+        phase(f"cfedl hierarchical T={nt} [{card}]: {CFEDL_EPOCHS} epochs "
+              f"{h_s:.4f} s wall; final NMSE {r_h.final_nmse():.4f}; "
+              f"launches {counts}")
+        check_trace(r_h)
+        check(counts == expect(tier_round_grad=CFEDL_EPOCHS),
+              f"unexpected cfedl hierarchical launch counts {counts}")
+        if nt == HIER_TIERS:
+            seconds[f"T={nt}"] = h_s
+            launches["hier"] = counts
+            before = read_counters()
+            h_ref, _ = timed_run(Session(make_strategy(
+                "hierarchical", base=reference_of(wide), topology=topo),
+                fleet, CFEDL_LR, CFEDL_EPOCHS, device=dev), wdata,
+                HierState(wstate, topo))
+            check(read_counters() == before,
+                  "the reference path launched a kernel")
+            check_against_reference(f"cfedl hierarchical T={nt}", r_h,
+                                    h_ref)
+        else:
+            equal = bool(np.array_equal(r_h.nmse, wrep.nmse)
+                         and np.array_equal(r_h.times, wrep.times))
+            phase(f"cfedl T=1 NMSE trace and clocks bit-equal to the flat "
+                  f"run: {equal}")
+            check(equal, "T = 1 cfedl trace differs from the flat one")
+
+    # (c) d_feat=None against CFL, same key and c, on phase 4's data
+    fleet4, data4 = out["fleet"], out["data"]
+    kw = {"key_seed": 1, "fixed_c": out["plan"].c, "use_kernel": True,
+          "include_upload_delay": False}
+    pair = {}
+    for name in ("cfl", "codedfedl"):
+        s = make_strategy(name, **kw)
+        reset_counters()
+        st = s.plan(fleet4, data4)
+        r, _ = timed_run(Session(s, fleet4, 0.0085, 600, device=dev), data4,
+                         st)
+        counts = read_counters()
+        check(counts == expect(round_grad=600, encode=data4.n),
+              f"unexpected {name} launch counts {counts}")
+        pair[name] = (st, r, counts)
+    (st_c, r_c, _), (st_f, r_f, counts) = pair["cfl"], pair["codedfedl"]
+    launches["identity"] = counts
+    same_parity = torch.equal(st_c.x_parity, st_f.x_parity) \
+        and torch.equal(st_c.y_parity, st_f.y_parity)
+    equal = bool(np.array_equal(r_f.nmse, r_c.nmse)
+                 and np.array_equal(r_f.times, r_c.times))
+    phase(f"cfedl d_feat=None vs cfl: t* {st_f.plan.t_star!r} / "
+          f"{st_c.plan.t_star!r}; parity torch.equal {same_parity}; NMSE "
+          f"trace and clocks bit-equal {equal}; setup_time "
+          f"{r_f.setup_time!r} / {r_c.setup_time!r}; launches {counts} "
+          f"each")
+    check(st_f.plan.t_star == st_c.plan.t_star, "d_feat=None t* != CFL's")
+    check(same_parity, "d_feat=None parity differs from CFL's")
+    check(equal, "d_feat=None trace differs from CFL's")
+    check(r_f.setup_time == r_c.setup_time, "d_feat=None setup_time")
+    return {"seconds": seconds, "launches": launches}
 
 
 def ssd_operands(gen, dev, B, nc, Q, H, P, N, G) -> tuple:
@@ -2192,20 +2458,30 @@ def main() -> int:
         + [f"dp scfl {k} {v:.4f}" for k, v in dp["seconds"].items()]
         + [f"lowlat {k} {v:.4f}" for k, v in lowlat["seconds"].items()]))
 
+    # -- 17. CodedFedL -----------------------------------------------------
+    cfedl = codedfedl_phase(out, dev, card, expect, reset_counters,
+                            read_counters)
+    phase(f"phase 17 host seconds [{card}]: " + ", ".join(
+        f"cfedl {k} {v:.4f}" for k, v in cfedl["seconds"].items()))
+    cfedl_counts = cfedl["launches"].values()
+
     # launches on the driven paths: phase 4 and the new paths' runs
     # (kernel 1), phases 4, 15, 16 (kernel 2), 6 and 15 (kernel 4), 7, 14
-    # and 16 at T = 3 (kernel 5)
+    # and 16 at T = 3 (kernel 5), and every counted run of phase 17
     driven = {
         "round_grad": launches["round_grad"] + sum(
             gradcode["launches"][f"r={r}"] for r in GC_REPLICATION)
-        + lowlat["launches"]["round_grad"],
+        + lowlat["launches"]["round_grad"]
+        + sum(c["round_grad"] for c in cfedl_counts),
         "encode": launches["encode"] + dp["launches"]["encode"]
-        + lowlat["launches"]["encode"],
+        + lowlat["launches"]["encode"]
+        + sum(c["encode"] for c in cfedl_counts),
         "coded_round_grad": scfl_launches["coded_round_grad"]
         + dp["launches"]["coded_round_grad"],
         "tier_round_grad": hier_launches["tier_round_grad"]
         + gradcode["launches"][f"T={HIER_TIERS}"]
-        + lowlat["hier_launches"]["tier_round_grad"]}
+        + lowlat["hier_launches"]["tier_round_grad"]
+        + sum(c["tier_round_grad"] for c in cfedl_counts)}
     phase(f"launches on the driven paths: {driven}")
 
     label, m, d, ms, warm, plain, lib, bound_ms = records[0]

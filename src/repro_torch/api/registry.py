@@ -7,8 +7,7 @@ base= and topology=, see `repro_torch.fleet`).  Extra keyword arguments
 pass straight through to the strategy dataclass; for key-carrying
 schemes `key_seed=<int>` is accepted and becomes the port's key, the int
 seed of a `torch.Generator` (the reference turns it into
-`jax.random.PRNGKey(key_seed)`).  `codedfedl` is not ported yet and
-raises `NotImplementedError` (ROADMAP §1 item 4).
+`jax.random.PRNGKey(key_seed)`).
 
 User schemes join via `register_strategy("myscheme", MyStrategy)` (or as a
 decorator, `@register_strategy("myscheme")`).
@@ -19,13 +18,13 @@ import dataclasses
 import importlib
 from typing import Dict, Optional, Tuple, Type
 
-_BUILTINS: Dict[str, Optional[Tuple[str, str]]] = {
+_BUILTINS: Dict[str, Tuple[str, str]] = {
     "uncoded": ("repro_torch.api.strategy", "UncodedFL"),
     "cfl": ("repro_torch.api.strategy", "CodedFL"),
     "gradcode": ("repro_torch.api.strategy", "GradientCodingFL"),
     "stochastic": ("repro_torch.schemes", "StochasticCodedFL"),
     "lowlatency": ("repro_torch.schemes", "LowLatencyCFL"),
-    "codedfedl": None,  # not ported yet: ROADMAP §1 item 4
+    "codedfedl": ("repro_torch.schemes", "CodedFedL"),
     "hierarchical": ("repro_torch.fleet", "HierarchicalCFL"),
 }
 _ALIASES: Dict[str, str] = {"scfl": "stochastic", "lowlat": "lowlatency",
@@ -59,10 +58,6 @@ def make_strategy(name: str, **kwargs):
         cls = _CUSTOM[name]
     elif (canonical := _ALIASES.get(name, name)) in _BUILTINS:
         where = _BUILTINS[canonical]
-        if where is None:
-            raise NotImplementedError(
-                f"strategy {name!r} (CodedFedL) is not ported yet: "
-                "ROADMAP §1 item 4")
         cls = getattr(importlib.import_module(where[0]), where[1])
     else:
         raise ValueError(

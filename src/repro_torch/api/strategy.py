@@ -255,11 +255,16 @@ class CodedFL:
                          generator=self.generator, use_kernel=self.use_kernel,
                          plan=plan)
 
+    def _sampler(self):
+        """The per-epoch delay sampler (`CodedFedL` swaps in the MEC one)."""
+        return sample_total
+
     def sample_epochs(self, state: cfl.CFLState, fleet: "FleetSpec",
                       epochs: int, rng: np.random.Generator) -> EpochSchedule:
         plan = state.plan
         n = fleet.edge.n
         t_star = plan.t_star
+        sampler = self._sampler()
 
         # one-time parity upload, drawn FIRST (the reference's order)
         upload_time = cfl.sample_parity_upload_time(state, fleet, rng)
@@ -267,12 +272,12 @@ class CodedFL:
         received = np.empty((epochs, n), dtype=np.float32)
         parity_ok = np.empty(epochs, dtype=np.float32)
         for e in range(epochs):
-            t_i = sample_total(fleet.edge, plan.loads, rng)
+            t_i = sampler(fleet.edge, plan.loads, rng)
             received[e] = (t_i <= t_star) & (plan.loads > 0)
             if self.server_always_returns or state.c == 0:
                 parity_ok[e] = 1.0
             else:
-                t_srv = sample_total(fleet.server, np.array([state.c]), rng)[0]
+                t_srv = sampler(fleet.server, np.array([state.c]), rng)[0]
                 parity_ok[e] = float(t_srv <= t_star)
 
         return EpochSchedule(

@@ -86,8 +86,8 @@ def packed_row_indices(load_flat: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return idx, valid
 
 
-def fused_coded_device_state(state, data, parity_rows: bool = False
-                             ) -> dict:
+def fused_coded_device_state(state, data, x: torch.Tensor | None = None,
+                             parity_rows: bool = False) -> dict:
     """Per-run operands of the FUSED gradient path: systematic rows packed
     to the plan's support (zero-load rows dropped, the count
     bucket-padded at weight 0) and the parity block folded to its Gram
@@ -97,13 +97,16 @@ def fused_coded_device_state(state, data, parity_rows: bool = False
     dict keeps the full rows under "x"/"y"/"row_client" with the load mask
     as "sys_w" (consume through `aggregation.fused_sys_block`).
 
+    x: an (m, d_feat) feature matrix in place of `data.xs` (CodedFedL's
+    random Fourier features); None streams the raw inputs.
     parity_rows: ship the raw parity rows ("x_parity"/"y_parity") in
     place of the Gram factors, for schemes whose per-round parity masks
     need the rows themselves (StochasticCodedFL at sample_frac < 1).
     The reference computes the factors there too and never reads them."""
     n, ell = data.n, data.ell
     dev_ = data.xs.device
-    x = data.xs.reshape(data.m, data.d)
+    if x is None:
+        x = data.xs.reshape(data.m, data.d)
     y = data.ys.reshape(data.m)
     load_flat = state.load_mask.reshape(data.m).cpu().numpy()
     idx, valid = packed_row_indices(load_flat)

@@ -1,8 +1,8 @@
 """Compute & communication delay model (paper §II-A).
 
-NumPy copy of `repro/core/delay_model.py` (the parts the §IV path and
-the low-latency scheme need), bit-for-bit on the same inputs and
-generators.
+NumPy copy of `repro/core/delay_model.py` (the parts the §IV path, the
+low-latency scheme and CodedFedL's MEC model need), bit-for-bit on the
+same inputs and generators.
 
 Per-device total round-trip time for one epoch:
 
@@ -195,4 +195,75 @@ def sample_total(params: DeviceDelayParams, ell, rng: np.random.Generator,
     n_d = rng.geometric(1.0 - p, size=shape)
     n_u = rng.geometric(1.0 - p, size=shape)
     t_comm = np.where(comm, (n_d + n_u) * params.tau, 0.0)
+    return t_c + t_comm
+
+
+def mec_total_cdf(params: DeviceDelayParams, ell, t) -> np.ndarray:
+    """Pr{T_i <= t} under the CodedFedL MEC delay model (arXiv:2007.03273).
+
+    The compute leg is the base shifted exponential (shift ell*a, rate
+    mu/ell); the communication leg is also a shifted exponential, shift
+    `2 tau` and rate `gm = (1 - p) / (2 tau p)` (the geometric
+    retransmission model's minimum and mean).  The total CDF is the
+    closed-form convolution of the two exponentials at the residual
+    u = t - ell*a - 2 tau:
+
+        F(u) = 1 - (gm e^{-gc u} - gc e^{-gm u}) / (gm - gc)
+
+    with the equal-rate limit `1 - (1 + g u) e^{-g u}` where the rates
+    collide, and the pure compute CDF at the same residual for devices
+    whose communication leg is deterministic (`p == 0` or `tau == 0`).
+    The float64 host mirror of the planner's `mec_comm` evaluator, term
+    for term: the Eq.-17 weights see the probabilities the solve
+    optimized.  `ell` broadcasts as in `total_cdf`.
+    """
+    ell = np.asarray(ell, dtype=np.float64)
+    ell = np.broadcast_to(ell, np.broadcast_shapes(ell.shape, params.a.shape))
+    t = float(t)
+
+    shift = ell * params.a
+    gc = params.mu / np.maximum(ell, 1.0)
+    gm = (1.0 - params.p) / np.maximum(2.0 * params.tau * params.p, 1e-30)
+    u = t - shift - 2.0 * params.tau
+    up = np.maximum(u, 0.0)
+    e_c = np.exp(-np.minimum(gc * up, 700.0))
+    e_m = np.exp(-np.minimum(gm * up, 700.0))
+    denom = gm - gc
+    close = np.abs(denom) <= 1e-8 * np.maximum(gm, gc)
+    safe = np.where(close, 1.0, denom)
+    f_neq = 1.0 - (gm * e_c - gc * e_m) / safe
+    gbar = 0.5 * (gm + gc)
+    arg = np.minimum(gbar * up, 700.0)
+    f_eq = -np.expm1(-arg) - arg * np.exp(-arg)
+    cdf = np.where(close, f_eq, f_neq)
+    cdf = np.where(u > 0.0, cdf, 0.0)
+    det = np.logical_or(params.p <= 0.0, params.tau <= 0.0)
+    cdf_det = np.where(
+        u > 0.0, -np.expm1(-np.minimum(gc * up, 700.0)), 0.0)
+    cdf = np.where(det, cdf_det, cdf)
+    return np.where(ell > 0, cdf, (u >= 0.0).astype(np.float64))
+
+
+def sample_total_mec(params: DeviceDelayParams, ell,
+                     rng: np.random.Generator,
+                     size: Optional[int] = None) -> np.ndarray:
+    """Draw T_i under the MEC delay model (see `mec_total_cdf`).
+
+    The compute draw of `sample_total`; the communication leg is ONE
+    exponential excess over the deterministic `2 tau` floor.  Always
+    consumes two generator draws per device per call (compute, then the
+    excess), whatever the loads and parameters, so schedules match the
+    reference draw for draw."""
+    ell = np.broadcast_to(np.asarray(ell, dtype=np.float64), params.a.shape)
+    shape = (params.n,) if size is None else (size, params.n)
+    shift = ell * params.a
+    with np.errstate(divide="ignore", invalid="ignore"):
+        scale = np.where(ell > 0, ell / params.mu, 0.0)
+    t_c = shift + rng.exponential(1.0, size=shape) * scale
+    comm = params.tau > 0
+    stochastic = np.logical_and(comm, params.p > 0)
+    gm = (1.0 - params.p) / np.maximum(2.0 * params.tau * params.p, 1e-30)
+    excess = rng.exponential(1.0, size=shape) / gm
+    t_comm = np.where(comm, 2.0 * params.tau, 0.0) \
+        + np.where(stochastic, excess, 0.0)
     return t_c + t_comm

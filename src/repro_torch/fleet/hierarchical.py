@@ -3,7 +3,7 @@
 
 Wraps any strategy implementing the `tiered_contributions` hook
 (`UncodedFL`, `CodedFL`, `GradientCodingFL`, `StochasticCodedFL`,
-`LowLatencyCFL`) and runs its gradient round
+`LowLatencyCFL`, `CodedFedL`) and runs its gradient round
 hierarchically over a `FleetTopology`:
 
   1. **edge stage** — per-tier weighted reduce: each tier partial is the

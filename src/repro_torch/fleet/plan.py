@@ -27,8 +27,12 @@ there:
     server's return as in `PlanRequest`, and `edge_chunks > 1` takes the
     partial-return objective of `LowLatencyCFL` (the Q chunk CDFs added
     in index order, then divided by Q, as in the batched planner).
-    `mec_comm=True` raises `NotImplementedError` from `PlanRequest`
-    (ROADMAP §1 item 4).
+
+`mec_comm=True` raises `ValueError`: the streamed evaluator has only the
+retransmission-mixture edge model.  The reference's `solve_fleet` never
+reads `mec_comm` and quietly plans such a request with the base model
+(ROADMAP "Reference state", R6); a MEC plan comes from
+`plan.solve_redundancy_batched`.
 
 The reference's `while_loop`s become Python loops that read one scalar
 per probe from the device: planning is one-time set-up.
@@ -67,7 +71,11 @@ def solve_fleet(request: PlanRequest, eps_rel: float = 1e-3,
     Takes the batched solver's `PlanRequest` and returns the same
     `RedundancyPlan`; see the module docstring for how it relates to
     `solve_redundancy_batched`.  Raises RuntimeError when the fleet
-    cannot reach its target."""
+    cannot reach its target, and ValueError on a `mec_comm` request."""
+    if request.mec_comm:
+        raise ValueError(
+            "solve_fleet has no mec_comm objective (CodedFedL's MEC delay "
+            "model); plan MEC requests with plan.solve_redundancy_batched")
     dev = resolve_device(device)
     req = request
     n = req.edge.n

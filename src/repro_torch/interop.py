@@ -17,6 +17,7 @@ from repro_torch.core.delay_model import DeviceDelayParams
 from repro_torch.core.gradient_coding import GradCodingPlan
 from repro_torch.core.redundancy import RedundancyPlan
 from repro_torch.fleet.topology import FleetTopology
+from repro_torch.schemes.codedfedl import CodedFedLState
 from repro_torch.schemes.lowlatency import LowLatencyState
 from repro_torch.schemes.stochastic import StochasticState
 from repro_torch.sim.network import FleetSpec
@@ -112,6 +113,18 @@ def lowlatency_state(plan: RedundancyPlan, load_mask, x_parity, y_parity,
                            chunk_probs=np.array(chunk_probs,
                                                 dtype=np.float64),
                            row_chunk=np.array(row_chunk, dtype=np.int32))
+
+
+def codedfedl_state(plan: RedundancyPlan, load_mask, x_parity, y_parity,
+                    edge: DeviceDelayParams, server: DeviceDelayParams,
+                    features, device) -> CodedFedLState:
+    """`CodedFedLState` from the reference's (n, ell) load mask, its
+    (c, d_feat) / (c,) composite parity and its (n, ell, d_feat)
+    features, placed on `device`."""
+    return CodedFedLState(plan=plan, load_mask=_f32(load_mask, device),
+                          x_parity=_f32(x_parity, device),
+                          y_parity=_f32(y_parity, device), edge=edge,
+                          server=server, features=_f32(features, device))
 
 
 def fleet_topology(tier_of, sample_frac) -> FleetTopology:

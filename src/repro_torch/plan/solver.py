@@ -29,11 +29,18 @@ The objective takes the base CFL form and two scheme evaluators:
     device assigned `ell` points uploads Q incremental chunks, and its
     expected return is `(ell/Q) * sum_q Pr{chunk q done by t}` — Q
     shifted copies of the base CDF grid, added one at a time in index
-    order as in the reference.  A shape fact, so requests group by
-    `(padded n, edge_chunks)`; `edge_chunks == 1` is the base code path.
+    order as in the reference.  `edge_chunks == 1` is the base code path;
+  * `mec_comm`, CodedFedL's multi-access edge delay model: each device's
+    communication leg is a shifted exponential (shift `2 tau`, rate
+    `(1 - p) / (2 tau p)`) instead of the retransmission mixture, and
+    the edge return is `ell * Pr{T_comp + T_comm <= t}` through the
+    closed-form two-exponential convolution (`edge_returns_mec`, term for
+    term the reference's, in the float32 scout and the float64 polish).
+    Its return probabilities are re-evaluated on the host with
+    `core.delay_model.mec_total_cdf`.
 
-`mec_comm=True` (CodedFedL's delay model) raises `NotImplementedError`:
-it arrives with ROADMAP §1 item 4.  The `while_loop`s of the reference
+`edge_chunks` and `mec_comm` change the evaluator, so requests group by
+`(padded n, edge_chunks, mec_comm)`.  The `while_loop`s of the reference
 become Python loops whose conditions read one boolean from the device per
 iteration — planning is one-time set-up, not the per-epoch hot loop.
 """
@@ -45,7 +52,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.delay_model import DeviceDelayParams, K_MAX, total_cdf
+from repro_torch.core.delay_model import (DeviceDelayParams, K_MAX,
+                                          mec_total_cdf, total_cdf)
 from repro_torch.core.redundancy import RedundancyPlan
 from repro_torch.device import resolve_device
 
@@ -73,8 +81,9 @@ class PlanRequest:
                 in [0, 1] (the stochastic-CFL discount; 1.0 = base CFL)
     edge_chunks: per-epoch partial-upload chunks per device (the
                 low-latency objective; 1 = all-or-nothing base CFL)
-    mec_comm:   CodedFedL's MEC communication legs; not ported yet (True
-                raises `NotImplementedError`)
+    mec_comm:   model each device's communication leg as CodedFedL's
+                shifted-exponential MEC link instead of the retransmission
+                mixture (False = base CFL); not with edge_chunks > 1
     """
 
     edge: DeviceDelayParams
@@ -100,10 +109,6 @@ class PlanRequest:
             raise ValueError(
                 "mec_comm models whole-assignment uploads; combining it "
                 "with edge_chunks > 1 partial uploads is not defined")
-        if self.mec_comm:
-            raise NotImplementedError(
-                "the mec_comm objective (CodedFedL's delay model) is not "
-                "ported yet: ROADMAP §1 item 4")
         if self.server.n != 1:
             raise ValueError("server params must describe exactly one device")
         if float(self.server.tau[0]) != 0.0:
@@ -143,7 +148,7 @@ def _shifted_exp_cdf(gamma: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 def _solve_grid(a, mu, tau, p, srv_a, srv_mu, srv_w, caps, srv_cap, target,
                 t_hi0, eps_rel, ell_e, ell_s, ks_search, ks_extract,
                 mask_search, mask_extract, frac, search_f32=True,
-                edge_chunks=1):
+                edge_chunks=1, mec_comm=False):
     """Batched grid solve.  All tensors float64 except integer caps.
 
     a/mu/tau/p: (B, n) edge delay params    srv_a/srv_mu: (B,) server params
@@ -157,6 +162,8 @@ def _solve_grid(a, mu, tau, p, srv_a, srv_mu, srv_w, caps, srv_cap, target,
         0/1 masks truncating each row's series at its own length (masked
         terms add exactly 0.0: a plan is the same solo or batched)
     edge_chunks: partial-return chunk count (1 = all-or-nothing)
+    mec_comm: shifted-exponential MEC communication legs (CodedFedL)
+        instead of the retransmission mixture
 
     Returns (t_star (B,), loads (B, n), s_load (B,), agg (B,),
     feasible (B,)).  Term for term the reference's `_solve_grid`.
@@ -174,6 +181,7 @@ def _solve_grid(a, mu, tau, p, srv_a, srv_mu, srv_w, caps, srv_cap, target,
         srv_w_ = srv_w.to(dtype)
         ell_e_, ell_s_, ks_ = (t.to(dtype) for t in (ell_e, ell_s, ks))
         one = torch.ones((), dtype=dtype, device=a.device)
+        zero = torch.zeros((), dtype=dtype, device=a.device)
         neg_inf = torch.full((), float("-inf"), dtype=dtype, device=a.device)
         pmf = (ks_ - 1.0) * p_[..., None] ** (ks_ - 2.0) \
             * (1.0 - p_[..., None]) ** 2                        # (B, n, K)
@@ -217,7 +225,41 @@ def _solve_grid(a, mu, tau, p, srv_a, srv_mu, srv_w, caps, srv_cap, target,
             return torch.where(ell_e_ > 0.0, cdf,
                                (t_res[..., None] >= 0.0).to(dtype))
 
-        def edge_returns(t):
+        def edge_returns_mec(t):
+            """Masked MEC E[R_i(t; ell)] grid.  t: (B, T') -> (B, T', n, L).
+
+            The completion CDF of the compute exponential (rate
+            gc = mu/ell) convolved with the communication exponential
+            (rate gm = (1 - p) / (2 tau p)) at the residual
+            u = t - ell*a - 2 tau, with the equal-rate limit where the
+            rates collide within a relative 1e-8, and the pure compute
+            CDF at u for devices with p == 0 or tau == 0."""
+            gc = gamma                                          # (B, n, L)
+            gm = (1.0 - p_) / torch.clamp(2.0 * tau_ * p_, min=1e-30)
+            gm_l = gm[:, :, None]                               # (B, n, 1)
+            u = t[:, :, None, None] - shift[:, None, :, :] \
+                - 2.0 * tau_[:, None, :, None]                  # (B,T',n,L)
+            up = torch.clamp(u, min=0.0)
+            e_c = torch.exp(-torch.clamp(gc[:, None] * up, max=700.0))
+            e_m = torch.exp(-torch.clamp(gm_l[:, None] * up, max=700.0))
+            denom = gm_l - gc                                   # (B, n, L)
+            close = torch.abs(denom) <= 1e-8 * torch.maximum(gm_l, gc)
+            safe = torch.where(close, one, denom)
+            f_neq = 1.0 - (gm_l[:, None] * e_c - gc[:, None] * e_m) \
+                / safe[:, None]
+            gbar = 0.5 * (gm_l + gc)
+            arg = torch.clamp(gbar[:, None] * up, max=700.0)
+            f_eq = -torch.expm1(-arg) - arg * torch.exp(-arg)
+            cdf = torch.where(close[:, None], f_eq, f_neq)
+            cdf = torch.where(u > 0.0, cdf, zero)
+            # deterministic communication leg: pure compute CDF at u
+            det = (p_ <= 0.0) | (tau_ <= 0.0)                   # (B, n)
+            cdf = torch.where(det[:, None, :, None],
+                              _shifted_exp_cdf(gc[:, None], u), cdf)
+            cdf = torch.where(ell_e_ > 0.0, cdf, (u >= 0.0).to(dtype))
+            return torch.where(load_ok[:, None], ell_e_ * cdf, neg_inf)
+
+        def edge_returns_base(t):
             """Masked E[R_i(t; ell)] grid.  t: (B, T') -> (B, T', n, L)."""
             mix = torch.zeros(t.shape + (n, n_loads), dtype=dtype,
                               device=a.device)
@@ -231,6 +273,8 @@ def _solve_grid(a, mu, tau, p, srv_a, srv_mu, srv_w, caps, srv_cap, target,
             nocomm = _load_cdf(t[:, :, None].expand(t.shape + (n,)))
             mix = torch.where(has_comm[:, None, :, None], mix, nocomm)
             return torch.where(load_ok[:, None], ell_e_ * mix, neg_inf)
+
+        edge_returns = edge_returns_mec if mec_comm else edge_returns_base
 
         def server_returns(t):
             """Masked weighted server E[R(t; ell)].  (B, T') -> (B, T', Ls).
@@ -346,16 +390,18 @@ def solve_redundancy_batched(requests: Sequence[PlanRequest],
                              device=None) -> list[RedundancyPlan]:
     """Plan a whole sweep of fleets/budgets in one vectorized solve.
 
-    Requests are grouped by (padded device count, edge_chunks); each
-    group runs as one `(B, n)` solve on `device` (None: the CUDA device).
+    Requests are grouped by (padded device count, edge_chunks, mec_comm);
+    each group runs as one `(B, n)` solve on `device` (None: the CUDA
+    device).
     Raises RuntimeError if any request's fleet cannot reach its target.
     """
     dev = resolve_device(device)
     requests = list(requests)
     plans: list[Optional[RedundancyPlan]] = [None] * len(requests)
-    groups: dict[tuple[int, int], list[int]] = {}
+    groups: dict[tuple[int, int, bool], list[int]] = {}
     for i, req in enumerate(requests):
-        key = (_bucket(req.edge.n, _N_BUCKET), int(req.edge_chunks))
+        key = (_bucket(req.edge.n, _N_BUCKET), int(req.edge_chunks),
+               bool(req.mec_comm))
         groups.setdefault(key, []).append(i)
 
     def f64(arr) -> torch.Tensor:
@@ -363,7 +409,7 @@ def solve_redundancy_batched(requests: Sequence[PlanRequest],
 
     frac = np.arange(1, grid_points + 1, dtype=np.float64) / grid_points
 
-    for (n_pad, edge_chunks), idxs in groups.items():
+    for (n_pad, edge_chunks, mec_comm), idxs in groups.items():
         grp = [requests[i] for i in idxs]
         b = len(grp)
 
@@ -413,7 +459,8 @@ def solve_redundancy_batched(requests: Sequence[PlanRequest],
             torch.arange(2, 2 + max(k_extract), dtype=torch.float64,
                          device=dev),
             f64(k_mask(k_search)), f64(k_mask(k_extract)), f64(frac),
-            search_f32=search_f32, edge_chunks=edge_chunks)
+            search_f32=search_f32, edge_chunks=edge_chunks,
+            mec_comm=mec_comm)
         t_star, loads, s_load, agg, feasible = \
             (o.cpu().numpy() for o in out)
 
@@ -434,9 +481,12 @@ def solve_redundancy_batched(requests: Sequence[PlanRequest],
                 else int(s_load[j])
             dev_loads = loads[j, :n].astype(np.int64)
             # per-device return probs re-evaluated on the host: identical
-            # to what every downstream total_cdf consumer computes
+            # to what every downstream consumer computes; MEC groups read
+            # the MEC CDF (the server has no communication leg, so its
+            # total_cdf is the same compute CDF either way)
+            edge_cdf = mec_total_cdf if mec_comm else total_cdf
             p_return = np.append(
-                total_cdf(req.edge, dev_loads, float(t_star[j])),
+                edge_cdf(req.edge, dev_loads, float(t_star[j])),
                 total_cdf(req.server, np.array([float(s_load[j])]),
                           float(t_star[j])))
             plans[i] = RedundancyPlan(

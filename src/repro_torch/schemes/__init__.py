@@ -1,13 +1,15 @@
 """Coded follow-up schemes (counterpart of `repro.schemes`).
 
-Ported: `StochasticCodedFL` (noisy shared parity, per-round stochastic
-parity sampling and its (epsilon, delta)-DP accounting) and
-`LowLatencyCFL` (partial-return uploads over wireless fleets).
-`CodedFedL` is still to port (ROADMAP §1 item 4).
+`StochasticCodedFL` (noisy shared parity, per-round stochastic parity
+sampling and its (epsilon, delta)-DP accounting), `LowLatencyCFL`
+(partial-return uploads over wireless fleets) and `CodedFedL` (random-
+Fourier-feature kernel regression under the MEC delay model).
 """
 from .base import CodedSchemeState
+from .codedfedl import CodedFedL, CodedFedLState, rff_seed
 from .lowlatency import LowLatencyCFL, LowLatencyState, row_chunks
 from .stochastic import StochasticCodedFL, StochasticState
 
-__all__ = ["CodedSchemeState", "LowLatencyCFL", "LowLatencyState",
-           "StochasticCodedFL", "StochasticState", "row_chunks"]
+__all__ = ["CodedFedL", "CodedFedLState", "CodedSchemeState",
+           "LowLatencyCFL", "LowLatencyState", "StochasticCodedFL",
+           "StochasticState", "rff_seed", "row_chunks"]

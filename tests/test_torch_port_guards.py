@@ -30,7 +30,7 @@ from repro_torch.kernels.round_grad import ref as rg_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.plan import PlanRequest, solve_redundancy_batched
-from repro_torch.schemes import StochasticCodedFL
+from repro_torch.schemes import CodedFedL, StochasticCodedFL
 from repro_torch.sim.network import mega_fleet, paper_fleet
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -118,7 +118,8 @@ def test_session_rejects_data_on_another_device():
 
 
 @pytest.mark.parametrize("scheme,tiers", [("coded", 0), ("coded", 3),
-                                          ("scfl", 0), ("scfl", 3)])
+                                          ("scfl", 0), ("scfl", 3),
+                                          ("cfedl", 0), ("cfedl", 3)])
 def test_reference_path_reaches_no_kernel_wrapper(monkeypatch, scheme,
                                                   tiers):
     """`grad_path="reference"` is the plain two-pass oracle the fused path
@@ -129,10 +130,14 @@ def test_reference_path_reaches_no_kernel_wrapper(monkeypatch, scheme,
     if scheme == "coded":
         strategy = api.CodedFL(key=1, fixed_c=24, include_upload_delay=False,
                                grad_path="reference")
-    else:
+    elif scheme == "scfl":
         strategy = StochasticCodedFL(key=1, fixed_c=24, sample_frac=0.5,
                                      include_upload_delay=False,
                                      grad_path="reference")
+    else:
+        strategy = CodedFedL(key=1, d_feat=8, fixed_c=24,
+                             include_upload_delay=False,
+                             grad_path="reference")
     if tiers:
         strategy = HierarchicalCFL(strategy, FleetTopology.uniform(6, tiers))
     sess = api.Session(strategy, fleet, lr=0.1, epochs=3, device="cpu")

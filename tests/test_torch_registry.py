@@ -1,11 +1,9 @@
 """The port's strategy registry (`repro_torch.api.make_strategy`), the
-cases of `tests/test_registry.py`, and `uplink_bits` of all five ported
+cases of `tests/test_registry.py`, and `uplink_bits` of all six
 strategies against the reference's, on the CPU.
 
 The port's keys are int seeds of a `torch.Generator`, so `key_seed=`
 becomes `key=int(key_seed)` where the reference builds a PRNGKey.
-`codedfedl` (alias `cfedl`) is not ported yet and is refused with
-`NotImplementedError` naming ROADMAP §1 item 4.
 
 The reference's strategies plan with its NumPy oracles (its batched
 planner fails on this JAX, ROADMAP "Reference state" R1); uplink bits
@@ -19,7 +17,9 @@ import pytest
 
 from repro import api as j_api
 from repro.plan.reference import solve_redundancy_reference
-from repro.plan.reference_schemes import (solve_lowlatency_reference,
+from repro.core.delay_model import mec_total_cdf as j_mec_total_cdf
+from repro.plan.reference_schemes import (solve_codedfedl_reference,
+                                          solve_lowlatency_reference,
                                           solve_stochastic_reference)
 from repro.sim.network import wireless_fleet as j_wireless_fleet
 from repro_torch import interop
@@ -27,7 +27,7 @@ from repro_torch.api import (CodedFL, GradientCodingFL, UncodedFL,
                              available_strategies, make_strategy,
                              register_strategy)
 from repro_torch.fleet import FleetTopology, HierarchicalCFL
-from repro_torch.schemes import LowLatencyCFL, StochasticCodedFL
+from repro_torch.schemes import CodedFedL, LowLatencyCFL, StochasticCodedFL
 from repro_torch.sim.network import wireless_fleet
 from test_torch_schemes import port_plan
 
@@ -62,8 +62,16 @@ def test_hierarchical_aliases_resolve(alias):
 
 @pytest.mark.parametrize("name", ["codedfedl", "cfedl"])
 def test_codedfedl_is_refused_naming_its_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
-        make_strategy(name, key_seed=1)
+    """CodedFedL is ported (ROADMAP §1 item 4): both names construct from
+    key_seed=, with the key as an int seed, and need a key.  The name is
+    the one this test had while it asserted the refusal; it is kept so
+    that the test's record stays traceable."""
+    s = make_strategy(name, key_seed=1, d_feat=16)
+    assert isinstance(s, CodedFedL) and s.d_feat == 16
+    assert s.key == 1 and isinstance(s.key, int) and s.label == "cfedl"
+    assert s == make_strategy(name, key=1, d_feat=16)
+    with pytest.raises(ValueError, match="PRNG key"):
+        make_strategy(name, d_feat=16)
     assert "codedfedl" in available_strategies()
 
 
@@ -142,12 +150,13 @@ def test_register_rejects_builtin_names_and_aliases():
 
 
 # ---------------------------------------------------------------------------
-# uplink_bits of the five strategies against the reference
+# uplink_bits of the six strategies against the reference
 # ---------------------------------------------------------------------------
 
 def _pairs():
     """(label, jax strategy, jax state, port strategy, port state) for the
-    five strategies of `tests/test_uplink_properties.py`."""
+    five strategies of `tests/test_uplink_properties.py` and CodedFedL
+    (at d_feat 16, its MEC oracle plan's p_return from mec_total_cdf)."""
     jf = j_wireless_fleet(0.2, 0.2, nu_erasure=0.3, seed=0, n=N, d=D)
     tf = wireless_fleet(0.2, 0.2, nu_erasure=0.3, seed=0, n=N, d=D)
     rng = np.random.default_rng(0)
@@ -167,14 +176,22 @@ def _pairs():
                                            fixed_c=c),
         "lowlat": solve_lowlatency_reference(jf.edge, jf.server, sizes, 4,
                                              fixed_c=c),
+        "cfedl": solve_codedfedl_reference(jf.edge, jf.server, sizes,
+                                           fixed_c=c),
     }
+    mec = plans["cfedl"]
+    plans["cfedl"] = dataclasses.replace(mec, p_return=np.append(
+        j_mec_total_cdf(jf.edge, mec.loads, mec.t_star), mec.p_return[-1]))
     kws = {"uncoded": {}, "gradcode": {"r": 3},
            "cfl": {"key_seed": 3, "fixed_c": c},
            "scfl": {"key_seed": 3, "fixed_c": c, "noise_multiplier": 0.5,
                     "sample_frac": 0.8},
-           "lowlat": {"key_seed": 3, "fixed_c": c, "chunks": 4}}
+           "lowlat": {"key_seed": 3, "fixed_c": c, "chunks": 4},
+           "cfedl": {"key_seed": 3, "fixed_c": c, "d_feat": 16,
+                     "rff_gamma": 0.05}}
     names = {"uncoded": "uncoded", "gradcode": "gradcode", "cfl": "cfl",
-             "scfl": "stochastic", "lowlat": "lowlatency"}
+             "scfl": "stochastic", "lowlat": "lowlatency",
+             "cfedl": "codedfedl"}
     out = []
     for label, kw in kws.items():
         j_s = j_api.make_strategy(names[label], **kw)
@@ -189,9 +206,13 @@ def _pairs():
 
 
 def test_uplink_bits_of_all_five_strategies_equal_the_reference():
+    """`uplink_bits` of all six strategies, CodedFedL with them, equal to
+    the reference's at 0, 1, 7 and 200 epochs.  The name is the one this
+    test had before CodedFedL was ported; it is kept so that the test's
+    record stays traceable."""
     jf, tf, pairs = _pairs()
     assert [p[0] for p in pairs] == ["uncoded", "gradcode", "cfl", "scfl",
-                                     "lowlat"]
+                                     "lowlat", "cfedl"]
     for label, j_s, jstate, t_s, tstate in pairs:
         assert t_s.label == j_s.label == label
         for epochs in (0, 1, 7, 200):
@@ -201,6 +222,6 @@ def test_uplink_bits_of_all_five_strategies_equal_the_reference():
         sched = t_s.sample_epochs(tstate, tf, 2, np.random.default_rng(0))
         assert (t_s.uplink_bits(tstate, tf, 0) > 0) == \
             (sched.setup_time > 0), label
-        if label in ("cfl", "scfl", "lowlat"):
+        if label in ("cfl", "scfl", "lowlat", "cfedl"):
             assert t_s.uplink_bits(tstate, tf, 0) == \
                 float(np.sum(tstate.parity_upload_bits()))

@@ -283,14 +283,20 @@ def test_effective_srv_weight_bit_equal():
 
 
 def test_unported_objectives_and_privacy_raise():
-    """Only mec_comm (CodedFedL, ROADMAP §1 item 4) still raises; the
-    partial-return objective and the privacy budget construct now
-    (`tests/test_torch_lowlatency.py`, `tests/test_torch_privacy.py` hold
-    them to the reference)."""
+    """Nothing raises for being unported any more: the MEC objective
+    (CodedFedL), the partial-return objective and the privacy budget
+    construct (`tests/test_torch_codedfedl.py`,
+    `tests/test_torch_lowlatency.py`, `tests/test_torch_privacy.py` hold
+    them to the reference); the invalid requests still raise.  The name
+    is the one this test had while these were refused; it is kept so
+    that the test's record stays traceable."""
     fleet = paper_fleet(seed=0, n=4, d=8)
     sizes = np.full(4, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
-        PlanRequest(fleet.edge, fleet.server, sizes, mec_comm=True)
+    assert PlanRequest(fleet.edge, fleet.server, sizes,
+                       mec_comm=True).mec_comm
+    with pytest.raises(ValueError, match="mec_comm"):
+        PlanRequest(fleet.edge, fleet.server, sizes, mec_comm=True,
+                    edge_chunks=2)
     assert PlanRequest(fleet.edge, fleet.server, sizes,
                        edge_chunks=2).edge_chunks == 2
     with pytest.raises(ValueError, match="edge_chunks"):
