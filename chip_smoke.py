@@ -200,11 +200,39 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      `make_strategy("cfl", ...)` with the same key and c on phase 4's
      data: t*, parity (`torch.equal`), NMSE trace and `setup_time`
      bit-equal (24 encode and 600 round-gradient launches each).
+ 18. the sweep and serving engines: (a) `benchmarks/perf_sweep.py`'s
+     sweep — 16 CodedFL lanes (key seeds 100 + i, c = 2016, no upload
+     delay, the encode through kernel 2 as in phase 4: `use_kernel=True`)
+     on `paper_fleet(nu, nu, seed=0)` for nu in linspace(0, 0.375, 16),
+     phase 4's data, lr 0.0085, 600 epochs, session seed i —
+     through one `plan_sweep` (each lane's plan equal to its own
+     one-request plan; exactly 16 x 24 encode launches) and `run_sweep`
+     (exactly 16 x 600 round-gradient launches; the bucket count equal
+     to the reference's rule, the fused layout of each plan's support),
+     then the 16 solo `Session.run`s over the same states (16 x 600
+     launches), each lane's trace, clocks, uplink bits and extras
+     bit-equal to its solo run; host seconds of each; (b)
+     `benchmarks/perf_serve.py`'s workload — 8 CodedFL sessions at
+     c = 2016, 4 at 3600 (`use_kernel=True` as in (a)) and 4 UncodedFL
+     on `paper_fleet(0.2, 0.2,
+     seed=0)`, 400 epochs, seed i, arriving on `poisson_arrivals(16,
+     0.05, default_rng(0))` — through `FedServeEngine(lane_width=4,
+     chunk=100, ConvergenceCriterion(nmse_target=0.35)).serve(...,
+     states=plan_sweep(...))`: 12 x 24 encode launches in the plan, 3
+     groups, one round-gradient launch per epoch served and one
+     read-back per group-epoch, every served trace and clock a prefix of
+     its solo run (the per-session loop, 16 x 400 launches); sessions/s
+     and epochs/s of both; (c) phase 15's calibrated StochasticCodedFL in
+     an 800-epoch session served alone: it stops at 600, not converged,
+     its trace phase 15's run and its `epsilon_spent` and
+     `epsilon_schedule` phase 15's, 600 coded round-gradient launches.
 
-Every run of phases 4-17 is counted from 0 just before it.  The kernels
+Every run of phases 4-18 is counted from 0 just before it.  The kernels
 line's `launches` sums the driven runs: kernel 1 over phases 4, 14 (r = 2
-and 3), 16 and 17; kernel 2 over phases 4, 15, 16 and 17; kernel 4 over
-phases 6 and 15; kernel 5 over the T = 3 runs of phases 7, 14, 16 and 17.
+and 3), 16, 17 and 18 (the sweep, its solo runs, the served epochs and
+the per-session loop); kernel 2 over phases 4, 15, 16, 17 and 18's two
+`plan_sweep` calls; kernel 4 over phases 6, 15 and 18c; kernel 5 over
+the T = 3 runs of phases 7, 14, 16 and 17.
 
 Any failed check raises, so the exit code is non-zero.  The line before
 the last is the kernels' JSON record; the last line is
@@ -313,6 +341,14 @@ CFEDL_FIXED_C, CFEDL_EPOCHS, CFEDL_LR = 2160, 600, 0.5
 # the reference's own bound between the float32 RFF map and its float64
 # oracle (tests/test_nonlinear.py): TF32 in the product would miss it
 RFF_ATOL = 5e-6
+# phase 18: (a) benchmarks/perf_sweep.py's sweep (16 CodedFL lanes on
+# paper_fleet(nu, nu) for nu in linspace(0, 0.375, 16), c = 0.28 m);
+# (b) benchmarks/perf_serve.py's serving workload; (c) phase 15's DP
+# lane in a longer session
+SWEEP_LANES, SWEEP_C, SWEEP_LR, SWEEP_EPOCHS = 16, 2016, 0.0085, 600
+SERVE_FL_SESSIONS, SERVE_FL_EPOCHS, SERVE_FL_RATE = 16, 400, 0.05
+SERVE_FL_WIDTH, SERVE_FL_CHUNK, SERVE_FL_TARGET = 4, 100, 0.35
+DP_SERVE_EPOCHS = 800
 L2_BYTES = 50 * 2**20
 TIMING_REPEATS = 15   # timed runs per call; the median is kept
 TIMING_CALLS = 40     # back-to-back calls per timed run
@@ -961,7 +997,8 @@ def dp_scfl_phase(out, dev, card: str, expect, reset_counters,
           and rep.extras["accounting_rounds"] == epochs,
           "dp scfl extras")
     return {"seconds": {"calibrate": calib_s, "plan": plan_s, "run": run_s},
-            "launches": counts, "sigma": sigma}
+            "launches": counts, "sigma": sigma, "strategy": scfl,
+            "state": state, "report": rep}
 
 
 def lowlat_phase(out, dev, card: str, expect, reset_counters,
@@ -1280,6 +1317,278 @@ def codedfedl_phase(out, dev, card: str, expect, reset_counters,
     check(equal, "d_feat=None trace differs from CFL's")
     check(r_f.setup_time == r_c.setup_time, "d_feat=None setup_time")
     return {"seconds": seconds, "launches": launches}
+
+
+def same_plan(got, want) -> bool:
+    return (np.array_equal(got.loads, want.loads) and got.c == want.c
+            and got.t_star == want.t_star
+            and np.array_equal(got.p_return, want.p_return)
+            and got.expected_agg == want.expected_agg)
+
+
+def same_report(got, want) -> bool:
+    """Trace, clocks, uplink bits and extras bit-equal."""
+    return (np.array_equal(got.nmse, want.nmse)
+            and np.array_equal(got.times, want.times)
+            and np.array_equal(got.epoch_durations, want.epoch_durations)
+            and got.uplink_bits_total == want.uplink_bits_total
+            and set(got.extras) == set(want.extras)
+            and all(np.array_equal(np.asarray(v), np.asarray(want.extras[k]))
+                    for k, v in got.extras.items()))
+
+
+def layout_of(state, m: int) -> tuple:
+    """The fused layout the reference's rule gives a CFL plan: the
+    support's row count padded to PACK_BLOCK (at least PACK_MIN), dense
+    at PACK_DENSE_FRAC of m or more (`core.cfl.packed_row_indices`)."""
+    from repro_torch.core.cfl import PACK_BLOCK, PACK_DENSE_FRAC, PACK_MIN
+    k = int(np.sum(state.plan.loads))
+    padded = max(PACK_MIN, PACK_BLOCK * -(-k // PACK_BLOCK)) if k \
+        else PACK_MIN
+    return ("dense", m) if padded >= PACK_DENSE_FRAC * m \
+        else ("packed", padded)
+
+
+def sweep_phase(out, dev, card: str, expect, reset_counters,
+                read_counters) -> dict:
+    """Phase 18a: benchmarks/perf_sweep.py's configuration through
+    `plan_sweep` and `run_sweep`, then the 16 solo runs."""
+    from repro_torch.api import Session, make_strategy, plan_sweep, run_sweep
+    from repro_torch.plan import solve_redundancy_batched
+    from repro_torch.sim.network import paper_fleet
+
+    data = out["data"]
+    epochs = SWEEP_EPOCHS
+    sessions = [
+        Session(make_strategy("cfl", key_seed=100 + i, fixed_c=SWEEP_C,
+                              include_upload_delay=False, use_kernel=True,
+                              label=f"cfl_nu={nu:.3f}"),
+                paper_fleet(float(nu), float(nu), seed=0), SWEEP_LR, epochs,
+                seed=i, device=dev)
+        for i, nu in enumerate(np.linspace(0.0, 0.375, SWEEP_LANES))]
+    reset_counters()
+    t0 = time.perf_counter()
+    states = plan_sweep(sessions, data)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    plan_counts = read_counters()
+    check(plan_counts == expect(encode=SWEEP_LANES * data.n),
+          f"unexpected plan_sweep launch counts {plan_counts}")
+    for sess, state in zip(sessions, states):
+        solo = solve_redundancy_batched(
+            [sess.strategy.plan_request(sess.fleet, data)], device=dev)[0]
+        check(same_plan(state.plan, solo),
+              f"{sess.strategy.label}: batched plan differs from its own")
+    layouts = [layout_of(state, data.m) for state in states]
+
+    reset_counters()
+    t0 = time.perf_counter()
+    reports = run_sweep(sessions, data, states=states)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    sweep_counts = read_counters()
+    buckets = len({k for sess in sessions for k in sess._engines})
+
+    reset_counters()
+    t0 = time.perf_counter()
+    solos = [sess.run(data, rng=np.random.default_rng(sess.seed), state=st)
+             for sess, st in zip(sessions, states)]
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+    solo_counts = read_counters()
+    equal = [same_report(rep, solo) for rep, solo in zip(reports, solos)]
+    phase(f"sweep [{card}]: {SWEEP_LANES} CodedFL lanes (c={SWEEP_C}, nu "
+          f"0..0.375, {epochs} epochs): plan_sweep {plan_s:.4f} s, "
+          f"run_sweep {sweep_s:.4f} s, the {SWEEP_LANES} solo runs "
+          f"{solo_s:.4f} s; t* {[round(st.plan.t_star, 4) for st in states]}")
+    phase(f"sweep: {buckets} buckets (the reference's rule: "
+          f"{len(set(layouts))}); kernel-1 shapes per lane "
+          f"{[(n_rows, data.d) for _, n_rows in layouts]}; final NMSE "
+          f"{[float(f'{r.final_nmse():.3e}') for r in reports]}")
+    phase(f"sweep: lanes bit-equal to their solo runs {sum(equal)}/"
+          f"{len(equal)}; launches plan_sweep {plan_counts}, run_sweep "
+          f"{sweep_counts}, solo {solo_counts}")
+    for rep in reports:
+        check_trace_len(rep, epochs)
+    check(all(equal), "a sweep lane differs from its solo run")
+    check(buckets == len(set(layouts)),
+          "bucket count differs from the reference's rule")
+    check(sweep_counts == expect(round_grad=SWEEP_LANES * epochs),
+          f"unexpected run_sweep launch counts {sweep_counts}")
+    check(solo_counts == sweep_counts,
+          f"unexpected solo launch counts {solo_counts}")
+    return {"seconds": {"plan_sweep": plan_s, "run_sweep": sweep_s,
+                        "solo runs": solo_s},
+            "launches": {"round_grad": sweep_counts["round_grad"]
+                         + solo_counts["round_grad"],
+                         "encode": plan_counts["encode"]},
+            "buckets": buckets}
+
+
+def check_trace_len(rep, epochs: int) -> None:
+    check(rep.nmse.shape == (epochs + 1,)
+          and bool(np.all(np.isfinite(rep.nmse)))
+          and rep.nmse[-1] < rep.nmse[0],
+          f"{rep.label}: NMSE trace not finite, of the wrong shape or not "
+          "descending")
+
+
+def fedserve_phase(out, dev, card: str, expect, reset_counters,
+                   read_counters) -> dict:
+    """Phase 18b: benchmarks/perf_serve.py's configuration through
+    `FedServeEngine.serve(..., states=plan_sweep(...))`, then the
+    per-session loop of solo runs."""
+    from repro_torch.api import Session, make_strategy, plan_sweep
+    from repro_torch.serving import (ConvergenceCriterion, FedServeEngine,
+                                     fed_engine, poisson_arrivals)
+    from repro_torch.sim.network import paper_fleet
+
+    data = out["data"]
+    fleet = paper_fleet(0.2, 0.2, seed=0)
+    epochs = SERVE_FL_EPOCHS
+    c1, c2 = int(0.28 * data.m), int(0.5 * data.m)
+    sessions = []
+    for i in range(SERVE_FL_SESSIONS):
+        if i % 4 in (0, 1):
+            strat = make_strategy("cfl", key_seed=100 + i, fixed_c=c1,
+                                  include_upload_delay=False,
+                                  use_kernel=True, label=f"cfl_d28_{i}")
+        elif i % 4 == 2:
+            strat = make_strategy("cfl", key_seed=100 + i, fixed_c=c2,
+                                  include_upload_delay=False,
+                                  use_kernel=True, label=f"cfl_d50_{i}")
+        else:
+            strat = make_strategy("uncoded")
+        sessions.append(Session(strat, fleet, SWEEP_LR, epochs, seed=i,
+                                device=dev))
+    arrivals = poisson_arrivals(SERVE_FL_SESSIONS, SERVE_FL_RATE,
+                                np.random.default_rng(0))
+    reset_counters()
+    t0 = time.perf_counter()
+    states = plan_sweep(sessions, data)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    plan_counts = read_counters()
+    n_coded = sum(hasattr(st, "plan") for st in states)
+    check(plan_counts == expect(encode=n_coded * data.n),
+          f"unexpected serve plan_sweep launch counts {plan_counts}")
+
+    reads = []
+    real_fired = fed_engine._fired
+
+    def counted(hits):  # the engine's one read-back per group-epoch
+        reads.append(len(hits))
+        return real_fired(hits)
+
+    fed_engine._fired = counted
+    try:
+        engine = FedServeEngine(
+            data, lane_width=SERVE_FL_WIDTH, chunk=SERVE_FL_CHUNK,
+            criterion=ConvergenceCriterion(nmse_target=SERVE_FL_TARGET),
+            device=dev)
+        reset_counters()
+        t0 = time.perf_counter()
+        reports = engine.serve(sessions, arrivals=list(arrivals),
+                               states=states)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        serve_counts = read_counters()
+    finally:
+        fed_engine._fired = real_fired
+    exits = [rep.extras["serve_exit_epoch"] for rep in reports]
+
+    reset_counters()
+    t0 = time.perf_counter()
+    solos = [sess.run(data, rng=np.random.default_rng(sess.seed), state=st)
+             for sess, st in zip(sessions, states)]
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    loop_counts = read_counters()
+    prefix = [bool(np.array_equal(rep.nmse, solo.nmse[:t + 1])
+                   and np.array_equal(rep.times, solo.times[:t + 1]))
+              for rep, solo, t in zip(reports, solos, exits)]
+    served = int(sum(exits))
+    phase(f"fedserve [{card}]: {SERVE_FL_SESSIONS} sessions (8 CFL c={c1}, "
+          f"4 CFL c={c2}, 4 uncoded; {epochs} epochs; Poisson arrivals at "
+          f"{SERVE_FL_RATE}), lane_width {SERVE_FL_WIDTH}, chunk "
+          f"{SERVE_FL_CHUNK}, NMSE target {SERVE_FL_TARGET}: plan_sweep "
+          f"{plan_s:.4f} s; serve {serve_s:.4f} s, {engine.n_groups} groups, "
+          f"{engine.steps} engine steps; exit epochs {exits} (converged "
+          f"{sum(r.extras['serve_converged'] for r in reports)})")
+    phase(f"fedserve: {served} epochs served in {len(reads)} group-epochs "
+          f"(one read-back each, {sum(reads)} lane predicates); "
+          f"{SERVE_FL_SESSIONS / serve_s:.2f} sessions/s, "
+          f"{served / serve_s:.0f} epochs/s; the per-session loop "
+          f"{loop_s:.4f} s: {SERVE_FL_SESSIONS / loop_s:.2f} sessions/s, "
+          f"{SERVE_FL_SESSIONS * epochs / loop_s:.0f} epochs/s")
+    phase(f"fedserve: served traces prefix-equal to their solo runs "
+          f"{sum(prefix)}/{len(prefix)}; launches plan_sweep {plan_counts}, "
+          f"serve {serve_counts}, loop {loop_counts}")
+    for solo in solos:
+        check_trace_len(solo, epochs)
+    check(all(prefix), "a served trace is not a prefix of its solo run")
+    check(engine.n_groups == 3, f"{engine.n_groups} serve groups, not 3")
+    check(serve_counts == expect(round_grad=served),
+          f"unexpected serve launch counts {serve_counts}")
+    check(loop_counts == expect(round_grad=SERVE_FL_SESSIONS * epochs),
+          f"unexpected per-session loop launch counts {loop_counts}")
+    return {"seconds": {"plan_sweep": plan_s, "serve": serve_s,
+                        "loop": loop_s},
+            "launches": {"round_grad": served + loop_counts["round_grad"],
+                         "encode": plan_counts["encode"]},
+            "read_backs": len(reads)}
+
+
+def dp_serve_phase(dp, out, dev, card: str, expect, reset_counters,
+                   read_counters) -> dict:
+    """Phase 18c: phase 15's calibrated StochasticCodedFL in a session of
+    800 epochs, served alone: the epsilon budget caps it at 600."""
+    from repro_torch.api import Session
+    from repro_torch.serving import FedServeEngine, fed_engine
+
+    sess = Session(dp["strategy"], out["fleet"], 0.0085, DP_SERVE_EPOCHS,
+                   device=dev)
+    reads = []
+    real_fired = fed_engine._fired
+
+    def counted(hits):
+        reads.append(len(hits))
+        return real_fired(hits)
+
+    fed_engine._fired = counted
+    try:
+        engine = FedServeEngine(out["data"], lane_width=1,
+                                chunk=SERVE_FL_CHUNK, device=dev)
+        reset_counters()
+        t0 = time.perf_counter()
+        [rep] = engine.serve([sess], states=[dp["state"]])
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = read_counters()
+    finally:
+        fed_engine._fired = real_fired
+    solo = dp["report"]
+    t = rep.extras["serve_exit_epoch"]
+    prefix = bool(np.array_equal(rep.nmse, solo.nmse[:t + 1])
+                  and np.array_equal(rep.times, solo.times[:t + 1]))
+    phase(f"dp serve [{card}]: a {DP_SERVE_EPOCHS}-epoch session served "
+          f"alone: exit epoch {t}, converged "
+          f"{rep.extras['serve_converged']}, {serve_s:.4f} s, "
+          f"{len(reads)} read-backs; epsilon_spent "
+          f"{rep.extras['epsilon_spent']!r} (phase 15: "
+          f"{solo.extras['epsilon_spent']!r}); prefix-equal to phase 15's "
+          f"run {prefix}; launches {counts}")
+    check(t == 600 and not rep.extras["serve_converged"],
+          "the served DP lane did not stop at its 600-round budget")
+    check(prefix, "the served DP trace is not phase 15's run")
+    check(rep.extras["epsilon_spent"] == solo.extras["epsilon_spent"]
+          and np.array_equal(rep.extras["epsilon_schedule"],
+                             solo.extras["epsilon_schedule"]),
+          "the served DP lane's epsilon differs from phase 15's")
+    check(counts == expect(coded_round_grad=600),
+          f"unexpected dp serve launch counts {counts}")
+    return {"seconds": serve_s, "launches": counts,
+            "read_backs": len(reads)}
 
 
 def ssd_operands(gen, dev, B, nc, Q, H, P, N, G) -> tuple:
@@ -2465,19 +2774,37 @@ def main() -> int:
         f"cfedl {k} {v:.4f}" for k, v in cfedl["seconds"].items()))
     cfedl_counts = cfedl["launches"].values()
 
+    # -- 18. the sweep and serving engines ---------------------------------
+    sweep = sweep_phase(out, dev, card, expect, reset_counters,
+                        read_counters)
+    fedserve = fedserve_phase(out, dev, card, expect, reset_counters,
+                              read_counters)
+    dp_serve = dp_serve_phase(dp, out, dev, card, expect, reset_counters,
+                              read_counters)
+    phase(f"phase 18 host seconds [{card}]: " + ", ".join(
+        [f"sweep {k} {v:.4f}" for k, v in sweep["seconds"].items()]
+        + [f"fedserve {k} {v:.4f}" for k, v in fedserve["seconds"].items()]
+        + [f"dp serve {dp_serve['seconds']:.4f}"]))
+
     # launches on the driven paths: phase 4 and the new paths' runs
     # (kernel 1), phases 4, 15, 16 (kernel 2), 6 and 15 (kernel 4), 7, 14
-    # and 16 at T = 3 (kernel 5), and every counted run of phase 17
+    # and 16 at T = 3 (kernel 5), every counted run of phase 17, and
+    # phase 18's sweep, solo, served and per-session-loop runs (kernel 1),
+    # plan_sweep encodes (kernel 2) and served DP lane (kernel 4)
     driven = {
         "round_grad": launches["round_grad"] + sum(
             gradcode["launches"][f"r={r}"] for r in GC_REPLICATION)
         + lowlat["launches"]["round_grad"]
-        + sum(c["round_grad"] for c in cfedl_counts),
+        + sum(c["round_grad"] for c in cfedl_counts)
+        + sweep["launches"]["round_grad"]
+        + fedserve["launches"]["round_grad"],
         "encode": launches["encode"] + dp["launches"]["encode"]
         + lowlat["launches"]["encode"]
-        + sum(c["encode"] for c in cfedl_counts),
+        + sum(c["encode"] for c in cfedl_counts)
+        + sweep["launches"]["encode"] + fedserve["launches"]["encode"],
         "coded_round_grad": scfl_launches["coded_round_grad"]
-        + dp["launches"]["coded_round_grad"],
+        + dp["launches"]["coded_round_grad"]
+        + dp_serve["launches"]["coded_round_grad"],
         "tier_round_grad": hier_launches["tier_round_grad"]
         + gradcode["launches"][f"T={HIER_TIERS}"]
         + lowlat["hier_launches"]["tier_round_grad"]

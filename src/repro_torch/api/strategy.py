@@ -20,8 +20,8 @@ identical schedules and clocks from the same `np.random.Generator`.
 from __future__ import annotations
 
 import dataclasses
-from typing import (TYPE_CHECKING, Any, Dict, Optional, Protocol,
-                    runtime_checkable)
+from typing import (TYPE_CHECKING, Any, ClassVar, Dict, Hashable, Optional,
+                    Protocol, runtime_checkable)
 
 import numpy as np
 import torch
@@ -32,6 +32,7 @@ from repro_torch.core.gradient_coding import GradCodingPlan, make_plan
 from repro_torch.core.redundancy import RedundancyPlan
 from repro_torch.data.synthetic import linreg_dataset
 from repro_torch.device import resolve_device
+from repro_torch.plan import PlanRequest
 
 if TYPE_CHECKING:
     from repro_torch.sim.network import FleetSpec
@@ -138,11 +139,35 @@ class Strategy(Protocol):
         """Total device->server bits for a run of `epochs` epochs."""
         ...
 
+    def engine_key(self, state: Any) -> Hashable:
+        """What of `state` the epoch program reads (`round_contributions`
+        may read nothing else from `state`): lanes whose keys and shapes
+        agree share one engine built over the first lane's state."""
+        ...
+
     # Optional hooks (looked up with getattr, not part of the protocol):
     #   * report_extras(state) -> dict: knobs and diagnostics copied onto
     #     TraceReport.extras;
-    #   * plan_with(fleet, data, plan) -> state: `plan` with a pre-solved
-    #     redundancy plan (None: solve);
+    #   * plan_request(fleet, data) -> repro_torch.plan.PlanRequest and
+    #     plan_with(fleet, data, plan) -> state: the batched-planning
+    #     pair `api.plan_sweep` collects into one solve (`plan_with` with
+    #     None solves alone);
+    #   * sweep_inputs(state, fleet, epochs, rng) -> EpochSchedule: one
+    #     sweep lane's pre-sampled inputs, drawn exactly as
+    #     `sample_epochs` draws them (the sweep falls back to it);
+    #   * engine_value_fields: frozenset of dataclass fields that only
+    #     feed operand VALUES (plan inputs, host-side sampling, the int
+    #     seeds of the generators, report metadata) and never steer the
+    #     epoch program; the engine cache keys on every other primitive
+    #     field.  Omitting a field is always safe, merely splitting
+    #     buckets;
+    #   * data_device_keys: frozenset of `device_state` keys whose tensors
+    #     are pure functions of the TrainData alone: every lane of one
+    #     `run_sweep(sessions, data)` call reads ONE copy of them;
+    #   * serve_convergence(state, criterion) -> criterion: the serving
+    #     engine's hook (`repro_torch.serving.fed_engine`) to tighten the
+    #     engine's `ConvergenceCriterion` for this session (epsilon-budget
+    #     exhaustion for StochasticCodedFL, a plateau exit for CodedFedL);
     #   * tiered_contributions(state, dev, beta, arrivals, tier_masks) ->
     #     ((T, d) tier partials, optional (d,) server term): the
     #     hierarchical form of `round_contributions` that
@@ -168,6 +193,11 @@ class UncodedFL:
 
     label: str = "uncoded"
     grad_path: str = aggregation.FUSED
+
+    # grad_path steers the epoch program, so it stays keyed
+    engine_value_fields: ClassVar[frozenset] = frozenset()
+    # the flat training matrices are data-only: one copy per sweep
+    data_device_keys: ClassVar[frozenset] = frozenset({"x", "y"})
 
     def plan(self, fleet: "FleetSpec", data: TrainData) -> UncodedState:
         return UncodedState(loads=np.full(data.n, data.ell))
@@ -203,6 +233,14 @@ class UncodedFL:
     def uplink_bits(self, state: UncodedState, fleet: "FleetSpec",
                     epochs: int) -> float:
         return epochs * state.loads.shape[0] * 2 * fleet.packet_bits
+
+    def engine_key(self, state: UncodedState) -> Hashable:
+        return ()
+
+    def sweep_inputs(self, state: UncodedState, fleet: "FleetSpec",
+                     epochs: int, rng: np.random.Generator) -> EpochSchedule:
+        """One sweep lane's inputs: draws are exactly `sample_epochs`."""
+        return self.sample_epochs(state, fleet, epochs, rng)
 
 
 # ---------------------------------------------------------------------------
@@ -242,10 +280,31 @@ class CodedFL:
         return aggregation.resolve_grad_path(self.grad_path,
                                              self.use_kernel)
 
+    # knobs that only shape the plan, the host-side sampling or the
+    # encoded values (the int seed `key` among them; the reference's key
+    # is a PRNG array, which its static key skips), never the epoch
+    # program: lanes differing in them share one engine.  use_kernel
+    # stays keyed, as in the reference.
+    engine_value_fields: ClassVar[frozenset] = frozenset(
+        {"key", "fixed_c", "c_up", "include_upload_delay",
+         "server_always_returns", "generator"})
+    # data-only operands (one copy per sweep); the plan-derived load mask
+    # and parity operands stay per lane
+    data_device_keys: ClassVar[frozenset] = frozenset(
+        {"x", "y", "row_client"})
+
     def plan(self, fleet: "FleetSpec", data: TrainData) -> cfl.CFLState:
         """Solve the redundancy plan (unless `redundancy_plan` is given)
         and run the one-time encode on the data's device."""
         return self.plan_with(fleet, data, self.redundancy_plan)
+
+    def plan_request(self, fleet: "FleetSpec",
+                     data: TrainData) -> PlanRequest:
+        """The redundancy problem this strategy would solve in `plan`."""
+        return PlanRequest(edge=fleet.edge, server=fleet.server,
+                           data_sizes=np.full(data.n, data.ell,
+                                              dtype=np.int64),
+                           c_up=self.c_up, fixed_c=self.fixed_c)
 
     def plan_with(self, fleet: "FleetSpec", data: TrainData,
                   plan: Optional[RedundancyPlan]) -> cfl.CFLState:
@@ -342,6 +401,16 @@ class CodedFL:
                     epochs: int) -> float:
         return cfl.coded_uplink_bits(state, fleet, epochs)
 
+    def engine_key(self, state: cfl.CFLState) -> Hashable:
+        return (state.c > 0, self.use_kernel, self._grad_path())
+
+    def sweep_inputs(self, state: cfl.CFLState, fleet: "FleetSpec",
+                     epochs: int, rng: np.random.Generator) -> EpochSchedule:
+        """One sweep lane's inputs: `received (epochs, n)` and
+        `parity_ok (epochs,)`; draws are exactly `sample_epochs` (upload
+        first, then the per-epoch edge and server stream)."""
+        return self.sample_epochs(state, fleet, epochs, rng)
+
 
 # ---------------------------------------------------------------------------
 # Gradient coding (Tandon et al., the paper's ref [5])
@@ -371,6 +440,12 @@ class GradientCodingFL:
     r: int
     label: str = "gradcode"
     grad_path: str = aggregation.FUSED
+
+    # r shapes the plan (groups) only; the epoch program sees it through
+    # `engine_key` (n_groups) and the operand shapes
+    engine_value_fields: ClassVar[frozenset] = frozenset({"r"})
+    # the flat matrices are data-only; row_group is plan-derived (per lane)
+    data_device_keys: ClassVar[frozenset] = frozenset({"x", "y"})
 
     def plan(self, fleet: "FleetSpec", data: TrainData) -> GradCodingState:
         plan = make_plan(data.n, self.r)
@@ -433,3 +508,13 @@ class GradientCodingFL:
                     epochs: int) -> float:
         n = fleet.edge.n
         return n * state.share_bits + epochs * n * 2 * fleet.packet_bits
+
+    def engine_key(self, state: GradCodingState) -> Hashable:
+        return (state.n_groups,)
+
+    def sweep_inputs(self, state: GradCodingState, fleet: "FleetSpec",
+                     epochs: int, rng: np.random.Generator) -> EpochSchedule:
+        """One sweep lane's inputs: `group_ok (epochs, n_groups)` (mixed-r
+        sweeps bucket apart on n_groups); draws are exactly
+        `sample_epochs`."""
+        return self.sample_epochs(state, fleet, epochs, rng)

@@ -86,6 +86,18 @@ def packed_row_indices(load_flat: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return idx, valid
 
 
+def parity_gram_factors(state) -> tuple[torch.Tensor, torch.Tensor]:
+    """Memoized (G, b) = (X~^T X~, y~ X~) of one protocol state — the
+    plan-time half of the Gram-folded Eq. 18 (`aggregation.parity_gram`),
+    cached on the state so every layout built over one plan reuses one
+    factorization."""
+    cached = getattr(state, "_parity_gram", None)
+    if cached is None:
+        cached = aggregation.parity_gram(state.x_parity, state.y_parity)
+        state._parity_gram = cached
+    return cached
+
+
 def fused_coded_device_state(state, data, x: torch.Tensor | None = None,
                              parity_rows: bool = False) -> dict:
     """Per-run operands of the FUSED gradient path: systematic rows packed
@@ -102,7 +114,17 @@ def fused_coded_device_state(state, data, x: torch.Tensor | None = None,
     parity_rows: ship the raw parity rows ("x_parity"/"y_parity") in
     place of the Gram factors, for schemes whose per-round parity masks
     need the rows themselves (StochasticCodedFL at sample_frac < 1).
-    The reference computes the factors there too and never reads them."""
+    The reference computes the factors there too and never reads them.
+
+    The operands are memoized on the state, keyed by the identities of
+    `data` and `x` (the cache keeps both alive), so repeated runs and
+    sweep lanes over one plan skip the gathers; callers that add keys
+    copy the dict first."""
+    x_arg = x
+    cached = getattr(state, "_fused_dev", None)
+    if cached is not None and cached[0] is data and cached[1] is x_arg \
+            and cached[2] == parity_rows:
+        return cached[3]
     n, ell = data.n, data.ell
     dev_ = data.xs.device
     if x is None:
@@ -129,10 +151,10 @@ def fused_coded_device_state(state, data, x: torch.Tensor | None = None,
             dev["x_parity"] = state.x_parity
             dev["y_parity"] = state.y_parity
         else:
-            gram, gramy = aggregation.parity_gram(state.x_parity,
-                                                  state.y_parity)
+            gram, gramy = parity_gram_factors(state)
             dev["par_gram"] = gram
             dev["par_gramy"] = gramy
+    state._fused_dev = (data, x_arg, parity_rows, dev)
     return dev
 
 

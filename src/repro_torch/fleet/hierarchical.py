@@ -23,11 +23,12 @@ trace bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Any, Dict
+from typing import TYPE_CHECKING, Any, ClassVar, Dict, Hashable
 
 import numpy as np
 import torch
 
+from repro_torch.api.session import _static_strategy_key
 from repro_torch.api.strategy import EpochSchedule, TrainData
 from repro_torch.core.aggregation import cross_tier_combine
 
@@ -45,6 +46,13 @@ class HierState:
     topology: FleetTopology
 
 
+# Optional hooks forwarded verbatim to the wrapped strategy WHEN it has
+# them, so `hasattr` on the wrapper mirrors `hasattr` on the base — the
+# capability check `api.plan_sweep` keys on.  (`plan_with` is a real
+# method below: it must re-wrap the base state in a HierState.)
+_FORWARDED = frozenset({"plan_request", "redundancy_plan"})
+
+
 @dataclasses.dataclass(frozen=True)
 class HierarchicalCFL:
     """Hierarchical edge -> cloud wrapper around a tiered-capable strategy.
@@ -58,6 +66,10 @@ class HierarchicalCFL:
     topology: FleetTopology
     label: str = ""
 
+    # the wrapper adds no primitive knobs of its own; its static identity
+    # (base structure + tier structure) is carried by `engine_key`
+    engine_value_fields: ClassVar[frozenset] = frozenset()
+
     def __post_init__(self):
         if not hasattr(self.base, "tiered_contributions"):
             raise TypeError(
@@ -69,6 +81,12 @@ class HierarchicalCFL:
                 f"{type(self.topology).__name__}")
         if not self.label:
             object.__setattr__(self, "label", f"hier[{self.base.label}]")
+
+    def __getattr__(self, name: str):
+        if name in _FORWARDED:
+            return getattr(object.__getattribute__(self, "base"), name)
+        raise AttributeError(
+            f"{type(self).__name__!r} object has no attribute {name!r}")
 
     # -- planning -----------------------------------------------------------
 
@@ -102,7 +120,25 @@ class HierarchicalCFL:
         arrivals["tier_gate"] = state.topology.sample_gates(epochs, rng)
         return dataclasses.replace(sched, arrivals=arrivals)
 
+    def sweep_inputs(self, state: HierState, fleet: "FleetSpec",
+                     epochs: int, rng: np.random.Generator) -> EpochSchedule:
+        """One sweep lane's inputs: the base lane's plus the `(epochs, n)`
+        gate tensor; draws are exactly `sample_epochs`."""
+        sample = getattr(self.base, "sweep_inputs", self.base.sample_epochs)
+        sched = sample(state.base, fleet, epochs, rng)
+        arrivals = dict(sched.arrivals)
+        arrivals["tier_gate"] = state.topology.sample_gates(epochs, rng)
+        return dataclasses.replace(sched, arrivals=arrivals)
+
     # -- epoch hooks --------------------------------------------------------
+
+    @property
+    def data_device_keys(self) -> frozenset:
+        """The base's data-only operands plus the wrapper's row -> client
+        index (a function of the data's shape).  `tier_masks` comes from
+        the topology and stays per lane."""
+        base_keys = getattr(self.base, "data_device_keys", frozenset())
+        return frozenset(base_keys) | {"hier_row_client"}
 
     def device_state(self, state: HierState,
                      data: TrainData) -> Dict[str, torch.Tensor]:
@@ -129,9 +165,23 @@ class HierarchicalCFL:
             out = out + server
         return out
 
+    def engine_key(self, state: HierState) -> Hashable:
+        """The wrapper's own fields are not primitive, so the module-level
+        static key sees only the class: the base's whole static structure,
+        its own engine key and the tier structure go here, so hierarchies
+        over different bases or tier counts never share an engine."""
+        return ("hier", _static_strategy_key(self.base),
+                self.base.engine_key(state.base),
+                self.topology.structure_key())
+
     def uplink_bits(self, state: HierState, fleet: "FleetSpec",
                     epochs: int) -> float:
         return self.base.uplink_bits(state.base, fleet, epochs)
+
+    def serve_convergence(self, state: HierState, criterion):
+        """The base's serving hook, on the base's state."""
+        hook = getattr(self.base, "serve_convergence", None)
+        return criterion if hook is None else hook(state.base, criterion)
 
     def report_extras(self, state: HierState) -> Dict[str, Any]:
         """The base's extras plus the tier structure."""

@@ -40,7 +40,7 @@ numbers, so parity tests hand the reference's features across.
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Dict, Optional
+from typing import TYPE_CHECKING, ClassVar, Dict, Hashable, Optional
 
 import numpy as np
 import torch
@@ -110,6 +110,16 @@ class CodedFedL:
     label: str = "cfedl"
     redundancy_plan: Optional[RedundancyPlan] = None
     grad_path: str = aggregation.FUSED
+
+    # knobs that only shape the plan, the host-side sampling or operand
+    # VALUES (rff_gamma and the seeds move feature values, never shapes);
+    # d_feat stays keyed — it sets the operand widths
+    engine_value_fields: ClassVar[frozenset] = frozenset(
+        {"key", "rff_key", "fixed_c", "c_up", "include_upload_delay",
+         "server_always_returns", "generator", "mec_comm", "rff_gamma"})
+    # y and the row ids are pure functions of the TrainData; x is NOT — it
+    # depends on the lane's feature map — so each lane keeps its own
+    data_device_keys: ClassVar[frozenset] = frozenset({"y", "row_client"})
 
     def __post_init__(self):
         if self.d_feat is not None and (self.d_feat < 2 or self.d_feat % 2):
@@ -204,6 +214,25 @@ class CodedFedL:
         # parity shards are (c, d_feat + 1): encoding happens in feature
         # space, so the one-time upload is priced at the feature width
         return cfl.coded_uplink_bits(state, fleet, epochs)
+
+    def engine_key(self, state: CodedFedLState) -> Hashable:
+        return (state.c > 0, self.use_kernel, self.d_feat,
+                self._grad_path())
+
+    def sweep_inputs(self, state: CodedFedLState, fleet: "FleetSpec",
+                     epochs: int, rng: np.random.Generator) -> EpochSchedule:
+        """One sweep lane's inputs: `received (epochs, n)` and
+        `parity_ok (epochs,)`; draws are exactly `sample_epochs`."""
+        return self.sample_epochs(state, fleet, epochs, rng)
+
+    def serve_convergence(self, state: CodedFedLState, criterion):
+        """Kernel-regression NMSE plateaus at the RFF approximation floor
+        rather than reaching an absolute target, so a served lane with no
+        plateau clause would spend its whole epoch budget: arm a tight
+        relative-plateau exit when the user left it off."""
+        if self.d_feat is None or criterion.rel_delta is not None:
+            return criterion
+        return dataclasses.replace(criterion, rel_delta=1e-4)
 
     def report_extras(self, state: CodedFedLState) -> Dict[str, float]:
         return {"d_feat": float(self.d_feat or 0),

@@ -25,7 +25,7 @@ scheme is `CodedFL`: the same weights, parity and arrival stream.
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Dict, Optional, Union
+from typing import TYPE_CHECKING, ClassVar, Dict, Hashable, Optional, Union
 
 import numpy as np
 import torch
@@ -84,6 +84,17 @@ class LowLatencyCFL:
     label: str = "lowlat"
     redundancy_plan: Optional[RedundancyPlan] = None
     grad_path: str = aggregation.FUSED
+
+    # every knob (chunks included) reaches the epoch program only through
+    # operand values — the chunk ids, the completed-chunk counts, the
+    # plan — so a chunking or heterogeneity sweep shares one engine
+    engine_value_fields: ClassVar[frozenset] = frozenset(
+        {"key", "chunks", "fixed_c", "c_up", "include_upload_delay",
+         "generator"})
+    # data-only operands (one copy per sweep); the chunk ids are
+    # plan-derived and stay per lane
+    data_device_keys: ClassVar[frozenset] = frozenset(
+        {"x", "y", "row_client"})
 
     def __post_init__(self):
         if self.chunks < 1:
@@ -195,9 +206,9 @@ class LowLatencyCFL:
     def device_state(self, state: LowLatencyState,
                      data: TrainData) -> Dict[str, torch.Tensor]:
         if self._grad_path() == aggregation.FUSED:
-            # a fresh dict per call (the port memoizes no layout), so the
-            # chunk ids never leak into another scheme's operands
-            dev = fused_coded_device_state(state, data)
+            # copy: the layout is memoized on the state and must not
+            # absorb per-strategy extras
+            dev = dict(fused_coded_device_state(state, data))
             rc = torch.as_tensor(state.row_chunk.reshape(data.m),
                                  device=data.device)
             if "sys_rows" in dev:
@@ -265,6 +276,15 @@ class LowLatencyCFL:
         # Q incremental chunk packets + 1 completion packet per device-epoch
         return coded_uplink_bits(state, fleet, epochs,
                                  packets_per_epoch=self.chunks + 1)
+
+    def engine_key(self, state: LowLatencyState) -> Hashable:
+        return (state.c > 0,)
+
+    def sweep_inputs(self, state: LowLatencyState, fleet: "FleetSpec",
+                     epochs: int, rng: np.random.Generator) -> EpochSchedule:
+        """One sweep lane's inputs: `chunks_done (epochs, n)` and
+        `parity_ok (epochs,)`; draws are exactly `sample_epochs`."""
+        return self.sample_epochs(state, fleet, epochs, rng)
 
     def report_extras(self, state: LowLatencyState) -> Dict[str, float]:
         return {"chunks": float(self.chunks),

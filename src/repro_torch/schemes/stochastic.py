@@ -45,7 +45,8 @@ round is one release of a Poisson-subsampled Gaussian mechanism at
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Any, Dict, Optional, Union
+from typing import (TYPE_CHECKING, Any, ClassVar, Dict, Hashable, Optional,
+                    Union)
 
 import numpy as np
 import torch
@@ -130,6 +131,21 @@ class StochasticCodedFL:
     rounds: Optional[int] = None
     grad_path: str = aggregation.FUSED
     device: Optional[Union[str, torch.device]] = None
+
+    # noise and budget knobs feed the plan, the encoded values and the DP
+    # accounting report — never the epoch program — so a whole
+    # noise/epsilon frontier shares ONE engine; so do the int seed `key`
+    # and `device`, where the calibration and the accounting run.
+    # sample_frac stays keyed: the program reads it (1/(c*rho), and the
+    # coded kernel against the Gram fold).
+    engine_value_fields: ClassVar[frozenset] = frozenset(
+        {"key", "fixed_c", "c_up", "include_upload_delay", "generator",
+         "noise_multiplier", "epsilon_target", "delta", "rounds",
+         "device"})
+    # data-only operands (one copy per sweep); the noised parity and the
+    # load mask stay per lane
+    data_device_keys: ClassVar[frozenset] = frozenset(
+        {"x", "y", "row_client"})
 
     def __post_init__(self):
         if not (0.0 < self.sample_frac <= 1.0):
@@ -340,6 +356,29 @@ class StochasticCodedFL:
     def uplink_bits(self, state: StochasticState, fleet: "FleetSpec",
                     epochs: int) -> float:
         return coded_uplink_bits(state, fleet, epochs)
+
+    def engine_key(self, state: StochasticState) -> Hashable:
+        # the program reads sample_frac (1/(c*rho)) and whether c > 0
+        return (state.c > 0, float(self.sample_frac))
+
+    def sweep_inputs(self, state: StochasticState, fleet: "FleetSpec",
+                     epochs: int, rng: np.random.Generator) -> EpochSchedule:
+        """One sweep lane's inputs: `received (epochs, n)`, `parity_mask
+        (epochs, c)` and `parity_ok (epochs,)` (c is an operand shape, so
+        mixed-c sweeps bucket apart); draws are exactly `sample_epochs`."""
+        return self.sample_epochs(state, fleet, epochs, rng)
+
+    def serve_convergence(self, state: StochasticState, criterion):
+        """The serving engine's hook: epsilon-budget exhaustion.  With a
+        calibrated (epsilon, delta) budget every round past the accounting
+        horizon overspends the target, so the served epoch budget is
+        capped at `rounds`; the lane frees its slot when the budget is
+        spent."""
+        if self.epsilon_target is None or self.rounds is None:
+            return criterion
+        cap = int(self.rounds) if criterion.max_epochs is None \
+            else min(int(criterion.max_epochs), int(self.rounds))
+        return dataclasses.replace(criterion, max_epochs=cap)
 
     def report_extras(self, state: StochasticState) -> Dict[str, Any]:
         """The privacy/accuracy knobs on every TraceReport and, with an

@@ -1,6 +1,13 @@
-"""Serving (counterpart of `repro.serving`): the continuous-batching
-`ServeEngine`.  `FedServeEngine` and the scheduler wait for ROADMAP.md
-item 11."""
+"""Serving (counterpart of `repro.serving`): the continuous-batching LM
+`ServeEngine`, and the always-on federated `FedServeEngine` with its
+scheduler."""
 from .engine import Request, ServeEngine
+from .fed_engine import FedServeEngine
+from .scheduler import (ConvergenceCriterion, FifoScheduler, ServeRequest,
+                        poisson_arrivals)
 
-__all__ = ["Request", "ServeEngine"]
+__all__ = [
+    "Request", "ServeEngine",
+    "FedServeEngine", "ServeRequest", "ConvergenceCriterion",
+    "FifoScheduler", "poisson_arrivals",
+]

@@ -69,6 +69,10 @@ Bounds:
     exact launch counts, the reference path launching nothing, identical
     clocks and NMSE within rtol 1e-4 (the fused path against the
     reference path, and gradient coding against the CPU run).
+  * the sweep and serving engines on the card: `run_sweep` lanes and
+    `plan_sweep` plans bit-equal to solo runs and solo plans, served
+    lanes bit-equal as a prefix of their solo runs, and exactly one
+    round-gradient launch per epoch swept or served.
 """
 import dataclasses
 
@@ -1093,3 +1097,66 @@ def test_dense_prefill_on_the_card_matches_cpu(cuda):
                  (cache["attn"]["v"], want_cache["attn"]["v"])):
         bound = 1e-4 * max(1.0, float(w.abs().max()))
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=bound)
+
+
+def _sweep_sessions(cuda):
+    from repro_torch.sim.network import paper_fleet
+
+    fleet = paper_fleet(0.2, 0.2, seed=1, n=10, d=16)
+    data = api.TrainData.linreg(0, 10, 64, 16, device=cuda)
+    sessions = [api.Session(api.make_strategy("cfl", key_seed=k,
+                                              fixed_c=fixed_c),
+                            fleet, 0.05, 20, seed=k, device=cuda)
+                for k, fixed_c in ((1, 192), (2, 192), (3, 40))]
+    sessions += [api.Session(api.make_strategy("uncoded"), fleet, lr, 20,
+                             seed=9, device=cuda) for lr in (0.05, 0.03)]
+    return data, sessions
+
+
+def test_run_sweep_on_the_card_equals_solo(cuda):
+    """Lanes of three buckets (packed and dense CFL, uncoded): the batched
+    plans equal the solo plans, and each lane's trace, clock and final
+    beta equal its solo run, with one round-gradient launch per epoch."""
+    data, sessions = _sweep_sessions(cuda)
+    states = api.plan_sweep(sessions, data)
+    before = rg_ops.COUNTER.launches
+    reports = api.run_sweep(sessions, data, states=states)
+    torch.cuda.synchronize()
+    assert rg_ops.COUNTER.launches - before == 20 * len(sessions)
+    for sess, state, rep in zip(sessions, states, reports):
+        solo = sess.run(data, rng=np.random.default_rng(sess.seed))
+        if hasattr(state, "plan"):
+            plan = sess.plan(data).plan
+            np.testing.assert_array_equal(state.plan.loads, plan.loads)
+            assert state.plan.t_star == plan.t_star
+            np.testing.assert_array_equal(state.plan.p_return,
+                                          plan.p_return)
+        for got, want in ((rep.nmse, solo.nmse), (rep.times, solo.times),
+                          (rep.beta, solo.beta)):
+            np.testing.assert_array_equal(got, want)
+        assert np.all(np.isfinite(rep.nmse)) and rep.nmse[-1] < rep.nmse[0]
+
+
+def test_fed_serve_on_the_card_is_a_solo_prefix(cuda):
+    """The serving engine on the card: each served trace is its solo
+    run's prefix up to its exit epoch, and kernel 1 launches once per
+    epoch served."""
+    from repro_torch.serving import ConvergenceCriterion, FedServeEngine
+
+    data, sessions = _sweep_sessions(cuda)
+    states = api.plan_sweep(sessions, data)
+    engine = FedServeEngine(data, lane_width=2, chunk=6, device=cuda,
+                            criterion=ConvergenceCriterion(nmse_target=0.5))
+    before = rg_ops.COUNTER.launches
+    reports = engine.serve(sessions, arrivals=[0.0, 1.0, 2.0, 3.0, 4.0],
+                           states=states)
+    torch.cuda.synchronize()
+    exits = [rep.extras["serve_exit_epoch"] for rep in reports]
+    assert rg_ops.COUNTER.launches - before == sum(exits)
+    assert any(t < 20 for t in exits) and engine.n_groups == 3
+    for sess, state, rep in zip(sessions, states, reports):
+        solo = sess.run(data, rng=np.random.default_rng(sess.seed),
+                        state=state)
+        t = rep.extras["serve_exit_epoch"]
+        np.testing.assert_array_equal(rep.nmse, solo.nmse[:t + 1])
+        np.testing.assert_array_equal(rep.times, solo.times[:t + 1])

@@ -108,6 +108,28 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     assert common.backend() == "cpu"
 
 
+def test_sweep_and_fedserve_entry_points_default_to_cuda(no_cuda):
+    """`run_sweep`'s sessions, `FedServeEngine` and the fedserve command
+    line ask for the card unless told otherwise, and raise without one;
+    a sweep or an engine refuses data on another device."""
+    from repro_torch.launch import fedserve
+    from repro_torch.serving import FedServeEngine
+
+    data = api.TrainData.linreg(0, 4, 8, 8, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FedServeEngine(data)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fedserve.main(["--sessions", "2"])
+    assert FedServeEngine(data, device="cpu").device == torch.device("cpu")
+    fleet = paper_fleet(seed=0, n=4, d=8)
+    meta = api.Session(api.UncodedFL(), fleet, lr=0.1, epochs=2,
+                       device="meta")
+    with pytest.raises(ValueError, match="session runs on"):
+        api.run_sweep([meta], data)
+    with pytest.raises(ValueError, match="session runs on"):
+        FedServeEngine(data, device="cpu").submit(meta)
+
+
 def test_session_rejects_data_on_another_device():
     fleet = paper_fleet(seed=0, n=4, d=8)
     data = api.TrainData.linreg(0, 4, 8, 8, device="cpu")
