@@ -226,8 +226,29 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      an 800-epoch session served alone: it stops at 600, not converged,
      its trace phase 15's run and its `epsilon_spent` and
      `epsilon_schedule` phase 15's, 600 coded round-gradient launches.
+ 19. training, which runs no kernel (the kernels have no backward; the
+     reference trains through its plain expressions): (a) `python -m
+     repro_torch.launch.train` at its defaults (`launch.train.run`:
+     lm-100m at full width, batch 8 x 256, AdamW 3e-4, 300 steps) with a
+     checkpoint every 100 steps; the mean loss of the last 10 steps below
+     that of the first 10, the three checkpoint files, and steps 201-210
+     run again from the step-200 checkpoint within rtol 1e-4 of the
+     run's own losses; (b) `--arch mamba2-1.3b --federated` at full width
+     (1,446,714,368 float32 parameters), 8 clients, batch 8 x 256, 20
+     rounds: the printed t* and loads `fed_setup`'s for the same fleet,
+     finite losses, the mean of the last 5 below the first 5; (c)
+     `--arch granite-8b --reduced --federated` at `launch.train`'s defaults;
+     (d) one float32 `make_train_step` and one `make_fed_train_step`
+     step of the reduced granite-8b and mamba2-1.3b on the card against
+     the CPU from the same parameters and batch: losses within rtol 1e-5,
+     gradient leaves (and the SGD change at lr 1) within rtol 1e-4 / atol
+     1e-6 * max(1, max|CPU leaf|); (e) kernels 1-8 launch 0 times in each
+     run, and the kernel 7 and 8 wrappers refuse operands that require
+     grad on the card; each run's seconds a step (median after the
+     first), tokens/s and peak allocated memory beside the card's
+     `nvidia-smi` name and power limit.
 
-Every run of phases 4-18 is counted from 0 just before it.  The kernels
+Every run of phases 4-19 is counted from 0 just before it.  The kernels
 line's `launches` sums the driven runs: kernel 1 over phases 4, 14 (r = 2
 and 3), 16, 17 and 18 (the sweep, its solo runs, the served epochs and
 the per-session loop); kernel 2 over phases 4, 15, 16, 17 and 18's two
@@ -349,6 +370,22 @@ SWEEP_LANES, SWEEP_C, SWEEP_LR, SWEEP_EPOCHS = 16, 2016, 0.0085, 600
 SERVE_FL_SESSIONS, SERVE_FL_EPOCHS, SERVE_FL_RATE = 16, 400, 0.05
 SERVE_FL_WIDTH, SERVE_FL_CHUNK, SERVE_FL_TARGET = 4, 100, 0.35
 DP_SERVE_EPOCHS = 800
+# phase 19: training. (a) `python -m repro_torch.launch.train` at its
+# defaults (lm-100m, batch 8, seq 256, AdamW 3e-4, 300 steps) with a
+# checkpoint every 100 steps, resumed from step 200 for 10 steps: the
+# losses within TRAIN_RESUME_RTOL of the run's own (the embedding's
+# backward adds with atomics, so not bit-equal); (b) mamba2-1.3b federated
+# at full width (8 clients, batch 8 x FED_SEQ tokens, FED_ROUNDS rounds;
+# parameters and AdamW moments take 17.4 GB, the plain SSD's (B, H, nc,
+# Q, Q) float32 terms some 0.5 GB a layer: 63.2 GiB at its peak on an
+# H100 80GB HBM3 at 700 W, PERF.md §6); (c) granite-8b
+# reduced federated at `launch.train`'s defaults; (d) one float32 train step
+# and one federated step of the reduced granite-8b and mamba2-1.3b on
+# the card against the CPU (loss rtol 1e-5; gradient leaves rtol 1e-4 /
+# atol 1e-6 * max(1, max|CPU leaf|), tests/test_torch_train.py's bound)
+TRAIN_CKPT_EVERY, TRAIN_RESUME_AT, TRAIN_RESUME_STEPS = 100, 200, 10
+TRAIN_RESUME_RTOL = 1e-4
+FED_ARCH, FED_CLIENTS, FED_ROUNDS, FED_SEQ = "mamba2-1.3b", 8, 20, 256
 L2_BYTES = 50 * 2**20
 TIMING_REPEATS = 15   # timed runs per call; the median is kept
 TIMING_CALLS = 40     # back-to-back calls per timed run
@@ -2093,6 +2130,253 @@ def head_major(ops) -> tuple:
     return tuple(hm(t) for t in (xc, dtc, da, bc, cc))
 
 
+def run_training(argv, dev, card: str, expect, reset_counters,
+                 read_counters) -> dict:
+    """`launch.train.run(argv)` on the card, counted from 0 just before;
+    no kernel may launch (training takes the plain expressions).  Prints
+    the host seconds a step (median after the first) and tokens/s."""
+    from repro_torch.launch import train
+
+    phase(f"train [{card}]: python -m repro_torch.launch.train "
+          + " ".join(argv))
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counters()
+    t0 = time.perf_counter()
+    res = train.run(argv, device=dev)
+    torch.cuda.synchronize()
+    res["wall_s"] = time.perf_counter() - t0
+    res["launches"] = read_counters()
+    check(res["launches"] == expect(),
+          f"training launched a kernel: {res['launches']}")
+    losses = np.asarray(res["losses"])
+    check(bool(np.all(np.isfinite(losses))), "a training loss is not finite")
+    args = res["args"]
+    res["step_s"] = statistics.median(res["step_seconds"][1:])
+    res["tokens_per_s"] = args.batch * args.seq / res["step_s"]
+    phase(f"train [{card}]: {res['cfg'].name}, {res['n_params']} "
+          f"parameters, {len(losses)} steps of batch {args.batch} x "
+          f"{args.seq} in {res['wall_s']:.3f} s wall (first step "
+          f"{res['step_seconds'][0]:.3f} s); {res['step_s']!r} s a step, "
+          f"{res['tokens_per_s']:.1f} tokens/s; peak "
+          f"{res['peak_bytes'] / 2**30:.3f} GiB allocated; launches "
+          f"{res['launches']}")
+    return res
+
+
+def check_resume(res, ckpt: str, dev, card: str, expect, reset_counters,
+                 read_counters) -> float:
+    """Phase 19a's resume: the step-200 checkpoint restored into a
+    template on the card, steps 201-210 run again on the same batches;
+    returns the largest relative loss difference."""
+    from repro_torch import tree
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.launch import steps
+    from repro_torch.optim import make_optimizer
+
+    args, cfg = res["args"], res["cfg"]
+    opt = make_optimizer(args.optimizer, args.lr)
+    template = {"params": tree.tree_map(torch.empty_like, res["params"]),
+                "opt": opt.init(res["params"])}
+    step, state = restore_checkpoint(ckpt, template, step=TRAIN_RESUME_AT)
+    check(step == TRAIN_RESUME_AT, f"restored step {step}")
+    check(int(state["opt"].step) == TRAIN_RESUME_AT,
+          "the restored optimizer step is not the checkpoint's")
+    it = token_batches(args.seed, args.batch, args.seq, cfg.vocab,
+                       device=dev)
+    for _ in range(TRAIN_RESUME_AT):
+        next(it)
+    step_fn = steps.make_train_step(cfg, opt, compute_dtype=torch.float32,
+                                    remat=False)
+    params, opt_state = state["params"], state["opt"]
+    reset_counters()
+    again = []
+    for _ in range(TRAIN_RESUME_STEPS):
+        params, opt_state, m = step_fn(params, opt_state, next(it))
+        again.append(float(m["loss"]))
+    check(read_counters() == expect(), "the resumed steps launched a kernel")
+    want = np.asarray(res["losses"][TRAIN_RESUME_AT:
+                                    TRAIN_RESUME_AT + TRAIN_RESUME_STEPS])
+    rel = float(np.max(np.abs(np.asarray(again) - want) / np.abs(want)))
+    phase(f"train [{card}]: resumed from step {TRAIN_RESUME_AT}: steps "
+          f"{TRAIN_RESUME_AT + 1}-{TRAIN_RESUME_AT + TRAIN_RESUME_STEPS} "
+          f"losses {again[0]:.6f} .. {again[-1]:.6f}, max relative "
+          f"difference from the uninterrupted run {rel:.3e} (rtol "
+          f"{TRAIN_RESUME_RTOL})")
+    check(rel <= TRAIN_RESUME_RTOL, "the resumed losses left the run's")
+    return rel
+
+
+def check_train_steps_against_cpu(arch: str, dev, card: str) -> dict:
+    """Phase 19d: one float32 train step and one federated step of the
+    reduced `arch` on the card and on the CPU from the same parameters
+    and batch: the losses within rtol 1e-5, each gradient leaf within
+    rtol 1e-4 / atol 1e-6 * max(1, max|CPU leaf|) (the gradients of the
+    steps' own `value_and_grad`, and the parameters' change under SGD at
+    lr 1).  Returns the largest share of the leaf bound and loss error."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import sgd
+
+    cfg = get_config(arch).reduced()
+    cpu = torch.device("cpu")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device=cpu)
+    batch = next(token_batches(0, 4, 40, cfg.vocab, device=cpu))
+    w = torch.tensor([0.0, 1.5, 1.0, 2.0])
+    fed_grad = steps.make_fed_grad_fn(cfg)
+
+    def run(device):
+        p = tree.tree_map(lambda t: t.to(device), params)
+        b = {k: v.to(device) for k, v in batch.items()}
+        w_ = w.to(device)
+        loss, _, grads = steps.value_and_grad(
+            lambda q: T.loss_fn(cfg, q, b), p)
+        floss, fgrads = fed_grad(p, b, w_)
+        out = [(loss, grads), (floss, fgrads)]
+        for make, extra in ((steps.make_train_step(
+                cfg, sgd(1.0), compute_dtype=torch.float32, remat=False),
+                ()), (steps.make_fed_train_step(cfg, sgd(1.0)), (w_,))):
+            q = tree.tree_map(torch.clone, p)
+            _, _, m = make(q, sgd(1.0).init(q), b, *extra)
+            out.append((m["loss"], tree.tree_map(torch.sub, p, q)))
+        return out
+
+    want = run(cpu)
+    got = run(dev)
+    worst, loss_err = 0.0, 0.0
+    for (g_loss, g_tree), (w_loss, w_tree) in zip(got, want):
+        loss_err = max(loss_err, abs(float(g_loss) - float(w_loss))
+                       / abs(float(w_loss)))
+        for g, ref in zip(tree.leaves(g_tree), tree.leaves(w_tree)):
+            ref64, g64 = ref.double(), g.cpu().double()
+            bound = (1e-4 * ref64.abs()
+                     + 1e-6 * max(1.0, float(ref64.abs().max())))
+            worst = max(worst, float(((g64 - ref64).abs() / bound).max()))
+    phase(f"train card vs CPU [{card}]: {cfg.name}: loss max relative "
+          f"error {loss_err:.3e} (rtol 1e-5), gradient leaves at "
+          f"{worst:.3f} of their bound (the train and federated steps' "
+          f"gradients and SGD changes)")
+    check(loss_err <= 1e-5, f"{cfg.name}: the card's loss left the CPU's")
+    check(worst <= 1.0, f"{cfg.name}: a gradient leaf on the card left the "
+          "CPU's bound")
+    return {"bound_share": worst, "loss_err": loss_err}
+
+
+def train_phase(dev, card: str, expect, reset_counters, read_counters) -> dict:
+    """Phase 19: LM training and the federated LM trainer on the card."""
+    import shutil
+    import tempfile
+
+    from repro_torch.fed import FedConfig, fed_setup
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.sim.network import paper_fleet
+
+    out = {}
+    # (a) launch.train at its defaults, with checkpoints, and the resume
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        res = run_training(["--ckpt-dir", ckpt, "--ckpt-every",
+                            str(TRAIN_CKPT_EVERY), "--log-every", "50"],
+                           dev, card, expect, reset_counters, read_counters)
+        losses = res["losses"]
+        first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+        phase(f"train [{card}]: lm-100m mean loss of the first 10 steps "
+              f"{first:.4f}, of the last 10 {last:.4f}")
+        check(res["cfg"].name == "lm-100m" and len(losses) == 300,
+              "launch.train's defaults are not lm-100m for 300 steps")
+        check(last < first, "lm-100m's loss did not go down")
+        files = sorted(os.listdir(ckpt))
+        check(files == [f"step_{s:08d}.msgpack" for s in (100, 200, 300)],
+              f"checkpoints written: {files}")
+        size = os.path.getsize(os.path.join(ckpt, files[1]))
+        phase(f"train: checkpoints {files}, {size} bytes each")
+        rel = check_resume(res, ckpt, dev, card, expect, reset_counters,
+                           read_counters)
+        out["lm"] = {k: res[k] for k in ("wall_s", "step_s", "tokens_per_s",
+                                         "peak_bytes", "n_params")}
+        out["lm"].update(first=first, last=last, resume_rel=rel,
+                         ckpt_bytes=size)
+        del res
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    # (b) mamba2-1.3b federated at full width
+    res = run_training(["--arch", FED_ARCH, "--federated", "--n-clients",
+                        str(FED_CLIENTS), "--steps", str(FED_ROUNDS),
+                        "--batch", str(FED_CLIENTS), "--seq", str(FED_SEQ),
+                        "--log-every", "5"],
+                       dev, card, expect, reset_counters, read_counters)
+    check(res["n_params"] == SERVE_PARAMS, "mamba2-1.3b is not at full width")
+    want = fed_setup(paper_fleet(0.2, 0.2, seed=0, n=FED_CLIENTS,
+                                 d=res["cfg"].d_model).edge,
+                     FedConfig(FED_CLIENTS, 1, FED_CLIENTS))
+    plan = res["fed"].plan
+    check(plan.t_star == want.plan.t_star
+          and np.array_equal(plan.loads, want.plan.loads)
+          and np.array_equal(res["fed"].p_return, want.p_return),
+          "launch.train's federated plan is not fed_setup's")
+    losses = res["losses"]
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    phase(f"train [{card}]: {FED_ARCH} federated t*={plan.t_star!r} s, "
+          f"loads {plan.loads.tolist()} (fed_setup's on the host), "
+          f"p_return {np.round(res['fed'].p_return, 4).tolist()}; mean "
+          f"loss of the first 5 rounds {first:.4f}, of the last 5 "
+          f"{last:.4f}")
+    check(last < first, f"{FED_ARCH}'s federated loss did not go down")
+    out["fed"] = {k: res[k] for k in ("wall_s", "step_s", "tokens_per_s",
+                                      "peak_bytes", "n_params")}
+    out["fed"].update(first=first, last=last)
+    del res, plan
+
+    # (c) the reference docstring's example
+    res = run_training(["--arch", "granite-8b", "--reduced", "--federated",
+                        "--log-every", "100"],
+                       dev, card, expect, reset_counters, read_counters)
+    losses = res["losses"]
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    phase(f"train [{card}]: granite-8b-reduced federated mean loss of the "
+          f"first 10 steps {first:.4f}, of the last 10 {last:.4f}")
+    check(last < first, "granite-8b-reduced's federated loss did not go down")
+    out["granite"] = {k: res[k] for k in ("wall_s", "step_s",
+                                          "tokens_per_s", "peak_bytes")}
+    del res
+
+    # (d) the card against the CPU, counted: no kernel
+    reset_counters()
+    out["vs_cpu"] = {arch: check_train_steps_against_cpu(arch, dev, card)
+                     for arch in ("granite-8b", "mamba2-1.3b")}
+    check(read_counters() == expect(), "a train step launched a kernel")
+
+    # (e) kernels 7 and 8 refuse operands that require grad
+    gen = torch.Generator(device=dev).manual_seed(19)
+    q, k, v = (torch.randn((1, h, 64, 64), generator=gen, device=dev)
+               for h in (4, 2, 2))
+    ssd = ssd_operands(gen, dev, 1, 2, 16, 4, 8, 8, 1)
+    reset_counters()
+    for name, call in (
+            ("causal_attention", lambda: fa_ops.causal_attention(
+                q.requires_grad_(), k, v)),
+            ("ssd_chunk", lambda: ssd_ops.ssd_chunk(
+                ssd[0].requires_grad_(), *ssd[1:]))):
+        try:
+            call()
+        except RuntimeError as err:
+            check("no backward" in str(err), f"{name}: {err}")
+        else:
+            raise AssertionError(f"{name} launched on operands that "
+                                 "require grad")
+    check(read_counters() == expect(), "a refused call launched a kernel")
+    phase("train: kernels 7 and 8 refuse operands that require grad on the "
+          "card (no launch)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2785,6 +3069,17 @@ def main() -> int:
         [f"sweep {k} {v:.4f}" for k, v in sweep["seconds"].items()]
         + [f"fedserve {k} {v:.4f}" for k, v in fedserve["seconds"].items()]
         + [f"dp serve {dp_serve['seconds']:.4f}"]))
+
+    # -- 19. training and the federated LM trainer --------------------------
+    training = train_phase(dev, card, expect, reset_counters, read_counters)
+    phase(f"phase 19 [{card}]: lm-100m {training['lm']['step_s']!r} s a "
+          f"step, {training['lm']['tokens_per_s']:.1f} tokens/s, peak "
+          f"{training['lm']['peak_bytes'] / 2**30:.3f} GiB; {FED_ARCH} "
+          f"federated {training['fed']['step_s']!r} s a round, "
+          f"{training['fed']['tokens_per_s']:.1f} tokens/s, peak "
+          f"{training['fed']['peak_bytes'] / 2**30:.3f} GiB; granite-8b-"
+          f"reduced federated {training['granite']['step_s']!r} s a step, "
+          f"{training['granite']['tokens_per_s']:.1f} tokens/s")
 
     # launches on the driven paths: phase 4 and the new paths' runs
     # (kernel 1), phases 4, 15, 16 (kernel 2), 6 and 15 (kernel 4), 7, 14

@@ -9,7 +9,7 @@ import importlib
 from .base import (ArchConfig, EncDecSpec, HybridSpec, INPUT_SHAPES, MoESpec,
                    SSMSpec, VLMSpec, get_config, list_archs, register)
 
-_MODULES = ["granite_8b", "mamba2_1p3b"]
+_MODULES = ["granite_8b", "lm_100m", "mamba2_1p3b"]
 
 _loaded = False
 

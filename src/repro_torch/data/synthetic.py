@@ -6,15 +6,24 @@
   labels from a random RBF-network teacher (`teacher_labels`), so the
   class regions are non-linear in the raw inputs; `one_vs_rest_targets`
   turns labels into ±1 regression targets.
+* `token_batches`: the seeded LM token stream of `launch.train`
+  (Zipfian unigram draws with copy-back "induction" events), drawn on
+  the host with NumPy exactly as the reference draws it.
 
-Each draws from an explicit `torch.Generator` on its device.  The
-distributions are the reference's; the numbers are not (torch's
+The first two draw from an explicit `torch.Generator` on their device.
+The distributions are the reference's; the numbers are not (torch's
 generators are not `jax.random`), so parity tests hand both packages the
 same NumPy arrays instead (the teacher's operands, for the labels).
+`token_batches`' tokens equal the reference's for a seed.
 """
 from __future__ import annotations
 
+from typing import Iterator
+
+import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
 
 
 def linreg_dataset(generator: torch.Generator, n_clients: int, ell: int,
@@ -74,3 +83,39 @@ def one_vs_rest_targets(labels: torch.Tensor, cls: int) -> torch.Tensor:
     `cls` (least squares on signed labels, the CodedFedL recipe)."""
     one = torch.ones((), dtype=torch.float32, device=labels.device)
     return torch.where(labels == cls, one, -one)
+
+
+def _zipf_probs(vocab: int, alpha: float = 1.1) -> np.ndarray:
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    p = ranks ** (-alpha)
+    return p / p.sum()
+
+
+def token_batches(seed: int, batch: int, seq_len: int, vocab: int,
+                  induction_prob: float = 0.3,
+                  device: str | torch.device | None = None
+                  ) -> Iterator[dict]:
+    """Infinite iterator of {"tokens", "targets"} (batch, seq_len) int64
+    batches on `device` (the card by default), the reference's values.
+
+    Sequences mix Zipfian unigram draws with copy-back ("induction") events
+    so that even small models see decreasing loss within a few hundred steps.
+    """
+    return _token_stream(seed, batch, seq_len, vocab, induction_prob,
+                         resolve_device(device))
+
+
+def _token_stream(seed, batch, seq_len, vocab, induction_prob, dev):
+    rng = np.random.default_rng(seed)
+    probs = _zipf_probs(vocab)
+    while True:
+        toks = rng.choice(vocab, size=(batch, seq_len + 1), p=probs)
+        # induction: with prob p, token t copies token t - lag
+        lag = rng.integers(2, 32)
+        copy = rng.random((batch, seq_len + 1)) < induction_prob
+        copy[:, :lag] = False
+        idx = np.arange(seq_len + 1)
+        shifted = toks[:, np.maximum(idx - lag, 0)]
+        toks = np.where(copy, shifted, toks).astype(np.int64)
+        yield {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+               "targets": torch.from_numpy(toks[:, 1:].copy()).to(dev)}

@@ -17,6 +17,7 @@ from repro_torch.core.delay_model import DeviceDelayParams
 from repro_torch.core.gradient_coding import GradCodingPlan
 from repro_torch.core.redundancy import RedundancyPlan
 from repro_torch.fleet.topology import FleetTopology
+from repro_torch.optim.optimizers import OptState
 from repro_torch.schemes.codedfedl import CodedFedLState
 from repro_torch.schemes.lowlatency import LowLatencyState
 from repro_torch.schemes.stochastic import StochasticState
@@ -139,4 +140,26 @@ def lm_params(tree, device) -> dict:
     two trees have the same keys and stacked shapes), on `device`."""
     if isinstance(tree, dict):
         return {k: lm_params(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree)).to(device)
+    return _leaf(tree, device)
+
+
+def _leaf(arr, device) -> torch.Tensor:
+    """A NumPy leaf as a tensor of its dtype; bfloat16 (`ml_dtypes`, which
+    torch does not read) goes across as its 16-bit pattern."""
+    arr = np.array(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def opt_state(state, device):
+    """The optimizer state of `optim.optimizers` from the reference's
+    `OptState` with its leaves as NumPy arrays: (step, mu, nu) in that
+    order, mu and nu parameter trees or None, on `device`, dtypes kept
+    (bfloat16 moments included)."""
+    step, mu, nu = state
+    return OptState(
+        _leaf(np.asarray(step, dtype=np.int32), device),
+        None if mu is None else lm_params(mu, device),
+        None if nu is None else lm_params(nu, device))

@@ -42,6 +42,23 @@ class LaunchCounter:
         self.launches = 0
 
 
+def refuse_grad(kernel: str, *operands) -> None:
+    """Raise if autograd would record this launch: the CUDA kernels write
+    into `torch.empty` outputs through raw pointers and have no backward,
+    so their outputs carry no `grad_fn` and every gradient above the
+    call would be cut without a word.  Wrappers call it on the kernel
+    route only; on the CPU they compute the differentiable plain
+    version."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in operands):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward and an operand "
+            "requires grad; call it under torch.no_grad() or "
+            "torch.inference_mode(), or train through the plain version "
+            "(use_kernel=False)")
+
+
 def check_cuda_operand(name: str, t: torch.Tensor, shape: tuple[int, ...],
                        device: torch.device) -> None:
     """Raise unless `t` is a contiguous float32 tensor of `shape` on

@@ -11,7 +11,9 @@ into the running composite, as the reference's scan does.
 
 CPU tensors take the plain versions (`ref.py`); CUDA tensors launch the
 kernel on the current stream or raise.  There is no fallback from a CUDA
-tensor to a plain version.  `COUNTER` counts `encode_parity` launches,
+tensor to a plain version, and a CUDA call with an operand that requires
+grad raises (the kernels have no backward; `common.refuse_grad`).
+`COUNTER` counts `encode_parity` launches,
 `PRNG_COUNTER` the in-kernel-generator launches.
 """
 from __future__ import annotations
@@ -22,7 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import LaunchCounter, check_cuda_operand
+from repro_torch.kernels.common import (LaunchCounter, check_cuda_operand,
+                                       refuse_grad)
 
 from . import prng, ref
 
@@ -90,6 +93,7 @@ def encode_parity(g: torch.Tensor, w: torch.Tensor,
     lib = _dispatch(g.device)
     if lib is None:
         return ref.encode_parity(g, w, x)
+    refuse_grad("encode_parity", g, w, x)
     if g.dim() != 2 or x.dim() != 2:
         raise ValueError("g must be (C, L) and x (L, D)")
     c, ell = g.shape
@@ -151,6 +155,7 @@ def encode_parity_prng(key, w: torch.Tensor, x: torch.Tensor, c: int,
     lib = _dispatch(x.device)
     if lib is None:
         return ref.encode_parity_prng(key, w, x, c, kind)
+    refuse_grad("encode_parity_prng", w, x)
     out = torch.empty((c, x.shape[1]), dtype=torch.float32, device=x.device)
     if c == 0 or x.shape[1] == 0:
         return out.zero_()
@@ -178,6 +183,8 @@ def encode_fleet_prng_keys(keys, xs: torch.Tensor, ys: torch.Tensor,
     _check_prng_args(ell, c, kind)
     acc = torch.zeros((c, d + 1), dtype=xs.dtype, device=xs.device)
     lib = _dispatch(xs.device)
+    if lib is not None:
+        refuse_grad("encode_parity_prng", xs, ys, weights)
     for i in range(n):
         w_i = weights[i].contiguous()
         if lib is None:

@@ -4,8 +4,10 @@
 
 CPU tensors take the plain version (`ref.causal_attention`); CUDA tensors
 launch the kernel on the current stream or raise.  There is no fallback
-from a CUDA tensor to the plain version.  `FLASH_COUNTER` counts the
-launches.
+from a CUDA tensor to the plain version, and a CUDA call with an operand
+that requires grad raises (the kernel has no backward, so its output
+would cut the gradient; `common.refuse_grad`).  `FLASH_COUNTER` counts
+the launches.
 
 q is (B, Hq, S, D) and k, v are (B, Hkv, S, D) with Hkv dividing Hq:
 query head h reads key/value head h // (Hq / Hkv), so a model's grouped
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import LaunchCounter
+from repro_torch.kernels.common import LaunchCounter, refuse_grad
 
 from . import ref
 
@@ -95,6 +97,7 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     lib = _dispatch(q.device)
     if lib is None:
         return ref.causal_attention(q, k, v)
+    refuse_grad("causal_attention", q, k, v)
     dev = q.device
     ops = []
     for name, t in (("q", q), ("k", k), ("v", v)):

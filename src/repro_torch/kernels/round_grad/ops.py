@@ -8,7 +8,8 @@ the flat one at w = 1 behind a C entry point of its own
 (`kernels.coded_grad` re-exports it).  CPU tensors take the plain
 versions (`ref.py`); CUDA tensors launch the kernel on the current
 stream or raise.  There is no fallback from a CUDA tensor to a plain
-version.  Each kernel has its own launch counter: `COUNTER` (flat),
+version, and a CUDA call with an operand that requires grad raises (the
+kernels have no backward; `common.refuse_grad`).  Each kernel has its own launch counter: `COUNTER` (flat),
 `CODED_COUNTER`, `TIER_COUNTER`, `LSQ_COUNTER`.  Each launch sums its
 CTAs' float64 partials itself, in a fixed order, behind a ticket counter
 and a generation word: two zeroed int32 per (device, stream); every
@@ -22,7 +23,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import LaunchCounter, check_cuda_operand
+from repro_torch.kernels.common import (LaunchCounter, check_cuda_operand,
+                                       refuse_grad)
 
 from . import ref
 
@@ -109,6 +111,7 @@ def masked_round_gradient(x: torch.Tensor, y: torch.Tensor,
     lib = _dispatch(x.device)
     if lib is None:
         return ref.masked_round_gradient(x, y, w, beta)
+    refuse_grad("masked_round_gradient", x, y, w, beta)
     m, d = _check_rows(lib, x, y, w, beta)
     out = torch.empty(d, dtype=torch.float32, device=x.device)
     if d == 0:
@@ -135,6 +138,7 @@ def lsq_gradient(a: torch.Tensor, y: torch.Tensor,
     lib = _dispatch(a.device)
     if lib is None:
         return ref.lsq_gradient(a, y, beta)
+    refuse_grad("lsq_gradient", a, y, beta)
     m, d = _check_rows(lib, a, y, None, beta, name="a")
     out = torch.empty(d, dtype=torch.float32, device=a.device)
     if d == 0:
@@ -169,6 +173,7 @@ def coded_round_gradient(x: torch.Tensor, y: torch.Tensor,
     lib = _dispatch(x.device)
     if lib is None:
         return ref.coded_round_gradient(x, y, w, x_par, y_par, w_par, beta)
+    refuse_grad("coded_round_gradient", x, y, w, x_par, y_par, w_par, beta)
     m, d = _check_rows(lib, x, y, w, beta)
     c, _ = _check_rows(lib, x_par, y_par, w_par, beta, name="x_par")
     if x_par.shape[1] != d:
@@ -204,6 +209,7 @@ def tier_masked_round_gradient(x: torch.Tensor, y: torch.Tensor,
     lib = _dispatch(x.device)
     if lib is None:
         return ref.tier_masked_round_gradient(x, y, w, tier_masks, beta)
+    refuse_grad("tier_masked_round_gradient", x, y, w, tier_masks, beta)
     m, d = _check_rows(lib, x, y, w, beta)
     if tier_masks.dim() != 2 or tier_masks.shape[0] < 1:
         raise ValueError(

@@ -3,8 +3,10 @@ counterpart of `repro.kernels.ssd.ops.ssd_chunk`.
 
 CPU tensors take the plain version (`ref.ssd_chunk_reference`); CUDA
 tensors launch the kernel on the current stream or raise.  There is no
-fallback from a CUDA tensor to the plain version.  `SSD_COUNTER` counts
-the launches.
+fallback from a CUDA tensor to the plain version, and a CUDA call with
+an operand that requires grad raises (the kernel has no backward, so its
+output would cut the gradient; `common.refuse_grad`).  `SSD_COUNTER`
+counts the launches.
 
 B and C come per group: bc/cc (B, nc, Q, G, N) with G dividing H, and
 the kernel reads group h // (H / G) for head h.  G == H is the
@@ -24,7 +26,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import LaunchCounter, check_cuda_operand
+from repro_torch.kernels.common import (LaunchCounter, check_cuda_operand,
+                                       refuse_grad)
 
 from . import ref
 
@@ -84,6 +87,7 @@ def ssd_chunk(xc: torch.Tensor, dtc: torch.Tensor, da: torch.Tensor,
         return ref.ssd_chunk_reference(xc, dtc, da,
                                        bc.repeat_interleave(rep, dim=3),
                                        cc.repeat_interleave(rep, dim=3))
+    refuse_grad("ssd_chunk", xc, dtc, da, bc, cc)
     if da.dtype != torch.float32:
         raise TypeError(f"da must be float32, got {da.dtype}")
     ops = [t.to(torch.float32).contiguous() for t in (xc, dtc, da, bc, cc)]

@@ -5,6 +5,8 @@ MLP] blocks) and the `ssm` family (uniform Mamba2 blocks) so far.
 Entry points, with the reference's names and batch dicts:
 
   * ``init_params(cfg, gen)``                    -> parameter tree
+  * ``forward_train(cfg, params, batch)``        -> (logits fp32, aux)
+  * ``loss_fn(cfg, params, batch)``              -> (next-token loss, aux)
   * ``prefill(cfg, params, batch)``              -> (last-token logits, cache)
   * ``decode_step(cfg, params, batch, cache)``   -> (logits, new cache)
 
@@ -16,16 +18,29 @@ the stack where the reference scans.  Serving runs under
 `torch.inference_mode()`.  The dense decode writes each layer's new K/V
 into the cache in place (the reference returns a new cache).
 
+Training (`forward_train`, `loss_fn`) is differentiable by autograd and,
+as the reference's default, takes the plain expressions
+(`use_kernel=False`): the CUDA kernels have no backward, and their
+wrappers raise when an operand requires grad.  `remat=True` recomputes
+each block in the backward pass (`torch.utils.checkpoint`); the
+reference's `"save_ar"`, which keeps the activations after a
+tensor-parallel all-reduce, is full remat here (one card runs no such
+all-reduce).  Stacked leaves are split once per forward (`unbind`), so
+each leaf's gradient is assembled once, not once per layer.
+
 Every other `arch_type` raises `NotImplementedError`: the moe, hybrid,
-vlm and audio families, `forward_train` and `loss_fn` wait for
-ROADMAP.md item 13, as do the attention knobs no config sets
-(`attn_impl="repeat"`, a bf16 softmax, `fused_proj`, `attn_seq_shard`).
+vlm and audio families wait for ROADMAP.md §1 item 8, as do the
+attention knobs no config sets (`attn_impl="repeat"`, a bf16 softmax,
+`fused_proj`, `attn_seq_shard`); so does the moe family's
+`moe_aux_loss`.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -41,7 +56,7 @@ def _require_ported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} ({cfg.name}) is not ported; only "
             f"the {' and '.join(PORTED_FAMILIES)} families are (ROADMAP.md "
-            "item 13)")
+            "§1 item 8)")
     for knob, ported in (("attn_impl", "grouped"), ("softmax_dtype", "f32"),
                          ("fused_proj", False), ("attn_seq_shard", False)):
         if getattr(cfg, knob) != ported:
@@ -110,25 +125,107 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator],
     return p
 
 
-def _layer(stacked: dict, i: int) -> dict:
-    """Layer i of a stacked tree (views, no copy)."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in stacked.items()}
+def _unstack(stacked: dict, n: int) -> list[dict]:
+    """The n layers of a stacked tree, each leaf split once by `unbind`
+    into views (no copy; in training one backward for all layers, where
+    a `select` per layer would build a full-size gradient for each)."""
+    layers: list[dict] = [{} for _ in range(n)]
+    for k, v in stacked.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+        for layer, part in zip(layers, parts):
+            layer[k] = part
+    return layers
 
 
 # ---------------------------------------------------------------------------
 # embedding in and out
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor
-           ) -> torch.Tensor:
-    return params["embed"][tokens]
+def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The tokens' embeddings, the table cast to `compute_dtype` first (as
+    the reference, so its gradient accumulates in that dtype)."""
+    table = params["embed"]
+    if compute_dtype is not None:
+        table = table.to(compute_dtype)
+    return table[tokens]
 
 
 def _unembed(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     return (x @ head.to(x.dtype)).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# forward (training)
+# ---------------------------------------------------------------------------
+
+def _remat(fn, remat):
+    """remat: False | True ("full") | "save_ar" (full here: one card has
+    no tensor-parallel all-reduce whose output it would keep)."""
+    if not remat:
+        return fn
+    if remat not in (True, "full", "save_ar"):
+        raise ValueError(f"unknown remat policy {remat!r}")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _mamba_block(cfg: ArchConfig, bp: dict, x: torch.Tensor,
+                 use_kernel: bool) -> torch.Tensor:
+    s = cfg.ssm
+    h = L.rmsnorm(bp["norm"], x)
+    return x + S.mamba2_block(
+        bp["mixer"], h, d_state=s.d_state, n_heads=s.n_heads(cfg.d_model),
+        headdim=s.headdim, n_groups=s.n_groups, chunk=s.chunk,
+        use_kernel=use_kernel, head_shard=s.head_shard)
+
+
+def _run_backbone(cfg: ArchConfig, params: dict, x: torch.Tensor,
+                  positions: torch.Tensor, *, remat=False,
+                  use_kernel: bool = False):
+    """Apply the full layer stack of a ported family. Returns (x, aux)."""
+    if cfg.arch_type == "dense":
+        def block(h, bp):
+            return _self_block(cfg, bp, h, positions, use_kernel)
+    else:
+        def block(h, bp):
+            return _mamba_block(cfg, bp, h, use_kernel)
+    fn = _remat(block, remat)
+    for bp in _unstack(params["blocks"], cfg.n_layers):
+        x = fn(x, bp)
+    return x, {}
+
+
+def forward_train(cfg: ArchConfig, params: dict, batch: dict, *,
+                  compute_dtype: torch.dtype = torch.float32, remat=False,
+                  use_kernel: bool = False):
+    """Full-sequence forward in `compute_dtype`. Returns (logits fp32
+    (B, S, V), aux).  batch: {"tokens": (B, S) int64}."""
+    _require_ported(cfg)
+    tokens = batch["tokens"]
+    B, Sq = tokens.shape
+    x = _embed(cfg, params, tokens, compute_dtype)
+    positions = torch.arange(Sq, device=x.device)[None, :].expand(B, Sq)
+    x, aux = _run_backbone(cfg, params, x, positions, remat=remat,
+                           use_kernel=use_kernel)
+    return _unembed(cfg, params, x), aux
+
+
+def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """(B, S) next-token negative log-likelihoods of fp32 logits."""
+    logp = F.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+
+
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
+            compute_dtype: torch.dtype = torch.float32, remat=False,
+            use_kernel: bool = False):
+    """Next-token cross-entropy. Returns (loss, aux)."""
+    logits, aux = forward_train(cfg, params, batch,
+                                compute_dtype=compute_dtype, remat=remat,
+                                use_kernel=use_kernel)
+    return torch.mean(token_nll(logits, batch["targets"])), aux
 
 
 # ---------------------------------------------------------------------------
@@ -198,17 +295,17 @@ def decode_step(cfg: ArchConfig, params: dict, batch: dict, cache: dict):
     if cfg.arch_type == "dense":
         pos = torch.as_tensor(batch["pos"], device=x.device)
         kv = cache["attn"]
-        for i in range(cfg.n_layers):
-            x, _ = _self_block_decode(cfg, _layer(blocks, i), x,
-                                      _layer(kv, i), pos)
+        for bp, kv_l in zip(_unstack(blocks, cfg.n_layers),
+                            _unstack(kv, cfg.n_layers)):
+            x, _ = _self_block_decode(cfg, bp, x, kv_l, pos)
         return _unembed(cfg, params, x), new_cache
     s = cfg.ssm
     mc = cache["mamba"]
     convs, ssms = [], []
-    for i in range(cfg.n_layers):
-        bp = _layer(blocks, i)
+    for bp, mc_l in zip(_unstack(blocks, cfg.n_layers),
+                        _unstack(mc, cfg.n_layers)):
         hn = L.rmsnorm(bp["norm"], x)
-        y, nc = S.mamba2_decode(bp["mixer"], hn, _layer(mc, i),
+        y, nc = S.mamba2_decode(bp["mixer"], hn, mc_l,
                                 d_state=s.d_state,
                                 n_heads=s.n_heads(cfg.d_model),
                                 headdim=s.headdim, n_groups=s.n_groups)
@@ -220,17 +317,23 @@ def decode_step(cfg: ArchConfig, params: dict, batch: dict, cache: dict):
     return _unembed(cfg, params, x), new_cache
 
 
-def _self_block_prefill(cfg: ArchConfig, bp: dict, x: torch.Tensor,
-                        positions: torch.Tensor, use_kernel: bool = True):
+def _self_block(cfg: ArchConfig, bp: dict, x: torch.Tensor,
+                positions: torch.Tensor, use_kernel: bool,
+                return_kv: bool = False):
+    """One [attention + MLP] block over the full sequence; with
+    return_kv also the post-rope (k, v) for the decode cache."""
     h = L.apply_norm(bp["attn_norm"], x, cfg.norm)
-    attn, (k, v) = L.self_attention(
+    attn = L.self_attention(
         bp["attn"], h, positions, n_heads=cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, theta=cfg.rope_theta,
-        window=cfg.sliding_window, return_kv=True, use_kernel=use_kernel)
+        window=cfg.sliding_window, return_kv=return_kv,
+        use_kernel=use_kernel)
+    if return_kv:
+        attn, kv = attn
     x = x + attn
     h = L.apply_norm(bp["mlp_norm"], x, cfg.norm)
     x = x + L.mlp(bp["mlp"], h, act=cfg.act)
-    return x, (k, v)
+    return (x, kv) if return_kv else x
 
 
 @torch.inference_mode()
@@ -259,9 +362,9 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, *,
         kv = L.init_kv_cache(B, L.kv_cache_len(Sq, window, cache_len),
                              cfg.n_kv_heads, cfg.hd, x.dtype, x.device,
                              (cfg.n_layers,))
-        for i in range(cfg.n_layers):
-            x, (k, v) = _self_block_prefill(cfg, _layer(blocks, i), x,
-                                            positions, use_kernel)
+        for i, bp in enumerate(_unstack(blocks, cfg.n_layers)):
+            x, (k, v) = _self_block(cfg, bp, x, positions, use_kernel,
+                                    return_kv=True)
             if window is None:  # slot == position; the rest stays zero
                 kv["k"][i, :, :Sq] = k
                 kv["v"][i, :, :Sq] = v
@@ -272,8 +375,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, *,
         return _unembed(cfg, params, x[:, -1:, :]), {"attn": kv}
     s = cfg.ssm
     convs, ssms = [], []
-    for i in range(cfg.n_layers):
-        bp = _layer(blocks, i)
+    for bp in _unstack(blocks, cfg.n_layers):
         h = L.rmsnorm(bp["norm"], x)
         y, mc = S.mamba2_prefill(
             bp["mixer"], h, d_state=s.d_state,

@@ -73,6 +73,12 @@ Bounds:
     `plan_sweep` plans bit-equal to solo runs and solo plans, served
     lanes bit-equal as a prefix of their solo runs, and exactly one
     round-gradient launch per epoch swept or served.
+  * training: one float32 `make_train_step` and one `make_fed_train_step`
+    step of the reduced granite-8b and mamba2-1.3b on the card against
+    the CPU from the same parameters and batch, the loss within rtol
+    1e-5 and every gradient leaf within rtol 1e-4 / atol 1e-6 *
+    max(1, max|CPU leaf|), no kernel launched; each of the eight kernel
+    wrappers refuses CUDA operands that require grad (no backward).
 """
 import dataclasses
 
@@ -1160,3 +1166,113 @@ def test_fed_serve_on_the_card_is_a_solo_prefix(cuda):
         t = rep.extras["serve_exit_epoch"]
         np.testing.assert_array_equal(rep.nmse, solo.nmse[:t + 1])
         np.testing.assert_array_equal(rep.times, solo.times[:t + 1])
+
+
+def _train_leaves(params):
+    from repro_torch import tree
+    return tree.leaves(params)
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "mamba2-1.3b"])
+def test_train_steps_on_the_card_match_cpu(cuda, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import sgd
+
+    cfg = get_config(arch).reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    batch = next(token_batches(0, 4, 40, cfg.vocab, device="cpu"))
+    w = torch.tensor([0.0, 1.5, 1.0, 2.0])
+    counters = [rg_ops.COUNTER, rg_ops.CODED_COUNTER, rg_ops.TIER_COUNTER,
+                rg_ops.LSQ_COUNTER, enc_ops.COUNTER, enc_ops.PRNG_COUNTER,
+                ssd_ops.SSD_COUNTER, fa_ops.FLASH_COUNTER]
+    before = [c.launches for c in counters]
+    fed_grad = steps.make_fed_grad_fn(cfg)
+
+    def losses_and_grads(p, b, w_):
+        loss, _, grads = steps.value_and_grad(
+            lambda q: T.loss_fn(cfg, q, b), p)
+        return [(loss, grads), fed_grad(p, b, w_)]
+
+    want = losses_and_grads(params, batch, w)
+    got = losses_and_grads(_to(params, cuda), _to(batch, cuda), w.to(cuda))
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == before
+    for (got_loss, got_grads), (want_loss, want_grads) in zip(got, want):
+        torch.testing.assert_close(got_loss.cpu(), want_loss, rtol=1e-5,
+                                   atol=0)
+        for g, ref in zip(_train_leaves(got_grads),
+                          _train_leaves(want_grads)):
+            torch.testing.assert_close(
+                g.cpu(), ref, rtol=1e-4,
+                atol=1e-6 * max(1.0, float(ref.abs().max())))
+    # the steps themselves, on the card
+    p_gpu = _to(params, cuda)
+    _, st, m = steps.make_train_step(cfg, sgd(0.1), compute_dtype=torch.float32,
+                                     remat=False)(p_gpu, sgd(0.1).init(p_gpu),
+                                                  _to(batch, cuda))
+    _, st, fm = steps.make_fed_train_step(cfg, sgd(0.1))(
+        p_gpu, st, _to(batch, cuda), w.to(cuda))
+    assert int(st.step) == 2 and st.step.device == cuda
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(fm["loss"]))
+    assert [c.launches for c in counters] == before
+
+
+def _grad_calls(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    x, y, w, beta = rand(40, 8), rand(40), rand(40).abs(), rand(8)
+    key = prng.prng_key(1)
+    return {
+        "masked_round_gradient": (rg_ops.COUNTER, lambda g: (
+            rg_ops.masked_round_gradient(x, y, w, g(beta)))),
+        "coded_round_gradient": (rg_ops.CODED_COUNTER, lambda g: (
+            rg_ops.coded_round_gradient(x, y, w, g(x[:6]), y[:6], 0.5,
+                                        beta))),
+        "tier_masked_round_gradient": (rg_ops.TIER_COUNTER, lambda g: (
+            rg_ops.tier_masked_round_gradient(g(x), y, w,
+                                              torch.ones((2, 40),
+                                                         device=cuda),
+                                              beta))),
+        "lsq_gradient": (rg_ops.LSQ_COUNTER, lambda g: (
+            rg_ops.lsq_gradient(x, g(y), beta))),
+        "encode_parity": (enc_ops.COUNTER, lambda g: (
+            enc_ops.encode_parity(rand(6, 40), g(w), x))),
+        "encode_parity_prng": (enc_ops.PRNG_COUNTER, lambda g: (
+            enc_ops.encode_parity_prng(key, w, g(x), 6))),
+        "ssd_chunk": (ssd_ops.SSD_COUNTER, lambda g: ssd_ops.ssd_chunk(
+            g(rand(1, 2, 16, 4, 8)), rand(1, 2, 16, 4).abs(),
+            -rand(1, 2, 16, 4).abs(), rand(1, 2, 16, 1, 8),
+            rand(1, 2, 16, 1, 8))),
+        "causal_attention": (fa_ops.FLASH_COUNTER, lambda g: (
+            fa_ops.causal_attention(g(rand(1, 4, 24, 16)),
+                                    rand(1, 2, 24, 16),
+                                    rand(1, 2, 24, 16)))),
+    }
+
+
+@pytest.mark.parametrize("name", ["masked_round_gradient",
+                                  "coded_round_gradient",
+                                  "tier_masked_round_gradient",
+                                  "lsq_gradient", "encode_parity",
+                                  "encode_parity_prng", "ssd_chunk",
+                                  "causal_attention"])
+def test_kernel_wrappers_refuse_grad_on_the_card(cuda, name):
+    """A CUDA operand that requires grad is refused before any launch (the
+    kernels have no backward); the same call without grad launches."""
+    counter, call = _grad_calls(cuda)[name]
+    before = counter.launches
+    with pytest.raises(RuntimeError, match="has no backward"):
+        call(lambda t: t.clone().requires_grad_())
+    assert counter.launches == before
+    call(lambda t: t)
+    with torch.no_grad():
+        call(lambda t: t.clone().requires_grad_())
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2

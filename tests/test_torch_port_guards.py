@@ -576,3 +576,108 @@ def test_flash_route_never_computes_the_plain_version(monkeypatch):
 def test_flash_wrapper_raises_on_other_devices():
     with pytest.raises(ValueError, match="no flash_attn kernel"):
         fa_ops.causal_attention(*(t.to("meta") for t in _fa_operands()))
+
+
+def test_no_source_file_imports_msgpack():
+    """Checkpoints carry their own MessagePack codec: the card's machine
+    has no `msgpack` package."""
+    for path in sorted(PORT.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [node.module.split(".")[0]]
+            else:
+                continue
+            assert "msgpack" not in roots, f"{path}:{node.lineno}"
+
+
+def test_train_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    """The training command line, `fed_train` and the token stream ask for
+    the card unless told otherwise, and raise without one."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.fed import FedConfig, fed_setup, fed_train
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--federated", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        token_batches(0, 2, 8, 16)
+    cfg = get_config("granite-8b").reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    state = fed_setup(paper_fleet(seed=0, n=2, d=8).edge, FedConfig(2, 1, 2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fed_train(state, steps.make_fed_grad_fn(cfg), params, adamw(1e-3),
+                  iter([]), 1)
+    # the CPU is used only when asked for
+    it = token_batches(0, 2, 8, 16, device="cpu")
+    assert next(it)["tokens"].device == torch.device("cpu")
+
+
+def _grad_operands(ops):
+    return [t.clone().requires_grad_() if t.is_floating_point() else t
+            for t in ops]
+
+
+# each kernel wrapper: (module, C entry point, call on operands, operands)
+GRAD_WRAPPERS = {
+    "masked": (rg_ops, "rg_masked_round_gradient",
+               RG_WRAPPERS["masked"][0], _rg_operands),
+    "coded": (rg_ops, "rg_coded_round_gradient", RG_WRAPPERS["coded"][0],
+              _rg_operands),
+    "tier": (rg_ops, "rg_tier_round_gradient", RG_WRAPPERS["tier"][0],
+             _rg_operands),
+    "lsq": (rg_ops, "rg_lsq_gradient", RG_WRAPPERS["lsq"][0], _rg_operands),
+    "encode": (enc_ops, "enc_encode_parity",
+               lambda xs, ys, w: enc_ops.encode_parity(
+                   ys.contiguous(), w[0].contiguous(),
+                   xs[0].contiguous()), _enc_operands),
+    "encode_prng": (enc_ops, "enc_encode_parity_prng",
+                    PRNG_WRAPPERS["single"][0], _enc_operands),
+    "encode_prng_fleet": (enc_ops, "enc_encode_parity_prng",
+                          PRNG_WRAPPERS["fleet"][0], _enc_operands),
+    "ssd": (ssd_ops, "ssd_chunk_launch", ssd_ops.ssd_chunk, _ssd_operands),
+    "flash": (fa_ops, "flash_attn_launch", fa_ops.causal_attention,
+              _fa_operands),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_WRAPPERS))
+def test_kernel_route_refuses_operands_that_require_grad(monkeypatch, name):
+    """The kernels have no backward: on the kernel route a call whose
+    operand requires grad raises before any launch, naming the missing
+    backward, and counts nothing; under `torch.no_grad()` the same call
+    launches.  On the CPU the plain version stays differentiable."""
+    ops, entry, call, operands = GRAD_WRAPPERS[name]
+    lib = mock.MagicMock()
+    lib.rg_max_d.return_value = 5810
+    lib.rg_num_ctas.side_effect = lambda m: -(-m // 16)
+    getattr(lib, entry).return_value = 0
+    counters = [c for c in vars(ops).values()
+                if isinstance(c, common.LaunchCounter)]
+    plain = call(*_grad_operands(operands()))  # the CPU route
+    assert any(t.requires_grad for t in (
+        plain if isinstance(plain, tuple) else (plain,)))
+    monkeypatch.setattr(ops, "_dispatch", lambda device: lib)
+    monkeypatch.setattr(ops, "check_cuda_operand", lambda *a: None,
+                        raising=False)
+    if hasattr(ops, "_stream"):
+        monkeypatch.setattr(ops, "_stream", lambda device: 0)
+    monkeypatch.setattr(ops.torch.cuda, "current_stream",
+                        lambda device: mock.MagicMock(cuda_stream=0))
+    before = [c.launches for c in counters]
+    with pytest.raises(RuntimeError, match="has no backward"):
+        call(*_grad_operands(operands()))
+    assert getattr(lib, entry).call_count == 0
+    assert [c.launches for c in counters] == before
+    with torch.no_grad():
+        call(*_grad_operands(operands()))
+    assert getattr(lib, entry).call_count >= 1
+    with torch.inference_mode():
+        call(*operands())
