@@ -247,13 +247,39 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      grad on the card; each run's seconds a step (median after the
      first), tokens/s and peak allocated memory beside the card's
      `nvidia-smi` name and power limit.
+ 20. the tile autotuner: (a) `tune.autotune` of each family at one CI
+     shape into a temporary cache (candidates, pruned, times, winner);
+     (b) every candidate tile against its kernel's plain version by
+     phase 3's bounds: kernels 1, 4 and 5 at each "round_grad" row tile
+     and 6 at each "coded_grad" one within the float64 bound of
+     `held_to_float64` (relaunches bit-identical, T = 1 `torch.equal` to
+     flat, kernel 6 to flat at w = None), kernel 2 at each CTA tile
+     within 2e-4 * max|ref| and the encode's float64 bound (kernel 3
+     launches one tile, checked in phase 3, and has no family); (c) at
+     shapes whose bucket the committed defaults do not hold, `"auto"`
+     `torch.equal` to the explicit default tile (the round gradients' own
+     partition, kernel 2's (128, 64, 32), kernel 3's one tile), the tile
+     every kernel launched before it took tiles; (d) a stored tile is
+     what `"auto"` launches (the counters' launches by tile); (e) the
+     keyed `kernels.encode.ops.encode_fleet` at §IV width (24 x 300 x
+     500, c = 2016) within 2e-4 * max|ref| of the plain streamed encode;
+     (f) the host's time of one memoized `resolve_block("auto")`, which
+     every launch of kernels 1, 2, 4, 5 and 6 pays; exact launch counts
+     throughout.
 
-Every run of phases 4-19 is counted from 0 just before it.  The kernels
+The user tile cache is an empty temporary directory for the whole run,
+so `block="auto"` reads the committed `src/repro_torch/tune/
+defaults.json` alone, and each kernel's bound comes from
+`repro_torch.roofline.kernel_terms`.  Every run of phases 4-20 is
+counted from 0 just before it.  The kernels
 line's `launches` sums the driven runs: kernel 1 over phases 4, 14 (r = 2
 and 3), 16, 17 and 18 (the sweep, its solo runs, the served epochs and
 the per-session loop); kernel 2 over phases 4, 15, 16, 17 and 18's two
 `plan_sweep` calls; kernel 4 over phases 6, 15 and 18c; kernel 5 over
-the T = 3 runs of phases 7, 14, 16 and 17.
+the T = 3 runs of phases 7, 14, 16 and 17.  Kernels 1-6 also carry the
+`tile` `"auto"` launched at the timed shape (`[0]`: a round gradient's
+own partition), and kernels 1, 2, 4, 5 and 6 `tuned`, phase 20's
+measured tuning of the kernel's family.
 
 Any failed check raises, so the exit code is non-zero.  The line before
 the last is the kernels' JSON record; the last line is
@@ -262,14 +288,17 @@ rest of the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -278,14 +307,12 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-# H100 SXM data sheet: HBM3 bandwidth and the float32 rate outside the
-# tensor cores, and the dense TF32 tensor-core rate, which the 3xTF32
-# products of kernels 2, 3, 7 and 8 run at three TF32 products per float32
-# one
-# (one TF32 product alone would miss their float32 bounds)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-TF32_FLOPS_PER_S = 495e12
+# The H100's rates (HBM3 bandwidth, float32 outside the tensor cores,
+# dense TF32, INT32) and each kernel's bound come from the package's
+# roofline, `repro_torch.roofline.kernel_terms`.
+from repro_torch.roofline import (FP32_FLOPS_PER_S,  # noqa: E402
+                                  HASH_INT_OPS, HBM_BYTES_PER_S,
+                                  kernel_terms)
 
 SEC4_T_STAR = 11.9641
 # The reference's main path (its batched grid solver) stops at
@@ -308,11 +335,6 @@ FLEET_N, FLEET_D, POINTS_LO, POINTS_HI = 100_000, 32, 4, 16
 FLEET_C_UP, FLEET_EPS_REL = 4096, 1e-2
 ENC_CLIENTS, ENC_TIERS, ENC_ELL, ENC_C = 256, 4, 8, 128
 SAMPLE_BUDGET, SAMPLE_TIERS, SAMPLE_EPOCHS, GROWTH_CEIL = 512, 16, 48, 3.0
-# INT32 rate of the H100 SXM: 64 integer lanes per SM, 132 SMs, 1.98 GHz
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# integer operations of one threefry2x32 hash with its counter pairing
-# (20 rounds of add, funnel shift and xor, five key injections)
-HASH_INT_OPS = 80
 # phase 11: mamba2-1.3b at full width through ServeEngine (random weights
 # from a seed), six requests on four slots, 24 new tokens each
 SERVE_ARCH, SERVE_SEED, SERVE_PARAMS = "mamba2-1.3b", 0, 1_446_714_368
@@ -387,6 +409,21 @@ TRAIN_CKPT_EVERY, TRAIN_RESUME_AT, TRAIN_RESUME_STEPS = 100, 200, 10
 TRAIN_RESUME_RTOL = 1e-4
 FED_ARCH, FED_CLIENTS, FED_ROUNDS, FED_SEQ = "mamba2-1.3b", 8, 20, 256
 L2_BYTES = 50 * 2**20
+# phase 20: the tile autotuner.  The shape each family is tuned at (into a
+# temporary cache), and the shapes of the cold-miss and hit checks, whose
+# buckets the committed defaults do not hold, with the tiles stored for
+# the hits; kernel 4's parity rows beside COLD_SHAPES' 3000, which the
+# kernels' own partition gives the same 24 rows a CTA; the keyed fleet
+# encode at §IV width (n, ell, d, c) and its clients' seeds
+TUNE_SHAPES = {"round_grad": (5632, 500), "coded_grad": (2016, 500),
+               "encode": (2016, 300, 501)}
+COLD_SHAPES = {"round_grad": (3000, 500), "coded_grad": (3000, 500),
+               "encode": (1000, 300, 501), "encode_prng": (1000, 300, 501)}
+HIT_TILES = {"round_grad": (64,), "coded_grad": (32,),
+             "encode": (64, 128, 32)}
+COLD_PARITY_ROWS = 2900
+KEYED_FLEET, KEYED_SEED0 = (24, 300, 500, 2016), 1000
+RESOLVE_CALLS = 100_000  # memoized "auto" resolutions timed on the host
 TIMING_REPEATS = 15   # timed runs per call; the median is kept
 TIMING_CALLS = 40     # back-to-back calls per timed run
 SLEEP_CYCLES = 2**23  # the first hold of the stream (~4 ms at 1.98 GHz)
@@ -459,13 +496,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def held_to_float64(name: str, got, plain, x, y, w, beta,
-                    masks=None) -> float:
-    """Hold the kernel's result `got` and the plain version's `plain`
-    against the float64 expression within rtol 1e-3 + 1e-6 * S, S the
-    magnitude of the summed terms, (|w| |mask| (|X||beta| + |y|)) @ |X|
-    (masks=None: one flat gradient, else (T, M) tier masks).  Prints both
-    and returns max |got - plain|."""
+def float64_gradient_and_bound(x, y, w, beta, masks=None) -> tuple:
+    """The round gradient in float64, ((X beta - y) w mask) @ X, and the
+    bound held_to_float64 states, rtol 1e-3 + 1e-6 * S, S the magnitude
+    of the summed terms (masks=None: one flat gradient, else (T, M))."""
     x64, y64, b64 = x.double(), y.double(), beta.double()
     w64 = torch.ones_like(y64) if w is None else w.double()
     ms = torch.ones((1, x.shape[0]), dtype=torch.float64, device=x.device) \
@@ -473,11 +507,25 @@ def held_to_float64(name: str, got, plain, x, y, w, beta,
     exact = ((x64 @ b64 - y64) * w64 * ms) @ x64
     scale = ((w64.abs() * ms.abs()) * (x64.abs() @ b64.abs() + y64.abs())) \
         @ x64.abs()
-    bound = 1e-3 * exact.abs() + 1e-6 * scale
-    worst = {}
-    for label, g in (("kernel", got), ("plain", plain)):
-        worst[label] = float(((g.double().reshape(exact.shape) - exact).abs()
-                              / bound).max())
+    return exact, 1e-3 * exact.abs() + 1e-6 * scale
+
+
+def float64_share(got, exact, bound) -> float:
+    """The largest |got - exact| / bound of a round gradient."""
+    return float(((got.double().reshape(exact.shape) - exact).abs()
+                  / bound).max())
+
+
+def held_to_float64(name: str, got, plain, x, y, w, beta,
+                    masks=None) -> float:
+    """Hold the kernel's result `got` and the plain version's `plain`
+    against the float64 expression within rtol 1e-3 + 1e-6 * S, S the
+    magnitude of the summed terms, (|w| |mask| (|X||beta| + |y|)) @ |X|
+    (masks=None: one flat gradient, else (T, M) tier masks).  Prints both
+    and returns max |got - plain|."""
+    exact, bound = float64_gradient_and_bound(x, y, w, beta, masks)
+    worst = {label: float64_share(g, exact, bound)
+             for label, g in (("kernel", got), ("plain", plain))}
     err = float((got - plain).abs().max())
     elementwise = torch.allclose(got, plain, rtol=1e-3, atol=1e-6)
     phase(f"check {name}: max_abs_err vs plain {err:.3e} (|ref| max "
@@ -611,6 +659,7 @@ def check_lsq_kernel(dev, gen, errs: dict) -> tuple:
     §IV parity block; returns (a, y, beta) for the timing phase."""
     from repro_torch.kernels.coded_grad import ops as cg_ops
     from repro_torch.kernels.coded_grad import ref as cg_ref
+    from repro_torch.kernels.common import resolve_block
     from repro_torch.kernels.round_grad import ops as rg_ops
 
     m, d = 2016, 500
@@ -620,13 +669,16 @@ def check_lsq_kernel(dev, gen, errs: dict) -> tuple:
     got = cg_ops.lsq_gradient(a, y, beta)
     again = cg_ops.lsq_gradient(a, y, beta)
     plain = cg_ref.lsq_gradient(a, y, beta)
-    flat = rg_ops.masked_round_gradient(a, y, None, beta)
+    # the flat kernel at the row tile lsq_gradient resolved (its family,
+    # "coded_grad", is tuned apart from "round_grad")
+    tile = resolve_block("coded_grad", (m, d), "auto", 0, dev)
+    flat = rg_ops.masked_round_gradient(a, y, None, beta, block_m=tile)
     torch.cuda.synchronize()
     errs["lsq_gradient"] = held_to_float64(f"lsq_gradient ({m}, {d})", got,
                                            plain, a, y, None, beta)
     phase(f"  bit-identical relaunch {torch.equal(got, again)}; "
-          f"torch.equal to the flat kernel at w = None "
-          f"{torch.equal(got, flat)}")
+          f"torch.equal to the flat kernel at w = None and its row tile "
+          f"{tile or rg_ops.rows_per_cta(m)} {torch.equal(got, flat)}")
     check(torch.equal(got, again), "lsq_gradient not deterministic")
     check(torch.equal(got, flat), "lsq_gradient differs from the flat kernel")
     return a, y, beta
@@ -2270,8 +2322,6 @@ def check_train_steps_against_cpu(arch: str, dev, card: str) -> dict:
 def train_phase(dev, card: str, expect, reset_counters, read_counters) -> dict:
     """Phase 19: LM training and the federated LM trainer on the card."""
     import shutil
-    import tempfile
-
     from repro_torch.fed import FedConfig, fed_setup
     from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
@@ -2377,6 +2427,344 @@ def train_phase(dev, card: str, expect, reset_counters, read_counters) -> dict:
     return out
 
 
+def check_tiles(dev, card: str, expect, reset_counters,
+                read_counters) -> None:
+    """Phase 20b: every candidate tile of every family on the card against
+    its kernel's plain version, by phase 3's bounds: kernels 1, 4 and 5
+    at every "round_grad" tile and kernel 6 at every "coded_grad" tile
+    within the float64 bound of `held_to_float64` (relaunches
+    bit-identical, T = 1 `torch.equal` to flat, kernel 6 to flat w =
+    None), kernel 2 within 2e-4 * max|ref| of its plain version and
+    within the float64 bound of the encode; exact launch counts and
+    per-tile launch records."""
+    from repro_torch.kernels.coded_grad import ref as cg_ref
+    from repro_torch.kernels.encode import ops as enc_ops
+    from repro_torch.kernels.encode import ref as enc_ref
+    from repro_torch.kernels.round_grad import ops as rg_ops
+    from repro_torch.kernels.round_grad import ref as rg_ref
+    from repro_torch.tune.families import FAMILIES
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    m, d = TUNE_SHAPES["round_grad"]
+    x = torch.randn((m, d), generator=gen, device=dev)
+    y = torch.randn((m,), generator=gen, device=dev)
+    w = torch.rand((m,), generator=gen, device=dev)
+    w[::7] = 0.0
+    xp = torch.randn((DP_FIXED_C, d), generator=gen, device=dev)
+    yp = torch.randn((DP_FIXED_C,), generator=gen, device=dev)
+    wp = (torch.rand((DP_FIXED_C,), generator=gen, device=dev) < SCFL_RHO) \
+        .float() / SCFL_RHO
+    beta = torch.randn((d,), generator=gen, device=dev)
+    tier_of = torch.randint(0, HIER_TIERS, (m,), generator=gen, device=dev)
+    masks = (torch.arange(HIER_TIERS, device=dev)[:, None]
+             == tier_of[None, :]).float()
+    ones = torch.ones((1, m), device=dev)
+    xc, yc = torch.cat([x, xp]), torch.cat([y, yp])
+    refs = {"flat": float64_gradient_and_bound(x, y, w, beta),
+            "coded": float64_gradient_and_bound(xc, yc, torch.cat([w, wp]),
+                                                beta),
+            "tier": float64_gradient_and_bound(x, y, w, beta, masks)}
+    plain = {"flat": rg_ref.masked_round_gradient(x, y, w, beta),
+             "coded": rg_ref.coded_round_gradient(x, y, w, xp, yp, wp, beta),
+             "tier": rg_ref.tier_masked_round_gradient(x, y, w, masks, beta)}
+    worst_plain = max(float64_share(plain[k], *refs[k]) for k in refs)
+    tiles = FAMILIES["round_grad"].candidate_blocks((m, d), "cuda-sm90")
+    for (tile,) in tiles:
+        reset_counters()
+        got = {"flat": rg_ops.masked_round_gradient(x, y, w, beta,
+                                                    block_m=tile),
+               "coded": rg_ops.coded_round_gradient(x, y, w, xp, yp, wp,
+                                                    beta, block_m=tile),
+               "tier": rg_ops.tier_masked_round_gradient(
+                   x, y, w, masks, beta, block_m=tile)}
+        again = rg_ops.masked_round_gradient(x, y, w, beta, block_m=tile)
+        one = rg_ops.tier_masked_round_gradient(x, y, w, ones, beta,
+                                                block_m=tile)
+        torch.cuda.synchronize()
+        check(read_counters() == expect(round_grad=2, coded_round_grad=1,
+                                        tier_round_grad=2),
+              f"round_grad tile {tile}: launch counts {read_counters()}")
+        check(rg_ops.COUNTER.tiles == {(tile,): 2}
+              and rg_ops.CODED_COUNTER.tiles == {(tile,): 1}
+              and rg_ops.TIER_COUNTER.tiles == {(tile,): 2},
+              f"round_grad tile {tile}: launches by tile "
+              f"{rg_ops.COUNTER.tiles} {rg_ops.CODED_COUNTER.tiles} "
+              f"{rg_ops.TIER_COUNTER.tiles}")
+        shares = {k: float64_share(got[k], *refs[k]) for k in refs}
+        phase(f"tile round_grad block_m={tile} ({m}, {d}) [{card}]: worst "
+              f"element of the float64 bound flat {shares['flat']:.2e}, "
+              f"coded (+ {DP_FIXED_C} parity rows) {shares['coded']:.2e}, "
+              f"tier T={HIER_TIERS} {shares['tier']:.2e} (plain "
+              f"{worst_plain:.2e}); relaunch bit-identical "
+              f"{torch.equal(got['flat'], again)}; T=1 torch.equal to flat "
+              f"{torch.equal(one[0], got['flat'])}")
+        check(max(shares.values()) <= 1.0 and worst_plain <= 1.0,
+              f"round_grad tile {tile} outside its float64 bound")
+        check(torch.equal(got["flat"], again),
+              f"round_grad tile {tile} not deterministic")
+        check(torch.equal(one[0], got["flat"]),
+              f"round_grad tile {tile}: T = 1 differs from flat")
+    m, d = TUNE_SHAPES["coded_grad"]
+    a = torch.randn((m, d), generator=gen, device=dev)
+    ya = torch.randn((m,), generator=gen, device=dev)
+    exact, bound = float64_gradient_and_bound(a, ya, None, beta[:d])
+    plain_share = float64_share(cg_ref.lsq_gradient(a, ya, beta[:d]), exact,
+                                bound)
+    for (tile,) in FAMILIES["coded_grad"].candidate_blocks((m, d),
+                                                           "cuda-sm90"):
+        reset_counters()
+        got = rg_ops.lsq_gradient(a, ya, beta[:d], block_m=tile)
+        flat = rg_ops.masked_round_gradient(a, ya, None, beta[:d],
+                                            block_m=tile)
+        torch.cuda.synchronize()
+        check(read_counters() == expect(lsq_gradient=1, round_grad=1)
+              and rg_ops.LSQ_COUNTER.tiles == {(tile,): 1},
+              f"coded_grad tile {tile}: launch counts {read_counters()}")
+        share = float64_share(got, exact, bound)
+        phase(f"tile coded_grad block_m={tile} ({m}, {d}) [{card}]: worst "
+              f"element {share:.2e} of the float64 bound (plain "
+              f"{plain_share:.2e}); torch.equal to flat at w = None "
+              f"{torch.equal(got, flat)}")
+        check(share <= 1.0 and plain_share <= 1.0,
+              f"coded_grad tile {tile} outside its float64 bound")
+        check(torch.equal(got, flat),
+              f"coded_grad tile {tile} differs from the flat kernel")
+    fam, shape = FAMILIES["encode"], TUNE_SHAPES["encode"]
+    args = fam.make_args(shape, seed=20, device=dev)
+    want = enc_ref.encode_parity(*args)
+    p64, p_bound = enc_ops.float64_reference_and_bound(*args)
+    plain_share = bound_share(want, p64, p_bound)
+    first = None  # the first tile's result
+    for tile in fam.candidate_blocks(shape, "cuda-sm90"):
+        reset_counters()
+        got = fam.bind(shape, tile)(*args)
+        first = got if first is None else first
+        torch.cuda.synchronize()
+        check(read_counters() == expect(encode=1)
+              and enc_ops.COUNTER.tiles == {tuple(tile): 1},
+              f"encode tile {tile}: launch counts {read_counters()}")
+        bound = 2e-4 * float(want.abs().max())
+        err, ok = allclose_report(got, want, 2e-4, bound)
+        share = bound_share(got, p64, p_bound)
+        phase(f"tile encode {tile} {shape} [{card}]: max_abs_err "
+              f"{err:.3e} vs plain (bound 2e-4*max|ref| = {bound:.3e}); "
+              f"worst element {share:.4f} of the float64 bound 1.01 "
+              f"(L + 20) u |G| |diag(w) X| (plain {plain_share:.4f}); "
+              f"bit-equal to the first tile's {torch.equal(got, first)}")
+        check(ok and share <= 1.0 and plain_share <= 1.0,
+              f"encode tile {tile} disagrees with its plain version")
+
+
+def tune_phase(dev, card: str, expect, reset_counters,
+               read_counters) -> dict:
+    """Phase 20: the tile autotuner on the card — (a) `tune.autotune` of
+    each family at one CI shape into a temporary cache; (b) every
+    candidate tile against its kernel's plain version (`check_tiles`);
+    (c) cold misses `torch.equal` to the explicit default tile (the tile
+    each kernel launched before it took tiles); (d) a cache hit launches
+    the stored tile; (e) the keyed `encode_fleet` at §IV width against
+    the plain streamed encode; (f) the host's time of a memoized
+    `resolve_block("auto")`; exact launch counts throughout."""
+    from repro_torch.core.encoding import (encode_fleet_streamed,
+                                           generator_matrix)
+    from repro_torch.kernels import common
+    from repro_torch.kernels.encode import ops as enc_ops
+    from repro_torch.kernels.encode import prng
+    from repro_torch.kernels.encode import ref as enc_ref
+    from repro_torch.kernels.round_grad import ops as rg_ops
+    from repro_torch.tune import TileCache
+    from repro_torch.tune import cache as tune_cache
+    from repro_torch.tune.families import FAMILIES
+    from repro_torch.tune.tuner import DEFAULT_SLACK, autotune
+
+    t_phase = time.perf_counter()
+    backend = common.backend(dev)
+    check(backend == "cuda-sm90", f"the card's backend is {backend}")
+    tuned = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    try:
+        # (a) the tuner, into a cache of its own
+        cache = TileCache(os.path.join(tmp, "tiles.json"))
+        for name, shape in TUNE_SHAPES.items():
+            t0 = time.perf_counter()
+            res = autotune(name, shape, device=dev, cache=cache)
+            secs = time.perf_counter() - t0
+            ent = cache.lookup(name, shape, backend)
+            check(ent is not None and tuple(ent["block"]) == res.block
+                  and ent["device"] == card,
+                  f"autotune {name} {shape} stored {ent}")
+            phase(f"tune {name} {shape} [{card}]: {len(res.candidates)} "
+                  f"candidates, {len(res.pruned)} pruned by the roofline "
+                  f"(slack {DEFAULT_SLACK}), winner {res.block} at "
+                  f"{res.us!r} us (its bound {res.bound_us!r} us), "
+                  f"{secs:.2f} s; measured us: " + ", ".join(
+                      f"{b} {us:.3f}" for b, us in res.measured))
+            tuned[name] = {"shape": list(shape),
+                           "n_candidates": len(res.candidates),
+                           "n_pruned": len(res.pruned),
+                           "winner": list(res.block), "winner_us": res.us,
+                           "measured_us": [[list(b), us]
+                                           for b, us in res.measured]}
+        # (b) every candidate tile against the plain version
+        check_tiles(dev, card, expect, reset_counters, read_counters)
+
+        # (c) cold misses: the explicit default tile, bit for bit
+        for name, shape in COLD_SHAPES.items():
+            check(tune_cache.lookup_entry(name, shape, backend) is None,
+                  f"{name} {shape} is not a cold miss")
+        gen = torch.Generator(device=dev).manual_seed(21)
+        m, d = COLD_SHAPES["round_grad"]
+        x = torch.randn((m, d), generator=gen, device=dev)
+        y = torch.randn((m,), generator=gen, device=dev)
+        w = torch.rand((m,), generator=gen, device=dev)
+        beta = torch.randn((d,), generator=gen, device=dev)
+        xp = torch.randn((COLD_PARITY_ROWS, d), generator=gen, device=dev)
+        yp = torch.randn((COLD_PARITY_ROWS,), generator=gen, device=dev)
+        masks = (torch.rand((HIER_TIERS, m), generator=gen, device=dev)
+                 < 0.5).float()
+        rpc = rg_ops.rows_per_cta(m)
+        check(rg_ops.rows_per_cta(COLD_PARITY_ROWS) == rpc,
+              "the cold coded shape's blocks have different partitions")
+        enc_args = FAMILIES["encode"].make_args(COLD_SHAPES["encode"], 21,
+                                                dev)
+        c_cold, ell_cold, d_cold = COLD_SHAPES["encode_prng"]
+        prng_args = (prng.prng_key(22),
+                     torch.rand((ell_cold,), generator=gen, device=dev),
+                     torch.randn((ell_cold, d_cold), generator=gen,
+                                 device=dev))
+        calls = {  # {kernel: (call with block/block_m = tile or "auto")}
+            "round_grad": lambda t: rg_ops.masked_round_gradient(
+                x, y, w, beta, block_m=t),
+            "coded_round_grad": lambda t: rg_ops.coded_round_gradient(
+                x, y, w, xp, yp, 0.5, beta, block_m=t),
+            "tier_round_grad": lambda t: rg_ops.tier_masked_round_gradient(
+                x, y, w, masks, beta, block_m=t),
+            "lsq_gradient": lambda t: rg_ops.lsq_gradient(x, y, beta,
+                                                          block_m=t),
+            "encode": lambda t: enc_ops.encode_parity(*enc_args, block=t),
+            "encode_prng": lambda t: enc_ops.encode_parity_prng(
+                *prng_args, c_cold, block=t)}
+        defaults = {"round_grad": rpc, "coded_round_grad": rpc,
+                    "tier_round_grad": rpc, "lsq_gradient": rpc,
+                    "encode": enc_ops.DEFAULT_BLOCK,
+                    "encode_prng": enc_ops.PRNG_BLOCK}
+        cold_equal = {}
+        for kernel, call in calls.items():
+            reset_counters()
+            cold, explicit = call("auto"), call(defaults[kernel])
+            torch.cuda.synchronize()
+            check(read_counters() == expect(**{kernel: 2}),
+                  f"cold {kernel}: launch counts {read_counters()}")
+            cold_equal[kernel] = torch.equal(cold, explicit)
+        phase(f"cold misses at {COLD_SHAPES} (+ {COLD_PARITY_ROWS} parity "
+              f"rows) torch.equal to the explicit default tile (rows a CTA "
+              f"{rpc}, encode {enc_ops.DEFAULT_BLOCK}, encode_prng "
+              f"{enc_ops.PRNG_BLOCK}): {cold_equal}")
+        check(all(cold_equal.values()), "a cold miss differs from the "
+              "explicit default tile")
+
+        # (d) hits: a stored tile is what `block="auto"` launches
+        user = TileCache(tune_cache.user_cache_path())
+        for name, tile in HIT_TILES.items():
+            user.store(name, COLD_SHAPES[name], backend, tile)
+        hit = {"round_grad": HIT_TILES["round_grad"],
+               "coded_round_grad": HIT_TILES["round_grad"],
+               "tier_round_grad": HIT_TILES["round_grad"],
+               "lsq_gradient": HIT_TILES["coded_grad"],
+               "encode": HIT_TILES["encode"]}
+        counters = {"round_grad": rg_ops.COUNTER,
+                    "coded_round_grad": rg_ops.CODED_COUNTER,
+                    "tier_round_grad": rg_ops.TIER_COUNTER,
+                    "lsq_gradient": rg_ops.LSQ_COUNTER,
+                    "encode": enc_ops.COUNTER}
+        hit_ok = {}
+        for kernel, tile in hit.items():
+            call = calls[kernel]
+            reset_counters()
+            got = call("auto")
+            record = dict(counters[kernel].tiles)
+            explicit = call(tile if len(tile) > 1 else tile[0])
+            torch.cuda.synchronize()
+            check(read_counters() == expect(**{kernel: 2}),
+                  f"hit {kernel}: launch counts {read_counters()}")
+            hit_ok[kernel] = record == {tuple(tile): 1} \
+                and torch.equal(got, explicit)
+        os.remove(user.path)
+        tune_cache.forget_resolved()
+        phase(f"cache hits launch the stored tile {hit} (per-tile launch "
+              f"record, and torch.equal to the explicit tile): {hit_ok}")
+        check(all(hit_ok.values()), "a cache hit did not launch its tile")
+
+        # (e) the keyed streamed encode at §IV width
+        n, ell, d, c = KEYED_FLEET
+        xs = torch.randn((n, ell, d), generator=gen, device=dev)
+        ys = torch.randn((n, ell), generator=gen, device=dev)
+        ws = torch.rand((n, ell), generator=gen, device=dev)
+        seeds = [KEYED_SEED0 + i for i in range(n)]
+        tile = common.resolve_block("encode", (c, ell, d), "auto",
+                                    enc_ops.DEFAULT_BLOCK, dev)
+        reset_counters()
+        t0 = time.perf_counter()
+        got_x, got_y = enc_ops.encode_fleet(seeds, xs, ys, ws, c)
+        torch.cuda.synchronize()
+        keyed_s = time.perf_counter() - t0
+        check(read_counters() == expect(encode=n)
+              and enc_ops.COUNTER.tiles == {tuple(tile): n},
+              f"keyed encode_fleet: launches {read_counters()} by tile "
+              f"{enc_ops.COUNTER.tiles}")
+
+        def g_source(i):
+            g_i = torch.Generator(device=dev).manual_seed(seeds[i])
+            return generator_matrix(g_i, c, ell, dtype=xs.dtype)
+
+        want_x, want_y = encode_fleet_streamed(
+            g_source, xs, ys, ws, c, enc_ref.encode_parity)
+        got = torch.cat([got_x, got_y[:, None]], dim=1)
+        want = torch.cat([want_x, want_y[:, None]], dim=1)
+        bound = 2e-4 * float(want.abs().max())
+        err, ok = allclose_report(got, want, 2e-4, bound)
+        phase(f"keyed encode_fleet ({n} x {ell} x {d}, c={c}) [{card}]: "
+              f"{n} launches at tile {tuple(tile)}, {keyed_s:.4f} s wall; "
+              f"vs the plain streamed encode max_abs_err {err:.3e}, bound "
+              f"2e-4*max|ref| = {bound:.3e}, allclose {ok}")
+        check(ok and bool(torch.isfinite(got).all()),
+              "the keyed encode_fleet disagrees with the plain encode")
+
+        # (f) what a launch pays on the host to resolve "auto"
+        m, d = TUNE_SHAPES["round_grad"]
+        check(common.resolve_block("round_grad", (m, d), "auto", 0, x.device)
+              == tune_cache.RESOLVED[("round_grad", (m, d), x.device,
+                                      os.environ[tune_cache.CACHE_ENV])],
+              "resolve_block did not memoize its answer")
+        t0 = time.perf_counter()
+        for _ in range(RESOLVE_CALLS):
+            common.resolve_block("round_grad", (m, d), "auto", 0, x.device)
+        resolve_us = 1e6 * (time.perf_counter() - t0) / RESOLVE_CALLS
+        phase(f"resolve_block('auto') memoized [{card}]: {resolve_us:.3f} "
+              f"us a call on the host ({RESOLVE_CALLS} calls)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    phase(f"phase 20 [{card}]: {seconds:.2f} s wall")
+    return {"tuned": tuned, "keyed_err": err, "seconds": seconds,
+            "resolve_us": resolve_us}
+
+
+def auto_tile(family: str, shape: tuple, dev) -> list:
+    """The tile `block="auto"` launches a kernel of `family` with at
+    `shape`, as its C entry point takes it ([0]: a round-gradient
+    kernel's own partition)."""
+    from repro_torch.kernels.common import resolve_block
+    from repro_torch.kernels.encode import ops as enc_ops
+
+    if family in ("round_grad", "coded_grad"):
+        return [int(resolve_block(family, shape, "auto", 0, dev))]
+    if family == "encode_prng":  # its one tile, read from no cache
+        return list(enc_ops.PRNG_BLOCK)
+    return list(resolve_block(family, shape, "auto", enc_ops.DEFAULT_BLOCK,
+                              dev))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2402,6 +2790,11 @@ def main() -> int:
     from repro_torch.schemes import StochasticCodedFL
 
     t_start = time.perf_counter()
+    # no user tile cache on the machine steers the run: block="auto"
+    # reads an empty one and the committed defaults
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tiles_")
+    atexit.register(shutil.rmtree, tune_dir, True)
+    os.environ["REPRO_TORCH_TUNE_CACHE_DIR"] = tune_dir
     dev = resolve_device("cuda")  # also pins float32 products to full fp32
     card = card_line()
     phase(card)
@@ -2427,6 +2820,12 @@ def main() -> int:
         if name in no_spill:
             check(spills and not any(spills.values()),
                   f"{name}.cu kernels spill registers: {spills}")
+    from repro_torch.tune import cache as tune_cache
+    committed = [k for k in tune_cache._load_entries(
+        tune_cache.defaults_path()) if "|cuda-sm90|" in k]
+    phase(f"  tile cache: the user cache {tune_cache.user_cache_path()} "
+          f"(empty), the committed defaults with {len(committed)} "
+          f"cuda-sm90 entries")
     phase(f"  kernel 8 dynamic shared memory at D = {FLASH_SHAPE[4]}: "
           f"{fa_ops.smem_bytes(FLASH_SHAPE[4])} bytes a CTA, two CTAs an SM")
     hmma = {}  # {kernel: HMMA count}, by its source and mangled name
@@ -2778,10 +3177,8 @@ def main() -> int:
         plain = time_ms(rg_ref.masked_round_gradient, cold)
         lib = time_ms(torch.matmul, cold_copies((coef, x)))
         del cold
-        n_bytes = 4 * (m * d + m * (2 if w is not None else 1) + 2 * d)
-        flops = 4 * m * d + 3 * m
-        bound_ms = 1e3 * max(n_bytes / HBM_BYTES_PER_S,
-                             flops / FP32_FLOPS_PER_S)
+        terms = kernel_terms("round_grad", (m, d), weighted=w is not None)
+        n_bytes, bound_ms = int(terms["bytes"]), 1e3 * terms["bound_s"]
         phase(f"time round_grad {label} ({m}, {d}): kernel {ms!r} ms "
               f"(L2 warm {warm!r} ms), plain {plain!r} ms, library "
               f"(r*w) @ X {lib!r} ms, bound {bound_ms!r} ms "
@@ -2794,14 +3191,11 @@ def main() -> int:
     wx = (w_enc[:, None] * x_enc).contiguous()
     enc_lib = time_ms(torch.matmul, cold_copies((g, wx)))
     del cold
-    enc_flops = 2 * c * ell * d1 + ell * d1
-    enc_bytes = 4 * (c * ell + ell + ell * d1 + c * d1)
     # 3xTF32: three TF32 tensor-core products per float32 product
-    enc_terms = {"bytes": enc_bytes / HBM_BYTES_PER_S,
-                 "operations": 3 * 2 * c * ell * d1 / TF32_FLOPS_PER_S}
-    enc_bound_by = max(enc_terms, key=enc_terms.get)
-    enc_bound = 1e3 * enc_terms[enc_bound_by]
-    enc_bound_fp32 = 1e3 * enc_flops / FP32_FLOPS_PER_S
+    terms = kernel_terms("encode", (c, ell, d1))
+    enc_flops, enc_bytes = int(terms["flops"]), int(terms["bytes"])
+    enc_bound_by, enc_bound = terms["bound_by"], 1e3 * terms["bound_s"]
+    enc_bound_fp32 = 1e3 * terms["t_fp32"]
     enc_shape = [c, ell, d1]
     phase(f"time encode ({c}, {ell}, {d1}) [{card}]: kernel {enc_ms!r} ms "
           f"(L2 warm {enc_warm!r} ms), plain {enc_plain!r} ms, library "
@@ -2822,10 +3216,9 @@ def main() -> int:
     coef_p = ((xp @ beta - yp) * wp).contiguous()
     coded_lib = time_ms(lambda cs, xs_, cp, xp_: cs @ xs_ + cp @ xp_,
                         cold_copies((coef_s, x, coef_p, xp)))
-    coded_bytes = 4 * ((m + c_par) * d + 2 * (m + c_par) + 2 * d)
-    coded_flops = 4 * (m + c_par) * d + 3 * (m + c_par)
-    coded_bound = 1e3 * max(coded_bytes / HBM_BYTES_PER_S,
-                            coded_flops / FP32_FLOPS_PER_S)
+    terms = kernel_terms("coded_round_grad", (m, c_par, d))
+    coded_bytes, coded_bound = int(terms["bytes"]), 1e3 * terms["bound_s"]
+    coded_bound_by = terms["bound_by"]
     phase(f"time coded_round_grad ({m} + {c_par}, {d}): kernel "
           f"{coded_ms!r} ms (L2 warm {coded_warm!r} ms), plain "
           f"{coded_plain!r} ms, library coef_s @ X + coef_p @ X_par "
@@ -2843,10 +3236,9 @@ def main() -> int:
     del cold
     coef_masks = (((x @ beta - y) * w)[None, :] * masks).contiguous()
     tier_lib = time_ms(torch.matmul, cold_copies((coef_masks, x)))
-    tier_bytes = 4 * (m * d + 2 * m + nt * m + d + nt * d)
-    tier_flops = 2 * m * d + 2 * nt * m * d + 2 * m + nt * m
-    tier_bound = 1e3 * max(tier_bytes / HBM_BYTES_PER_S,
-                           tier_flops / FP32_FLOPS_PER_S)
+    terms = kernel_terms("tier_round_grad", (m, d, nt))
+    tier_bytes, tier_bound = int(terms["bytes"]), 1e3 * terms["bound_s"]
+    tier_bound_by = terms["bound_by"]
     tier_shape = [m, d, nt]
     phase(f"time tier_round_grad ({m}, {d}) T={nt}: kernel {tier_ms!r} ms "
           f"(L2 warm {tier_warm!r} ms), plain {tier_plain!r} ms, library "
@@ -2875,25 +3267,21 @@ def main() -> int:
         p_lib = time_ms(lambda g_, w_, x_: g_ @ (w_[:, None] * x_),
                         cold_copies((g_mat, w_p, x_p)))
         del g_mat
-        p_flops = 2 * c * ell * d1 + ell * d1
         # one hash per generator entry: the least work (the kernel's CTAs
-        # span 512 columns, so at d1 <= 512 it hashes each entry once)
-        p_hash_ops = HASH_INT_OPS * c * ell
-        p_bytes = 4 * (ell + ell * d1 + c * d1)
+        # span 512 columns, so at d1 <= 512 it hashes each entry once);
         # 3xTF32: three TF32 tensor-core products per float32 product
-        terms = {"bytes": p_bytes / HBM_BYTES_PER_S,
-                 "operations": max(3 * 2 * c * ell * d1 / TF32_FLOPS_PER_S,
-                                   p_hash_ops / INT32_OPS_PER_S)}
-        bound_by = max(terms, key=terms.get)
-        p_bound_fp32 = 1e3 * max(p_flops / FP32_FLOPS_PER_S,
-                                 p_hash_ops / INT32_OPS_PER_S)
+        terms = kernel_terms("encode_prng", (c, ell, d1))
+        p_flops, p_bytes = int(terms["flops"]), int(terms["bytes"])
+        p_hash_ops = HASH_INT_OPS * c * ell
+        bound_by = terms["bound_by"]
+        p_bound_fp32 = 1e3 * max(terms["t_fp32"], terms["pipes"]["int32"])
         prng_rec[kind] = {"ms": p_ms, "warm": p_warm, "plain": p_plain,
-                          "lib": p_lib, "bound": 1e3 * terms[bound_by],
+                          "lib": p_lib, "bound": 1e3 * terms["bound_s"],
                           "bound_by": bound_by}
         phase(f"time encode_prng {kind} ({c}, {ell}, {d1}) [{card}]: "
               f"kernel {p_ms!r} ms (L2 warm {p_warm!r} ms), plain "
               f"{p_plain!r} ms, library G @ (w X) on a materialized G (no "
-              f"generation) {p_lib!r} ms, bound {1e3 * terms[bound_by]!r} "
+              f"generation) {p_lib!r} ms, bound {prng_rec[kind]['bound']!r} "
               f"ms ({bound_by}, the larger of 3xTF32 at 495 TFLOP/s and "
               f"the hashes at the INT32 rate: flops {p_flops}, hash "
               f"integer ops {p_hash_ops}, bytes {p_bytes}; on the float32 "
@@ -2908,10 +3296,9 @@ def main() -> int:
     lsq_plain = time_ms(cg_ref.lsq_gradient, cold)
     lsq_lib = time_ms(lambda a_, y_, b_: (a_ @ b_ - y_) @ a_, cold)
     del cold
-    lsq_bytes = 4 * (lsq_m * lsq_d + lsq_m + 2 * lsq_d)
-    lsq_flops = 4 * lsq_m * lsq_d + lsq_m
-    lsq_bound = 1e3 * max(lsq_bytes / HBM_BYTES_PER_S,
-                          lsq_flops / FP32_FLOPS_PER_S)
+    terms = kernel_terms("coded_grad", (lsq_m, lsq_d))
+    lsq_bytes, lsq_bound = int(terms["bytes"]), 1e3 * terms["bound_s"]
+    lsq_bound_by = terms["bound_by"]
     phase(f"time lsq_gradient ({lsq_m}, {lsq_d}): kernel {lsq_ms!r} ms "
           f"(L2 warm {lsq_warm!r} ms), plain {lsq_plain!r} ms, library "
           f"(A @ beta - y) @ A {lsq_lib!r} ms, bound {lsq_bound!r} ms "
@@ -2955,16 +3342,12 @@ def main() -> int:
     # state; beside it the count with the scores once per head (the work
     # of the head-major library expression)
     tri = Q * (Q + 1) // 2
-    ssd_flops = B * nc * (G * tri * 2 * N + H * (tri * 2 * P + 2 * Q * P * N))
     ssd_flops_per_head = B * nc * H * (tri * 2 * (N + P) + 2 * Q * P * N)
-    ssd_bytes = 4 * (B * nc * Q * H * (2 * P + 2) + 2 * B * nc * Q * G * N
-                     + B * nc * H * P * N)
     # 3xTF32: three TF32 tensor-core products per float32 product
-    ssd_terms = {"bytes": ssd_bytes / HBM_BYTES_PER_S,
-                 "operations": 3 * ssd_flops / TF32_FLOPS_PER_S}
-    ssd_bound_by = max(ssd_terms, key=ssd_terms.get)
-    ssd_bound = 1e3 * ssd_terms[ssd_bound_by]
-    ssd_bound_fp32 = 1e3 * ssd_flops / FP32_FLOPS_PER_S
+    terms = kernel_terms("ssd_chunk", (B, nc, Q, H, P, N, G))
+    ssd_flops, ssd_bytes = int(terms["flops"]), int(terms["bytes"])
+    ssd_bound_by, ssd_bound = terms["bound_by"], 1e3 * terms["bound_s"]
+    ssd_bound_fp32 = 1e3 * terms["t_fp32"]
     ssd_bound_per_head = 1e3 * ssd_flops_per_head / FP32_FLOPS_PER_S
     phase(f"time ssd_chunk {list(SSD_SHAPE)} G={G} [{card}]: kernel "
           f"{ssd_ms!r} ms (L2 warm {ssd_warm!r} ms), plain {ssd_plain!r} "
@@ -3002,14 +3385,11 @@ def main() -> int:
     flash_lib = time_ms(sdpa_expanded, cold, calls=4)
     flash_lib_gqa = time_ms(sdpa_gqa, cold, calls=4)
     del cold
-    flash_flops = 4 * B * Hq * D * S * (S + 1) // 2
-    flash_bytes = 4 * (2 * B * Hq * S * D + 2 * B * Hkv * S * D)
     # 3xTF32: three TF32 tensor-core products per float32 product
-    flash_terms = {"bytes": flash_bytes / HBM_BYTES_PER_S,
-                   "operations": 3 * flash_flops / TF32_FLOPS_PER_S}
-    flash_bound_by = max(flash_terms, key=flash_terms.get)
-    flash_bound = 1e3 * flash_terms[flash_bound_by]
-    flash_bound_fp32 = 1e3 * flash_flops / FP32_FLOPS_PER_S
+    terms = kernel_terms("causal_attention", FLASH_SHAPE)
+    flash_flops, flash_bytes = int(terms["flops"]), int(terms["bytes"])
+    flash_bound_by, flash_bound = terms["bound_by"], 1e3 * terms["bound_s"]
+    flash_bound_fp32 = 1e3 * terms["t_fp32"]
     phase(f"time causal_attention {list(FLASH_SHAPE)} [{card}]: kernel "
           f"{flash_ms!r} ms (L2 warm {flash_warm!r} ms), plain "
           f"{flash_plain!r} ms, library repeat_interleave + "
@@ -3081,6 +3461,9 @@ def main() -> int:
           f"reduced federated {training['granite']['step_s']!r} s a step, "
           f"{training['granite']['tokens_per_s']:.1f} tokens/s")
 
+    # -- 20. the tile autotuner -------------------------------------------
+    tuning = tune_phase(dev, card, expect, reset_counters, read_counters)
+
     # launches on the driven paths: phase 4 and the new paths' runs
     # (kernel 1), phases 4, 15, 16 (kernel 2), 6 and 15 (kernel 4), 7, 14
     # and 16 at T = 3 (kernel 5), every counted run of phase 17, and
@@ -3113,7 +3496,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/round_grad/round_grad.py:81",
          "launches": driven["round_grad"],
          "max_abs_err": errs["round_grad_coded"], "ms": ms,
-         "plain_ms": plain, "bound_ms": bound_ms, "bound_by": "bytes",
+         "plain_ms": plain, "bound_ms": bound_ms,
+         "bound_by": kernel_terms("round_grad", (m, d))["bound_by"],
          "library_ms": lib, "ms_l2_warm": warm, "shape": [m, d]},
         {"name": "encode_parity", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/encode.cu",
@@ -3131,7 +3515,7 @@ def main() -> int:
          "launches": driven["coded_round_grad"],
          "max_abs_err": errs["coded_round_grad"], "ms": coded_ms,
          "plain_ms": coded_plain, "bound_ms": coded_bound,
-         "bound_by": "bytes", "library_ms": coded_lib,
+         "bound_by": coded_bound_by, "library_ms": coded_lib,
          "ms_l2_warm": coded_warm,
          "shape": [coded_inputs[0].shape[0], coded_inputs[3].shape[0],
                    coded_inputs[0].shape[1]]},
@@ -3141,7 +3525,7 @@ def main() -> int:
          "launches": driven["tier_round_grad"],
          "max_abs_err": errs["tier_round_grad"], "ms": tier_ms,
          "plain_ms": tier_plain, "bound_ms": tier_bound,
-         "bound_by": "bytes", "library_ms": tier_lib,
+         "bound_by": tier_bound_by, "library_ms": tier_lib,
          "ms_l2_warm": tier_warm, "shape": tier_shape},
         {"name": "encode_parity_prng", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/encode.cu",
@@ -3167,7 +3551,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/coded_grad/coded_grad.py:53",
          "launches": legacy["launches"],
          "max_abs_err": errs["lsq_gradient"], "ms": lsq_ms,
-         "plain_ms": lsq_plain, "bound_ms": lsq_bound, "bound_by": "bytes",
+         "plain_ms": lsq_plain, "bound_ms": lsq_bound,
+         "bound_by": lsq_bound_by,
          "library_ms": lsq_lib, "ms_l2_warm": lsq_warm,
          "shape": [lsq_m, lsq_d]},
         {"name": "ssd_chunk", "route": "cuda",
@@ -3202,6 +3587,23 @@ def main() -> int:
                         f"{gqa_backend}",
          "ms_l2_warm": flash_warm, "shape": list(FLASH_SHAPE)},
     ]
+    # kernels 1-6: the tile block="auto" launched at the record's shape,
+    # and phase 20's measured tuning of the kernel's family (kernel 3 has
+    # none): {kernel: (family, the family's (m, d) or (c, ell, d))}
+    tiled = {
+        "masked_round_gradient": ("round_grad", (m, d)),
+        "coded_round_gradient": ("round_grad",
+                                 (coded_inputs[0].shape[0], d)),
+        "tier_masked_round_gradient": ("round_grad", tuple(tier_shape[:2])),
+        "lsq_gradient": ("coded_grad", (lsq_m, lsq_d)),
+        "encode_parity": ("encode", tuple(enc_shape)),
+        "encode_parity_prng": ("encode_prng", tuple(prng_shape))}
+    for rec in kernels:
+        if rec["name"] in tiled:
+            family, shape = tiled[rec["name"]]
+            rec["tile"] = auto_tile(family, shape, dev)
+            if family in tuning["tuned"]:
+                rec["tuned"] = tuning["tuned"][family]
     phase(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,7 @@ tests hand both packages the same G_i through `encode_fleet_streamed`.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Callable
 
 import torch
@@ -54,14 +55,16 @@ def generator_matrix(generator: torch.Generator, c: int, ell: int,
 
 
 def encode_client(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
-                  y: torch.Tensor, use_kernel: bool = False) -> ClientParity:
+                  y: torch.Tensor, use_kernel: bool = False,
+                  block="auto") -> ClientParity:
     """(X~, y~) = (G W X, G W y) for one client.
 
-    g: (c, ell), w: (ell,), x: (ell, d), y: (ell,)
+    g: (c, ell), w: (ell,), x: (ell, d), y: (ell,); `block` is the
+    kernel's tile where `use_kernel` (see `kernels.encode.ops`).
     """
-    encode = encode_ops.encode_parity if use_kernel \
-        else encode_ref.encode_parity
-    return ClientParity(x_parity=encode(g, w, x), y_parity=g @ (w * y))
+    x_parity = encode_ops.encode_parity(g, w, x, block=block) if use_kernel \
+        else encode_ref.encode_parity(g, w, x)
+    return ClientParity(x_parity=x_parity, y_parity=g @ (w * y))
 
 
 def encode_fleet_streamed(g_source: Callable[[int], torch.Tensor],
@@ -85,19 +88,19 @@ def encode_fleet_streamed(g_source: Callable[[int], torch.Tensor],
 
 def encode_fleet(generator: torch.Generator, xs: torch.Tensor,
                  ys: torch.Tensor, weights: torch.Tensor, c: int,
-                 kind: str = "normal",
-                 use_kernel: bool = False
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
+                 kind: str = "normal", use_kernel: bool = False,
+                 block="auto") -> tuple[torch.Tensor, torch.Tensor]:
     """Encode every client and return the composite parity dataset.
 
     xs: (n, ell, d), ys: (n, ell), weights: (n, ell) on the generator's
     device.  Client i's G_i is the i-th (c, ell) draw from `generator`
     (drawn locally and never shared, in the protocol).  `use_kernel`
-    routes each client's product through the hand-written encode kernel.
+    routes each client's product through the hand-written encode kernel
+    at tile `block`.
     """
     ell = xs.shape[1]
-    client_encode = encode_ops.encode_parity if use_kernel \
-        else encode_ref.encode_parity
+    client_encode = partial(encode_ops.encode_parity, block=block) \
+        if use_kernel else encode_ref.encode_parity
     return encode_fleet_streamed(
         lambda i: generator_matrix(generator, c, ell, kind=kind,
                                    dtype=xs.dtype),

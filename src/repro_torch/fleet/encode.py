@@ -31,14 +31,15 @@ from .topology import FleetTopology
 
 def encode_fleet_tiered(key, xs: torch.Tensor, ys: torch.Tensor,
                         weights: torch.Tensor, c: int,
-                        topology: FleetTopology, kind: str = "normal"
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
+                        topology: FleetTopology, kind: str = "normal",
+                        block="auto") -> tuple[torch.Tensor, torch.Tensor]:
     """Composite parity (X~ (c, d), y~ (c,)), encoded tier by tier.
 
     key: the (2,) uint32 fleet key, split per client inside;
     xs: (n, ell, d), ys: (n, ell), weights: (n, ell) on one device;
     c: parity rows; topology: the tier partition, whose members stream
-    in ascending client order within each tier."""
+    in ascending client order within each tier; block: kernel 3's tile
+    (`kernels.encode.ops.encode_fleet_prng_keys`)."""
     if topology.n != xs.shape[0]:
         raise ValueError(
             f"topology covers {topology.n} clients but xs has "
@@ -48,7 +49,8 @@ def encode_fleet_tiered(key, xs: torch.Tensor, ys: torch.Tensor,
     for members in topology.tier_members():
         idx = torch.as_tensor(members, dtype=torch.long, device=xs.device)
         x_t, y_t = encode_ops.encode_fleet_prng_keys(
-            keys[members], xs[idx], ys[idx], weights[idx], c, kind=kind)
+            keys[members], xs[idx], ys[idx], weights[idx], c, kind=kind,
+            block=block)
         if x_par is None:
             x_par, y_par = x_t, y_t
         else:  # cross-tier combine: the only reassociation vs the flat pass

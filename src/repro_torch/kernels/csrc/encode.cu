@@ -28,7 +28,12 @@
 //   * Each 256-thread CTA computes a 128 x 64 output tile (8 warps, 4 x 2,
 //     each a 32 x 32 tile: 2 x 4 m16n8k8 accumulators), walking L in steps
 //     of 32.  At C = 2016, D = 501 that is 16 x 8 = 128 CTAs, one wave on
-//     132 SMs.
+//     132 SMs.  That is the default tile; the tile (bm, bn, bk) is a
+//     template parameter, and the library instantiates the tiles of
+//     kTiles (64 or 128 rows by 32, 64 or 128 columns, steps of 32), which
+//     the launch picks at run time: the tuner's candidates.  A tile whose
+//     three raw stages would not fit the 227 KB of shared memory a CTA may
+//     take, (128, 128, 32), runs two.
 //   * Every operand element is split once, when it is staged.  A ring of
 //     three raw stages takes G's (128 x 32) and X's (32 x 64) tiles and
 //     w's 32 entries by cp.async, up to three steps ahead of the products
@@ -72,33 +77,51 @@
 
 namespace {
 
-constexpr int kBM = 128;   // output rows per CTA (C axis)
-constexpr int kBN = 64;    // output columns per CTA (D axis)
-constexpr int kBK = 32;    // contraction step (L axis)
 constexpr int kWarpsM = 4, kWarpsN = 2;  // the CTA's warps over its tile
-constexpr int kStages = 3;               // raw stages in flight
 constexpr int kThreads = 32 * kWarpsM * kWarpsN;
-constexpr int kWM = kBM / kWarpsM;       // a warp's rows
-constexpr int kWN = kBN / kWarpsN;       // a warp's columns
-constexpr int kMT = kWM / 16;            // m16 tiles a warp
-constexpr int kNT = kWN / 8;             // n8 tiles a warp
-constexpr int kAStride = kBK + 4;        // split G rows: 4g + t distinct banks
-constexpr int kBStride = kBN + 8;        // split X rows: 8t + g distinct banks
-constexpr int kATile = kBM * kAStride;   // words of one split G tile
-constexpr int kBTile = kBK * kBStride;   // words of one split X tile
-constexpr int kOStride = kBN + 8;        // the output tile's rows (float2)
-constexpr int kSplitWords = 2 * kATile + 2 * kBTile;  // big and small
-constexpr int kRawFloats = kBM * kBK + kBK * kBN + kBK;  // G, X, w
-constexpr int kSmemBytes = (kStages * kRawFloats + 2 * kSplitWords) * 4;
-constexpr int kGPer = kBM * kBK / kThreads;  // elements a thread splits
-constexpr int kXPer = kBK * kBN / kThreads;
-static_assert(kWM % 16 == 0 && kWN % 8 == 0 && kBK % 8 == 0, "mma tiles");
-static_assert(kThreads % kBK == 0 && kThreads % kBN == 0,
-              "a thread splits one column of each tile");
-static_assert(kStages >= 2 && kRawFloats % 4 == 0, "ring");
-static_assert(kSmemBytes <= 232448, "shared memory of one CTA");
-static_assert(kBM * kOStride <= 2 * kSplitWords, "output tile");
-static_assert(kBM * kBN % kThreads == 0, "whole output rows a pass");
+constexpr int kSmemLimit = 232448;       // opt-in shared memory of a CTA
+
+// One output tile of encode_kernel: kBM x kBN outputs a CTA (C and D
+// axes), steps of kBK along L, and what follows from them.  The tiles the
+// library instantiates are listed in kTiles below; the wrapper's default
+// is (128, 64, 32).
+template <int BM, int BN, int BK>
+struct Tile {
+  static constexpr int kBM = BM;   // output rows per CTA (C axis)
+  static constexpr int kBN = BN;   // output columns per CTA (D axis)
+  static constexpr int kBK = BK;   // contraction step (L axis)
+  static constexpr int kWM = kBM / kWarpsM;       // a warp's rows
+  static constexpr int kWN = kBN / kWarpsN;       // a warp's columns
+  static constexpr int kMT = kWM / 16;            // m16 tiles a warp
+  static constexpr int kNT = kWN / 8;             // n8 tiles a warp
+  static constexpr int kAStride = kBK + 4;  // split G rows: 4g + t banks
+  static constexpr int kBStride = kBN + 8;  // split X rows: 8t + g banks
+  static constexpr int kATile = kBM * kAStride;   // words of a split G tile
+  static constexpr int kBTile = kBK * kBStride;   // words of a split X tile
+  static constexpr int kOStride = kBN + 8;        // the output tile's rows
+  static constexpr int kSplitWords = 2 * kATile + 2 * kBTile;  // big, small
+  static constexpr int kRawFloats = kBM * kBK + kBK * kBN + kBK;  // G, X, w
+  // raw stages in flight: three where shared memory holds them, else two
+  static constexpr int kStages =
+      (3 * kRawFloats + 2 * kSplitWords) * 4 <= kSmemLimit ? 3 : 2;
+  static constexpr int kSmemBytes =
+      (kStages * kRawFloats + 2 * kSplitWords) * 4;
+  static constexpr int kGPer = kBM * kBK / kThreads;  // elements a thread
+  static constexpr int kXPer = kBK * kBN / kThreads;  // splits
+  static_assert(kWM % 16 == 0 && kWN % 8 == 0 && kBK % 8 == 0, "mma tiles");
+  static_assert(kThreads % kBK == 0 && kThreads % kBN == 0,
+                "a thread splits one column of each tile");
+  static_assert(kRawFloats % 4 == 0, "ring");
+  static_assert(kSmemBytes <= kSmemLimit, "shared memory of one CTA");
+  static_assert(kBM * kOStride <= 2 * kSplitWords, "output tile");
+  static_assert(kBM * kBN % kThreads == 0, "whole output rows a pass");
+};
+
+// The instantiated tiles (bm, bn, bk): the candidates of the tuner's
+// "encode" family (kernels/encode/ops.py keeps the same list, TILES).
+constexpr int kTiles[][3] = {{128, 64, 32}, {64, 64, 32}, {64, 128, 32},
+                             {128, 32, 32}, {64, 32, 32}, {128, 128, 32}};
+constexpr int kNumTiles = sizeof(kTiles) / sizeof(kTiles[0]);
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -147,17 +170,19 @@ __device__ __forceinline__ void copy_tile(float* dst,
 
 // Start step k0's copies into a raw stage (G tile, X tile, w) as one
 // commit group.
-template <bool kVecG, bool kVecX>
+template <class T, bool kVecG, bool kVecX>
 __device__ __forceinline__ void issue_step(
     float* raw, const float* __restrict__ g, const float* __restrict__ w,
     const float* __restrict__ x, int c, int l, int d, int row0, int col0,
     int k0) {
-  copy_tile<kVecG ? 4 : 1, kBM, kBK>(raw, g, c, l, row0, k0);
-  copy_tile<kVecX ? 4 : 1, kBK, kBN>(raw + kBM * kBK, x, l, d, k0, col0);
+  copy_tile<kVecG ? 4 : 1, T::kBM, T::kBK>(raw, g, c, l, row0, k0);
+  copy_tile<kVecX ? 4 : 1, T::kBK, T::kBN>(raw + T::kBM * T::kBK, x, l, d,
+                                           k0, col0);
   const int k = static_cast<int>(threadIdx.x);
-  if (k < kBK) {
+  if (k < T::kBK) {
     const bool in = k0 + k < l;
-    cp_async<1>(raw + kBM * kBK + kBK * kBN + k, in ? w + k0 + k : w, in);
+    cp_async<1>(raw + T::kBM * T::kBK + T::kBK * T::kBN + k,
+                in ? w + k0 + k : w, in);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -166,35 +191,36 @@ __device__ __forceinline__ void issue_step(
 // X as w[k] * x[k, n] rounded once to float32.  Every raw value is read
 // into registers before the first split word is stored, so the loads do
 // not wait on the stores (both are shared memory, one array).
+template <class T>
 __device__ __forceinline__ void split_step(const float* __restrict__ raw,
                                            uint32_t* __restrict__ split) {
   const float* rg = raw;
-  const float* rx = raw + kBM * kBK;
-  const float* rw = rx + kBK * kBN;
+  const float* rx = raw + T::kBM * T::kBK;
+  const float* rw = rx + T::kBK * T::kBN;
   uint32_t* a_big = split;
-  uint32_t* a_small = a_big + kATile;
-  uint32_t* b_big = a_small + kATile;
-  uint32_t* b_small = b_big + kBTile;
+  uint32_t* a_small = a_big + T::kATile;
+  uint32_t* b_big = a_small + T::kATile;
+  uint32_t* b_small = b_big + T::kBTile;
   const int tid = threadIdx.x;
-  float gv[kGPer], xv[kXPer], wv[kXPer];
+  float gv[T::kGPer], xv[T::kXPer], wv[T::kXPer];
 #pragma unroll
-  for (int i = 0; i < kGPer; ++i) gv[i] = rg[tid + i * kThreads];
+  for (int i = 0; i < T::kGPer; ++i) gv[i] = rg[tid + i * kThreads];
 #pragma unroll
-  for (int i = 0; i < kXPer; ++i) {
+  for (int i = 0; i < T::kXPer; ++i) {
     const int f = tid + i * kThreads;
     xv[i] = rx[f];
-    wv[i] = rw[f / kBN];
+    wv[i] = rw[f / T::kBN];
   }
 #pragma unroll
-  for (int i = 0; i < kGPer; ++i) {
+  for (int i = 0; i < T::kGPer; ++i) {
     const int f = tid + i * kThreads;
-    const int at = (f / kBK) * kAStride + f % kBK;
+    const int at = (f / T::kBK) * T::kAStride + f % T::kBK;
     tf32::split(gv[i], a_big[at], a_small[at]);
   }
 #pragma unroll
-  for (int i = 0; i < kXPer; ++i) {
+  for (int i = 0; i < T::kXPer; ++i) {
     const int f = tid + i * kThreads;
-    const int bt = (f / kBN) * kBStride + f % kBN;
+    const int bt = (f / T::kBN) * T::kBStride + f % T::kBN;
     // rounded on its own: no fma of the product into the split
     tf32::split(__fmul_rn(wv[i], xv[i]), b_big[bt], b_small[bt]);
   }
@@ -202,26 +228,28 @@ __device__ __forceinline__ void split_step(const float* __restrict__ raw,
 
 // The products of one step: for each k8 sub-step below L, every warp's
 // kMT x kNT accumulators take small.big, big.small and big.big.
+template <class T>
 __device__ __forceinline__ void mma_step(const uint32_t* split,
-                                         float (&acc)[kMT][kNT][4], int k0,
-                                         int l, int wm, int wn) {
+                                         float (&acc)[T::kMT][T::kNT][4],
+                                         int k0, int l, int wm, int wn) {
   const uint32_t* a_big = split;
-  const uint32_t* a_small = a_big + kATile;
-  const uint32_t* b_big = a_small + kATile;
-  const uint32_t* b_small = b_big + kBTile;
+  const uint32_t* a_small = a_big + T::kATile;
+  const uint32_t* b_big = a_small + T::kATile;
+  const uint32_t* b_small = b_big + T::kBTile;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int kk = 0; kk < kBK; kk += 8) {
+  for (int kk = 0; kk < T::kBK; kk += 8) {
     if (k0 + kk >= l) break;  // past L: all zeros
-    uint32_t fa_big[kMT][4], fa_small[kMT][4], fb_big[kNT][2],
-        fb_small[kNT][2];
+    uint32_t fa_big[T::kMT][4], fa_small[T::kMT][4], fb_big[T::kNT][2],
+        fb_small[T::kNT][2];
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-      const int r = wm * kWM + mt * 16 + g;
-      const int o[4] = {r * kAStride + kk + t, (r + 8) * kAStride + kk + t,
-                        r * kAStride + kk + t + 4,
-                        (r + 8) * kAStride + kk + t + 4};
+    for (int mt = 0; mt < T::kMT; ++mt) {
+      const int r = wm * T::kWM + mt * 16 + g;
+      const int o[4] = {r * T::kAStride + kk + t,
+                        (r + 8) * T::kAStride + kk + t,
+                        r * T::kAStride + kk + t + 4,
+                        (r + 8) * T::kAStride + kk + t + 4};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         fa_big[mt][e] = a_big[o[e]];
@@ -229,9 +257,10 @@ __device__ __forceinline__ void mma_step(const uint32_t* split,
       }
     }
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const int n = wn * kWN + nt * 8 + g;
-      const int o[2] = {(kk + t) * kBStride + n, (kk + t + 4) * kBStride + n};
+    for (int nt = 0; nt < T::kNT; ++nt) {
+      const int n = wn * T::kWN + nt * 8 + g;
+      const int o[2] = {(kk + t) * T::kBStride + n,
+                        (kk + t + 4) * T::kBStride + n};
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         fb_big[nt][e] = b_big[o[e]];
@@ -239,22 +268,28 @@ __device__ __forceinline__ void mma_step(const uint32_t* split,
       }
     }
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
+    for (int mt = 0; mt < T::kMT; ++mt)
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
+      for (int nt = 0; nt < T::kNT; ++nt)
         tf32::mma3(acc[mt][nt], fa_big[mt], fa_small[mt], fb_big[nt],
                    fb_small[nt]);
   }
 }
 
-template <bool kVecG, bool kVecX>
-__global__ void __launch_bounds__(kThreads)
+// One CTA an SM is what the budget is set for (its shared memory holds
+// the SM at the default tile): without the minimum, ptxas held the
+// (64, 64, 32) 16-byte instance to 80 registers and spilled.
+template <int kBM, int kBN, int kBK, bool kVecG, bool kVecX>
+__global__ void __launch_bounds__(kThreads, 1)
 encode_kernel(const float* __restrict__ g, const float* __restrict__ w,
               const float* __restrict__ x, float* __restrict__ out,
               int c, int l, int d) {
+  using T = Tile<kBM, kBN, kBK>;
+  constexpr int kStages = T::kStages;
   extern __shared__ __align__(16) float smem[];
   float* raw = smem;  // kStages x kRawFloats
-  uint32_t* split = reinterpret_cast<uint32_t*>(smem + kStages * kRawFloats);
+  uint32_t* split =
+      reinterpret_cast<uint32_t*>(smem + kStages * T::kRawFloats);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / kWarpsN, wn = warp % kWarpsN;
@@ -262,25 +297,25 @@ encode_kernel(const float* __restrict__ g, const float* __restrict__ w,
   const int col0 = blockIdx.x * kBN;
   const int n_steps = (l + kBK - 1) / kBK;
 
-  float acc[kMT][kNT][4];
+  float acc[T::kMT][T::kNT][4];
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
+  for (int mt = 0; mt < T::kMT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
+    for (int nt = 0; nt < T::kNT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
   // steps 0 .. kStages - 1 in flight; step 0 split
   for (int s = 0; s < kStages; ++s) {
     if (s < n_steps)
-      issue_step<kVecG, kVecX>(raw + s * kRawFloats, g, w, x, c, l, d, row0,
-                               col0, s * kBK);
+      issue_step<T, kVecG, kVecX>(raw + s * T::kRawFloats, g, w, x, c, l, d,
+                                  row0, col0, s * kBK);
     else
       asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
   cp_async_wait<kStages - 1>();
   __syncthreads();
-  split_step(raw, split);
+  split_step<T>(raw, split);
 
   for (int s = 0; s < n_steps; ++s) {
     cp_async_wait<kStages - 2>();  // this thread's copies of step s + 1
@@ -288,14 +323,15 @@ encode_kernel(const float* __restrict__ g, const float* __restrict__ w,
                       // products are done with the other split buffer
     // step s's raw stage was split: refill it with step s + kStages
     if (s + kStages < n_steps)
-      issue_step<kVecG, kVecX>(raw + (s % kStages) * kRawFloats, g, w, x, c,
-                               l, d, row0, col0, (s + kStages) * kBK);
+      issue_step<T, kVecG, kVecX>(raw + (s % kStages) * T::kRawFloats, g, w,
+                                  x, c, l, d, row0, col0,
+                                  (s + kStages) * kBK);
     else
       asm volatile("cp.async.commit_group;\n" ::: "memory");
-    mma_step(split + (s & 1) * kSplitWords, acc, s * kBK, l, wm, wn);
+    mma_step<T>(split + (s & 1) * T::kSplitWords, acc, s * kBK, l, wm, wn);
     if (s + 1 < n_steps)  // the next step, into the other split buffer
-      split_step(raw + ((s + 1) % kStages) * kRawFloats,
-                 split + ((s + 1) & 1) * kSplitWords);
+      split_step<T>(raw + ((s + 1) % kStages) * T::kRawFloats,
+                    split + ((s + 1) & 1) * T::kSplitWords);
   }
 
   // the tile goes out through shared memory, a warp a row segment
@@ -303,14 +339,14 @@ encode_kernel(const float* __restrict__ g, const float* __restrict__ w,
   float* s_out = reinterpret_cast<float*>(split);  // (kBM, kOStride)
   const int gq = lane / 4, tq = lane % 4;
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
+  for (int mt = 0; mt < T::kMT; ++mt) {
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const int r = wm * kWM + mt * 16 + gq;
-      const int n = wn * kWN + nt * 8 + 2 * tq;
-      *reinterpret_cast<float2*>(s_out + r * kOStride + n) =
+    for (int nt = 0; nt < T::kNT; ++nt) {
+      const int r = wm * T::kWM + mt * 16 + gq;
+      const int n = wn * T::kWN + nt * 8 + 2 * tq;
+      *reinterpret_cast<float2*>(s_out + r * T::kOStride + n) =
           make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      *reinterpret_cast<float2*>(s_out + (r + 8) * kOStride + n) =
+      *reinterpret_cast<float2*>(s_out + (r + 8) * T::kOStride + n) =
           make_float2(acc[mt][nt][2], acc[mt][nt][3]);
     }
   }
@@ -321,20 +357,52 @@ encode_kernel(const float* __restrict__ g, const float* __restrict__ w,
     const int r = e / kBN, n = e % kBN;
     if (row0 + r < c && col0 + n < d)
       out[static_cast<int64_t>(row0 + r) * d + col0 + n] =
-          s_out[r * kOStride + n];
+          s_out[r * T::kOStride + n];
   }
 }
 
-template <bool kVecG, bool kVecX>
-cudaError_t launch_encode(const float* g, const float* w, const float* x,
-                          float* out, int c, int l, int d, cudaStream_t s) {
-  auto kernel = encode_kernel<kVecG, kVecX>;
+template <int kBM, int kBN, int kBK, bool kVecG, bool kVecX>
+cudaError_t launch_instance(const float* g, const float* w, const float* x,
+                            float* out, int c, int l, int d,
+                            cudaStream_t s) {
+  auto kernel = encode_kernel<kBM, kBN, kBK, kVecG, kVecX>;
+  constexpr int kBytes = Tile<kBM, kBN, kBK>::kSmemBytes;
   const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((d + kBN - 1) / kBN, (c + kBM - 1) / kBM);
-  kernel<<<grid, kThreads, kSmemBytes, s>>>(g, w, x, out, c, l, d);
+  kernel<<<grid, kThreads, kBytes, s>>>(g, w, x, out, c, l, d);
   return cudaGetLastError();
+}
+
+// 16-byte copies where a matrix's rows allow them (vg: G's, vx: X's)
+template <int kBM, int kBN, int kBK>
+cudaError_t launch_encode(const float* g, const float* w, const float* x,
+                          float* out, int c, int l, int d, bool vg, bool vx,
+                          cudaStream_t s) {
+  return vg ? (vx ? launch_instance<kBM, kBN, kBK, true, true>(
+                        g, w, x, out, c, l, d, s)
+                  : launch_instance<kBM, kBN, kBK, true, false>(
+                        g, w, x, out, c, l, d, s))
+            : (vx ? launch_instance<kBM, kBN, kBK, false, true>(
+                        g, w, x, out, c, l, d, s)
+                  : launch_instance<kBM, kBN, kBK, false, false>(
+                        g, w, x, out, c, l, d, s));
+}
+
+// The instance of tile kTiles[I], or of the next one.
+template <int I>
+cudaError_t launch_tile(int bm, int bn, int bk, const float* g,
+                        const float* w, const float* x, float* out, int c,
+                        int l, int d, bool vg, bool vx, cudaStream_t s) {
+  if constexpr (I == kNumTiles) {
+    return cudaErrorInvalidValue;  // not an instantiated tile
+  } else {
+    constexpr int kBM = kTiles[I][0], kBN = kTiles[I][1], kBK = kTiles[I][2];
+    if (bm == kBM && bn == kBN && bk == kBK)
+      return launch_encode<kBM, kBN, kBK>(g, w, x, out, c, l, d, vg, vx, s);
+    return launch_tile<I + 1>(bm, bn, bk, g, w, x, out, c, l, d, vg, vx, s);
+  }
 }
 
 bool aligned16(const void* p) {
@@ -1032,19 +1100,17 @@ cudaError_t launch_prng(uint32_t k0, uint32_t k1, const float* w,
 extern "C" {
 
 // g (c, l), w (l,), x (l, d), out (c, d): float32, contiguous, on the
-// device of `stream`.  c, l, d > 0.
+// device of `stream`.  c, l, d > 0.  (bm, bn, bk): one of the
+// instantiated tiles (kTiles), else cudaErrorInvalidValue.
 int enc_encode_parity(const float* g, const float* w, const float* x,
-                      float* out, int c, int l, int d, void* stream) {
+                      float* out, int c, int l, int d, int bm, int bn, int bk,
+                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 16-byte copies where a matrix's rows allow them
   const bool vg = l % 4 == 0 && aligned16(g);
   const bool vx = d % 4 == 0 && aligned16(x);
-  const cudaError_t e =
-      vg ? (vx ? launch_encode<true, true>(g, w, x, out, c, l, d, s)
-               : launch_encode<true, false>(g, w, x, out, c, l, d, s))
-         : (vx ? launch_encode<false, true>(g, w, x, out, c, l, d, s)
-               : launch_encode<false, false>(g, w, x, out, c, l, d, s));
-  return static_cast<int>(e);
+  return static_cast<int>(
+      launch_tile<0>(bm, bn, bk, g, w, x, out, c, l, d, vg, vx, s));
 }
 
 // key (k0, k1); w (l,), x (l, d), out (c, d): float32, contiguous, on

@@ -28,9 +28,11 @@
 //   * One launch.  Each CTA owns a contiguous range of rows whose length
 //     is a function of the row count alone (about M / 128 rounded up to a
 //     multiple of its 8 warps; never the SM count or the occupancy), so
-//     every launch, card and instance sees one partition.  Warp w of the
-//     CTA takes rows w, w + 8, w + 16, ... of its range and streams them
-//     through its own ring of 2-4 rows in shared memory with cp.async
+//     every launch, card and instance sees one partition; or, given a row
+//     tile (`rpc`, a positive multiple of 8: the tuner's block_m), that
+//     many rows, for the systematic and the parity block alike.  Warp w
+//     of the CTA takes rows w, w + 8, w + 16, ... of its range and streams
+//     them through its own ring of 2-4 rows in shared memory with cp.async
 //     (16-byte .cg copies when D % 4 == 0 and every base is 16-byte
 //     aligned, as at D = 500; else a 4-byte .ca instance of the same
 //     kernel), the row's y, w and tier masks riding along: the copies of
@@ -128,9 +130,11 @@ static_assert(kThreads % kRedItems == 0, "reducer threads");
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
 
-// Rows a CTA owns: ~rows / kTargetCtas, a multiple of the warps (warp w
-// takes rows w, w + kWarps, ...), a function of `rows` alone.
-int rows_per_cta(int rows) {
+// Rows a CTA owns: the row tile `tile` where it is positive, else
+// ~rows / kTargetCtas, a multiple of the warps (warp w takes rows w, w +
+// kWarps, ...), a function of `rows` alone.
+int rows_per_cta(int rows, int tile) {
+  if (tile > 0) return tile;
   int r = (rows + kTargetCtas - 1) / kTargetCtas;
   r = (r + kWarps - 1) / kWarps * kWarps;
   return r < kWarps ? kWarps : r;
@@ -138,10 +142,16 @@ int rows_per_cta(int rows) {
 
 // CTAs over `rows` rows (one for an empty block, which adds a zero
 // partial).
-int ctas_for(int rows) {
-  const int rpc = rows_per_cta(rows);
+int ctas_for(int rows, int tile) {
+  const int rpc = rows_per_cta(rows, tile);
   const int n = (rows + rpc - 1) / rpc;
   return n < 1 ? 1 : n;
+}
+
+// A row tile the kernels take: 0 (their own partition) or a positive
+// multiple of the warps.
+bool valid_tile(int tile) {
+  return tile == 0 || (tile > 0 && tile % kWarps == 0);
 }
 
 int chunks_for(int d) { return (d + kChunk - 1) / kChunk; }
@@ -588,8 +598,8 @@ template <int kNt, int kVec>
 cudaError_t launch_tiers(const float* x, const float* y, const float* w,
                          const float* masks, int nt, const float* beta,
                          double* partials, float* out, unsigned* counter,
-                         int m, int d, cudaStream_t s) {
-  const int rpc = rows_per_cta(m);
+                         int m, int d, int tile, cudaStream_t s) {
+  const int rpc = rows_per_cta(m, tile);
   const int nm = masks != nullptr ? nt : 0;
   const int stages = ring_stages(d, nm, rpc);
   if (stages == 0) return cudaErrorInvalidValue;
@@ -598,7 +608,7 @@ cudaError_t launch_tiers(const float* x, const float* y, const float* w,
   int max_red = 1;
   const cudaError_t e = prepare(kernel, floats, &max_red);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(ctas_for(m), chunks_for(d)), kThreads,
+  kernel<<<dim3(ctas_for(m, tile), chunks_for(d)), kThreads,
            floats * sizeof(float), s>>>(x, y, w, masks, nt, beta, partials,
                                         out, counter, m, d, rpc, stages,
                                         max_red);
@@ -610,9 +620,10 @@ cudaError_t launch_coded(const float* x, const float* y, const float* w,
                          int m, const float* xp, const float* yp,
                          const float* wp, int c, const float* beta,
                          double* partials, float* out, unsigned* counter,
-                         int d, cudaStream_t s) {
-  const int rpc_sys = rows_per_cta(m), rpc_par = rows_per_cta(c);
-  const int n_sys = ctas_for(m);
+                         int d, int tile, cudaStream_t s) {
+  // one row tile for both blocks where it is given
+  const int rpc_sys = rows_per_cta(m, tile), rpc_par = rows_per_cta(c, tile);
+  const int n_sys = ctas_for(m, tile);
   const int stages = ring_stages(d, 0, rpc_sys > rpc_par ? rpc_sys : rpc_par);
   if (stages == 0) return cudaErrorInvalidValue;
   const int floats = smem_floats(d, 0, stages);
@@ -620,7 +631,7 @@ cudaError_t launch_coded(const float* x, const float* y, const float* w,
   int max_red = 1;
   const cudaError_t e = prepare(kernel, floats, &max_red);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(n_sys + ctas_for(c), chunks_for(d)), kThreads,
+  kernel<<<dim3(n_sys + ctas_for(c, tile), chunks_for(d)), kThreads,
            floats * sizeof(float), s>>>(x, y, w, m, xp, yp, wp, c, beta,
                                         partials, out, counter, d, rpc_sys,
                                         rpc_par, n_sys, stages, max_red);
@@ -632,9 +643,10 @@ cudaError_t launch_coded(const float* x, const float* y, const float* w,
 extern "C" {
 
 // Rows of the (n_ctas, D) float64 partials scratch of the flat and tiered
-// variants (per tier); the coded variant needs rg_num_ctas(m) +
-// rg_num_ctas(c).
-int rg_num_ctas(int m) { return ctas_for(m); }
+// variants (per tier) at the kernels' own partition; the coded variant
+// needs rg_num_ctas(m) + rg_num_ctas(c).  With a row tile the count is
+// ceil(m / tile) (at least 1) per block.
+int rg_num_ctas(int m) { return ctas_for(m, 0); }
 
 // Largest D the kernels take at any tier count: a two-row ring a warp in
 // shared memory, each row carrying kMaxTiers masks.
@@ -646,15 +658,18 @@ int rg_max_d() {
 
 // x (m, d), y (m,), w (m,) or nullptr, masks (nt, m) or nullptr (one
 // partial, mask 1), beta (d,), out (nt, d): float32; partials (nt,
-// rg_num_ctas(m), d): float64 scratch; counter: two zeroed uint32 that no
-// launch on another stream uses at the same time (each launch leaves the
-// first at 0); all contiguous, on the device of `stream`.
+// n_ctas, d): float64 scratch, n_ctas = rg_num_ctas(m) at tile 0, else
+// ceil(m / tile); counter: two zeroed uint32 that no launch on another
+// stream uses at the same time (each launch leaves the first at 0); all
+// contiguous, on the device of `stream`.  tile: rows a CTA owns, 0 for
+// the kernels' own partition.
 int rg_tier_round_gradient(const float* x, const float* y, const float* w,
                            const float* masks, int nt, const float* beta,
                            double* partials, float* out, unsigned* counter,
-                           int m, int d, void* stream) {
+                           int m, int d, int tile, void* stream) {
+  if (!valid_tile(tile)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_ctas = ctas_for(m);
+  const int n_ctas = ctas_for(m, tile);
   const bool vec = d % 4 == 0 && aligned16(x) && aligned16(beta);
   for (int t0 = 0; t0 < nt; t0 += kMaxTiers) {
     const int k = nt - t0 < kMaxTiers ? nt - t0 : kMaxTiers;
@@ -665,14 +680,15 @@ int rg_tier_round_gradient(const float* x, const float* y, const float* w,
     // one tier: kernel 1's instance; more: the run-time tier count
     const cudaError_t e =
         k == 1 ? (vec ? launch_tiers<1, 4>(x, y, w, mk, k, beta, part, o,
-                                           counter, m, d, s)
+                                           counter, m, d, tile, s)
                       : launch_tiers<1, 1>(x, y, w, mk, k, beta, part, o,
-                                           counter, m, d, s))
+                                           counter, m, d, tile, s))
                : (vec ? launch_tiers<kMaxTiers, 4>(x, y, w, mk, k, beta,
-                                                   part, o, counter, m, d, s)
+                                                   part, o, counter, m, d,
+                                                   tile, s)
                       : launch_tiers<kMaxTiers, 1>(x, y, w, mk, k, beta,
                                                    part, o, counter, m, d,
-                                                   s));
+                                                   tile, s));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return 0;
@@ -681,9 +697,10 @@ int rg_tier_round_gradient(const float* x, const float* y, const float* w,
 // The flat masked round gradient: the tier variant at one tier, no mask.
 int rg_masked_round_gradient(const float* x, const float* y, const float* w,
                              const float* beta, double* partials, float* out,
-                             unsigned* counter, int m, int d, void* stream) {
+                             unsigned* counter, int m, int d, int tile,
+                             void* stream) {
   return rg_tier_round_gradient(x, y, w, nullptr, 1, beta, partials, out,
-                                counter, m, d, stream);
+                                counter, m, d, tile, stream);
 }
 
 // Kernel 6, the least-squares gradient A^T (A beta - y) of the Pallas TPU
@@ -693,30 +710,32 @@ int rg_masked_round_gradient(const float* x, const float* y, const float* w,
 // same one-tier instance, row ranges and fixed-order reduce, so it is
 // bit-equal to rg_masked_round_gradient with w == nullptr.  It is bound
 // by bytes like the flat variant (one pass over A).  a (m, d), y (m,),
-// beta (d,), partials (rg_num_ctas(m), d), out (d,), counter as above.
+// beta (d,), partials (n_ctas, d), out (d,), counter and tile as above.
 int rg_lsq_gradient(const float* a, const float* y, const float* beta,
                     double* partials, float* out, unsigned* counter, int m,
-                    int d, void* stream) {
+                    int d, int tile, void* stream) {
   return rg_tier_round_gradient(a, y, nullptr, nullptr, 1, beta, partials,
-                                out, counter, m, d, stream);
+                                out, counter, m, d, tile, stream);
 }
 
 // x (m, d), y/w (m,) (w may be nullptr), xp (c, d), yp/wp (c,), beta
-// (d,), partials (rg_num_ctas(m) + rg_num_ctas(c), d) float64, out (d,),
-// counter as above.
+// (d,), partials (n_ctas(m) + n_ctas(c), d) float64, out (d,), counter
+// as above; tile 0: each block at the kernels' own partition, else
+// `tile` rows a CTA in both blocks.
 int rg_coded_round_gradient(const float* x, const float* y, const float* w,
                             int m, const float* xp, const float* yp,
                             const float* wp, int c, const float* beta,
                             double* partials, float* out, unsigned* counter,
-                            int d, void* stream) {
+                            int d, int tile, void* stream) {
+  if (!valid_tile(tile)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = d % 4 == 0 && aligned16(x) && aligned16(xp) &&
                    aligned16(beta);
   const cudaError_t e =
       vec ? launch_coded<4>(x, y, w, m, xp, yp, wp, c, beta, partials, out,
-                            counter, d, s)
+                            counter, d, tile, s)
           : launch_coded<1>(x, y, w, m, xp, yp, wp, c, beta, partials, out,
-                            counter, d, s);
+                            counter, d, tile, s);
   return static_cast<int>(e);
 }
 

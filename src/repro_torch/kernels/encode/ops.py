@@ -3,11 +3,24 @@
 Two kernels, one per TPU kernel of `repro.kernels.encode`:
 `encode_parity` (G an input) and `encode_parity_prng` (G regenerated
 inside the kernel from a threefry key, tile by tile, never stored), with
-the fleet encoders over the latter: `encode_fleet_prng` (the fleet key
-split per client) and `encode_fleet_prng_keys` (the per-client key table
-given).  The fleet encoders launch once per client, in client order,
-each launch adding its client's (c, d+1) parity (labels as column d)
-into the running composite, as the reference's scan does.
+the fleet encoders: `encode_fleet` (the keyed streamed encode: each
+client's G_i drawn from its key, kernel 2 once per client), and over the
+in-kernel generator `encode_fleet_prng` (the fleet key split per client)
+and `encode_fleet_prng_keys` (the per-client key table given).  The
+fleet encoders launch once per client, in client order, each launch
+adding its client's (c, d+1) parity (labels as column d) into the
+running composite, as the reference's scan does.
+
+Tiles: every entry point takes `block`, the CTA tile (bc, bd, bl).
+Kernel 2 launches any tile of `TILES` (the library's instantiations);
+its `block="auto"` (the default) reads the tune cache
+(`repro_torch.tune`) at (c, ell, d) under the family "encode", and a
+cold miss takes `DEFAULT_BLOCK`, bit for bit the launch of a wrapper
+without tiles.  Kernel 3 has one tile, `PRNG_BLOCK` (its CTA pair spans
+512 columns, so at d + 1 <= 512 each generator entry is hashed once):
+its `block` is "auto" or that tile, with no cache to read and no tune
+family until it has a second.  On the CPU the tile means nothing and is
+ignored.
 
 CPU tensors take the plain versions (`ref.py`); CUDA tensors launch the
 kernel on the current stream or raise.  There is no fallback from a CUDA
@@ -24,8 +37,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (LaunchCounter, check_cuda_operand,
-                                       refuse_grad)
+from repro_torch.kernels.common import (AUTO, LaunchCounter,
+                                       check_cuda_operand, refuse_grad,
+                                       resolve_block)
 
 from . import prng, ref
 
@@ -34,9 +48,38 @@ PRNG_COUNTER = LaunchCounter()
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 _SIGNATURES: build.Signatures = {
-    "enc_encode_parity": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "enc_encode_parity": ([_P] * 4 + [_I] * 6 + [_P], _I),
     "enc_encode_parity_prng": ([_U, _U] + [_P] * 3 + [_I] * 5 + [_P], _I),
 }
+# kernel 2's instantiated CTA tiles (bc, bd, bl), as `kTiles` of
+# csrc/encode.cu lists them (each fits a CTA's shared memory, which the
+# library asserts as it builds), the first the default; kernel 3's one
+# tile
+TILES = ((128, 64, 32), (64, 64, 32), (64, 128, 32), (128, 32, 32),
+         (64, 32, 32), (128, 128, 32))
+DEFAULT_BLOCK = TILES[0]
+PRNG_BLOCK = (32, 512, 32)
+
+
+def _encode_tile(shape: tuple, block, device) -> tuple:
+    """Kernel 2's tile for `block` at (c, ell, d): resolved against the
+    tune cache and checked against the instantiations."""
+    tile = tuple(int(b) for b in resolve_block("encode", shape, block,
+                                               DEFAULT_BLOCK, device))
+    if tile not in TILES:
+        raise ValueError(f"encode has no tile {tile}; it launches {TILES}")
+    return tile
+
+
+def _prng_tile(block) -> tuple:
+    """Kernel 3's tile for `block`: its one tile, "auto" included."""
+    tile = PRNG_BLOCK if block == AUTO else tuple(int(b) for b in block)
+    if tile != PRNG_BLOCK:
+        raise ValueError(f"encode_prng has one tile, {PRNG_BLOCK}; got "
+                         f"{tile}")
+    return tile
+
+
 _KIND_CODES = {"normal": 0, "bernoulli": 1}
 # the generator's flat index r * ell + k is int32, as in the reference
 _MAX_STREAM = 2**31
@@ -85,11 +128,11 @@ def float64_reference_and_bound(g: torch.Tensor, w: torch.Tensor,
     return g64 @ wx, bound
 
 
-def encode_parity(g: torch.Tensor, w: torch.Tensor,
-                  x: torch.Tensor) -> torch.Tensor:
+def encode_parity(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
+                  block=AUTO) -> torch.Tensor:
     """P = G diag(w) X in float32 precision (3xTF32 tensor-core products
     on the card, within `float64_reference_and_bound`).  g: (C, L),
-    w: (L,), x: (L, D)."""
+    w: (L,), x: (L, D); block: the CTA tile (see the module docstring)."""
     lib = _dispatch(g.device)
     if lib is None:
         return ref.encode_parity(g, w, x)
@@ -101,14 +144,15 @@ def encode_parity(g: torch.Tensor, w: torch.Tensor,
     check_cuda_operand("g", g, (c, ell), g.device)
     check_cuda_operand("w", w, (ell,), g.device)
     check_cuda_operand("x", x, (ell, d), g.device)
+    tile = _encode_tile((c, ell, d), block, g.device)
     out = torch.empty((c, d), dtype=torch.float32, device=g.device)
     if c == 0 or d == 0 or ell == 0:
         return out.zero_()
     status = lib.enc_encode_parity(
         g.data_ptr(), w.data_ptr(), x.data_ptr(), out.data_ptr(), c, ell, d,
-        torch.cuda.current_stream(g.device).cuda_stream)
+        *tile, torch.cuda.current_stream(g.device).cuda_stream)
     build.check_status(lib, status, "encode_parity")
-    COUNTER.launches += 1
+    COUNTER.add(tile)
     return out
 
 
@@ -138,17 +182,18 @@ def _launch_prng(lib, key, w: torch.Tensor, x: torch.Tensor, c: int,
         _KIND_CODES[kind], int(accumulate),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check_status(lib, status, "encode_parity_prng")
-    PRNG_COUNTER.launches += 1
+    PRNG_COUNTER.add(PRNG_BLOCK)
 
 
 def encode_parity_prng(key, w: torch.Tensor, x: torch.Tensor, c: int,
-                       kind: str = "normal") -> torch.Tensor:
+                       kind: str = "normal", block=AUTO) -> torch.Tensor:
     """P = G diag(w) X with G = `prng.generator_values(key, c, L, kind)`
     regenerated inside the kernel and never stored (3xTF32 tensor-core
     products on the card, within `float64_reference_and_bound`).
 
-    key: (2,) uint32; w: (L,), x: (L, D) float32 -> (C, D) float32.
-    Raises ValueError when c * L reaches 2**31."""
+    key: (2,) uint32; w: (L,), x: (L, D) float32 -> (C, D) float32;
+    block: the tile, `PRNG_BLOCK` or "auto".  Raises ValueError when
+    c * L reaches 2**31."""
     if x.dim() != 2:
         raise ValueError(f"x must be (L, D), got shape {tuple(x.shape)}")
     _check_prng_args(x.shape[0], c, kind)
@@ -156,6 +201,7 @@ def encode_parity_prng(key, w: torch.Tensor, x: torch.Tensor, c: int,
     if lib is None:
         return ref.encode_parity_prng(key, w, x, c, kind)
     refuse_grad("encode_parity_prng", w, x)
+    _prng_tile(block)
     out = torch.empty((c, x.shape[1]), dtype=torch.float32, device=x.device)
     if c == 0 or x.shape[1] == 0:
         return out.zero_()
@@ -165,14 +211,15 @@ def encode_parity_prng(key, w: torch.Tensor, x: torch.Tensor, c: int,
 
 def encode_fleet_prng_keys(keys, xs: torch.Tensor, ys: torch.Tensor,
                            weights: torch.Tensor, c: int,
-                           kind: str = "normal"
+                           kind: str = "normal", block=AUTO
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Composite parity (X~ (c, d), y~ (c,)) with in-kernel generators,
     the per-client keys given.
 
     keys: (n, 2) uint32; xs: (n, ell, d), ys: (n, ell), weights: (n, ell).
     Client i's parity G(keys[i]) diag(w_i) [X_i | y_i] is added into the
-    (c, d+1) composite in client order."""
+    (c, d+1) composite in client order.  block: kernel 3's tile,
+    checked once."""
     n, ell, d = xs.shape
     if isinstance(keys, torch.Tensor):
         keys = keys.cpu().numpy()
@@ -185,6 +232,7 @@ def encode_fleet_prng_keys(keys, xs: torch.Tensor, ys: torch.Tensor,
     lib = _dispatch(xs.device)
     if lib is not None:
         refuse_grad("encode_parity_prng", xs, ys, weights)
+        _prng_tile(block)
     for i in range(n):
         w_i = weights[i].contiguous()
         if lib is None:
@@ -196,9 +244,44 @@ def encode_fleet_prng_keys(keys, xs: torch.Tensor, ys: torch.Tensor,
 
 
 def encode_fleet_prng(key, xs: torch.Tensor, ys: torch.Tensor,
-                      weights: torch.Tensor, c: int, kind: str = "normal"
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
+                      weights: torch.Tensor, c: int, kind: str = "normal",
+                      block=AUTO) -> tuple[torch.Tensor, torch.Tensor]:
     """`encode_fleet_prng_keys` over the fleet key split per client
     (`prng.split_keys`, `jax.random.split`'s layout)."""
     return encode_fleet_prng_keys(prng.split_keys(key, xs.shape[0]), xs, ys,
-                                  weights, c, kind)
+                                  weights, c, kind, block=block)
+
+
+def encode_fleet(keys, xs: torch.Tensor, ys: torch.Tensor,
+                 weights: torch.Tensor, c: int, kind: str = "normal",
+                 block=AUTO) -> tuple[torch.Tensor, torch.Tensor]:
+    """The keyed streamed fleet encode: composite parity (X~ (c, d),
+    y~ (c,)) with kernel 2 once per client, in client order.
+
+    keys: client i's generator G_i (c, ell) is
+    `core.encoding.generator_matrix` drawn from a `torch.Generator` on
+    xs's device seeded with keys[i] (an (n,) sequence of ints), or, when
+    `keys` is callable, keys(i) itself.  xs: (n, ell, d), ys: (n, ell),
+    weights: (n, ell).  One tile is resolved at (c, ell, d) for every
+    client; the streaming is `core.encoding.encode_fleet_streamed`'s.
+    """
+    from functools import partial
+
+    from repro_torch.core.encoding import (encode_fleet_streamed,
+                                           generator_matrix)
+
+    n, ell, d = xs.shape
+    if callable(keys):
+        g_source = keys
+    else:
+        seeds = [int(k) for k in keys]
+        if len(seeds) != n:
+            raise ValueError(f"keys has {len(seeds)} seeds for {n} clients")
+
+        def g_source(i):
+            gen = torch.Generator(device=xs.device).manual_seed(seeds[i])
+            return generator_matrix(gen, c, ell, kind=kind, dtype=xs.dtype)
+    if xs.device.type == "cuda":
+        block = _encode_tile((c, ell, d), block, xs.device)
+    return encode_fleet_streamed(g_source, xs, ys, weights, c,
+                                 partial(encode_parity, block=block))

@@ -15,6 +15,17 @@ CTAs' float64 partials itself, in a fixed order, behind a ticket counter
 and a generation word: two zeroed int32 per (device, stream); every
 launch leaves the counter at 0.  The kernels sum in float64 and round
 once to float32.
+
+Row tiles: each wrapper takes `block_m`, the rows a CTA owns (a positive
+multiple of 8, the CTA's warps), or 0 for the kernel's own partition
+(`rows_per_cta`).  `block_m="auto"` (the default) reads
+the tune cache (`repro_torch.tune`): the three round-gradient variants
+resolve against the family "round_grad" at the systematic block's
+`(m, d)`, so the flat, coded and tiered launches of one workload share a
+tile (T = 1 stays bit-equal to flat, a sweep lane to its solo run), and
+`lsq_gradient` against "coded_grad" at `(m, d)`.  A cold miss passes 0,
+bit for bit the launch of a wrapper without tiles.  The coded kernel uses a given tile for both
+of its row blocks.  On the CPU the tile means nothing and is ignored.
 """
 from __future__ import annotations
 
@@ -23,8 +34,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (LaunchCounter, check_cuda_operand,
-                                       refuse_grad)
+from repro_torch.kernels.common import (AUTO, LaunchCounter,
+                                       check_cuda_operand, refuse_grad,
+                                       resolve_block)
 
 from . import ref
 
@@ -35,15 +47,47 @@ LSQ_COUNTER = LaunchCounter()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES: build.Signatures = {
-    "rg_masked_round_gradient": ([_P] * 7 + [_I, _I, _P], _I),
-    "rg_tier_round_gradient": ([_P] * 4 + [_I] + [_P] * 4 + [_I, _I, _P],
-                               _I),
+    "rg_masked_round_gradient": ([_P] * 7 + [_I, _I, _I, _P], _I),
+    "rg_tier_round_gradient": ([_P] * 4 + [_I] + [_P] * 4
+                               + [_I, _I, _I, _P], _I),
     "rg_coded_round_gradient": ([_P] * 3 + [_I] + [_P] * 3 + [_I]
-                                + [_P] * 4 + [_I, _P], _I),
-    "rg_lsq_gradient": ([_P] * 6 + [_I, _I, _P], _I),
+                                + [_P] * 4 + [_I, _I, _P], _I),
+    "rg_lsq_gradient": ([_P] * 6 + [_I, _I, _I, _P], _I),
     "rg_num_ctas": ([_I], _I),
     "rg_max_d": ([], _I),
 }
+
+# the CTA's warps (a row tile is a multiple of them) and the CTAs the
+# kernels' own partition aims at (csrc/round_grad.cu: kWarps, kTargetCtas)
+WARPS = 8
+TARGET_CTAS = 128
+
+
+def rows_per_cta(m: int) -> int:
+    """Rows a CTA owns in the kernels' own partition: ~m / 128 rounded up
+    to a multiple of the 8 warps, at least 8 (`rows_per_cta` of
+    csrc/round_grad.cu at tile 0, the partition block_m=0 launches)."""
+    r = -(-m // TARGET_CTAS)
+    return max(WARPS, -(-r // WARPS) * WARPS)
+
+
+def _tile(family: str, x: torch.Tensor, block_m) -> int:
+    """The row tile a launch over x takes: `block_m` resolved against the
+    tune cache at x's (m, d) and checked; 0 for the kernel's own
+    partition."""
+    tile = resolve_block(family, tuple(x.shape), block_m, 0, x.device)
+    if isinstance(tile, (tuple, list)):  # a family's (block_m,)
+        (tile,) = tile
+    tile = int(tile)
+    if tile < 0 or tile % WARPS:
+        raise ValueError(f"block_m must be 0 or a positive multiple of "
+                         f"{WARPS}, got {tile}")
+    return tile
+
+
+def _n_ctas(lib, rows: int, tile: int) -> int:
+    """CTAs (float64 partials) over `rows` rows at `tile`."""
+    return lib.rg_num_ctas(rows) if tile == 0 else max(1, -(-rows // tile))
 
 
 def _dispatch(device: torch.device):
@@ -102,71 +146,78 @@ def _ticket(device: torch.device) -> int:
 
 
 def masked_round_gradient(x: torch.Tensor, y: torch.Tensor,
-                          w: torch.Tensor | None,
-                          beta: torch.Tensor) -> torch.Tensor:
+                          w: torch.Tensor | None, beta: torch.Tensor,
+                          block_m=AUTO) -> torch.Tensor:
     """g = (w * (X beta - y)) @ X in one pass over X; w=None means w = 1.
 
     x: (M, D), y/w: (M,), beta: (D,), all float32 -> (D,) float32.
+    block_m: the row tile (see the module docstring).
     """
     lib = _dispatch(x.device)
     if lib is None:
         return ref.masked_round_gradient(x, y, w, beta)
     refuse_grad("masked_round_gradient", x, y, w, beta)
     m, d = _check_rows(lib, x, y, w, beta)
+    tile = _tile("round_grad", x, block_m)
     out = torch.empty(d, dtype=torch.float32, device=x.device)
     if d == 0:
         return out
-    partials = torch.empty((lib.rg_num_ctas(m), d), dtype=torch.float64,
+    partials = torch.empty((_n_ctas(lib, m, tile), d), dtype=torch.float64,
                            device=x.device)
     status = lib.rg_masked_round_gradient(
         x.data_ptr(), y.data_ptr(), _ptr(w), beta.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), _ticket(x.device), m, d,
+        partials.data_ptr(), out.data_ptr(), _ticket(x.device), m, d, tile,
         _stream(x.device))
     build.check_status(lib, status, "masked_round_gradient")
-    COUNTER.launches += 1
+    COUNTER.add((tile,))
     return out
 
 
-def lsq_gradient(a: torch.Tensor, y: torch.Tensor,
-                 beta: torch.Tensor) -> torch.Tensor:
+def lsq_gradient(a: torch.Tensor, y: torch.Tensor, beta: torch.Tensor,
+                 block_m=AUTO) -> torch.Tensor:
     """g = A^T (A beta - y) in one pass over A (the least-squares gradient).
 
     a: (M, D), y: (M,), beta: (D,), all float32 -> (D,) float32.  The
     kernel is the flat one's one-tier instance with no weights, so the
-    result is bit-equal to `masked_round_gradient(a, y, None, beta)`.
+    result is bit-equal to `masked_round_gradient(a, y, None, beta)` at
+    the same row tile.  block_m="auto" resolves against the family
+    "coded_grad".
     """
     lib = _dispatch(a.device)
     if lib is None:
         return ref.lsq_gradient(a, y, beta)
     refuse_grad("lsq_gradient", a, y, beta)
     m, d = _check_rows(lib, a, y, None, beta, name="a")
+    tile = _tile("coded_grad", a, block_m)
     out = torch.empty(d, dtype=torch.float32, device=a.device)
     if d == 0:
         return out
-    partials = torch.empty((lib.rg_num_ctas(m), d), dtype=torch.float64,
+    partials = torch.empty((_n_ctas(lib, m, tile), d), dtype=torch.float64,
                            device=a.device)
     status = lib.rg_lsq_gradient(
         a.data_ptr(), y.data_ptr(), beta.data_ptr(), partials.data_ptr(),
-        out.data_ptr(), _ticket(a.device), m, d, _stream(a.device))
+        out.data_ptr(), _ticket(a.device), m, d, tile, _stream(a.device))
     build.check_status(lib, status, "lsq_gradient")
-    LSQ_COUNTER.launches += 1
+    LSQ_COUNTER.add((tile,))
     return out
 
 
 def coded_round_gradient(x: torch.Tensor, y: torch.Tensor,
                          w: torch.Tensor | None, x_par: torch.Tensor,
-                         y_par: torch.Tensor, w_par,
-                         beta: torch.Tensor) -> torch.Tensor:
+                         y_par: torch.Tensor, w_par, beta: torch.Tensor,
+                         block_m=AUTO) -> torch.Tensor:
     """g_sys + g_par = (w * (X beta - y)) @ X + (w_par * (X~ beta - y~)) @ X~
     in one launch over both row blocks.
 
     x: (M, D), y/w: (M,), x_par: (C, D), y_par: (C,), w_par: (C,) or a
     scalar (0-d tensor or number, broadcast over the parity rows), beta:
     (D,), all float32 -> (D,) float32.  An empty parity block (C == 0)
-    runs the flat masked kernel instead, as the reference does.
+    runs the flat masked kernel instead, as the reference does.  The row
+    tile resolves at the systematic block's (M, D) and, given, serves
+    both blocks.
     """
     if x_par.shape[0] == 0:
-        return masked_round_gradient(x, y, w, beta)
+        return masked_round_gradient(x, y, w, beta, block_m=block_m)
     w_par = torch.broadcast_to(
         torch.as_tensor(w_par, dtype=y_par.dtype, device=y_par.device),
         y_par.shape).contiguous()
@@ -178,33 +229,34 @@ def coded_round_gradient(x: torch.Tensor, y: torch.Tensor,
     c, _ = _check_rows(lib, x_par, y_par, w_par, beta, name="x_par")
     if x_par.shape[1] != d:
         raise ValueError(f"x_par has D={x_par.shape[1]}, x has D={d}")
+    tile = _tile("round_grad", x, block_m)
     out = torch.empty(d, dtype=torch.float32, device=x.device)
     if d == 0:
         return out
-    n_parts = lib.rg_num_ctas(m) + lib.rg_num_ctas(c)
+    n_parts = _n_ctas(lib, m, tile) + _n_ctas(lib, c, tile)
     partials = torch.empty((n_parts, d), dtype=torch.float64,
                            device=x.device)
     status = lib.rg_coded_round_gradient(
         x.data_ptr(), y.data_ptr(), _ptr(w), m, x_par.data_ptr(),
         y_par.data_ptr(), w_par.data_ptr(), c, beta.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), _ticket(x.device), d,
+        partials.data_ptr(), out.data_ptr(), _ticket(x.device), d, tile,
         _stream(x.device))
     build.check_status(lib, status, "coded_round_gradient")
-    CODED_COUNTER.launches += 1
+    CODED_COUNTER.add((tile,))
     return out
 
 
 def tier_masked_round_gradient(x: torch.Tensor, y: torch.Tensor,
                                w: torch.Tensor | None,
-                               tier_masks: torch.Tensor,
-                               beta: torch.Tensor) -> torch.Tensor:
+                               tier_masks: torch.Tensor, beta: torch.Tensor,
+                               block_m=AUTO) -> torch.Tensor:
     """(T, D) tier partials, partial[t] = ((w * mask_t) * (X beta - y)) @ X,
     with one pass over X shared by all T tiers; w=None means w = 1.
 
     x: (M, D), y/w: (M,), tier_masks: (T, M), beta: (D,), all float32.
     At T = 1 with an all-ones mask the result is bit-equal to
-    `masked_round_gradient` (one kernel body, the same row ranges and
-    reduction order, and w * 1.0 is exact).
+    `masked_round_gradient` at the same row tile (one kernel body, the
+    same row ranges and reduction order, and w * 1.0 is exact).
     """
     lib = _dispatch(x.device)
     if lib is None:
@@ -217,15 +269,16 @@ def tier_masked_round_gradient(x: torch.Tensor, y: torch.Tensor,
             f"{tuple(tier_masks.shape)}")
     nt = int(tier_masks.shape[0])
     check_cuda_operand("tier_masks", tier_masks, (nt, m), x.device)
+    tile = _tile("round_grad", x, block_m)
     out = torch.empty((nt, d), dtype=torch.float32, device=x.device)
     if d == 0:
         return out
-    partials = torch.empty((nt, lib.rg_num_ctas(m), d), dtype=torch.float64,
-                           device=x.device)
+    partials = torch.empty((nt, _n_ctas(lib, m, tile), d),
+                           dtype=torch.float64, device=x.device)
     status = lib.rg_tier_round_gradient(
         x.data_ptr(), y.data_ptr(), _ptr(w), tier_masks.data_ptr(), nt,
         beta.data_ptr(), partials.data_ptr(), out.data_ptr(),
-        _ticket(x.device), m, d, _stream(x.device))
+        _ticket(x.device), m, d, tile, _stream(x.device))
     build.check_status(lib, status, "tier_masked_round_gradient")
-    TIER_COUNTER.launches += 1
+    TIER_COUNTER.add((tile,))
     return out

@@ -46,7 +46,17 @@ Bounds:
     the fleet-scale 128 x 8 x 33; relaunches bit-identical; the fleet
     encoders' one-tier tiered run `torch.equal` to the flat one.
   * least-squares gradient: the float64 bound of the round gradient, and
-    `torch.equal` to the flat kernel at w = None (the same instance).
+    `torch.equal` to the flat kernel at w = None and the same row tile
+    (the same instance).
+  * tiles: every candidate tile of every tune family (kernels 1, 4 and 5
+    at each "round_grad" row tile, 6 at each "coded_grad" one, 2 at
+    each CTA tile, 3 at its one tile) within its kernel's bounds above,
+    at the §IV shapes and ragged ones; a cold miss of `block="auto"`
+    `torch.equal` to the explicit default tile; a cache hit launching
+    the stored tile; the library's partition and tile list equal to the
+    Python mirrors the tuner and the roofline read; the keyed
+    `encode_fleet` within 2e-4 * max|ref| of the plain streamed encode;
+    `python -m repro_torch.tune` writing a `cuda-sm90` entry.
   * SSD intra-chunk step (kernel 7): against its plain version within
     rtol 1e-4 and atol 1e-4 * max(1, max|ref|) (`tests/test_kernels.py`),
     at the synthetic decays (da = -0.1 |N(0, 1)|) and at the model's own
@@ -92,6 +102,7 @@ from repro_torch.fleet import FleetTopology, HierarchicalCFL, HierState
 from repro_torch.device import resolve_device
 from repro_torch.fleet import encode_fleet_tiered
 from repro_torch.kernels.coded_grad import ops as cg_ops
+from repro_torch.kernels.common import resolve_block
 from repro_torch.kernels.coded_grad import ref as cg_ref
 from repro_torch.kernels.encode import ops as enc_ops
 from repro_torch.kernels.encode import prng
@@ -786,7 +797,9 @@ def test_lsq_kernel_matches_plain(cuda, m, d):
     got = cg_ops.lsq_gradient(a, y, beta)
     again = cg_ops.lsq_gradient(a, y, beta)
     plain = cg_ref.lsq_gradient(a, y, beta)
-    flat = rg_ops.masked_round_gradient(a, y, None, beta)
+    # the flat kernel at the row tile lsq_gradient's "auto" resolved
+    tile = resolve_block("coded_grad", (m, d), "auto", 0, cuda)
+    flat = rg_ops.masked_round_gradient(a, y, None, beta, block_m=tile)
     torch.cuda.synchronize()
     assert (cg_ops.COUNTER.launches, rg_ops.COUNTER.launches) == \
         (before[0] + 2, before[1] + 1)
@@ -1276,3 +1289,253 @@ def test_kernel_wrappers_refuse_grad_on_the_card(cuda, name):
         call(lambda t: t.clone().requires_grad_())
     torch.cuda.synchronize()
     assert counter.launches == before + 2
+
+
+# -- tiles and the tune cache ----------------------------------------------
+
+@pytest.fixture
+def tile_cache(tmp_path, monkeypatch):
+    """The user tile cache in a fresh directory (the committed defaults
+    are still read behind it)."""
+    from repro_torch.tune import cache as tune_cache
+
+    monkeypatch.setenv(tune_cache.CACHE_ENV, str(tmp_path))
+    return tune_cache.TileCache(tune_cache.user_cache_path())
+
+
+def test_library_partition_and_tiles_match_the_mirrors(cuda):
+    """The kernels' own row partition, as the library reports it, equals
+    the Python mirror that the families and the roofline read; kernel 2's
+    library launches every tile of the mirror `TILES` and refuses a tile
+    it does not instantiate."""
+    lib = rg_ops._dispatch(cuda)
+    for m in list(range(1, 3000, 7)) + [5632, 7200, 9216, 100_000]:
+        assert lib.rg_num_ctas(m) == -(-m // rg_ops.rows_per_cta(m)), m
+    enc = enc_ops._dispatch(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    c, ell, d = 200, 64, 96
+    g = torch.randn((c, ell), generator=gen, device=cuda)
+    w = torch.rand((ell,), generator=gen, device=cuda)
+    x = torch.randn((ell, d), generator=gen, device=cuda)
+    want = enc_ref.encode_parity(g, w, x)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def launch(tile):
+        out = torch.full((c, d), float("nan"), device=cuda)
+        status = enc.enc_encode_parity(g.data_ptr(), w.data_ptr(),
+                                       x.data_ptr(), out.data_ptr(), c, ell,
+                                       d, *tile, stream)
+        return status, out
+
+    for tile in enc_ops.TILES:
+        status, out = launch(tile)
+        assert status == 0, tile
+        torch.testing.assert_close(out, want, rtol=2e-4,
+                                   atol=2e-4 * float(want.abs().max()))
+    for tile in [(32, 64, 32), (128, 64, 16), (256, 64, 32)]:
+        assert launch(tile)[0] != 0, tile
+
+
+@pytest.mark.parametrize("m,d", [(5632, 500), (37, 13), (700, 2999)])
+def test_every_row_tile_within_the_bound(cuda, m, d):
+    """Kernels 1, 4 and 5 at every "round_grad" candidate and kernel 6 at
+    every "coded_grad" candidate (ragged against 8-row tiles and 512
+    columns, and the 4-byte copy instance at D = 2999)."""
+    from repro_torch.tune.families import FAMILIES
+
+    gen = torch.Generator(device=cuda).manual_seed(m + d)
+    x, y, w = _rg_operands(gen, cuda, m, d, "zero_rows")
+    beta = torch.randn((d,), generator=gen, device=cuda)
+    c = max(1, m // 3)
+    xp = torch.randn((c, d), generator=gen, device=cuda)
+    yp = torch.randn((c,), generator=gen, device=cuda)
+    masks = (torch.rand((3, m), generator=gen, device=cuda) < 0.5).float()
+    for (tile,) in FAMILIES["round_grad"].candidate_blocks((m, d),
+                                                           "cuda-sm90"):
+        flat = rg_ops.masked_round_gradient(x, y, w, beta, block_m=tile)
+        again = rg_ops.masked_round_gradient(x, y, w, beta, block_m=tile)
+        coded = rg_ops.coded_round_gradient(x, y, w, xp, yp, 0.5, beta,
+                                            block_m=tile)
+        tier = rg_ops.tier_masked_round_gradient(x, y, w, masks, beta,
+                                                 block_m=tile)
+        one = rg_ops.tier_masked_round_gradient(
+            x, y, w, torch.ones((1, m), device=cuda), beta, block_m=tile)
+        torch.cuda.synchronize()
+        _held_to_float64(f"flat {tile}", flat, x, y, w, beta)
+        _held_to_float64(f"coded {tile}", coded, torch.cat([x, xp]),
+                         torch.cat([y, yp]),
+                         torch.cat([w, torch.full((c,), 0.5, device=cuda)]),
+                         beta)
+        _held_to_float64(f"tier {tile}", tier, x, y, w, beta, masks)
+        assert torch.equal(flat, again) and torch.equal(one[0], flat)
+    for (tile,) in FAMILIES["coded_grad"].candidate_blocks((m, d),
+                                                           "cuda-sm90"):
+        got = cg_ops.lsq_gradient(x, y, beta, block_m=tile)
+        flat = rg_ops.masked_round_gradient(x, y, None, beta, block_m=tile)
+        torch.cuda.synchronize()
+        _held_to_float64(f"lsq {tile}", got, x, y, None, beta)
+        assert torch.equal(got, flat)
+
+
+@pytest.mark.parametrize("c,ell,d", [(2016, 300, 501), (359, 100, 257),
+                                     (131, 37, 67), (2160, 300, 513)])
+def test_every_encode_tile_within_the_bound(cuda, c, ell, d):
+    """Kernel 2 at every candidate CTA tile: 2e-4 * max|ref| of the plain
+    version, the float64 bound, relaunches bit-identical."""
+    from repro_torch.tune.families import FAMILIES
+
+    gen = torch.Generator(device=cuda).manual_seed(c + ell + d)
+    g = torch.randn((c, ell), generator=gen, device=cuda)
+    w = torch.rand((ell,), generator=gen, device=cuda)
+    x = torch.randn((ell, d), generator=gen, device=cuda)
+    want = enc_ref.encode_parity(g, w, x)
+    p64, bound64 = enc_ops.float64_reference_and_bound(g, w, x)
+    tiles = FAMILIES["encode"].candidate_blocks((c, ell, d), "cuda-sm90")
+    assert tiles == list(enc_ops.TILES)
+    for tile in tiles:
+        got = enc_ops.encode_parity(g, w, x, block=tile)
+        again = enc_ops.encode_parity(g, w, x, block=tile)
+        torch.cuda.synchronize()
+        bound = 2e-4 * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=bound)
+        err = (got.double() - p64).abs()
+        assert bool((err <= bound64).all()), \
+            f"{tile}: max err/bound {float((err / bound64).max()):.3g}"
+        assert torch.equal(got, again)
+
+
+def test_encode_prng_tile_within_the_bound(cuda, tile_cache):
+    """Kernel 3 at its one tile, explicit and "auto"; "auto" reads no
+    cache (a stored entry under "encode_prng" is not launched)."""
+    c, ell, d = 2016, 300, 501
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    key = prng.prng_key(3)
+    w = torch.rand((ell,), generator=gen, device=cuda)
+    x = torch.randn((ell, d), generator=gen, device=cuda)
+    tile_cache.store("encode_prng", (c, ell, d), "cuda-sm90", (64, 512, 32))
+    enc_ops.PRNG_COUNTER.reset()
+    got = enc_ops.encode_parity_prng(key, w, x, c, block=enc_ops.PRNG_BLOCK)
+    auto = enc_ops.encode_parity_prng(key, w, x, c)
+    assert enc_ops.PRNG_COUNTER.tiles == {enc_ops.PRNG_BLOCK: 2}
+    g = prng.generator_values(key, c, ell, "normal", device=cuda)
+    p64, bound64 = enc_ops.float64_reference_and_bound(g, w, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, auto)
+    err = (got.double() - p64).abs()
+    assert bool((err <= bound64).all())
+    with pytest.raises(ValueError, match="one tile"):
+        enc_ops.encode_parity_prng(key, w, x, c, block=(64, 512, 32))
+
+
+def _tile_calls(cuda, m=3000, c=2900, d=500):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x, y, w = _rg_operands(gen, cuda, m, d, "random")
+    beta = torch.randn((d,), generator=gen, device=cuda)
+    xp = torch.randn((c, d), generator=gen, device=cuda)
+    yp = torch.randn((c,), generator=gen, device=cuda)
+    masks = (torch.rand((3, m), generator=gen, device=cuda) < 0.5).float()
+    g = torch.randn((1000, 300), generator=gen, device=cuda)
+    we = torch.rand((300,), generator=gen, device=cuda)
+    xe = torch.randn((300, 501), generator=gen, device=cuda)
+    key = prng.prng_key(4)
+    # {kernel: (family, shape, counter, call of block)}
+    return {
+        "flat": ("round_grad", (m, d), rg_ops.COUNTER,
+                 lambda b: rg_ops.masked_round_gradient(x, y, w, beta,
+                                                        block_m=b)),
+        "coded": ("round_grad", (m, d), rg_ops.CODED_COUNTER,
+                  lambda b: rg_ops.coded_round_gradient(
+                      x, y, w, xp, yp, 0.5, beta, block_m=b)),
+        "tier": ("round_grad", (m, d), rg_ops.TIER_COUNTER,
+                 lambda b: rg_ops.tier_masked_round_gradient(
+                     x, y, w, masks, beta, block_m=b)),
+        "lsq": ("coded_grad", (m, d), rg_ops.LSQ_COUNTER,
+                lambda b: rg_ops.lsq_gradient(x, y, beta, block_m=b)),
+        "encode": ("encode", (1000, 300, 501), enc_ops.COUNTER,
+                   lambda b: enc_ops.encode_parity(g, we, xe, block=b)),
+        "encode_prng": ("encode_prng", (1000, 300, 501),
+                        enc_ops.PRNG_COUNTER,
+                        lambda b: enc_ops.encode_parity_prng(
+                            key, we, xe, 1000, block=b)),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["flat", "coded", "tier", "lsq",
+                                    "encode", "encode_prng"])
+def test_cold_miss_is_the_default_tile(cuda, tile_cache, kernel):
+    """At a shape whose bucket no cache holds, "auto" launches the
+    kernel's default (the round gradients' own partition, 24 rows a CTA
+    for both 3000 and 2900 rows), `torch.equal` to the explicit tile."""
+    from repro_torch.tune import cache as tune_cache
+    from repro_torch.tune.families import FAMILIES
+
+    family, shape, counter, call = _tile_calls(cuda)[kernel]
+    assert tune_cache.lookup_entry(family, shape, "cuda-sm90") is None
+    default = enc_ops.PRNG_BLOCK if family == "encode_prng" \
+        else FAMILIES[family].default_block(shape)
+    if family in ("round_grad", "coded_grad"):  # (0,): the rows it gives
+        assert default == (0,)
+        default = (rg_ops.rows_per_cta(shape[0]),)
+    counter.reset()
+    cold = call("auto")
+    explicit = call(default if len(default) > 1 else default[0])
+    torch.cuda.synchronize()
+    assert torch.equal(cold, explicit)
+    assert counter.launches == 2
+    if family in ("round_grad", "coded_grad"):
+        assert counter.tiles == {(0,): 1, default: 1}
+
+
+@pytest.mark.parametrize("kernel,tile", [
+    ("flat", (64,)), ("coded", (16,)), ("tier", (128,)), ("lsq", (32,)),
+    ("encode", (64, 128, 32))])
+def test_cache_hit_launches_the_stored_tile(cuda, tile_cache, kernel, tile):
+    family, shape, counter, call = _tile_calls(cuda)[kernel]
+    tile_cache.store(family, shape, "cuda-sm90", tile)
+    counter.reset()
+    got = call("auto")
+    assert counter.tiles == {tile: 1}
+    explicit = call(tile if len(tile) > 1 else tile[0])
+    torch.cuda.synchronize()
+    assert torch.equal(got, explicit)
+
+
+def test_keyed_encode_fleet_on_the_card(cuda):
+    """`encode_fleet` (kernel 2 once per client, G_i from the clients'
+    seeds) within 2e-4 * max|ref| of the plain streamed encode with the
+    same G_i."""
+    from repro_torch.core.encoding import (encode_fleet_streamed,
+                                           generator_matrix)
+
+    n, ell, d, c = 5, 40, 33, 70
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    xs = torch.randn((n, ell, d), generator=gen, device=cuda)
+    ys = torch.randn((n, ell), generator=gen, device=cuda)
+    ws = torch.rand((n, ell), generator=gen, device=cuda)
+    seeds = [11 * i + 1 for i in range(n)]
+    before = enc_ops.COUNTER.launches
+    got = torch.cat([t.reshape(c, -1) for t in
+                     enc_ops.encode_fleet(seeds, xs, ys, ws, c)], dim=1)
+    assert enc_ops.COUNTER.launches == before + n
+
+    def g_source(i):
+        g_i = torch.Generator(device=cuda).manual_seed(seeds[i])
+        return generator_matrix(g_i, c, ell)
+
+    want = torch.cat([t.reshape(c, -1) for t in encode_fleet_streamed(
+        g_source, xs, ys, ws, c, enc_ref.encode_parity)], dim=1)
+    torch.testing.assert_close(got, want, rtol=2e-4,
+                               atol=2e-4 * float(want.abs().max()))
+
+
+def test_tune_cli_writes_a_card_entry(cuda, tile_cache):
+    """`python -m repro_torch.tune --family round_grad --shape 5632x500`
+    tunes on the card and stores a `cuda-sm90` entry naming the card."""
+    from repro_torch.tune import __main__ as cli
+
+    assert cli.main(["--family", "round_grad", "--shape", "5632x500",
+                     "--iters", "5"]) == 0
+    ent = tile_cache.lookup("round_grad", (5632, 500), "cuda-sm90")
+    assert ent is not None and ent["source"] == "measured"
+    assert ent["bound_us"] > 0 and ent["us"] > 0
+    assert ent["device"] and ent["device"] != "cpu"

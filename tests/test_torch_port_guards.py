@@ -332,6 +332,179 @@ def test_resolve_block_and_counter():
     assert counter.launches == 0
 
 
+@pytest.fixture
+def tile_cache(tmp_path, monkeypatch):
+    """The port's user tile cache in a fresh directory."""
+    from repro_torch.tune import cache as tune_cache
+
+    monkeypatch.setenv(tune_cache.CACHE_ENV, str(tmp_path))
+    return tune_cache.TileCache(tune_cache.user_cache_path())
+
+
+def test_resolve_block_reads_the_cache(tile_cache):
+    """"auto" returns a stored tile for the operands' backend (an int for
+    a 1-d family), and the default on a cold miss."""
+    assert common.resolve_block("coded_grad", (96, 12), "auto", 0) == 0
+    tile_cache.store("coded_grad", (96, 12), "cpu", (32,))
+    tile_cache.store("encode", (64, 48, 32), "cpu", (64, 64, 32))
+    assert common.resolve_block("coded_grad", (96, 12), "auto", 0) == 32
+    assert common.resolve_block("coded_grad", (100, 9), "auto", 0,
+                                "cpu") == 32  # the same bucket
+    assert common.resolve_block("encode", (64, 48, 32), "auto",
+                                (128, 64, 32)) == (64, 64, 32)
+    assert common.resolve_block("encode", (64, 48, 32), (64, 32, 32),
+                                (128, 64, 32)) == (64, 32, 32)
+    assert common.resolve_block("round_grad", (96, 12), "auto", 0) == 0
+    tile_cache.store("round_grad", (5632, 500), "cuda-sm90", (48,))
+    assert common.resolve_block("round_grad", (5632, 500), "auto", 0,
+                                "cpu") == 0  # another backend's entry
+
+
+def test_resolve_block_is_memoized_until_a_store(tile_cache, monkeypatch,
+                                                tmp_path):
+    """"auto" is looked up once per (family, shape, device, user cache
+    directory): a wrapper resolves on every launch.  A store clears the
+    memo; a file changed by other means is read after
+    `forget_resolved()`."""
+    import json
+
+    from repro_torch.tune import cache as tune_cache
+
+    calls = []
+    lookup = tune_cache.lookup_block
+    monkeypatch.setattr(tune_cache, "lookup_block",
+                        lambda *a: calls.append(a) or lookup(*a))
+    for _ in range(3):
+        assert common.resolve_block("coded_grad", (96, 12), "auto", 0,
+                                    "cpu") == 0
+    assert len(calls) == 1
+    tile_cache.store("coded_grad", (96, 12), "cpu", (32,))
+    for _ in range(2):
+        assert common.resolve_block("coded_grad", (96, 12), "auto", 0,
+                                    "cpu") == 32
+    assert len(calls) == 2
+    payload = json.load(open(tile_cache.path))
+    payload["entries"]["coded_grad|cpu|128x16"]["block"] = [40]
+    with open(tile_cache.path, "w") as f:
+        json.dump(payload, f)
+    assert common.resolve_block("coded_grad", (96, 12), "auto", 0,
+                                "cpu") == 32
+    tune_cache.forget_resolved()
+    assert common.resolve_block("coded_grad", (96, 12), "auto", 0,
+                                "cpu") == 40
+    monkeypatch.setenv(tune_cache.CACHE_ENV, str(tmp_path / "other"))
+    assert common.resolve_block("coded_grad", (96, 12), "auto", 0,
+                                "cpu") == 0
+    assert len(calls) == 4
+
+
+@pytest.mark.parametrize("package", ["tune", "roofline"])
+def test_tune_and_roofline_import_no_jax_or_repro(package):
+    files = sorted((PORT / package).rglob("*.py"))
+    assert len(files) >= 2
+    module = "tuner" if package == "tune" else "analysis"
+    code = (f"import sys, repro_torch.{package}.{module}"
+            "\nbad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\nassert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [node.module.split(".")[0]]
+            else:
+                continue
+            assert not set(roots) & {"jax", "jaxlib", "repro"}, \
+                f"{path}:{node.lineno} imports {roots}"
+
+
+def test_tune_entry_points_default_to_cuda_and_raise_without_it(
+        no_cuda, tile_cache, monkeypatch):
+    """`python -m repro_torch.tune` and `tune.autotune` run on the card by
+    default and raise without one; `--device cpu` tunes the CPU backend
+    (its one candidate, timed here by an injected measure)."""
+    from repro_torch import tune
+    from repro_torch.tune import __main__ as cli
+    from repro_torch.tune import tuner
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--family", "round_grad", "--shape", "5632x500"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tune.autotune("round_grad", (5632, 500))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tune.autotune("round_grad", (5632, 500), store=False,
+                      terms_fn=lambda b: {"t_compute": 1.0, "t_memory": 1.0},
+                      measure_fn=lambda b: 1.0)
+    assert tile_cache.lookup("round_grad", (5632, 500), "cpu") is None
+    monkeypatch.setattr(tuner, "measure", lambda fn, args, iters: 3.0)
+    assert cli.main(["--family", "coded_grad", "--shape", "64x8",
+                     "--device", "cpu"]) == 0
+    ent = tile_cache.lookup("coded_grad", (64, 8), "cpu")
+    assert ent["block"] == [0] and ent["us"] == 3.0 and ent["device"] == "cpu"
+
+
+def test_row_tile_reaches_the_launch(monkeypatch, tile_cache):
+    """On the kernel route the row tile goes to the C entry point (0 for
+    the kernel's own partition) and sizes the float64 partials; "auto"
+    reads the cache; a tile that is not a multiple of 8 is refused."""
+    lib = mock.MagicMock()
+    lib.rg_max_d.return_value = 5810
+    lib.rg_num_ctas.side_effect = lambda m: -(-m // 16)
+    lib.rg_masked_round_gradient.return_value = 0
+    lib.rg_coded_round_gradient.return_value = 0
+    monkeypatch.setattr(rg_ops, "_dispatch", lambda device: lib)
+    monkeypatch.setattr(rg_ops, "_stream", lambda device: 0)
+    shapes = []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        shapes.append(tuple(shape[0]) if isinstance(shape[0], tuple)
+                      else shape)
+        return real_empty(*shape, **kw)
+
+    monkeypatch.setattr(rg_ops.torch, "empty", empty)
+    x, y, w, b = _rg_operands()  # m = 20, d = 6
+    rg_ops.COUNTER.reset()
+    rg_ops.masked_round_gradient(x, y, w, b)
+    rg_ops.masked_round_gradient(x, y, w, b, block_m=8)
+    tile_cache.store("round_grad", (20, 6), "cpu", (16,))
+    rg_ops.masked_round_gradient(x, y, w, b)
+    tiles = [c.args[9] for c in lib.rg_masked_round_gradient.call_args_list]
+    assert tiles == [0, 8, 16]
+    assert [s for s in shapes if len(s) == 2] == [(2, 6), (3, 6), (2, 6)]
+    assert rg_ops.COUNTER.tiles == {(0,): 1, (8,): 1, (16,): 1}
+    rg_ops.coded_round_gradient(x, y, w, x[:5], y[:5], 0.5, b, block_m=8)
+    assert lib.rg_coded_round_gradient.call_args.args[13] == 8
+    assert shapes[-1] == (3 + 1, 6)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        rg_ops.masked_round_gradient(x, y, w, b, block_m=12)
+
+
+def test_encode_tile_reaches_the_launch(monkeypatch, tile_cache):
+    lib = mock.MagicMock()
+    lib.enc_encode_parity.return_value = 0
+    monkeypatch.setattr(enc_ops, "_dispatch", lambda device: lib)
+    monkeypatch.setattr(enc_ops, "check_cuda_operand", lambda *a: None)
+    monkeypatch.setattr(enc_ops.torch.cuda, "current_stream",
+                        lambda device: mock.MagicMock(cuda_stream=0))
+    g, w, x = torch.ones(6, 5), torch.ones(5), torch.ones(5, 4)
+    enc_ops.COUNTER.reset()
+    enc_ops.encode_parity(g, w, x)
+    enc_ops.encode_parity(g, w, x, block=(64, 128, 32))
+    tile_cache.store("encode", (6, 5, 4), "cpu", (128, 32, 32))
+    enc_ops.encode_parity(g, w, x)
+    assert [c.args[7:10] for c in lib.enc_encode_parity.call_args_list] == \
+        [(128, 64, 32), (64, 128, 32), (128, 32, 32)]
+    assert enc_ops.COUNTER.tiles == {(128, 64, 32): 1, (64, 128, 32): 1,
+                                     (128, 32, 32): 1}
+    with pytest.raises(ValueError, match="no tile"):
+        enc_ops.encode_parity(g, w, x, block=(32, 32, 32))
+
+
 def _key():
     return np.array([0, 42], dtype=np.uint32)
 
