@@ -46,12 +46,17 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      `torch.equal` to the flat kernel at w = None; the SSD intra-chunk
      step (kernel 7) at the serving shape of mamba2-1.3b (B, nc, Q, H,
      P, N) = (1, 8, 256, 64, 64, 128) with one group and with per-head B
-     and C, at the reduced mamba2's (Q 16, P 32, N 16) and at an odd Q,
+     and C, at zamba2-1.2b's (1, 8, 256, 64, 64, 64) with one group (also
+     within the float64 rounding bound of
+     `kernels.ssd.ref.float64_reference_and_bound`), at the reduced
+     mamba2's (Q 16, P 32, N 16) and at an odd Q,
      within rtol 1e-4 / atol 1e-4 * max(1, max|ref|)
      (`tests/test_kernels.py`), relaunches bit-identical; causal flash
      attention (kernel 8) at the serving shape of granite-8b (B, Hq, Hkv,
-     S, D) = (1, 32, 8, 2048, 128), at S = 100 and 1537, at D = 64 and at
-     one and three query heads per key/value head: kernel and plain
+     S, D) = (1, 32, 8, 2048, 128), at S = 100 and 1537, at D = 64, at
+     one and three query heads per key/value head, and at the 2048-token
+     prefills of zamba2-1.2b (1, 32, 32, 2048, 64) and mistral-large-123b
+     (1, 96, 8, 2048, 128): kernel and plain
      version both within the float32 rounding bound of the float64 value
      (`kernels.flash_attn.ref.float64_reference_and_bound`, derived
      before the first run), within rtol 2e-4 / atol 2e-4 of each other
@@ -147,7 +152,10 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      with the scores once per head is printed beside it); kernel 3's
      operations are the larger of its 3xTF32 products and one threefry
      hash per generator entry over the card's INT32 rate, its
-     float32-FMA bound printed beside it;
+     float32-FMA bound printed beside it; kernels 7 and 8 also at
+     zamba2-1.2b's shapes (phase 3's operands), cold and warm, with their
+     plain versions, library calls and bounds (the `hybrid_shape` of
+     their rows in the kernels line);
  14. gradient coding through the registry (`make_strategy("gradcode",
      r=...)`) on the §IV fleet and the quickstart's data, lr 0.0085, 600
      epochs: r = 2 and r = 3 each exactly 600 round-gradient launches at
@@ -244,9 +252,12 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      gradient leaves (and the SGD change at lr 1) within rtol 1e-4 / atol
      1e-6 * max(1, max|CPU leaf|); (e) kernels 1-8 launch 0 times in each
      run, and the kernel 7 and 8 wrappers refuse operands that require
-     grad on the card; each run's seconds a step (median after the
-     first), tokens/s and peak allocated memory beside the card's
-     `nvidia-smi` name and power limit.
+     grad on the card; (f) `--arch zamba2-1.2b --reduced` and `--arch
+     phi3.5-moe-42b-a6.6b --reduced`, 30 steps each at `launch.train`'s
+     defaults: the mean loss of the last 5 below the first 5's, phi's
+     last metrics carrying a finite `moe_aux_loss`; each run's seconds a
+     step (median after the first), tokens/s and peak allocated memory
+     beside the card's `nvidia-smi` name and power limit.
  20. the tile autotuner: (a) `tune.autotune` of each family at one CI
      shape into a temporary cache (candidates, pruned, times, winner);
      (b) every candidate tile against its kernel's plain version by
@@ -266,17 +277,53 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      (f) the host's time of one memoized `resolve_block("auto")`, which
      every launch of kernels 1, 2, 4, 5 and 6 pays; exact launch counts
      throughout.
+ 21. the hybrid serve path: zamba2-1.2b at full width and depth (38
+     Mamba2 layers, d_model 2048, d_state 64, one shared attention + MLP
+     block of 32 heads of 64 after every 6th layer, vocab 32000;
+     1,170,473,856 float32 parameters drawn from a seeded generator on
+     the card); `ServeEngine(n_slots=4, max_seq=2112)` over phase 11's
+     prompt lengths, 24 new tokens each (the counters set to 0 just
+     before, read just after: exactly 38 kernel-7 and 6 kernel-8 launches
+     per prefill, 228 and 36 in all, none in decode, no other kernel);
+     each request's tokens equal to `greedy_generate`'s; the kernel
+     prefill of the 2048-token prompt against the plain one within 1e-3 *
+     max(1, max|logit|), stated in advance, with the same greedy token;
+     prefill ms, decode ms a step, tokens/s and peak memory;
+ 22. the other dense configs: codeqwen1.5-7b (8,190,038,016 parameters)
+     and minitron-4b (5,096,279,040) at full width and depth, each
+     through `ServeEngine(n_slots=2, max_seq=2112)` over prompts of 100
+     and 2048 tokens, 8 new tokens each (32 kernel-8 launches per
+     prefill, none in decode), tokens equal to `greedy_generate`'s, the
+     kernel prefill against the plain one as in phase 12;
+     mistral-large-123b's full-width tree on the meta device
+     (122,610,069,504 parameters, JAX's `eval_shape` total), and on the
+     card at full width cut to 4 of its 88 layers (6,341,898,240
+     parameters): one 2048-token kernel prefill against the plain one (4
+     launches) and a greedy 8-token generation (4 launches); each
+     config's parameters freed before the next;
+ 23. the moe path: phi3.5-moe at full width cut to 4 of its 32 layers
+     (5,463,904,256 parameters; 41,872,527,360 at full depth, on the
+     meta device) through `ServeEngine(n_slots=4, max_seq=2112)` over
+     prompts of 100, 1537 and 2048 tokens, 8 new tokens each (4 kernel-8
+     launches per prefill, none in decode; the MoE FFN is the plain
+     one-hot expression, decoded at a capacity that drops nothing),
+     tokens equal to `greedy_generate`'s, each layer's dropped share of
+     the 2048-token prefill (capacity 512) printed, the kernel prefill
+     against the plain one as in phase 12; llama4-maverick on the meta
+     device only (394,672,051,200 parameters; one MoE layer, one dense
+     layer and the embeddings hold 18,427,438,080, 68.6 GiB at float32).
 
 The user tile cache is an empty temporary directory for the whole run,
 so `block="auto"` reads the committed `src/repro_torch/tune/
 defaults.json` alone, and each kernel's bound comes from
-`repro_torch.roofline.kernel_terms`.  Every run of phases 4-20 is
+`repro_torch.roofline.kernel_terms`.  Every run of phases 4-23 is
 counted from 0 just before it.  The kernels
 line's `launches` sums the driven runs: kernel 1 over phases 4, 14 (r = 2
 and 3), 16, 17 and 18 (the sweep, its solo runs, the served epochs and
 the per-session loop); kernel 2 over phases 4, 15, 16, 17 and 18's two
 `plan_sweep` calls; kernel 4 over phases 6, 15 and 18c; kernel 5 over
-the T = 3 runs of phases 7, 14, 16 and 17.  Kernels 1-6 also carry the
+the T = 3 runs of phases 7, 14, 16 and 17; kernel 7 over phases 11 and
+21; kernel 8 over phases 12 and 21-23.  Kernels 1-6 also carry the
 `tile` `"auto"` launched at the timed shape (`[0]`: a round gradient's
 own partition), and kernels 1, 2, 4, 5 and 6 `tuned`, phase 20's
 measured tuning of the kernel's family.
@@ -346,8 +393,10 @@ SERVE_NEW, SERVE_SLOTS, SERVE_MAX_SEQ = 24, 4, 2112
 # intra-chunk step exact to rounding move the logits by ~6e-6 of max:
 # tests/test_torch_lm_serve.py, test_rounding_of_the_ssd_step_...)
 LOGIT_RTOL = 1e-3
-# kernel 7's operands in a 2048-token prefill: (B, nc, Q, H, P, N)
+# kernel 7's operands in a 2048-token prefill: (B, nc, Q, H, P, N), of
+# mamba2-1.3b and of zamba2-1.2b (d_state 64; phase 21)
 SSD_SHAPE = (1, 8, 256, 64, 64, 128)
+SSD_HYBRID_SHAPE = (1, 8, 256, 64, 64, 64)
 # phase 12: granite-8b at full width through ServeEngine, the prompts and
 # slots of phase 11; the kernel-8 prefill of the 2048-token prompt
 # against the plain one within DENSE_LOGIT_RTOL * max(1, max|logit|),
@@ -358,14 +407,20 @@ SSD_SHAPE = (1, 8, 256, 64, 64, 128)
 DENSE_ARCH, DENSE_PARAMS, DENSE_LOGIT_RTOL = "granite-8b", 8_254_689_280, 1e-3
 # kernel 8's operands (B, Hq, Hkv, S, D): a 2048-token granite-8b prefill,
 # its 100- and 1537-token prompts, D = 64 (the reduced configs' head dim),
-# and one key/value head per query head (R = 1) and per three (R = 3)
+# and one key/value head per query head (R = 1) and per three (R = 3);
+# the 2048-token prefills of zamba2-1.2b (phase 21: 32 heads of 64, one
+# per key/value head, the kernel's run-time-D instance) and of
+# mistral-large-123b (phase 22: 12 query heads per key/value head)
 FLASH_SHAPE = (1, 32, 8, 2048, 128)
+FLASH_HYBRID_SHAPE = (1, 32, 32, 2048, 64)
 FLASH_CASES = {"serving shape": FLASH_SHAPE,
                "100-token prompt": (1, 32, 8, 100, 128),
                "1537-token prompt": (1, 32, 8, 1537, 128),
                "D = 64": (2, 4, 2, 77, 64),
                "R = 1": (1, 8, 8, 300, 128),
-               "R = 3": (1, 12, 4, 257, 128)}
+               "R = 3": (1, 12, 4, 257, 128),
+               "zamba2 serving shape": FLASH_HYBRID_SHAPE,
+               "mistral-large serving shape": (1, 96, 8, 2048, 128)}
 # phase 14: GradientCodingFL at the replication factors of
 # benchmarks/ablation_baselines.py
 GC_REPLICATION = (2, 3)
@@ -423,6 +478,33 @@ HIT_TILES = {"round_grad": (64,), "coded_grad": (32,),
              "encode": (64, 128, 32)}
 COLD_PARITY_ROWS = 2900
 KEYED_FLEET, KEYED_SEED0 = (24, 300, 500, 2016), 1000
+# phase 21: zamba2-1.2b at full width and depth through ServeEngine, the
+# prompts and slots of phase 11; its kernel prefill (kernels 7 and 8)
+# against the plain one within HYBRID_LOGIT_RTOL * max(1, max|logit|),
+# stated before the first run on the card (on the CPU, its 38 layers at
+# d_model 512 with both steps exact to rounding move the logits by
+# ~4e-6 of max: tests/test_torch_hybrid.py, test_rounding_of_both_...)
+HYBRID_ARCH, HYBRID_PARAMS = "zamba2-1.2b", 1_170_473_856
+HYBRID_LOGIT_RTOL = 1e-3
+# phase 22: codeqwen1.5-7b and minitron-4b at full width and depth
+# through ServeEngine(n_slots=2) over prompts of 100 and 2048 tokens, 8
+# new tokens each; mistral-large-123b at full width on the meta device,
+# and on the card at full width cut to MISTRAL_LAYERS of its 88 layers
+DENSE_CONFIGS = {"codeqwen1.5-7b": 8_190_038_016, "minitron-4b": 5_096_279_040}
+DENSE_PROMPTS, DENSE_NEW, DENSE_SLOTS = (100, 2048), 8, 2
+MISTRAL_ARCH, MISTRAL_PARAMS = "mistral-large-123b", 122_610_069_504
+MISTRAL_LAYERS, MISTRAL_CUT_PARAMS = 4, 6_341_898_240
+# phase 23: phi3.5-moe at full width cut to MOE_LAYERS of its 32 layers
+# through ServeEngine(n_slots=4) over prompts of 100, 1537 and 2048
+# tokens, 8 new each; llama4-maverick on the meta device only: one MoE
+# layer, one dense layer and the embeddings hold MAVERICK_MIN_PARAMS
+MOE_ARCH, MOE_PARAMS, MOE_LAYERS, MOE_CUT_PARAMS = (
+    "phi3.5-moe-42b-a6.6b", 41_872_527_360, 4, 5_463_904_256)
+MOE_PROMPTS, MOE_NEW = (100, 1537, 2048), 8
+MAVERICK_ARCH, MAVERICK_PARAMS = "llama4-maverick-400b-a17b", 394_672_051_200
+MAVERICK_MIN_PARAMS = 18_427_438_080
+# phase 19's reduced runs of the new families
+NEW_FAMILY_TRAIN_STEPS = 30
 RESOLVE_CALLS = 100_000  # memoized "auto" resolutions timed on the host
 TIMING_REPEATS = 15   # timed runs per call; the median is kept
 TIMING_CALLS = 40     # back-to-back calls per timed run
@@ -1756,19 +1838,24 @@ def check_ssd_case(label: str, ops, float64: bool = False) -> float:
 
 
 def check_ssd_kernel(dev, gen, errs: dict) -> tuple:
-    """Phase 3's checks of kernel 7 at synthetic operands; returns the
-    operands of the serving shape for the timing phase."""
+    """Phase 3's checks of kernel 7 at synthetic operands, zamba2's shape
+    also against the float64 bound; returns the operands of mamba2's and
+    of zamba2's serving shapes for the timing phase."""
     cases = {"serving shape": (*SSD_SHAPE[:5], SSD_SHAPE[5], 1),
              "serving shape, per-head B and C": (*SSD_SHAPE, 64),
+             "zamba2 serving shape": (*SSD_HYBRID_SHAPE, 1),
              "reduced mamba2": (1, 3, 16, 16, 32, 16, 1),
              "odd Q": (1, 2, 97, 4, 64, 128, 2)}
-    out = None
+    out = {}
     for label, (B, nc, Q, H, P, N, G) in cases.items():
         ops = ssd_operands(gen, dev, B, nc, Q, H, P, N, G)
-        err = check_ssd_case(label, ops)
+        err = check_ssd_case(label, ops, float64=label.startswith("zamba2"))
         if label == "serving shape":
-            errs["ssd_chunk"], out = err, ops
-    return out
+            errs["ssd_chunk"] = err
+        if label == "zamba2 serving shape":
+            errs["ssd_chunk_hybrid"] = err
+        out[label] = ops
+    return out["serving shape"], out["zamba2 serving shape"]
 
 
 def draw_params(cfg, dev, seed: int, card: str, n_want: int):
@@ -1796,44 +1883,53 @@ def draw_params(cfg, dev, seed: int, card: str, n_want: int):
     return params, gen
 
 
-def run_engine(cfg, params, prompts, dev, card: str, counter, name: str,
-               kname: str, expect, reset_counters, read_counters) -> dict:
-    """`ServeEngine(n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ)` over the
-    prompts, SERVE_NEW new tokens each, with the launch counters set to 0
-    just before the run and read just after: the kernel of `counter`
-    (named `name` among the counters, printed as `kname`) once per layer in every prefill, never in
-    decode, and no other kernel.  Prints prefill ms per request, decode
-    ms per engine step and tokens/s; returns the run's numbers."""
+def run_engine(cfg, params, prompts, dev, card: str, kernels: dict,
+               expect, reset_counters, read_counters,
+               slots: int = SERVE_SLOTS, new: int = SERVE_NEW) -> dict:
+    """`ServeEngine(n_slots=slots, max_seq=SERVE_MAX_SEQ)` over the
+    prompts, `new` new tokens each, with the launch counters set to 0
+    just before the run and read just after.  `kernels` maps a counter's
+    name to (counter, launches per prefill, printed name): each of them
+    exactly that often in every prefill, never in decode, and no other
+    kernel.  Prints prefill ms per request, decode ms per engine step and
+    tokens/s; returns the run's numbers, "launches" by counter name."""
     from repro_torch.serving import Request, ServeEngine
 
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=new)
             for i, p in enumerate(prompts)]
-    eng = ServeEngine(cfg, params, n_slots=SERVE_SLOTS,
-                      max_seq=SERVE_MAX_SEQ, device=dev)
+    eng = ServeEngine(cfg, params, n_slots=slots, max_seq=SERVE_MAX_SEQ,
+                      device=dev)
     admit, step = eng.try_admit, eng.step
-    prefill = {}      # uid -> (ms, kernel launches)
-    steps = []        # (ms, kernel launches, active slots)
+    prefill = {}      # uid -> (ms, {counter name: launches})
+    steps = []        # (ms, {counter name: launches}, active slots)
+    knames = ", ".join(k for _, _, k in kernels.values())
+
+    def launched(n0):
+        return {name: c.launches - n0[name]
+                for name, (c, _, _) in kernels.items()}
 
     def timed_admit(req):
         torch.cuda.synchronize()
-        n0, t0 = counter.launches, time.perf_counter()
+        n0 = {name: c.launches for name, (c, _, _) in kernels.items()}
+        t0 = time.perf_counter()
         ok = admit(req)
         torch.cuda.synchronize()
         if ok:
             prefill[req.uid] = (1e3 * (time.perf_counter() - t0),
-                                counter.launches - n0)
-        check(ok or counter.launches == n0,
-              f"a refused admission launched {kname}")
+                                launched(n0))
+        check(ok or not any(launched(n0).values()),
+              f"a refused admission launched {knames}")
         return ok
 
     def timed_step():
         active = len(eng.active)
         torch.cuda.synchronize()
-        n0, t0 = counter.launches, time.perf_counter()
+        n0 = {name: c.launches for name, (c, _, _) in kernels.items()}
+        t0 = time.perf_counter()
         out = step()
         torch.cuda.synchronize()
-        steps.append((1e3 * (time.perf_counter() - t0),
-                      counter.launches - n0, active))
+        steps.append((1e3 * (time.perf_counter() - t0), launched(n0),
+                      active))
         return out
 
     eng.try_admit, eng.step = timed_admit, timed_step
@@ -1847,15 +1943,18 @@ def run_engine(cfg, params, prompts, dev, card: str, counter, name: str,
     decode_s = sum(ms for ms, _, _ in steps) / 1e3
     step_ms = statistics.median(ms for ms, _, _ in steps)
     lengths = [len(p) for p in prompts]
-    phase(f"serve [{card}]: {cfg.name} ServeEngine(n_slots={SERVE_SLOTS}, "
+    decode_launches = {name: sum(n[name] for _, n, _ in steps)
+                       for name in kernels}
+    phase(f"serve [{card}]: {cfg.name} ServeEngine(n_slots={slots}, "
           f"max_seq={SERVE_MAX_SEQ}) ran {len(done)} requests in "
           f"{run_s:.4f} s wall, {len(steps)} engine steps; "
           f"{new_tokens} new tokens, {new_tokens / run_s:.2f} tokens/s over "
           f"the run, {(new_tokens - len(done)) / decode_s:.2f} decoded "
           f"tokens/s over the steps; launches {counts}")
     phase(f"serve [{card}]: {cfg.name} prefill ms per request (prompt "
-          f"tokens: ms, {kname} launches) " + ", ".join(
-              f"{lengths[u]}: {ms:.3f}, {n}"
+          f"tokens: ms, {knames} launches) " + ", ".join(
+              f"{lengths[u]}: {ms:.3f}, "
+              + "/".join(str(n[name]) for name in kernels)
               for u, (ms, n) in sorted(prefill.items())))
     by_slots = {k: [ms for ms, _, a in steps if a == k]
                 for k in sorted({a for _, _, a in steps})}
@@ -1863,24 +1962,29 @@ def run_engine(cfg, params, prompts, dev, card: str, counter, name: str,
           f"{step_ms:.3f}, by active slots " + ", ".join(
               f"{k}: {statistics.median(v):.3f} ({len(v)} steps)"
               for k, v in by_slots.items()) +
-          f"; {kname} launches in decode {sum(n for _, n, _ in steps)}")
+          f"; {knames} launches in decode {decode_launches}")
     check(sorted(r.uid for r in done) == list(range(len(prompts))),
           "the engine did not finish every request")
-    check(all(len(r.out_tokens) == SERVE_NEW for r in done),
+    check(all(len(r.out_tokens) == new for r in done),
           "a request finished with the wrong number of tokens")
-    launches = cfg.n_layers * len(prompts)
-    check(counts == expect(**{name: launches}),
+    want = {name: per * len(prompts)
+            for name, (_, per, _) in kernels.items()}
+    check(counts == expect(**want),
           f"unexpected serve launch counts {counts}")
-    check(sorted(n for _, n in prefill.values()) ==
-          [cfg.n_layers] * len(prompts),
-          f"a prefill did not launch {kname} once per layer")
-    check(sum(n for _, n, _ in steps) == 0, f"decode launched {kname}")
-    return {"done": done, "launches": counts[name], "run_s": run_s,
-            "tokens_per_s": new_tokens / run_s, "step_ms": step_ms,
+    for name, (_, per, kname) in kernels.items():
+        check(sorted(n[name] for _, n in prefill.values()) ==
+              [per] * len(prompts),
+              f"a prefill did not launch {kname} {per} times")
+    check(not any(decode_launches.values()), f"decode launched {knames}")
+    return {"done": done, "launches": {name: counts[name]
+                                       for name in kernels},
+            "run_s": run_s, "tokens_per_s": new_tokens / run_s,
+            "step_ms": step_ms,
             "prefill_ms": {lengths[u]: ms for u, (ms, _) in prefill.items()}}
 
 
-def check_against_greedy(cfg, params, done, dev, card: str) -> None:
+def check_against_greedy(cfg, params, done, dev, card: str,
+                         new: int = SERVE_NEW) -> None:
     """Each request's engine tokens against `greedy_generate` on its
     prompt alone."""
     from repro_torch.launch.serve import greedy_generate
@@ -1889,7 +1993,7 @@ def check_against_greedy(cfg, params, done, dev, card: str) -> None:
     for r in sorted(done, key=lambda r: r.uid):
         out, t_pre, st = greedy_generate(
             cfg, params, torch.as_tensor(r.prompt, device=dev)[None],
-            SERVE_NEW, {}, device=dev)
+            new, {}, device=dev)
         gen_toks = out[0, len(r.prompt):].tolist()
         greedy_ms.append((len(r.prompt), 1e3 * t_pre,
                           1e3 * statistics.median(st)))
@@ -1978,13 +2082,15 @@ def serve_phase(dev, card: str, expect, reset_counters,
                                float64=True)
     del model_ops, cum
 
-    run = run_engine(cfg, params, prompts, dev, card, ssd_ops.SSD_COUNTER,
-                     "ssd_chunk", "kernel-7", expect, reset_counters, read_counters)
+    run = run_engine(cfg, params, prompts, dev, card,
+                     {"ssd_chunk": (ssd_ops.SSD_COUNTER, cfg.n_layers,
+                                    "kernel-7")},
+                     expect, reset_counters, read_counters)
     check_against_greedy(cfg, params, run["done"], dev, card)
     diff = check_kernel_prefill(
         cfg, params, torch.as_tensor(prompts[-1], device=dev)[None], card,
         "kernel 7", LOGIT_RTOL)
-    return {"launches": run["launches"], "model_err": model_err,
+    return {"launches": run["launches"]["ssd_chunk"], "model_err": model_err,
             "run_s": run["run_s"], "tokens_per_s": run["tokens_per_s"],
             "step_ms": run["step_ms"], "logit_diff": diff}
 
@@ -2024,17 +2130,266 @@ def dense_serve_phase(dev, card: str, expect, reset_counters,
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen,
                              device=dev).cpu().numpy()
                for n in SERVE_PROMPTS]
-    run = run_engine(cfg, params, prompts, dev, card, fa_ops.FLASH_COUNTER,
-                     "causal_attention", "kernel-8", expect, reset_counters, read_counters)
+    run = run_engine(cfg, params, prompts, dev, card,
+                     {"causal_attention": (fa_ops.FLASH_COUNTER, cfg.n_layers,
+                                           "kernel-8")},
+                     expect, reset_counters, read_counters)
     check_against_greedy(cfg, params, run["done"], dev, card)
     diff = check_kernel_prefill(
         cfg, params, torch.as_tensor(prompts[-1], device=dev)[None], card,
         "kernel 8", DENSE_LOGIT_RTOL)
     phase(f"serve [{card}]: {cfg.name} peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return {"launches": run["launches"]["causal_attention"],
+            "run_s": run["run_s"], "tokens_per_s": run["tokens_per_s"],
+            "step_ms": run["step_ms"], "logit_diff": diff}
+
+
+def free_card() -> None:
+    """Return the memory of the tensors just dropped to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def meta_params(cfg) -> tuple:
+    """(the full-width tree of `cfg` on the meta device, its parameter
+    count): shapes only, nothing drawn."""
+    from repro_torch import tree
+    from repro_torch.models import transformer as T
+
+    params = T.init_params(cfg, None, device="meta")
+    return params, sum(t.numel() for t in tree.leaves(params))
+
+
+def cut_depth(cfg, n_layers: int):
+    """`cfg` at full width with its first `n_layers` layers, named so
+    that every line printed of it states the cut."""
+    return dataclasses.replace(
+        cfg, n_layers=n_layers,
+        name=f"{cfg.name} (cut to {n_layers} of {cfg.n_layers} layers)")
+
+
+def draw_prompts(gen, dev, vocab: int, lengths) -> list:
+    return [torch.randint(0, vocab, (n,), generator=gen,
+                          device=dev).cpu().numpy() for n in lengths]
+
+
+def hybrid_serve_phase(dev, card: str, expect, reset_counters,
+                       read_counters) -> dict:
+    """Phase 21: zamba2-1.2b at full width and depth through
+    `ServeEngine`, kernel 7 in each Mamba2 layer and kernel 8 in each use
+    of the shared block of every prefill; the engine's tokens against
+    `greedy_generate`; the kernel prefill against the plain one."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    cfg = get_config(HYBRID_ARCH)
+    s, ae = cfg.ssm, cfg.hybrid.attn_every
+    check(cfg.n_layers == 38 and cfg.d_model == 2048 and ae == 6
+          and s.d_state == 64 and cfg.n_heads == cfg.n_kv_heads == 32
+          and cfg.vocab == 32000, "zamba2-1.2b is not at full width")
+    uses = cfg.n_layers // ae
+    phase(f"serve [{card}]: {cfg.name}: {cfg.n_layers} Mamba2 layers "
+          f"({s.n_heads(cfg.d_model)} heads of {s.headdim}, d_state "
+          f"{s.d_state}, chunk {s.chunk}) and one shared block "
+          f"({cfg.n_heads} heads and {cfg.n_kv_heads} key/value heads of "
+          f"{cfg.hd}, d_ff {cfg.d_ff}) after every {ae}th layer: {uses} uses")
+    torch.cuda.reset_peak_memory_stats()
+    params, gen = draw_params(cfg, dev, SERVE_SEED, card, HYBRID_PARAMS)
+    prompts = draw_prompts(gen, dev, cfg.vocab, SERVE_PROMPTS)
+    run = run_engine(
+        cfg, params, prompts, dev, card,
+        {"ssd_chunk": (ssd_ops.SSD_COUNTER, cfg.n_layers, "kernel-7"),
+         "causal_attention": (fa_ops.FLASH_COUNTER, uses, "kernel-8")},
+        expect, reset_counters, read_counters)
+    check_against_greedy(cfg, params, run["done"], dev, card)
+    diff = check_kernel_prefill(
+        cfg, params, torch.as_tensor(prompts[-1], device=dev)[None], card,
+        "kernels 7 and 8", HYBRID_LOGIT_RTOL)
+    peak = torch.cuda.max_memory_allocated()
+    phase(f"serve [{card}]: {cfg.name} prefill ms of the "
+          f"{SERVE_PROMPTS[-1]}-token prompt in the engine "
+          f"{run['prefill_ms'][SERVE_PROMPTS[-1]]:.3f}, decode step median "
+          f"{run['step_ms']:.3f} ms, {run['tokens_per_s']:.2f} tokens/s over "
+          f"the run; peak device memory {peak / 2**30:.3f} GiB")
     return {"launches": run["launches"], "run_s": run["run_s"],
             "tokens_per_s": run["tokens_per_s"], "step_ms": run["step_ms"],
-            "logit_diff": diff}
+            "prefill_ms": run["prefill_ms"], "logit_diff": diff,
+            "peak_bytes": peak}
+
+
+def dense_configs_phase(dev, card: str, expect, reset_counters,
+                        read_counters) -> dict:
+    """Phase 22: codeqwen1.5-7b and minitron-4b at full width and depth
+    through `ServeEngine`, then mistral-large-123b at full width on the
+    meta device and cut in depth on the card; each config's parameters
+    freed before the next.  Returns each run's numbers and kernel 8's
+    launches over the phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.launch.serve import greedy_generate
+
+    out, launches = {}, 0
+    for arch, n_want in DENSE_CONFIGS.items():
+        cfg = get_config(arch)
+        phase(f"serve [{card}]: {cfg.name}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.n_heads} heads and {cfg.n_kv_heads} "
+              f"key/value heads of {cfg.hd}, q/k/v biases {cfg.attn_bias}, "
+              f"d_ff {cfg.d_ff}, rope theta {cfg.rope_theta}")
+        torch.cuda.reset_peak_memory_stats()
+        params, gen = draw_params(cfg, dev, SERVE_SEED, card, n_want)
+        prompts = draw_prompts(gen, dev, cfg.vocab, DENSE_PROMPTS)
+        run = run_engine(
+            cfg, params, prompts, dev, card,
+            {"causal_attention": (fa_ops.FLASH_COUNTER, cfg.n_layers,
+                                  "kernel-8")},
+            expect, reset_counters, read_counters, slots=DENSE_SLOTS,
+            new=DENSE_NEW)
+        check_against_greedy(cfg, params, run["done"], dev, card,
+                             new=DENSE_NEW)
+        diff = check_kernel_prefill(
+            cfg, params, torch.as_tensor(prompts[-1], device=dev)[None],
+            card, "kernel 8", DENSE_LOGIT_RTOL)
+        peak = torch.cuda.max_memory_allocated()
+        phase(f"serve [{card}]: {cfg.name} peak device memory "
+              f"{peak / 2**30:.3f} GiB")
+        launches += run["launches"]["causal_attention"]
+        out[arch] = {"run_s": run["run_s"], "step_ms": run["step_ms"],
+                     "tokens_per_s": run["tokens_per_s"],
+                     "prefill_ms": run["prefill_ms"], "logit_diff": diff,
+                     "peak_bytes": peak}
+        del params, run
+        free_card()
+
+    cfg = get_config(MISTRAL_ARCH)
+    meta, n = meta_params(cfg)
+    check(n == MISTRAL_PARAMS and tuple(meta["blocks"]["attn"]["wq"].shape)
+          == (88, 12288, 12288) and tuple(meta["lm_head"].shape) ==
+          (12288, 32768), "mistral-large-123b's full-width tree differs")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    cut = cut_depth(cfg, MISTRAL_LAYERS)
+    phase(f"serve [{card}]: {cfg.name} at full width on the meta device: "
+          f"{n} parameters ({4 * n / 2**30:.1f} GiB at float32, over the "
+          f"card's {total / 2**30:.1f} GiB), the tree of JAX's eval_shape "
+          f"(tests/test_torch_lm_serve.py); on the card {cut.name}, "
+          f"{cfg.n_heads} heads and {cfg.n_kv_heads} key/value heads of "
+          f"{cfg.hd}")
+    del meta
+    torch.cuda.reset_peak_memory_stats()
+    params, gen = draw_params(cut, dev, SERVE_SEED, card, MISTRAL_CUT_PARAMS)
+    toks = torch.randint(0, cut.vocab, (1, SERVE_PROMPTS[-1]), generator=gen,
+                         device=dev)
+    reset_counters()
+    diff = check_kernel_prefill(cut, params, toks, card, "kernel 8",
+                                DENSE_LOGIT_RTOL)
+    check(read_counters() == expect(causal_attention=MISTRAL_LAYERS),
+          "the cut mistral prefill did not launch kernel 8 once a layer")
+    reset_counters()
+    gen_toks, t_pre, st = greedy_generate(cut, params, toks, DENSE_NEW, {},
+                                          device=dev)
+    counts = read_counters()
+    check(counts == expect(causal_attention=MISTRAL_LAYERS),
+          f"the cut mistral generation launched {counts}")
+    new = gen_toks[0, toks.shape[1]:]
+    check(bool(((new >= 0) & (new < cut.vocab)).all()),
+          "a token outside the vocabulary")
+    peak = torch.cuda.max_memory_allocated()
+    phase(f"serve [{card}]: {cut.name} greedy {DENSE_NEW} tokens after "
+          f"the {toks.shape[1]}-token prompt: {new.tolist()}; prefill "
+          f"{1e3 * t_pre:.3f} ms, decode median "
+          f"{1e3 * statistics.median(st):.3f} ms a token; peak device "
+          f"memory {peak / 2**30:.3f} GiB")
+    launches += 2 * MISTRAL_LAYERS
+    out[MISTRAL_ARCH] = {"logit_diff": diff, "prefill_s": t_pre,
+                         "step_ms": 1e3 * statistics.median(st),
+                         "peak_bytes": peak}
+    del params
+    free_card()
+    return {"configs": out, "launches": launches}
+
+
+def moe_serve_phase(dev, card: str, expect, reset_counters,
+                    read_counters) -> dict:
+    """Phase 23: phi3.5-moe at full width cut in depth through
+    `ServeEngine`, kernel 8 in every layer of every prefill and the MoE
+    FFN as the plain one-hot expression; each layer's dropped share of
+    the longest prompt's prefill; llama4-maverick on the meta device."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(MOE_ARCH)
+    m = cfg.moe
+    meta, n = meta_params(cfg)
+    check(n == MOE_PARAMS and tuple(meta["moe_blocks"]["moe"]["w_up"].shape)
+          == (32, 16, 4096, 6400), "phi3.5-moe's full-width tree differs")
+    del meta
+    cut = cut_depth(cfg, MOE_LAYERS)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    phase(f"serve [{card}]: {cfg.name}: {n} parameters at full width "
+          f"({4 * n / 2**30:.1f} GiB at float32, over the card's "
+          f"{total / 2**30:.1f} GiB); on the card {cut.name}: "
+          f"{m.n_experts} experts top-{m.top_k} of d_ff {cfg.d_ff}, group "
+          f"{m.group_size}, capacity factor {m.capacity_factor} (decode: "
+          f"{float(m.n_experts)}, which drops nothing)")
+    torch.cuda.reset_peak_memory_stats()
+    params, gen = draw_params(cut, dev, SERVE_SEED, card, MOE_CUT_PARAMS)
+    prompts = draw_prompts(gen, dev, cut.vocab, MOE_PROMPTS)
+    run = run_engine(
+        cut, params, prompts, dev, card,
+        {"causal_attention": (fa_ops.FLASH_COUNTER, MOE_LAYERS, "kernel-8")},
+        expect, reset_counters, read_counters, new=MOE_NEW)
+    check_against_greedy(cut, params, run["done"], dev, card, new=MOE_NEW)
+    toks = torch.as_tensor(prompts[-1], device=dev)[None]
+    dropped, real = [], M.moe_ffn
+
+    def capture(p, x, dims):
+        y, aux = real(p, x, dims)
+        dropped.append((float(aux["dropped_frac"]), dims.capacity(
+            M.group_size(dims, x.shape[0] * x.shape[1]))))
+        return y, aux
+
+    M.moe_ffn = capture
+    try:
+        T.prefill(cut, params, {"tokens": toks})
+    finally:
+        M.moe_ffn = real
+    phase(f"serve [{card}]: {cut.name} dropped share of (token, choice) "
+          f"pairs by layer in the {toks.shape[1]}-token prefill (capacity "
+          f"{dropped[0][1]}): {[d for d, _ in dropped]}")
+    check(len(dropped) == MOE_LAYERS and all(0.0 <= d < 1.0 for d, _ in
+                                             dropped),
+          "a MoE layer's dropped share is out of range")
+    diff = check_kernel_prefill(cut, params, toks, card, "kernel 8",
+                                DENSE_LOGIT_RTOL)
+    peak = torch.cuda.max_memory_allocated()
+    phase(f"serve [{card}]: {cut.name} peak device memory "
+          f"{peak / 2**30:.3f} GiB")
+    del params
+    free_card()
+
+    mcfg = get_config(MAVERICK_ARCH)
+    meta, n = meta_params(mcfg)
+    check(n == MAVERICK_PARAMS, "llama4-maverick's full-width tree differs")
+    one_each = sum(t.numel() // (t.shape[0] if k.startswith(
+        ("blocks/", "moe_blocks/")) else 1)
+        for k, t in tree.flatten_with_path(meta))
+    check(one_each == MAVERICK_MIN_PARAMS,
+          f"llama4-maverick: {one_each} parameters in one layer of each "
+          "kind and the embeddings")
+    phase(f"serve [{card}]: {mcfg.name} at full width on the meta device: "
+          f"{n} parameters; one MoE layer ({mcfg.moe.n_experts} experts), "
+          f"one dense layer and the embeddings alone hold {one_each} "
+          f"({4 * one_each / 2**30:.1f} GiB at float32 of the card's "
+          f"{total / 2**30:.1f} GiB): no depth of it is served on the card")
+    return {"launches": run["launches"]["causal_attention"],
+            "run_s": run["run_s"], "tokens_per_s": run["tokens_per_s"],
+            "step_ms": run["step_ms"], "prefill_ms": run["prefill_ms"],
+            "logit_diff": diff, "dropped": [d for d, _ in dropped],
+            "peak_bytes": peak}
 
 
 def flash_operands(gen, dev, B, Hq, Hkv, S, D) -> tuple:
@@ -2050,11 +2405,12 @@ def check_flash_kernel(dev, gen, errs: dict) -> tuple:
     of the float64 value (`kernels.flash_attn.ref.float64_reference_and_
     bound`, derived before the first run), within rtol 2e-4 / atol 2e-4
     of each other (`tests/test_kernels.py`), and a bit-identical
-    relaunch.  Returns the operands of the serving shape."""
+    relaunch.  Returns the operands of granite's and of zamba2's serving
+    shapes."""
     from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.kernels.flash_attn import ref as fa_ref
 
-    out, worst_err = None, 0.0
+    out, worst_err = {}, 0.0
     for label, shape in FLASH_CASES.items():
         ops = flash_operands(gen, dev, *shape)
         got = fa_ops.causal_attention(*ops)
@@ -2079,10 +2435,10 @@ def check_flash_kernel(dev, gen, errs: dict) -> tuple:
         check(ok, f"causal_attention {label} disagrees with plain")
         check(same, f"causal_attention {label} not deterministic")
         worst_err = max(worst_err, err)
-        if label == "serving shape":
-            out = ops
+        if label in ("serving shape", "zamba2 serving shape"):
+            out[label] = ops
     errs["causal_attention"] = worst_err
-    return out
+    return out["serving shape"], out["zamba2 serving shape"]
 
 
 def sdpa_backend(q, k, v) -> str:
@@ -2114,11 +2470,95 @@ def sdpa_expanded(q, k, v):
     """Kernel 8's function as PyTorch calls: the key/value heads repeated
     to the query heads, then `scaled_dot_product_attention` on equal head
     counts, which float32 admits to its fused backends (the library
-    yardstick of the timing phase; never used by the port)."""
+    yardstick of the timing phase; never used by the port).  With one
+    key/value head per query head nothing is repeated."""
     rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
     return torch.nn.functional.scaled_dot_product_attention(
-        q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1),
-        is_causal=True)
+        q, k, v, is_causal=True)
+
+
+def time_hybrid_shapes(ssd_ops_, flash_ops_, card: str) -> dict:
+    """Phase 13 at zamba2-1.2b's 2048-token prefill: kernel 7 at
+    SSD_HYBRID_SHAPE and kernel 8 at FLASH_HYBRID_SHAPE (phase 3's
+    operands), cold and warm, their plain versions, the library calls of
+    the serving shapes (held to the kernel first) and the bound of
+    `roofline.kernel_terms`."""
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.flash_attn import ref as fa_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    out = {}
+    B, nc, Q, H, P, N = SSD_HYBRID_SHAPE
+    G = ssd_ops_[3].shape[3]
+    got_y, got_s = ssd_ops.ssd_chunk(*ssd_ops_)
+    hm, gm = head_major(ssd_ops_), group_major(ssd_ops_)
+    lib_y, lib_s = ssd_library(*hm)
+    lib_err = max(float((lib_y - got_y.movedim(3, 2).reshape(lib_y.shape))
+                        .abs().max()),
+                  float((lib_s - got_s.reshape(lib_s.shape)).abs().max()))
+    lib_y, lib_s = ssd_library_grouped(*gm)
+    lib_err = max(lib_err,
+                  float((lib_y - got_y.reshape(B * nc, Q, G, H // G, P)
+                         .movedim(1, 3)).abs().max()),
+                  float((lib_s - got_s.reshape(lib_s.shape)).abs().max()))
+    lib_bound = 1e-4 * max(1.0, float(got_y.abs().max()),
+                           float(got_s.abs().max()))
+    check(lib_err <= lib_bound, "a library expression of kernel 7 at "
+          f"zamba2's shape disagrees with the kernel: {lib_err:.3e}")
+    del lib_y, lib_s, got_y, got_s
+    cold = cold_copies(ssd_ops_)
+    terms = kernel_terms("ssd_chunk", (B, nc, Q, H, P, N, G))
+    out["ssd_chunk"] = {
+        "shape": [B, nc, Q, H, P, G, N],
+        "ms": time_ms(ssd_ops.ssd_chunk, cold),
+        "ms_l2_warm": time_ms(ssd_ops.ssd_chunk, [ssd_ops_]),
+        "plain_ms": time_ms(ssd_ref.ssd_chunk_reference,
+                            cold_copies(per_head(ssd_ops_)), calls=4),
+        "library_ms": time_ms(ssd_library, cold_copies(hm), calls=4),
+        "library_grouped_ms": time_ms(ssd_library_grouped, cold_copies(gm),
+                                      calls=4),
+        "bound_ms": 1e3 * terms["bound_s"], "bound_by": terms["bound_by"],
+        "flops": int(terms["flops"]), "bytes": int(terms["bytes"])}
+    del cold, hm, gm
+    r = out["ssd_chunk"]
+    phase(f"time ssd_chunk {list(SSD_HYBRID_SHAPE)} G={G} (zamba2) "
+          f"[{card}]: kernel {r['ms']!r} ms (L2 warm {r['ms_l2_warm']!r} ms), "
+          f"plain {r['plain_ms']!r} ms, library matmul + tril on head-major "
+          f"views {r['library_ms']!r} ms, with C B^T once per group "
+          f"{r['library_grouped_ms']!r} ms (max |library - kernel| "
+          f"{lib_err:.3e}), bound {r['bound_ms']!r} ms ({r['bound_by']}, "
+          f"flops {r['flops']}, bytes {r['bytes']})")
+
+    shape = FLASH_HYBRID_SHAPE
+    got = fa_ops.causal_attention(*flash_ops_)
+    lib_err = float((sdpa_expanded(*flash_ops_) - got).abs().max())
+    check(lib_err <= 2e-4, "the library call of kernel 8 at zamba2's shape "
+          f"disagrees with the kernel: {lib_err:.3e}")
+    del got
+    backend = sdpa_backend(*flash_ops_)
+    cold = cold_copies(flash_ops_)
+    terms = kernel_terms("causal_attention", shape)
+    out["causal_attention"] = {
+        "shape": list(shape),
+        "ms": time_ms(fa_ops.causal_attention, cold),
+        "ms_l2_warm": time_ms(fa_ops.causal_attention, [flash_ops_]),
+        "plain_ms": time_ms(fa_ref.causal_attention, cold, calls=4),
+        "library_ms": time_ms(sdpa_expanded, cold, calls=4),
+        "library": f"scaled_dot_product_attention(is_causal) on {backend}",
+        "bound_ms": 1e3 * terms["bound_s"], "bound_by": terms["bound_by"],
+        "flops": int(terms["flops"]), "bytes": int(terms["bytes"])}
+    del cold
+    r = out["causal_attention"]
+    phase(f"time causal_attention {list(shape)} (zamba2) [{card}]: kernel "
+          f"{r['ms']!r} ms (L2 warm {r['ms_l2_warm']!r} ms), plain "
+          f"{r['plain_ms']!r} ms, library {r['library']} {r['library_ms']!r} "
+          f"ms (max |library - kernel| {lib_err:.3e}), bound "
+          f"{r['bound_ms']!r} ms ({r['bound_by']}, flops {r['flops']}, "
+          f"bytes {r['bytes']})")
+    return out
 
 
 def ssd_library(xh, dth, dah, bh, ch):
@@ -2396,6 +2836,25 @@ def train_phase(dev, card: str, expect, reset_counters, read_counters) -> dict:
     out["granite"] = {k: res[k] for k in ("wall_s", "step_s",
                                           "tokens_per_s", "peak_bytes")}
     del res
+
+    # (f) the hybrid and moe families, reduced, at launch.train's defaults
+    for arch in (HYBRID_ARCH, MOE_ARCH):
+        res = run_training(["--arch", arch, "--reduced", "--steps",
+                            str(NEW_FAMILY_TRAIN_STEPS), "--log-every", "10"],
+                           dev, card, expect, reset_counters, read_counters)
+        losses = res["losses"]
+        first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+        phase(f"train [{card}]: {res['cfg'].name} mean loss of the first 5 "
+              f"steps {first:.4f}, of the last 5 {last:.4f}; last step's "
+              f"metrics {res['metrics']}")
+        check(last < first, f"{res['cfg'].name}'s loss did not go down")
+        if arch == MOE_ARCH:
+            check(np.isfinite(res["metrics"].get("moe_aux_loss", np.nan)),
+                  "the moe train step reports no finite moe_aux_loss")
+        out[arch] = {k: res[k] for k in ("wall_s", "step_s", "tokens_per_s",
+                                         "peak_bytes", "metrics")}
+        out[arch].update(first=first, last=last)
+        del res
 
     # (d) the card against the CPU, counted: no kernel
     reset_counters()
@@ -2980,9 +3439,9 @@ def main() -> int:
     prng_inputs = check_prng_kernel(dev, gen, errs)
     lsq_inputs = check_lsq_kernel(dev, gen, errs)
     # the SSD intra-chunk step (kernel 7) at synthetic operands
-    ssd_inputs = check_ssd_kernel(dev, gen, errs)
+    ssd_inputs, ssd_hybrid_inputs = check_ssd_kernel(dev, gen, errs)
     # causal flash attention (kernel 8) at synthetic operands
-    flash_inputs = check_flash_kernel(dev, gen, errs)
+    flash_inputs, flash_hybrid_inputs = check_flash_kernel(dev, gen, errs)
 
     counters = {"round_grad": rg_ops.COUNTER,
                 "coded_round_grad": rg_ops.CODED_COUNTER,
@@ -3399,6 +3858,9 @@ def main() -> int:
           f"{flash_bound!r} ms ({flash_bound_by}, 3xTF32 at 495 TFLOP/s: "
           f"flops {flash_flops}, bytes {flash_bytes}; on the float32 FMA "
           f"pipes {flash_bound_fp32!r} ms)")
+    hybrid_times = time_hybrid_shapes(ssd_hybrid_inputs, flash_hybrid_inputs,
+                                      card)
+    del ssd_hybrid_inputs, flash_hybrid_inputs
     phase(f"serve [{card}]: granite-8b engine {dense['tokens_per_s']:.2f} "
           f"tokens/s, decode step median {dense['step_ms']:.3f} ms; "
           f"mamba2-1.3b engine {serve['tokens_per_s']:.2f} tokens/s, "
@@ -3464,11 +3926,35 @@ def main() -> int:
     # -- 20. the tile autotuner -------------------------------------------
     tuning = tune_phase(dev, card, expect, reset_counters, read_counters)
 
+    # -- 21. serving zamba2-1.2b (the hybrid family) at full width ---------
+    free_card()
+    hybrid = hybrid_serve_phase(dev, card, expect, reset_counters,
+                                read_counters)
+    free_card()
+
+    # -- 22. the other dense configs ---------------------------------------
+    dense_cfgs = dense_configs_phase(dev, card, expect, reset_counters,
+                                     read_counters)
+
+    # -- 23. the moe family ------------------------------------------------
+    moe = moe_serve_phase(dev, card, expect, reset_counters, read_counters)
+    phase(f"phases 21-23 [{card}]: zamba2-1.2b engine "
+          f"{hybrid['tokens_per_s']:.2f} tokens/s, decode step median "
+          f"{hybrid['step_ms']:.3f} ms; " + "; ".join(
+              f"{k} engine {v['tokens_per_s']:.2f} tokens/s, decode step "
+              f"median {v['step_ms']:.3f} ms"
+              for k, v in dense_cfgs["configs"].items()
+              if "tokens_per_s" in v)
+          + f"; {MOE_ARCH} cut to {MOE_LAYERS} layers engine "
+          f"{moe['tokens_per_s']:.2f} tokens/s, decode step median "
+          f"{moe['step_ms']:.3f} ms")
+
     # launches on the driven paths: phase 4 and the new paths' runs
     # (kernel 1), phases 4, 15, 16 (kernel 2), 6 and 15 (kernel 4), 7, 14
     # and 16 at T = 3 (kernel 5), every counted run of phase 17, and
     # phase 18's sweep, solo, served and per-session-loop runs (kernel 1),
-    # plan_sweep encodes (kernel 2) and served DP lane (kernel 4)
+    # plan_sweep encodes (kernel 2) and served DP lane (kernel 4); the
+    # serve phases 11 and 21 (kernel 7), 12 and 21-23 (kernel 8)
     driven = {
         "round_grad": launches["round_grad"] + sum(
             gradcode["launches"][f"r={r}"] for r in GC_REPLICATION)
@@ -3486,7 +3972,11 @@ def main() -> int:
         "tier_round_grad": hier_launches["tier_round_grad"]
         + gradcode["launches"][f"T={HIER_TIERS}"]
         + lowlat["hier_launches"]["tier_round_grad"]
-        + sum(c["tier_round_grad"] for c in cfedl_counts)}
+        + sum(c["tier_round_grad"] for c in cfedl_counts),
+        "ssd_chunk": serve["launches"] + hybrid["launches"]["ssd_chunk"],
+        "causal_attention": dense["launches"]
+        + hybrid["launches"]["causal_attention"] + dense_cfgs["launches"]
+        + moe["launches"]}
     phase(f"launches on the driven paths: {driven}")
 
     label, m, d, ms, warm, plain, lib, bound_ms = records[0]
@@ -3558,7 +4048,7 @@ def main() -> int:
         {"name": "ssd_chunk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd.cu",
          "replaces": "src/repro/kernels/ssd/ssd.py:57",
-         "launches": serve["launches"],
+         "launches": driven["ssd_chunk"],
          "max_abs_err": max(errs["ssd_chunk"], serve["model_err"]),
          "ms": ssd_ms, "plain_ms": ssd_plain, "bound_ms": ssd_bound,
          "bound_by": ssd_bound_by, "library_ms": ssd_lib,
@@ -3569,11 +4059,13 @@ def main() -> int:
          "library_grouped_ms": ssd_lib_grouped,
          "library_grouped": "torch.matmul with C B^T once per group, "
                             "broadcast over its heads",
-         "ms_l2_warm": ssd_warm, "shape": [*SSD_SHAPE[:5], G, N]},
+         "ms_l2_warm": ssd_warm, "shape": [*SSD_SHAPE[:5], G, N],
+         "hybrid_shape": {**hybrid_times["ssd_chunk"],
+                          "max_abs_err": errs["ssd_chunk_hybrid"]}},
         {"name": "causal_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn/flash_attn.py:75",
-         "launches": dense["launches"],
+         "launches": driven["causal_attention"],
          "max_abs_err": errs["causal_attention"], "ms": flash_ms,
          "plain_ms": flash_plain, "bound_ms": flash_bound,
          "bound_by": flash_bound_by, "library_ms": flash_lib,
@@ -3585,7 +4077,8 @@ def main() -> int:
          "library_gqa_ms": flash_lib_gqa,
          "library_gqa": f"scaled_dot_product_attention(enable_gqa) on "
                         f"{gqa_backend}",
-         "ms_l2_warm": flash_warm, "shape": list(FLASH_SHAPE)},
+         "ms_l2_warm": flash_warm, "shape": list(FLASH_SHAPE),
+         "hybrid_shape": hybrid_times["causal_attention"]},
     ]
     # kernels 1-6: the tile block="auto" launched at the record's shape,
     # and phase 20's measured tuning of the kernel's family (kernel 3 has

@@ -9,7 +9,9 @@ import importlib
 from .base import (ArchConfig, EncDecSpec, HybridSpec, INPUT_SHAPES, MoESpec,
                    SSMSpec, VLMSpec, get_config, list_archs, register)
 
-_MODULES = ["granite_8b", "lm_100m", "mamba2_1p3b"]
+_MODULES = ["codeqwen15_7b", "granite_8b", "llama4_maverick", "lm_100m",
+            "mamba2_1p3b", "minitron_4b", "mistral_large_123b",
+            "phi35_moe", "zamba2_1p2b"]
 
 _loaded = False
 

@@ -5,7 +5,11 @@ or SSM cache (counterpart of `repro/launch/serve.py`).
       [--batch 4 --prompt-len 64 --new-tokens 32] [--device cpu]
 
 Runs on the card unless `--device cpu` is given; weights are random,
-drawn from a `torch.Generator` seeded with `--seed`.
+drawn from a `torch.Generator` seeded with `--seed`.  `--full` takes the
+config at full width and depth, float32: on one 80 GB card that is
+granite-8b, codeqwen1.5-7b, minitron-4b, mamba2-1.3b, zamba2-1.2b and
+lm-100m; mistral-large-123b, phi3.5-moe and llama4-maverick hold more
+weights than the card.
 """
 from __future__ import annotations
 

@@ -44,10 +44,10 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer,
     clip_norm > 0 enables global-norm gradient clipping (metrics gain
     "grad_norm"); lr_schedule(step) scales the optimizer's base lr
     (repro_torch.optim.schedules), read from the state's step on the
-    device."""
+    device.  A moe model's metrics also carry "moe_aux_loss"."""
 
     def train_step(params, opt_state, batch):
-        loss, _, grads = value_and_grad(
+        loss, aux, grads = value_and_grad(
             lambda p: T.loss_fn(cfg, p, batch, compute_dtype=compute_dtype,
                                 remat=remat), params)
         metrics = {"loss": loss}
@@ -57,6 +57,8 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer,
         scale = (lr_schedule(opt_state.step) if lr_schedule is not None
                  else 1.0)
         opt_state = opt.update_(grads, opt_state, params, lr_scale=scale)
+        if "moe_aux_loss" in aux:
+            metrics["moe_aux_loss"] = aux["moe_aux_loss"].detach()
         return params, opt_state, metrics
 
     return train_step
@@ -69,17 +71,26 @@ def make_fed_grad_fn(cfg: ArchConfig,
     deadline-masked federated loss, the `grad_fn` of `fed.trainer`:
     per-sequence mean NLLs through `fed.trainer.masked_loss` (weighted
     by seq_weights, 0 for dropped clients and 1/p for received, over
-    max(#(w > 0), 1))."""
-
-    def per_seq(p, batch):
-        logits, _ = T.forward_train(cfg, p, batch,
-                                    compute_dtype=compute_dtype, remat=remat)
-        return torch.mean(T.token_nll(logits, batch["targets"]), dim=-1)
+    max(#(w > 0), 1)), plus 0.01 x the MoE aux loss of the whole batch's
+    forward where the model has one, as the reference's federated step."""
 
     def grad_fn(params, batch, seq_weights):
-        loss, _, grads = value_and_grad(
-            lambda p: (masked_loss(per_seq, p, batch, seq_weights), {}),
-            params)
+        def loss_of(p):
+            aux = {}
+
+            def per_seq(q, b):
+                logits, a = T.forward_train(cfg, q, b,
+                                            compute_dtype=compute_dtype,
+                                            remat=remat)
+                aux.update(a)
+                return torch.mean(T.token_nll(logits, b["targets"]), dim=-1)
+
+            loss = masked_loss(per_seq, p, batch, seq_weights)
+            if "moe_aux_loss" in aux:
+                loss = loss + 0.01 * aux["moe_aux_loss"]
+            return loss, aux
+
+        loss, _, grads = value_and_grad(loss_of, params)
         return loss, grads
 
     return grad_fn

@@ -13,7 +13,7 @@ reference's.
 
 Both modes compute in float32 without remat, as the reference's do.
 `--distributed` (the reference's multi-host bootstrap) raises: the launch
-layer is not ported (ROADMAP.md §1 item 8).  On the card the run ends
+layer is not ported (ROADMAP.md §1 item 5).  On the card the run ends
 with the peak of allocated device memory.
 """
 from __future__ import annotations
@@ -40,7 +40,7 @@ def add_modality_stubs(batch: dict, cfg) -> dict:
     if cfg.vlm or cfg.encdec:
         raise NotImplementedError(
             f"{cfg.name}: the vlm and audio families are not ported "
-            "(ROADMAP.md §1 item 8)")
+            "(ROADMAP.md §1 item 4)")
     return batch
 
 
@@ -82,14 +82,15 @@ def _sync(dev: torch.device) -> None:
 def run(argv=None, device: str | torch.device | None = None) -> dict:
     """Parse `argv`, train, print the reference's lines; returns {"cfg",
     "params", "opt_state", "losses", "step_seconds" (host seconds of each
-    step, ending in the loss's read-back), "fed" (the FedState or None),
-    "n_params", "peak_bytes" (card only, else None), "args"}.  `device`
-    overrides `--device`."""
+    step, ending in the loss's read-back), "metrics" (the last step's
+    metrics as floats: a moe model's plain steps carry "moe_aux_loss"),
+    "fed" (the FedState or None), "n_params", "peak_bytes" (card only,
+    else None), "args"}.  `device` overrides `--device`."""
     args = parse_args(argv)
     if args.distributed:
         raise NotImplementedError(
             "--distributed: the multi-host launch layer is not ported "
-            "(ROADMAP.md §1 item 8)")
+            "(ROADMAP.md §1 item 5)")
     dev = resolve_device(device if device is not None else args.device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -170,7 +171,9 @@ def run(argv=None, device: str | torch.device | None = None) -> dict:
         print(f"peak memory {peak / 2**30:.2f} GiB allocated on "
               f"{torch.cuda.get_device_name(dev)}")
     return {"cfg": cfg, "params": params, "opt_state": opt_state,
-            "losses": losses, "step_seconds": step_seconds, "fed": fstate,
+            "losses": losses, "step_seconds": step_seconds,
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "fed": fstate,
             "n_params": n_params, "peak_bytes": peak, "args": args}
 
 

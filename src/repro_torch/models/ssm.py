@@ -71,7 +71,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if head_shard:
         raise NotImplementedError(
             "head_shard (mesh sharding of the SSD heads) is not ported; "
-            "ROADMAP.md §1 item 8")
+            "ROADMAP.md §1 item 5")
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     orig_s = S

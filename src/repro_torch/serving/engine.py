@@ -61,8 +61,14 @@ class ServeEngine:
     cache row and attends the keys j <= pos[row] of that row only, and
     every other product of the decode (norms, projections, MLP, the ssm
     recurrence, which reads no position) is row by row over the batch.
-    Admission prefills with `cache_len=max_seq`, so the splice writes
-    whole cache rows and nothing of a slot's previous request survives.
+    So is the MoE FFN: the batch is one dispatch group of n_slots tokens
+    (or a divisor of it), and the decode's capacity is k * group
+    (`models.transformer._moe_dims`), while one expert receives at most
+    one copy of each token of the group, so no token is dropped, and a
+    row's output, its gated sum over its own experts, does not depend on
+    the other rows (the empty slots' garbage rows included).  Admission
+    prefills with `cache_len=max_seq`, so the splice writes whole cache
+    rows and nothing of a slot's previous request survives.
     """
 
     def __init__(self, cfg: ArchConfig, params, n_slots: int, max_seq: int,

@@ -73,6 +73,12 @@ Bounds:
     group and with per-head B and C.  A chunk one row past the kernel's
     256 is refused before a launch.  A reduced mamba2 prefill on the card within
     rtol 1e-4 / atol 1e-4 * max|ref| of the CPU one, one launch per layer.
+  * the hybrid and moe families: the reduced zamba2-1.2b at 5 layers
+    (two uses of the shared block) and the reduced phi3.5-moe and
+    llama4-maverick, prefilled on the card through kernels 7 and 8
+    within rtol 1e-4 / atol 1e-4 * max(1, max|ref|) of the CPU prefill,
+    logits and caches, with one kernel-7 launch per Mamba2 layer and one
+    kernel-8 launch per attention block run.
   * the strategies built through `make_strategy` (GradientCodingFL,
     StochasticCodedFL from an (epsilon, delta) budget, LowLatencyCFL with
     its partial-return plan solved on the card), flat and at T = 3:
@@ -833,7 +839,8 @@ def _ssd_plain(xc, dtc, da, bc, cc):
 # (B, nc, Q, H, P, N, G): the shapes of tests/test_kernels.py, the full
 # per-head shape, the reduced mamba2's (Q 16, P 32, N 16), an odd Q, and
 # the serving shape of mamba2-1.3b (a 2048-token prefill) with its one
-# group and with per-head B and C; then the 3xTF32 kernel's edges: three
+# group and with per-head B and C, and zamba2-1.2b's (d_state 64, a
+# 2048-token prefill); then the 3xTF32 kernel's edges: three
 # heads a group, 5 and 12 heads against its block of 8, Q = 200 at the
 # serving P and N, P = 80 / N = 96 and P = 130 / N = 136 against its 64-
 # and 128-wide tiles, and P = 7 / N = 9 (4-byte copies)
@@ -841,6 +848,7 @@ SSD_SHAPES = [(1, 1, 8, 1, 4, 4, 1), (2, 3, 32, 4, 16, 8, 4),
               (1, 2, 128, 2, 64, 32, 2), (1, 2, 256, 2, 64, 128, 2),
               (2, 3, 16, 16, 32, 16, 1), (1, 2, 97, 4, 64, 128, 2),
               (1, 8, 256, 64, 64, 128, 1), (1, 8, 256, 64, 64, 128, 64),
+              (1, 8, 256, 64, 64, 64, 1),
               (1, 2, 128, 6, 64, 64, 2), (1, 2, 96, 5, 32, 64, 1),
               (1, 2, 256, 12, 64, 128, 1), (1, 2, 200, 4, 64, 128, 1),
               (1, 2, 128, 2, 80, 96, 1), (1, 1, 64, 2, 130, 136, 1),
@@ -953,6 +961,42 @@ def test_ssd_prefill_on_the_card_matches_cpu(cuda):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=bound)
 
 
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "phi3.5-moe-42b-a6.6b",
+                                  "llama4-maverick-400b-a17b"])
+def test_hybrid_and_moe_prefill_on_the_card_match_cpu(cuda, arch):
+    """The reduced zamba2 at 5 layers (kernel 7 in each Mamba2 layer,
+    kernel 8 in each of the two uses of the shared block) and the reduced
+    moe configs (kernel 8 in each layer) prefilled on the card against
+    the CPU prefill on the same weights and tokens: logits and every
+    cache leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(arch).reduced()
+    if cfg.arch_type == "hybrid":
+        cfg = dataclasses.replace(cfg, n_layers=5)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 45),
+                         generator=torch.Generator().manual_seed(1))
+    want, want_cache = T.prefill(cfg, params, {"tokens": toks}, cache_len=50)
+    before = (ssd_ops.SSD_COUNTER.launches, fa_ops.FLASH_COUNTER.launches)
+    got, cache = T.prefill(cfg, _to(params, cuda), {"tokens": toks.to(cuda)},
+                           cache_len=50)
+    torch.cuda.synchronize()
+    launched = (ssd_ops.SSD_COUNTER.launches - before[0],
+                fa_ops.FLASH_COUNTER.launches - before[1])
+    if cfg.arch_type == "hybrid":
+        assert launched == (5, 2)
+    else:
+        assert launched == (0, cfg.n_layers)
+    pairs = [(got, want)] + [(cache[k][leaf], want_cache[k][leaf])
+                             for k in want_cache for leaf in want_cache[k]]
+    for g, w in pairs:
+        bound = 1e-4 * max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=bound)
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -967,7 +1011,9 @@ def _to(tree, device):
 # of 16; S one off the edges of the kernel's 64-row query and 64-key
 # tiles (127, 128, 129, 2049), and D of 70 (no multiple of 4: the
 # kernel's 4-byte copies) and 72 (9 column tiles of 8: its run-time
-# column count)
+# column count); the 2048-token prefills of zamba2-1.2b (32 heads of 64,
+# one per key/value head) and mistral-large-123b (96 heads, 12 per
+# key/value head, of 128)
 FLASH_SHAPES = [(1, 2, 2, 64, 16), (2, 4, 4, 128, 32), (1, 1, 1, 256, 64),
                 (1, 2, 2, 96, 16), (1, 32, 8, 2048, 128),
                 (1, 32, 8, 100, 128), (1, 32, 8, 1537, 128),
@@ -975,7 +1021,8 @@ FLASH_SHAPES = [(1, 2, 2, 64, 16), (2, 4, 4, 128, 32), (1, 1, 1, 256, 64),
                 (1, 6, 2, 200, 64), (1, 4, 1, 33, 128), (1, 3, 3, 1, 8),
                 (1, 2, 1, 70, 40), (1, 8, 2, 127, 128), (1, 8, 2, 128, 128),
                 (1, 8, 2, 129, 128), (1, 8, 2, 2049, 128), (2, 4, 2, 150, 70),
-                (1, 6, 3, 193, 72)]
+                (1, 6, 3, 193, 72), (1, 32, 32, 2048, 64),
+                (1, 96, 8, 2048, 128)]
 
 
 def _flash_operands(gen, cuda, B, Hq, Hkv, S, D):

@@ -4,8 +4,13 @@
 mamba2-1.3b (2 layers, d_model 256, 16 heads of 32, d_state 16, chunk
 16, vocab 512) and the reduced granite-8b (2 layers, d_model 256, 4
 heads and 2 key/value heads of 64, d_ff 512, vocab 512; and its
-sliding-window variant, window 64) with JAX's `init_params(PRNGKey(0))`
-carried across by `interop.lm_params`.
+sliding-window variant, window 64) and the reduced codeqwen1.5-7b (as
+granite, with q/k/v biases and 4 key/value heads, one per query head)
+with JAX's `init_params(PRNGKey(0))` carried across by
+`interop.lm_params`.  The config, full-width tree and seeding tests run
+over every served config of the zoo (the hybrid and moe families'
+models are held in `tests/test_torch_hybrid.py` and
+`tests/test_torch_moe.py`).
 
 The port's prefill takes its kernel wrappers by default, which compute
 the plain versions on CPU tensors; the JAX prefill runs its jnp path
@@ -46,7 +51,11 @@ from repro_torch.serving import Request, ServeEngine
 
 ARCH = "mamba2-1.3b"
 DENSE = "granite-8b"
-ARCHS = [ARCH, DENSE]
+CODEQWEN = "codeqwen1.5-7b"
+ARCHS = [ARCH, DENSE, CODEQWEN]
+# every config of the zoo that the port serves (lm-100m trains)
+ZOO = [ARCH, DENSE, CODEQWEN, "minitron-4b", "mistral-large-123b",
+       "zamba2-1.2b", "phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b"]
 CPU = torch.device("cpu")
 
 
@@ -79,11 +88,17 @@ def _close_caches(got, want, skip=()):
 
 
 def _build(arch, window=False):
-    """(JAX config, JAX params, port config, port params)."""
+    """(JAX config, JAX params, port config, port params).  The reduced
+    codeqwen keeps one query head per key/value head (its `reduced()`
+    gives 4 heads and 2 key/value heads): 4 and 4, with its q/k/v
+    biases."""
     jcfg, cfg = j_get_config(arch), get_config(arch)
     if window:
         jcfg, cfg = jcfg.with_sliding_window(), cfg.with_sliding_window()
     jcfg, cfg = jcfg.reduced(), cfg.reduced()
+    if arch == CODEQWEN:
+        jcfg = dataclasses.replace(jcfg, n_kv_heads=jcfg.n_heads)
+        cfg = dataclasses.replace(cfg, n_kv_heads=cfg.n_heads)
     jparams = JT.init_params(jcfg, jax.random.PRNGKey(0))
     tparams = interop.lm_params(jax.tree.map(np.asarray, jparams), CPU)
     return jcfg, jparams, cfg, tparams
@@ -104,9 +119,9 @@ def _prompt(seed, shape, vocab):
     return np.random.default_rng(seed).integers(0, vocab, shape)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ZOO)
 def test_configs_match_the_reference(arch):
-    assert list_archs() == sorted([*ARCHS, "lm-100m"])  # lm-100m trains
+    assert list_archs() == sorted([*ZOO, "lm-100m"])  # lm-100m trains
     for reduced in (False, True):
         for window in (False, True):
             jc, tc = j_get_config(arch), get_config(arch)
@@ -115,21 +130,38 @@ def test_configs_match_the_reference(arch):
             if reduced:
                 jc, tc = jc.reduced(), tc.reduced()
             assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
-    assert get_config(arch).supports_shape("long_500k") == (arch == ARCH)
+    assert get_config(arch).supports_shape("long_500k") == (
+        get_config(arch).arch_type in ("ssm", "hybrid"))
 
 
 FULL_WIDTH = {
     ARCH: (1_446_714_368, "['blocks']['mixer']['w_in']", (48, 2048, 8512)),
     DENSE: (8_254_689_280, "['blocks']['mlp']['w_gate']", (36, 4096, 14336)),
+    CODEQWEN: (8_190_038_016, "['blocks']['attn']['bq']", (32, 4096)),
+    "minitron-4b": (5_096_279_040, "['lm_head']", (3072, 256000)),
+    "mistral-large-123b": (122_610_069_504, "['blocks']['attn']['wq']",
+                           (88, 12288, 12288)),
+    "zamba2-1.2b": (1_170_473_856, "['shared_attn']['mlp']['w_gate']",
+                    (2048, 8192)),
+    "phi3.5-moe-42b-a6.6b": (41_872_527_360,
+                             "['moe_blocks']['moe']['w_down']",
+                             (32, 16, 6400, 4096)),
+    "llama4-maverick-400b-a17b": (394_672_051_200,
+                                  "['moe_blocks']['moe']['router']",
+                                  (24, 5120, 128)),
 }
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ZOO)
 def test_init_params_tree_matches_jax_at_full_width(arch):
-    """Key for key and shape for shape, on the meta device: mamba2-1.3b
-    (48 layers, d_model 2048, vocab 50280, 1,446,714,368 parameters) and
-    granite-8b (36 layers, d_model 4096, d_ff 14336, vocab 49152,
-    8,254,689,280 parameters)."""
+    """Key for key and shape for shape, on the meta device, at the
+    parameter totals of FULL_WIDTH: mamba2-1.3b (48 layers, d_model 2048,
+    vocab 50280), granite-8b (36 layers, d_model 4096, d_ff 14336, vocab
+    49152), codeqwen1.5-7b (its q/k/v biases), minitron-4b (vocab
+    256000), mistral-large-123b (88 layers, d_model 12288), zamba2-1.2b
+    (38 Mamba2 layers and one shared block), phi3.5-moe (32 MoE layers
+    of 16 experts) and llama4-maverick (24 dense and 24 MoE layers of 128
+    experts)."""
     want = jax.eval_shape(lambda: JT.init_params(j_get_config(arch),
                                                  jax.random.PRNGKey(0)))
     got = T.init_params(get_config(arch), None, device="meta")
@@ -143,13 +175,18 @@ def test_init_params_tree_matches_jax_at_full_width(arch):
     assert flat_got[key] == shape
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+# the leaf whose draws each seeding test reads: N(0, 1) / sqrt(d_model)
+SEEDED = {"ssm": ("blocks", "mixer.w_in"), "hybrid": ("blocks", "mixer.w_in"),
+          "dense": ("blocks", "attn.wq"), "moe": ("moe_blocks", "moe.w_gate")}
+
+
+@pytest.mark.parametrize("arch", ZOO)
 def test_init_params_is_seeded(arch):
     cfg = get_config(arch).reduced()
     a, b, c = (T.init_params(cfg, torch.Generator().manual_seed(s),
                              device=CPU) for s in (3, 3, 4))
-    w = "mixer.w_in" if arch == ARCH else "attn.wq"
-    wa, wb = _leaves(a["blocks"])[w], _leaves(b["blocks"])[w]
+    stack, w = SEEDED[cfg.arch_type]
+    wa, wb = _leaves(a[stack])[w], _leaves(b[stack])[w]
     assert torch.equal(wa, wb)
     assert not torch.equal(a["embed"], c["embed"])
     assert float(wa.std()) == pytest.approx(1 / np.sqrt(cfg.d_model),
@@ -167,7 +204,9 @@ def test_lm_params_carries_the_dense_tree_key_for_key(models):
         assert v.dtype == torch.float32 and v.device == CPU
         assert np.array_equal(v.numpy(), want[k])
     if cfg.arch_type == "dense":
-        assert got["blocks.attn.wk"].shape == (2, 256, 128)
+        assert got["blocks.attn.wk"].shape == (2, 256,
+                                               64 * cfg.n_kv_heads)
+        assert ("blocks.attn.bq" in got) == cfg.attn_bias
 
 
 @pytest.mark.parametrize("S", [1, 5, 16, 37])
@@ -374,8 +413,11 @@ def test_prefill_launches_the_kernel_once_per_layer(models, monkeypatch):
         # (B, Hq, Hkv, S, D) and the (b, h, s) strides of q, k, v, o: the
         # (B, S, H, D) projections read in place, the output alike
         args = slice(4, 21)
-        want = (1, 4, 2, 20, 64, 5120, 64, 256, 2560, 64, 128, 2560, 64,
-                128, 5120, 64, 256)
+        hq, hkv = cfg.n_heads, cfg.n_kv_heads
+        q_strides = (20 * hq * 64, 64, hq * 64)
+        kv_strides = (20 * hkv * 64, 64, hkv * 64)
+        want = (1, hq, hkv, 20, 64, *q_strides, *kv_strides, *kv_strides,
+                *q_strides)
     before = counter.launches
     _, cache = T.prefill(cfg, params, {"tokens": toks}, cache_len=21)
     assert counter.launches == before + cfg.n_layers
@@ -506,13 +548,13 @@ def test_rounding_of_the_attention_core_moves_deep_logits_inside_the_bound(
     assert int(plain.argmax()) == int(other.argmax())
 
 
-@pytest.mark.parametrize("family", ["moe", "hybrid", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["vlm", "audio"])
 def test_unported_families_raise(family):
     cfg = dataclasses.replace(get_config(DENSE).reduced(), arch_type=family)
     params = T.init_params(get_config(DENSE).reduced(), None, device="meta")
-    with pytest.raises(NotImplementedError, match="§1 item 8"):
+    with pytest.raises(NotImplementedError, match="§1 item 4"):
         T.init_params(cfg, None, device="meta")
-    with pytest.raises(NotImplementedError, match="§1 item 8"):
+    with pytest.raises(NotImplementedError, match="§1 item 4"):
         T.prefill(cfg, params, {"tokens": torch.zeros((1, 4), dtype=int)})
 
 

@@ -617,7 +617,11 @@ def test_new_wrappers_raise_on_other_devices():
         cg_ops.lsq_gradient(x, y, b)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "granite-8b"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "granite-8b",
+                                  "codeqwen1.5-7b", "minitron-4b",
+                                  "mistral-large-123b", "zamba2-1.2b",
+                                  "phi3.5-moe-42b-a6.6b",
+                                  "llama4-maverick-400b-a17b"])
 def test_serve_entry_points_default_to_cuda_and_raise_without_it(no_cuda,
                                                                  arch):
     """The LM serve paths: parameters, cache, prefill step, the engine,

@@ -470,7 +470,7 @@ def test_train_main_plain_and_federated(tmp_path, capsys):
 
 
 def test_train_main_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         train.main(["--reduced", "--distributed"], device="cpu")
     cfg = get_config("granite-8b").reduced()
     assert train.add_modality_stubs({"tokens": 0}, cfg) == {"tokens": 0}
@@ -481,7 +481,7 @@ def test_train_main_refuses_what_is_not_ported():
             cfg, vlm=VLMSpec(cross_every=2, n_patches=4, d_vision=8)))
 
 
-@pytest.mark.parametrize("family", ["moe", "hybrid", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["vlm", "audio"])
 def test_training_refuses_unported_families(family):
     import dataclasses
     cfg = dataclasses.replace(get_config("granite-8b").reduced(),
@@ -490,7 +490,7 @@ def test_training_refuses_unported_families(family):
                            device="meta")
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
              "targets": torch.zeros((1, 4), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="§1 item 8"):
+    with pytest.raises(NotImplementedError, match="§1 item 4"):
         T.forward_train(cfg, params, batch)
-    with pytest.raises(NotImplementedError, match="§1 item 8"):
+    with pytest.raises(NotImplementedError, match="§1 item 4"):
         T.loss_fn(cfg, params, batch)
