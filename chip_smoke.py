@@ -56,7 +56,9 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      S, D) = (1, 32, 8, 2048, 128), at S = 100 and 1537, at D = 64, at
      one and three query heads per key/value head, and at the 2048-token
      prefills of zamba2-1.2b (1, 32, 32, 2048, 64) and mistral-large-123b
-     (1, 96, 8, 2048, 128): kernel and plain
+     (1, 96, 8, 2048, 128), and whisper-tiny's 440-token decoder prefill
+     (1, 6, 6, 440, 64) (llama-3.2-vision-11b's is granite's): kernel and
+     plain
      version both within the float32 rounding bound of the float64 value
      (`kernels.flash_attn.ref.float64_reference_and_bound`, derived
      before the first run), within rtol 2e-4 / atol 2e-4 of each other
@@ -312,18 +314,37 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      against the plain one as in phase 12; llama4-maverick on the meta
      device only (394,672,051,200 parameters; one MoE layer, one dense
      layer and the embeddings hold 18,427,438,080, 68.6 GiB at float32).
+ 24. the vlm and audio paths, every cross block's `gate` set to 0.5 +
+     U(0, 1) (at init tanh(0) zeroes the cross path): (a)
+     llama-3.2-vision-11b at full width and depth (40 layers in 8 groups
+     of 4 self blocks and one cross block over 1601 stub patches of
+     d_vision 4096; 9,775,157,256 float32 parameters): its 2048-token
+     kernel prefill (exactly 32 kernel-8 launches) against the plain one
+     within 1e-3 * max(1, max|logit|), stated in advance, with the same
+     greedy token, the logits moved by other patches, then
+     `greedy_generate` of 8 tokens (32 launches: none in decode); (b)
+     whisper-tiny at full width and depth (4 encoder and 4 decoder
+     layers over 1500 stub frames; 61,085,956 parameters): the same for a
+     440-token prompt and 8 new tokens (its 448 decode positions; 4
+     launches a prefill, none in the encoder or decode); prefill ms, ms a
+     step and peak memory of each; (c) training through `launch.train`
+     with its stub patches or frames drawn per step: whisper-tiny at full
+     width and depth, and llama-3.2-vision-11b at full width cut to one
+     group (5 of 40 layers), a few steps each: losses finite and falling,
+     0 kernel launches, peak memory; each config's parameters freed
+     before the next.
 
 The user tile cache is an empty temporary directory for the whole run,
 so `block="auto"` reads the committed `src/repro_torch/tune/
 defaults.json` alone, and each kernel's bound comes from
-`repro_torch.roofline.kernel_terms`.  Every run of phases 4-23 is
+`repro_torch.roofline.kernel_terms`.  Every run of phases 4-24 is
 counted from 0 just before it.  The kernels
 line's `launches` sums the driven runs: kernel 1 over phases 4, 14 (r = 2
 and 3), 16, 17 and 18 (the sweep, its solo runs, the served epochs and
 the per-session loop); kernel 2 over phases 4, 15, 16, 17 and 18's two
 `plan_sweep` calls; kernel 4 over phases 6, 15 and 18c; kernel 5 over
 the T = 3 runs of phases 7, 14, 16 and 17; kernel 7 over phases 11 and
-21; kernel 8 over phases 12 and 21-23.  Kernels 1-6 also carry the
+21; kernel 8 over phases 12 and 21-24.  Kernels 1-6 also carry the
 `tile` `"auto"` launched at the timed shape (`[0]`: a round gradient's
 own partition), and kernels 1, 2, 4, 5 and 6 `tuned`, phase 20's
 measured tuning of the kernel's family.
@@ -410,7 +431,9 @@ DENSE_ARCH, DENSE_PARAMS, DENSE_LOGIT_RTOL = "granite-8b", 8_254_689_280, 1e-3
 # and one key/value head per query head (R = 1) and per three (R = 3);
 # the 2048-token prefills of zamba2-1.2b (phase 21: 32 heads of 64, one
 # per key/value head, the kernel's run-time-D instance) and of
-# mistral-large-123b (phase 22: 12 query heads per key/value head)
+# mistral-large-123b (phase 22: 12 query heads per key/value head), and
+# whisper-tiny's decoder prefill (phase 24: 6 heads of 64, one per
+# key/value head)
 FLASH_SHAPE = (1, 32, 8, 2048, 128)
 FLASH_HYBRID_SHAPE = (1, 32, 32, 2048, 64)
 FLASH_CASES = {"serving shape": FLASH_SHAPE,
@@ -420,7 +443,9 @@ FLASH_CASES = {"serving shape": FLASH_SHAPE,
                "R = 1": (1, 8, 8, 300, 128),
                "R = 3": (1, 12, 4, 257, 128),
                "zamba2 serving shape": FLASH_HYBRID_SHAPE,
-               "mistral-large serving shape": (1, 96, 8, 2048, 128)}
+               "mistral-large serving shape": (1, 96, 8, 2048, 128),
+               # phase 24's AUDIO_PROMPT-token whisper-tiny prefill
+               "whisper-tiny serving shape": (1, 6, 6, 440, 64)}
 # phase 14: GradientCodingFL at the replication factors of
 # benchmarks/ablation_baselines.py
 GC_REPLICATION = (2, 3)
@@ -503,6 +528,24 @@ MOE_ARCH, MOE_PARAMS, MOE_LAYERS, MOE_CUT_PARAMS = (
 MOE_PROMPTS, MOE_NEW = (100, 1537, 2048), 8
 MAVERICK_ARCH, MAVERICK_PARAMS = "llama4-maverick-400b-a17b", 394_672_051_200
 MAVERICK_MIN_PARAMS = 18_427_438_080
+# phase 24: llama-3.2-vision-11b at full width and depth, one VLM_PROMPT-
+# token prompt over its 1601 stub patches, VLM_NEW greedy tokens;
+# whisper-tiny at full width and depth, AUDIO_PROMPT + AUDIO_NEW = its 448
+# decode positions, over its 1500 stub frames; every cross block's gate
+# drawn from 0.5 + U(0, 1).  Their kernel prefills against the plain ones
+# within MODAL_LOGIT_RTOL * max(1, max|logit|), stated before the first
+# run on the card: kernel 8 is the only kernel on either path, and the
+# dense configs' 32- to 40-layer kernel prefills sat within 3e-5 to 1.6e-4
+# of the plain ones (phases 12, 22).  Training: whisper-tiny at full width
+# and depth, and llama-3.2-vision-11b at full width cut to one group of
+# VLM_TRAIN_LAYERS layers (AdamW holds 4 copies of its 36.4 GiB at full
+# depth), MODAL_TRAIN_STEPS steps each through launch.train
+VLM_ARCH, VLM_PARAMS, VLM_PROMPT, VLM_NEW = (
+    "llama-3.2-vision-11b", 9_775_157_256, 2048, 8)
+AUDIO_ARCH, AUDIO_PARAMS, AUDIO_PROMPT, AUDIO_NEW = (
+    "whisper-tiny", 61_085_956, 440, 8)
+MODAL_LOGIT_RTOL = 1e-3
+VLM_TRAIN_LAYERS, MODAL_TRAIN_STEPS = 5, 12
 # phase 19's reduced runs of the new families
 NEW_FAMILY_TRAIN_STEPS = 30
 RESOLVE_CALLS = 100_000  # memoized "auto" resolutions timed on the host
@@ -2008,18 +2051,20 @@ def check_against_greedy(cfg, params, done, dev, card: str,
 
 
 def check_kernel_prefill(cfg, params, toks, card: str, kname: str,
-                         rtol: float) -> float:
-    """The prefill of `toks` with the kernel against the plain one: max
-    |logit difference| within rtol * max(1, max|logit|), stated before
-    the run, and the same greedy token.  Returns the difference."""
+                         rtol: float, extra: dict | None = None) -> float:
+    """The prefill of `toks` (with the stub inputs `extra`) with the
+    kernel against the plain one: max |logit difference| within rtol *
+    max(1, max|logit|), stated before the run, and the same greedy
+    token.  Returns the difference."""
     from repro_torch.models import transformer as T
 
+    batch = {"tokens": toks, **(extra or {})}
     t0 = time.perf_counter()
-    lk, _ = T.prefill(cfg, params, {"tokens": toks})
+    lk, _ = T.prefill(cfg, params, batch)
     torch.cuda.synchronize()
     kernel_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    lp, _ = T.prefill(cfg, params, {"tokens": toks}, use_kernel=False)
+    lp, _ = T.prefill(cfg, params, batch, use_kernel=False)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     diff = float((lk - lp).abs().max())
@@ -2390,6 +2435,122 @@ def moe_serve_phase(dev, card: str, expect, reset_counters,
             "step_ms": run["step_ms"], "prefill_ms": run["prefill_ms"],
             "logit_diff": diff, "dropped": [d for d, _ in dropped],
             "peak_bytes": peak}
+
+
+def modal_serve(cfg, n_want: int, prompt: int, new: int, dev, card: str,
+                expect, reset_counters, read_counters) -> dict:
+    """Phase 24's serve run of one vlm or audio config at full width and
+    depth: the parameters drawn on the card with every gate from 0.5 +
+    U(0, 1), one `prompt`-token prompt and its stub patches or frames
+    (0.1 * N(0, 1), as `launch.serve` draws them); the kernel prefill
+    against the plain one (kernel 8 once per causal decoder
+    self-attention, counted from 0), the logits moved by other stubs,
+    and `greedy_generate` of `new` tokens (the same launches: none in
+    decode).  Frees the parameters; returns the run's numbers."""
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.launch.train import add_modality_stubs
+    from repro_torch.models import transformer as T
+
+    torch.cuda.reset_peak_memory_stats()
+    params, gen = draw_params(cfg, dev, SERVE_SEED, card, n_want)
+    gates = params["cross_blocks"]["gate"]
+    gates.copy_(0.5 + torch.rand(gates.shape, generator=gen, device=dev))
+    toks = torch.randint(0, cfg.vocab, (1, prompt), generator=gen,
+                         device=dev)
+    extra = add_modality_stubs({"tokens": toks}, cfg, gen)
+    del extra["tokens"]
+    (key, stub), = extra.items()
+    n_self = T._n_attn(cfg)
+    phase(f"serve [{card}]: {cfg.name}: {n_self} causal self-attention "
+          f"layers in the decoder, {gates.shape[0]} cross blocks over "
+          f"{key} {list(stub.shape)}, gates "
+          f"{[round(g, 4) for g in gates.flatten().tolist()]}"
+          + (f", {cfg.encdec.n_enc_layers} unmasked encoder layers"
+             if cfg.encdec else ""))
+    reset_counters()
+    diff = check_kernel_prefill(cfg, params, toks, card, "kernel 8",
+                                MODAL_LOGIT_RTOL, extra)
+    counts = read_counters()
+    check(counts == expect(causal_attention=n_self),
+          f"{cfg.name}'s kernel prefill launched {counts}")
+    base, _ = T.prefill(cfg, params, {"tokens": toks, **extra})
+    other, _ = T.prefill(cfg, params, {"tokens": toks, key: -stub})
+    moved = float((base - other).abs().max())
+    check(moved > 0.0, f"{cfg.name}: the {key} do not reach the logits")
+    reset_counters()
+    out, t_pre, st = greedy_generate(cfg, params, toks, new, extra,
+                                     device=dev)
+    counts = read_counters()
+    check(counts == expect(causal_attention=n_self),
+          f"{cfg.name}'s generation launched {counts} (decode must launch "
+          "nothing)")
+    gen_toks = out[0, prompt:]
+    check(tuple(out.shape) == (1, prompt + new) and bool(
+        ((gen_toks >= 0) & (gen_toks < cfg.vocab)).all()),
+        "a generated token outside the vocabulary")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = 1e3 * statistics.median(st)
+    phase(f"serve [{card}]: {cfg.name} {n_self} kernel-8 launches in the "
+          f"{prompt}-token prefill, 0 in {new} decode steps; other {key} "
+          f"move the logits by {moved:.3e}; greedy tokens "
+          f"{gen_toks.tolist()}; prefill {1e3 * t_pre:.3f} ms, decode "
+          f"median {step_ms:.3f} ms a token; peak device memory "
+          f"{peak / 2**30:.3f} GiB")
+    del params, out
+    free_card()
+    return {"launches": 2 * n_self, "logit_diff": diff, "moved": moved,
+            "prefill_ms": 1e3 * t_pre, "step_ms": step_ms,
+            "peak_bytes": peak}
+
+
+def modal_phase(dev, card: str, expect, reset_counters,
+                read_counters) -> dict:
+    """Phase 24: the vlm and audio families served at full width and
+    depth (`modal_serve`), then trained through `launch.train` on stub
+    inputs drawn per step: whisper-tiny at full width and depth,
+    llama-3.2-vision-11b at full width cut to one group.  Returns each
+    run's numbers and kernel 8's launches over the phase."""
+    from repro_torch.configs import get_config, register
+
+    out = {}
+    vlm, audio = get_config(VLM_ARCH), get_config(AUDIO_ARCH)
+    n_groups = vlm.n_layers // vlm.vlm.cross_every
+    check(vlm.n_layers == 40 and vlm.d_model == 4096 and n_groups == 8
+          and vlm.vlm.n_patches == 1601 and vlm.vlm.d_vision == 4096
+          and vlm.vocab == 128256, "llama-3.2-vision-11b is not at full "
+          "width")
+    check(audio.n_layers == audio.encdec.n_enc_layers == 4 and
+          audio.d_model == 384 and audio.encdec.n_frames == 1500 and
+          AUDIO_PROMPT + AUDIO_NEW == audio.encdec.max_decode_len,
+          "whisper-tiny is not at full width")
+    out[VLM_ARCH] = modal_serve(vlm, VLM_PARAMS, VLM_PROMPT, VLM_NEW, dev,
+                                card, expect, reset_counters, read_counters)
+    out[AUDIO_ARCH] = modal_serve(audio, AUDIO_PARAMS, AUDIO_PROMPT,
+                                  AUDIO_NEW, dev, card, expect,
+                                  reset_counters, read_counters)
+    check(out[VLM_ARCH]["launches"] == 2 * 32 and
+          out[AUDIO_ARCH]["launches"] == 2 * 4,
+          "unexpected kernel-8 launches per prefill")
+
+    cut = register(cut_depth(vlm, VLM_TRAIN_LAYERS))
+    for cfg, seq in ((audio, audio.encdec.max_decode_len), (cut, 256)):
+        res = run_training(["--arch", cfg.name, "--steps",
+                            str(MODAL_TRAIN_STEPS), "--seq", str(seq),
+                            "--log-every", "4"],
+                           dev, card, expect, reset_counters, read_counters)
+        losses = res["losses"]
+        first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+        phase(f"train [{card}]: {cfg.name} mean loss of the first 3 steps "
+              f"{first:.4f}, of the last 3 {last:.4f}")
+        check(last < first, f"{cfg.name}'s loss did not go down")
+        out[f"train {cfg.name}"] = {
+            k: res[k] for k in ("wall_s", "step_s", "tokens_per_s",
+                                "peak_bytes", "n_params")}
+        out[f"train {cfg.name}"].update(first=first, last=last)
+        del res
+        free_card()
+    return {"configs": out, "launches": sum(
+        out[a]["launches"] for a in (VLM_ARCH, AUDIO_ARCH))}
 
 
 def flash_operands(gen, dev, B, Hq, Hkv, S, D) -> tuple:
@@ -3949,12 +4110,23 @@ def main() -> int:
           f"{moe['tokens_per_s']:.2f} tokens/s, decode step median "
           f"{moe['step_ms']:.3f} ms")
 
+    # -- 24. the vlm and audio families -------------------------------------
+    modal = modal_phase(dev, card, expect, reset_counters, read_counters)
+    phase(f"phase 24 [{card}]: " + "; ".join(
+        f"{a} prefill {modal['configs'][a]['prefill_ms']:.3f} ms, decode "
+        f"step median {modal['configs'][a]['step_ms']:.3f} ms, peak "
+        f"{modal['configs'][a]['peak_bytes'] / 2**30:.3f} GiB"
+        for a in (VLM_ARCH, AUDIO_ARCH)) + "; " + "; ".join(
+        f"{k} {v['step_s']!r} s a step, peak "
+        f"{v['peak_bytes'] / 2**30:.3f} GiB"
+        for k, v in modal["configs"].items() if k.startswith("train ")))
+
     # launches on the driven paths: phase 4 and the new paths' runs
     # (kernel 1), phases 4, 15, 16 (kernel 2), 6 and 15 (kernel 4), 7, 14
     # and 16 at T = 3 (kernel 5), every counted run of phase 17, and
     # phase 18's sweep, solo, served and per-session-loop runs (kernel 1),
     # plan_sweep encodes (kernel 2) and served DP lane (kernel 4); the
-    # serve phases 11 and 21 (kernel 7), 12 and 21-23 (kernel 8)
+    # serve phases 11 and 21 (kernel 7), 12 and 21-24 (kernel 8)
     driven = {
         "round_grad": launches["round_grad"] + sum(
             gradcode["launches"][f"r={r}"] for r in GC_REPLICATION)
@@ -3976,7 +4148,7 @@ def main() -> int:
         "ssd_chunk": serve["launches"] + hybrid["launches"]["ssd_chunk"],
         "causal_attention": dense["launches"]
         + hybrid["launches"]["causal_attention"] + dense_cfgs["launches"]
-        + moe["launches"]}
+        + moe["launches"] + modal["launches"]}
     phase(f"launches on the driven paths: {driven}")
 
     label, m, d, ms, warm, plain, lib, bound_ms = records[0]

@@ -1,17 +1,17 @@
-"""Architecture configs of the ported model families.
+"""Architecture configs of the model zoo, the reference's eleven.
 
-`load_all` imports the config modules that are ported (their families'
-models run in `repro_torch.models`), so `get_config`/`list_archs` see
-exactly those; the reference's other configs come with their families.
+`load_all` imports the config modules (their families' models run in
+`repro_torch.models`), so `get_config`/`list_archs` see them.
 """
 import importlib
 
 from .base import (ArchConfig, EncDecSpec, HybridSpec, INPUT_SHAPES, MoESpec,
                    SSMSpec, VLMSpec, get_config, list_archs, register)
 
-_MODULES = ["codeqwen15_7b", "granite_8b", "llama4_maverick", "lm_100m",
-            "mamba2_1p3b", "minitron_4b", "mistral_large_123b",
-            "phi35_moe", "zamba2_1p2b"]
+_MODULES = ["codeqwen15_7b", "granite_8b", "llama32_vision_11b",
+            "llama4_maverick", "lm_100m", "mamba2_1p3b", "minitron_4b",
+            "mistral_large_123b", "phi35_moe", "whisper_tiny",
+            "zamba2_1p2b"]
 
 _loaded = False
 

@@ -5,11 +5,15 @@ or SSM cache (counterpart of `repro/launch/serve.py`).
       [--batch 4 --prompt-len 64 --new-tokens 32] [--device cpu]
 
 Runs on the card unless `--device cpu` is given; weights are random,
-drawn from a `torch.Generator` seeded with `--seed`.  `--full` takes the
-config at full width and depth, float32: on one 80 GB card that is
-granite-8b, codeqwen1.5-7b, minitron-4b, mamba2-1.3b, zamba2-1.2b and
-lm-100m; mistral-large-123b, phi3.5-moe and llama4-maverick hold more
-weights than the card.
+drawn from a `torch.Generator` seeded with `--seed`, and so are the
+stub inputs of the vlm and audio families, as the reference's: 0.1 *
+N(0, 1) vision patches (batch, n_patches, d_vision) or audio frames
+(batch, n_frames, d_model).  `--full` takes the config at full width and
+depth, float32: on one 80 GB card that is granite-8b, codeqwen1.5-7b,
+minitron-4b, mamba2-1.3b, zamba2-1.2b, llama-3.2-vision-11b (36.4 GiB),
+whisper-tiny (whose decoder holds 448 positions: prompt plus new tokens)
+and lm-100m; mistral-large-123b, phi3.5-moe and llama4-maverick hold
+more weights than the card.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 from repro_torch.configs import get_config, list_archs
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.launch.train import add_modality_stubs
 from repro_torch.models import transformer as T
 
 
@@ -88,9 +93,12 @@ def main(argv=None):
     params = T.init_params(cfg, gen, device=dev)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
+    extra = add_modality_stubs({"tokens": prompt}, cfg, gen)
+    del extra["tokens"]
 
     out, t_prefill, steps = greedy_generate(cfg, params, prompt,
-                                            args.new_tokens, {}, device=dev)
+                                            args.new_tokens, extra,
+                                            device=dev)
     per_tok = float(np.median(steps))
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
           f"new={args.new_tokens}")

@@ -12,6 +12,8 @@ reference's.
   python -m repro_torch.launch.train --arch granite-8b --reduced --federated
 
 Both modes compute in float32 without remat, as the reference's do.
+The vlm and audio families train on stub patches or frames drawn per
+step from the run's generator (`add_modality_stubs`).
 `--distributed` (the reference's multi-host bootstrap) raises: the launch
 layer is not ported (ROADMAP.md §1 item 5).  On the card the run ends
 with the peak of allocated device memory.
@@ -34,13 +36,20 @@ from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import make_optimizer
 
 
-def add_modality_stubs(batch: dict, cfg) -> dict:
-    """The reference adds stub vision patches (vlm) or audio frames
-    (encdec); those families are not ported."""
+def add_modality_stubs(batch: dict, cfg,
+                       gen: torch.Generator | None = None) -> dict:
+    """Add the stub inputs of the vlm and audio families, as the
+    reference: 0.1 * N(0, 1) vision patches (B, n_patches, d_vision) or
+    audio frames (B, n_frames, d_model), float32, drawn from `gen` on the
+    tokens' device (fresh each call).  Other configs' batches pass
+    through."""
     if cfg.vlm or cfg.encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the vlm and audio families are not ported "
-            "(ROADMAP.md §1 item 4)")
+        tokens = batch["tokens"]
+        shape = ((cfg.vlm.n_patches, cfg.vlm.d_vision) if cfg.vlm
+                 else (cfg.encdec.n_frames, cfg.d_model))
+        stub = torch.randn((tokens.shape[0], *shape), generator=gen,
+                           device=tokens.device).mul_(0.1)
+        batch["patches" if cfg.vlm else "frames"] = stub
     return batch
 
 
@@ -143,7 +152,7 @@ def run(argv=None, device: str | torch.device | None = None) -> dict:
     t_start = time.perf_counter()
     for s in range(1, args.steps + 1):
         t0 = time.perf_counter()
-        batch = add_modality_stubs(next(it), cfg)
+        batch = add_modality_stubs(next(it), cfg, gen)
         if args.federated:
             w, dt = round_weights(fstate, rng, batch_clients)
             params, opt_state, metrics = step(

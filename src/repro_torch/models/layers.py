@@ -1,7 +1,7 @@
 """Transformer building blocks (counterpart of `repro/models/layers.py`):
 initialisers, norms, MLPs, rotary embeddings, grouped-query attention for
 prefill and for single-token decode against a KV cache (with optional
-sliding window).
+sliding window), and cross-attention over a memory sequence.
 
 Conventions, as in the reference:
   * params are plain dicts of tensors; `dtype` controls storage and the
@@ -15,13 +15,18 @@ Differences from the reference:
     attention with no window to `kernels.flash_attn.ops.causal_attention`
     (kernel 8 on the card, its plain version on the CPU);
     `use_kernel=False` and a sliding window keep the grouped expression;
+  * `apply_rope` takes cos and sin of the float32 angles in float64 and
+    rounds once, so its tables agree with XLA's float32 ones at ~99% of
+    the entries where torch's float32 `cos`/`sin` agree at 94-97%;
   * `decode_self_attention` takes `pos` as an int or as a (B,) tensor,
     one absolute position per row, and writes the new K/V into the cache
     in place (the reference returns a new cache);
   * only what the ported families use: no packed projections (`fused`),
     no `impl="repeat"`, bf16 softmax or `seq_shard` (no config sets them;
-    `models.transformer` raises on them), no cross-attention, and
-    self-attention is causal and roped.
+    `models.transformer` raises on them), and self-attention is roped.
+    Non-causal self-attention (the audio encoder's) and cross-attention
+    take the grouped expression with no mask, never kernel 8, which is
+    causal only: as in the reference, which reaches no kernel there.
 """
 from __future__ import annotations
 
@@ -75,16 +80,20 @@ def init_ln(d: int, dtype: torch.dtype, device: torch.device,
 def init_attention(gen: torch.Generator | None, d_model: int, n_heads: int,
                    n_kv_heads: int, head_dim: int, dtype: torch.dtype,
                    device: torch.device, stack: tuple[int, ...] = (),
-                   bias: bool = False) -> dict:
-    """QKVO projections, with zero `bq`/`bk`/`bv` biases when `bias`."""
+                   bias: bool = False,
+                   kv_input_dim: Optional[int] = None) -> dict:
+    """QKVO projections, with zero `bq`/`bk`/`bv` biases when `bias`.
+    `kv_input_dim` (default d_model) is the width K and V are projected
+    from: a cross-attention memory's."""
+    kv_in = kv_input_dim or d_model
     p = {
         "wq": dense_init(gen, d_model, n_heads * head_dim, dtype, device,
                          stack),
         "wo": dense_init(gen, n_heads * head_dim, d_model, dtype, device,
                          stack),
-        "wk": dense_init(gen, d_model, n_kv_heads * head_dim, dtype, device,
+        "wk": dense_init(gen, kv_in, n_kv_heads * head_dim, dtype, device,
                          stack),
-        "wv": dense_init(gen, d_model, n_kv_heads * head_dim, dtype, device,
+        "wv": dense_init(gen, kv_in, n_kv_heads * head_dim, dtype, device,
                          stack),
     }
     if bias:
@@ -157,11 +166,13 @@ def rope_freqs(head_dim: int, theta: float,
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, S, H, Dh); positions: (B, S) absolute token positions (each
-    row its own)."""
+    row its own).  The angles are float32 products, as the reference's;
+    their cos and sin are rounded once from float64."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)             # (Dh/2,)
     angles = positions[..., None].to(torch.float32) * freqs      # (B, S, Dh/2)
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
+    angles = angles.to(torch.float64)
+    cos = torch.cos(angles).to(torch.float32)[:, :, None, :]
+    sin = torch.sin(angles).to(torch.float32)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -171,19 +182,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # attention cores
 # ---------------------------------------------------------------------------
 
-def _project_qkv(p: dict, x: torch.Tensor, n_heads: int, n_kv_heads: int,
-                 head_dim: int):
+def _project_qkv(p: dict, x: torch.Tensor, kv_src: torch.Tensor,
+                 n_heads: int, n_kv_heads: int, head_dim: int):
+    """Q from x (B, S, D), K and V from kv_src (B, T, D_kv), all in
+    `x.dtype`."""
     q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
+    k = kv_src @ p["wk"].to(x.dtype)
+    v = kv_src @ p["wv"].to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
     B, S = x.shape[:2]
+    T = kv_src.shape[1]
     q = q.reshape(B, S, n_heads, head_dim)
-    k = k.reshape(B, S, n_kv_heads, head_dim)
-    v = v.reshape(B, S, n_kv_heads, head_dim)
+    k = k.reshape(B, T, n_kv_heads, head_dim)
+    v = v.reshape(B, T, n_kv_heads, head_dim)
     return q, k, v
 
 
@@ -231,20 +245,25 @@ def causal_mask(S: int, T: int, window: Optional[int] = None,
 
 def self_attention(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                    n_heads: int, n_kv_heads: int, head_dim: int,
-                   theta: float, window: Optional[int] = None,
+                   theta: float, causal: bool = True,
+                   window: Optional[int] = None,
                    return_kv: bool = False, use_kernel: bool = True):
-    """Full-sequence causal self-attention with rope (prefill).
+    """Full-sequence self-attention with rope (training, encoder,
+    prefill); causal unless `causal=False` (then unmasked, and `window`
+    is not read).
 
-    With no window and `use_kernel`, the core goes to
+    Causal with no window and `use_kernel`, the core goes to
     `kernels.flash_attn.ops.causal_attention` on transposed views of the
     (B, S, H, Dh) projections (no copy); the output comes back as a view
     of a (B, S, Hq, Dh) tensor.  With return_kv=True also returns the
     post-rope (k, v), which the prefill turns into the decode cache."""
-    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    q, k, v = _project_qkv(p, x, x, n_heads, n_kv_heads, head_dim)
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
     B, S = x.shape[:2]
-    if use_kernel and window is None:
+    if not causal:
+        out = gqa_scores_apply(q, k, v, None)
+    elif use_kernel and window is None:
         out = fa_ops.causal_attention(q.transpose(1, 2), k.transpose(1, 2),
                                       v.transpose(1, 2)).transpose(1, 2)
     else:
@@ -289,6 +308,43 @@ def kv_to_cache(k: torch.Tensor, v: torch.Tensor,
             "v": torch.roll(v[:, S - window:], r, dims=1)}
 
 
+def cross_attention(p: dict, x: torch.Tensor, memory: torch.Tensor, *,
+                    n_heads: int, n_kv_heads: int,
+                    head_dim: int) -> torch.Tensor:
+    """Cross-attention of x (B, S, D) over a memory sequence (B, T, D_kv):
+    no mask, no rope."""
+    q, k, v = _project_qkv(p, x, memory, n_heads, n_kv_heads, head_dim)
+    out = gqa_scores_apply(q, k, v, None)
+    return out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"].to(x.dtype)
+
+
+def cross_attention_cached(p: dict, x: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, n_heads: int, n_kv_heads: int,
+                           head_dim: int) -> torch.Tensor:
+    """Cross-attention against precomputed (B, T, Hkv, Dh) K/V (decode,
+    and the prefill once the memory's K/V are projected)."""
+    q = x @ p["wq"].to(x.dtype)
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    B, S = x.shape[:2]
+    q = q.reshape(B, S, n_heads, head_dim)
+    out = gqa_scores_apply(q, k, v, None)
+    return out.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+
+
+def project_cross_kv(p: dict, memory: torch.Tensor, *, n_kv_heads: int,
+                     head_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A memory's (B, T, Hkv, Dh) K and V, in `memory.dtype`."""
+    k = memory @ p["wk"].to(memory.dtype)
+    v = memory @ p["wv"].to(memory.dtype)
+    if "bk" in p:
+        k = k + p["bk"].to(memory.dtype)
+        v = v + p["bv"].to(memory.dtype)
+    B, T = memory.shape[:2]
+    return (k.reshape(B, T, n_kv_heads, head_dim),
+            v.reshape(B, T, n_kv_heads, head_dim))
+
+
 # ---------------------------------------------------------------------------
 # KV cache (decode)
 # ---------------------------------------------------------------------------
@@ -315,7 +371,7 @@ def decode_self_attention(p: dict, x: torch.Tensor, cache: dict,
     holds the same tensors) and attends the keys j <= pos[b] (all of them
     once a rolling cache is full)."""
     B = x.shape[0]
-    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
+    q, k, v = _project_qkv(p, x, x, n_heads, n_kv_heads, head_dim)
     pos = torch.as_tensor(pos, device=x.device).expand(B)
     q = apply_rope(q, pos[:, None], theta)
     k = apply_rope(k, pos[:, None], theta)

@@ -1,5 +1,5 @@
 """Decoder LM over the reference's parameter tree (counterpart of
-`repro/models/transformer.py`), four of its six families:
+`repro/models/transformer.py`), all six of its families:
 
   dense   — uniform [attention + MLP] blocks
   moe     — [attention + (MoE FFN every k-th | dense MLP)] blocks,
@@ -7,6 +7,12 @@
   ssm     — uniform Mamba2 blocks (attention-free)
   hybrid  — Mamba2 backbone; ONE weight-shared [attention + MLP] block
             applied after every cfg.hybrid.attn_every-th layer (Zamba2)
+  vlm     — groups of (cross_every - 1) self blocks + 1 gated
+            cross-attention block over stub vision patch embeddings
+            (Llama-3.2-Vision); batch["patches"] (B, n_patches, d_vision)
+  audio   — encoder (unmasked self blocks over stub frame embeddings,
+            then enc_norm) + decoder of [self block, gated cross block]
+            pairs (Whisper); batch["frames"] (B, n_frames, d_model)
 
 Entry points, with the reference's names and batch dicts:
 
@@ -26,7 +32,10 @@ reference reshapes its stacks into groups, and the hybrid's training
 forward takes the shared block under `lax.cond`), and the caches keep
 the reference's layout: the moe family's attention cache in layer order,
 the hybrid's Mamba2 cache over all its layers in order and its attention
-cache one row per use of the shared block.  Serving runs under
+cache one row per use of the shared block, the vlm's self-attention
+cache at row g * (cross_every - 1) + j for self layer j of group g and
+its cross cache one row per group, the audio decoder's one row per
+layer for each.  Serving runs under
 `torch.inference_mode()`.  The decode writes each attention layer's new
 K/V into the cache in place (the reference returns a new cache).
 
@@ -43,10 +52,18 @@ hybrid's shared block gathers the gradient of all its uses.  The moe
 family's loss adds 0.01 times `aux["moe_aux_loss"]`, the mean over its
 MoE layers of the load-balancing loss.
 
-The vlm and audio families raise `NotImplementedError`: they wait for
-ROADMAP.md §1 item 4.  So do the attention knobs no config sets and the
-launch layer's dry-run would (`attn_impl="repeat"`, a bf16 softmax,
-`fused_proj`, `attn_seq_shard`; ROADMAP.md §1 item 5).
+The vlm prefill projects each cross block's K/V from the patches once
+(cast to the parameters' dtype) and both attends them and keeps them as
+the cross cache; the reference projects them twice, the second time
+from the uncast patches (the same numbers in float32).  As in the
+reference, `_vlm_layout` builds n_layers // cross_every groups and a
+remainder of layers is not built (no config has one), and the cross
+path is dead at init: `gate` starts at 0 and tanh(0) scales the cross
+output to 0.
+
+The attention knobs no config sets and the launch layer's dry-run would
+(`attn_impl="repeat"`, a bf16 softmax, `fused_proj`, `attn_seq_shard`)
+raise `NotImplementedError` (ROADMAP.md §1 item 5).
 """
 from __future__ import annotations
 
@@ -63,15 +80,12 @@ from . import layers as L
 from . import moe as M
 from . import ssm as S
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe", "vlm", "audio")
 
 
 def _require_ported(cfg: ArchConfig) -> None:
     if cfg.arch_type not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} ({cfg.name}) is not ported; only "
-            f"the {', '.join(PORTED_FAMILIES)} families are (the vlm and "
-            "audio families: ROADMAP.md §1 item 4)")
+        raise ValueError(f"unknown arch_type {cfg.arch_type!r} ({cfg.name})")
     for knob, ported in (("attn_impl", "grouped"), ("softmax_dtype", "f32"),
                          ("fused_proj", False), ("attn_seq_shard", False)):
         if getattr(cfg, knob) != ported:
@@ -126,6 +140,25 @@ def _init_mamba_block(gen: Optional[torch.Generator], cfg: ArchConfig,
     }
 
 
+def _init_cross_block(gen: Optional[torch.Generator], cfg: ArchConfig,
+                      dtype: torch.dtype, device: torch.device,
+                      stack: tuple[int, ...]) -> dict:
+    """[gated cross-attention + MLP] blocks: K/V projected from the
+    vision width (vlm) or d_model (audio), `gate` zero-initialised."""
+    d = cfg.d_model
+    kv_in = cfg.vlm.d_vision if cfg.vlm else d
+    return {
+        "attn_norm": _norm_init(cfg, d, dtype, device, stack),
+        "attn": L.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.hd, dtype, device, stack,
+                                 kv_input_dim=kv_in),
+        "mlp_norm": _norm_init(cfg, d, dtype, device, stack),
+        "mlp": L.init_mlp(gen, d, cfg.d_ff, dtype, device, stack,
+                          act=cfg.act),
+        "gate": torch.zeros((*stack, 1), dtype=dtype, device=device),
+    }
+
+
 def init_params(cfg: ArchConfig, gen: Optional[torch.Generator],
                 dtype: torch.dtype = torch.float32,
                 device: str | torch.device | None = None) -> dict:
@@ -158,12 +191,50 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator],
         if cfg.n_layers > n_moe:
             p["blocks"] = _init_self_block(gen, cfg, dtype, dev,
                                            (cfg.n_layers - n_moe,))
+    elif at == "vlm":
+        n_groups, n_self = _vlm_layout(cfg)
+        p["blocks"] = _init_self_block(gen, cfg, dtype, dev,
+                                       (n_groups * n_self,))
+        p["cross_blocks"] = _init_cross_block(gen, cfg, dtype, dev,
+                                              (n_groups,))
+    elif at == "audio":
+        p["enc_blocks"] = _init_self_block(gen, cfg, dtype, dev,
+                                           (cfg.encdec.n_enc_layers,))
+        p["enc_norm"] = _norm_init(cfg, d, dtype, dev)
+        p["blocks"] = _init_self_block(gen, cfg, dtype, dev, (cfg.n_layers,))
+        p["cross_blocks"] = _init_cross_block(gen, cfg, dtype, dev,
+                                              (cfg.n_layers,))
     else:
         p["blocks"] = _init_mamba_block(gen, cfg, dtype, dev,
                                         (cfg.n_layers,))
         if at == "hybrid":
             p["shared_attn"] = _init_self_block(gen, cfg, dtype, dev)
     return p
+
+
+def _vlm_layout(cfg: ArchConfig) -> tuple[int, int]:
+    """(n_groups, self layers per group): groups of (cross_every - 1)
+    self layers followed by one cross layer; n_layers // cross_every
+    groups, as the reference (a remainder of layers is not built)."""
+    ce = cfg.vlm.cross_every
+    return cfg.n_layers // ce, ce - 1
+
+
+def _cross_layout(cfg: ArchConfig) -> tuple[int, int]:
+    """(cross blocks, self blocks before each) of the vlm and audio
+    families: the vlm's groups, or one self block per audio layer."""
+    return _vlm_layout(cfg) if cfg.vlm else (cfg.n_layers, 1)
+
+
+def _cross_groups(cfg: ArchConfig, params: dict) -> list:
+    """[(the group's self blocks, its cross block)] in layer order; self
+    block j of group g is stacked layer (and self-cache row)
+    g * n_self + j."""
+    n_groups, n_self = _cross_layout(cfg)
+    selfs = _unstack(params["blocks"], n_groups * n_self)
+    crosses = _unstack(params["cross_blocks"], n_groups)
+    return [(selfs[g * n_self:(g + 1) * n_self], crosses[g])
+            for g in range(n_groups)]
 
 
 def _unstack(stacked: dict, n: int) -> list[dict]:
@@ -250,16 +321,17 @@ def _ffn(cfg: ArchConfig, bp: dict, h: torch.Tensor, decode: bool = False):
 
 def _self_block(cfg: ArchConfig, bp: dict, x: torch.Tensor,
                 positions: torch.Tensor, use_kernel: bool,
-                return_kv: bool = False):
-    """One [attention + MLP or MoE FFN] block over the full sequence.
-    Returns (x, the MoE aux dict or None, and with return_kv the
-    post-rope (k, v) for the decode cache, else None)."""
+                return_kv: bool = False, causal: bool = True):
+    """One [attention + MLP or MoE FFN] block over the full sequence
+    (unmasked with `causal=False`: the audio encoder's).  Returns (x, the
+    MoE aux dict or None, and with return_kv the post-rope (k, v) for the
+    decode cache, else None)."""
     h = L.apply_norm(bp["attn_norm"], x, cfg.norm)
     attn = L.self_attention(
         bp["attn"], h, positions, n_heads=cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, theta=cfg.rope_theta,
-        window=cfg.sliding_window, return_kv=return_kv,
-        use_kernel=use_kernel)
+        causal=causal, window=cfg.sliding_window if causal else None,
+        return_kv=return_kv, use_kernel=use_kernel)
     kv = None
     if return_kv:
         attn, kv = attn
@@ -267,6 +339,32 @@ def _self_block(cfg: ArchConfig, bp: dict, x: torch.Tensor,
     h = L.apply_norm(bp["mlp_norm"], x, cfg.norm)
     y, aux = _ffn(cfg, bp, h)
     return x + y, aux, kv
+
+
+def _gated(bp: dict, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+    return x + torch.tanh(bp["gate"].to(x.dtype)) * attn
+
+
+def _cross_block(cfg: ArchConfig, bp: dict, x: torch.Tensor,
+                 memory: torch.Tensor) -> torch.Tensor:
+    """One [gated cross-attention + MLP] block over a memory sequence."""
+    h = L.apply_norm(bp["attn_norm"], x, cfg.norm)
+    x = _gated(bp, x, L.cross_attention(
+        bp["attn"], h, memory, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd))
+    h = L.apply_norm(bp["mlp_norm"], x, cfg.norm)
+    return x + L.mlp(bp["mlp"], h, act=cfg.act)
+
+
+def _cross_block_decode(cfg: ArchConfig, bp: dict, x: torch.Tensor,
+                        ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """`_cross_block` against the memory's precomputed K/V."""
+    h = L.apply_norm(bp["attn_norm"], x, cfg.norm)
+    x = _gated(bp, x, L.cross_attention_cached(
+        bp["attn"], h, ck, cv, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd))
+    h = L.apply_norm(bp["mlp_norm"], x, cfg.norm)
+    return x + L.mlp(bp["mlp"], h, act=cfg.act)
 
 
 def _mamba_block(cfg: ArchConfig, bp: dict, x: torch.Tensor,
@@ -293,8 +391,28 @@ def _remat(fn, remat):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
+def _encode(cfg: ArchConfig, params: dict, frames: torch.Tensor, *,
+            remat=False) -> torch.Tensor:
+    """The audio encoder: unmasked self blocks over the frames, roped at
+    frame positions 0..F-1, then enc_norm."""
+    B, F = frames.shape[:2]
+    enc_pos = torch.arange(F, device=frames.device)[None, :].expand(B, F)
+    block = _remat(lambda h, bp: _self_block(cfg, bp, h, enc_pos, False,
+                                             causal=False)[0], remat)
+    x = frames
+    for bp in _unstack(params["enc_blocks"], cfg.encdec.n_enc_layers):
+        x = block(x, bp)
+    return L.apply_norm(params["enc_norm"], x, cfg.norm)
+
+
+def _memory(cfg: ArchConfig, batch: dict, dtype: torch.dtype):
+    """The stub modality input the cross blocks attend, cast to `dtype`:
+    patches (vlm) or frames (audio)."""
+    return batch["patches" if cfg.arch_type == "vlm" else "frames"].to(dtype)
+
+
 def _run_backbone(cfg: ArchConfig, params: dict, x: torch.Tensor,
-                  positions: torch.Tensor, *, remat=False,
+                  positions: torch.Tensor, batch: dict, *, remat=False,
                   use_kernel: bool = False):
     """Apply the full layer stack of a ported family. Returns (x, aux);
     the moe family's aux holds "moe_aux_loss", the mean over its MoE
@@ -302,7 +420,18 @@ def _run_backbone(cfg: ArchConfig, params: dict, x: torch.Tensor,
     aux: dict[str, torch.Tensor] = {}
     block = _remat(lambda h, bp: _self_block(cfg, bp, h, positions,
                                              use_kernel)[:2], remat)
-    if cfg.arch_type in ("dense", "moe"):
+    at = cfg.arch_type
+    if at in ("vlm", "audio"):
+        memory = _memory(cfg, batch, x.dtype)
+        if at == "audio":
+            memory = _encode(cfg, params, memory, remat=remat)
+        cross = _remat(lambda h, bp, m: _cross_block(cfg, bp, h, m), remat)
+        for selfs, cb in _cross_groups(cfg, params):
+            for bp in selfs:
+                x, _ = block(x, bp)
+            x = cross(x, cb, memory)
+        return x, aux
+    if at in ("dense", "moe"):
         losses = []
         for bp in _attn_layers(cfg, params):
             x, a = block(x, bp)
@@ -323,13 +452,14 @@ def forward_train(cfg: ArchConfig, params: dict, batch: dict, *,
                   compute_dtype: torch.dtype = torch.float32, remat=False,
                   use_kernel: bool = False):
     """Full-sequence forward in `compute_dtype`. Returns (logits fp32
-    (B, S, V), aux).  batch: {"tokens": (B, S) int64}."""
+    (B, S, V), aux).  batch: {"tokens": (B, S) int64}, plus "patches"
+    (vlm) or "frames" (audio)."""
     _require_ported(cfg)
     tokens = batch["tokens"]
     B, Sq = tokens.shape
     x = _embed(cfg, params, tokens, compute_dtype)
     positions = torch.arange(Sq, device=x.device)[None, :].expand(B, Sq)
-    x, aux = _run_backbone(cfg, params, x, positions, remat=remat,
+    x, aux = _run_backbone(cfg, params, x, positions, batch, remat=remat,
                            use_kernel=use_kernel)
     return _unembed(cfg, params, x), aux
 
@@ -366,11 +496,24 @@ def _attn_cache_len(cfg: ArchConfig, seq_len: int) -> int:
 
 
 def _n_attn(cfg: ArchConfig) -> int:
-    """Rows of the attention cache: one per layer, or for the hybrid
-    family one per use of the shared block."""
+    """Rows of the self-attention cache: one per layer, for the hybrid
+    family one per use of the shared block, for the vlm family one per
+    self layer of its groups."""
     if cfg.arch_type == "hybrid":
         return cfg.n_layers // cfg.hybrid.attn_every
+    if cfg.arch_type == "vlm":
+        n_groups, n_self = _vlm_layout(cfg)
+        return n_groups * n_self
     return cfg.n_layers
+
+
+def _cross_cache(cfg: ArchConfig, B: int, dtype: torch.dtype,
+                 device: torch.device) -> dict:
+    """Zero cross-attention K/V, (n_groups | n_layers, B, n_patches |
+    n_frames, Hkv, hd), which the prefill fills."""
+    T_mem = cfg.vlm.n_patches if cfg.vlm else cfg.encdec.n_frames
+    return L.init_kv_cache(B, T_mem, cfg.n_kv_heads, cfg.hd, dtype, device,
+                           (_cross_layout(cfg)[0],))
 
 
 def init_cache(cfg: ArchConfig, batch_size: int, seq_len: int,
@@ -378,7 +521,10 @@ def init_cache(cfg: ArchConfig, batch_size: int, seq_len: int,
                device: str | torch.device | None = None) -> dict:
     """Zero-initialized decode cache for `seq_len` positions: "attn" K/V
     for the attention families, "mamba" conv and SSM states (which do not
-    grow with the sequence) for ssm, both for hybrid."""
+    grow with the sequence) for ssm, both for hybrid, and "cross" K/V
+    over the patches or frames for vlm and audio (zero here: the prefill
+    fills them; the reference's `batch=` argument, which fails for a vlm
+    config, is not ported)."""
     _require_ported(cfg)
     dev = resolve_device(device)
     cache = {}
@@ -389,6 +535,8 @@ def init_cache(cfg: ArchConfig, batch_size: int, seq_len: int,
     if cfg.arch_type in ("ssm", "hybrid"):
         cache["mamba"] = _mamba_cache_stack(cfg, cfg.n_layers, batch_size,
                                             dtype, dev)
+    if cfg.arch_type in ("vlm", "audio"):
+        cache["cross"] = _cross_cache(cfg, batch_size, dtype, dev)
     return cache
 
 
@@ -425,7 +573,8 @@ def decode_step(cfg: ArchConfig, params: dict, batch: dict, cache: dict):
     batch: {"token": (B, 1) int64, "pos": absolute position of the new
     token, an int for every row or a (B,) tensor, one per row (unused by
     the ssm family)}.  Returns (logits fp32 (B, 1, V), new cache); the
-    attention layers write the new K/V into `cache`'s tensors in place,
+    attention layers write the new K/V into `cache`'s tensors in place
+    (the cross blocks read the prefill's cross K/V),
     the Mamba2 states come back as new tensors.  The MoE FFN decodes at a
     capacity that drops no token (`_moe_dims`), so every row is decoded
     as it would be alone."""
@@ -439,6 +588,14 @@ def decode_step(cfg: ArchConfig, params: dict, batch: dict, cache: dict):
     if at in ("dense", "moe"):
         for bp, kv_l in zip(_attn_layers(cfg, params), kv):
             x, _ = _self_block_decode(cfg, bp, x, kv_l, pos)
+        return _unembed(cfg, params, x), new_cache
+    if at in ("vlm", "audio"):
+        kv = iter(kv)
+        cross = cache["cross"]
+        for g, (selfs, cb) in enumerate(_cross_groups(cfg, params)):
+            for bp in selfs:
+                x, _ = _self_block_decode(cfg, bp, x, next(kv), pos)
+            x = _cross_block_decode(cfg, cb, x, cross["k"][g], cross["v"][g])
         return _unembed(cfg, params, x), new_cache
     s = cfg.ssm
     convs, ssms = [], []
@@ -487,7 +644,8 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, *,
     """Process the prompt and build the decode cache, computed in the
     parameters' dtype.
 
-    batch: {"tokens": (B, S) int64}.  `cache_len` reserves KV slots
+    batch: {"tokens": (B, S) int64}, plus "patches" (vlm) or "frames"
+    (audio), cast to the parameters' dtype.  `cache_len` reserves KV slots
     beyond the prompt for the decode steps (default: the prompt length;
     the ssm family's state does not grow, so it ignores it).  Returns
     (last-position logits fp32 (B, 1, V), cache).  `use_kernel` defaults
@@ -496,7 +654,10 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, *,
     8 for tensors on the card, its plain version on the CPU), each
     Mamba2 layer's intra-chunk SSD step to `kernels.ssd.ops.ssd_chunk`
     (kernel 7); `use_kernel=False` keeps the plain expressions.  The MoE
-    FFN is a plain expression either way."""
+    FFN, the audio encoder's unmasked attention and every
+    cross-attention are plain expressions either way.  The vlm and audio
+    families project each cross block's K/V once, write them into the
+    cross cache and attend them there (`_cross_block_decode`)."""
     _require_ported(cfg)
     tokens = batch["tokens"]
     B, Sq = tokens.shape
@@ -512,6 +673,23 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, *,
         for i, bp in enumerate(_attn_layers(cfg, params)):
             x = _prefill_attn(cfg, bp, x, positions, use_kernel,
                               cache["attn"], i, cache_len)
+        return _unembed(cfg, params, x[:, -1:, :]), cache
+    if at in ("vlm", "audio"):
+        memory = _memory(cfg, batch, x.dtype)
+        if at == "audio":
+            memory = _encode(cfg, params, memory)
+        cross = cache["cross"] = _cross_cache(cfg, B, x.dtype, x.device)
+        row = 0
+        for g, (selfs, cb) in enumerate(_cross_groups(cfg, params)):
+            for bp in selfs:
+                x = _prefill_attn(cfg, bp, x, positions, use_kernel,
+                                  cache["attn"], row, cache_len)
+                row += 1
+            cross["k"][g], cross["v"][g] = L.project_cross_kv(
+                cb["attn"], memory, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.hd)
+            x = _cross_block_decode(cfg, cb, x, cross["k"][g],
+                                    cross["v"][g])
         return _unembed(cfg, params, x[:, -1:, :]), cache
     s = cfg.ssm
     convs, ssms = [], []

@@ -27,21 +27,26 @@ def _children(node: Any) -> list[tuple[str, Any]] | None:
     return None
 
 
+# The recursions below are module functions, not closures: a nested
+# function that calls itself is a reference cycle, which would keep the
+# list of leaves it appends to (a step's whole gradient, say) alive until
+# the garbage collector runs.
+
+def _walk(node: Any, prefix: tuple, sep: str, out: list) -> None:
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        out.append((sep.join(prefix), node))
+        return
+    for name, child in kids:
+        _walk(child, prefix + (name,), sep, out)
+
+
 def flatten_with_path(tree: Any, sep: str = "/") -> list[tuple[str, Any]]:
     """[(path, leaf)] with the path's parts joined by `sep`."""
     out: list[tuple[str, Any]] = []
-
-    def walk(node, prefix):
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            out.append((sep.join(prefix), node))
-            return
-        for name, child in kids:
-            walk(child, prefix + (name,))
-
-    walk(tree, ())
+    _walk(tree, (), sep, out)
     return out
 
 
@@ -53,23 +58,23 @@ def unflatten(template: Any, new_leaves) -> Any:
     """A tree of `template`'s structure holding `new_leaves` in leaf
     order."""
     it = iter(new_leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            built = {k: build(node[k]) for k in sorted(node)}
-            return {k: built[k] for k in node}  # the template's key order
-        if _is_namedtuple(node):
-            return type(node)(*(build(c) for c in node))
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(c) for c in node)
-        return next(it)
-
-    out = build(template)
+    out = _build(template, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the template holds")
     return out
+
+
+def _build(node: Any, it) -> Any:
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        built = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: built[k] for k in node}  # the template's key order
+    if _is_namedtuple(node):
+        return type(node)(*(_build(c, it) for c in node))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(c, it) for c in node)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:

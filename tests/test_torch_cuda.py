@@ -997,6 +997,43 @@ def test_hybrid_and_moe_prefill_on_the_card_match_cpu(cuda, arch):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=bound)
 
 
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-tiny"])
+def test_vlm_and_audio_prefill_on_the_card_match_cpu(cuda, arch):
+    """The reduced llama-3.2-vision at 6 layers with cross_every 3 and
+    d_vision 192 (kernel 8 in each of its 4 self layers) and the reduced
+    whisper-tiny (kernel 8 in each of its 2 decoder layers, none in its
+    encoder), every gate 0.5 + U(0, 1), prefilled on the card against
+    the CPU prefill on the same weights, tokens and stub inputs: logits
+    and every cache leaf, self and cross."""
+    from repro_torch.configs import VLMSpec, get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(arch).reduced()
+    if cfg.vlm:
+        cfg = dataclasses.replace(cfg, n_layers=6, vlm=VLMSpec(
+            cross_every=3, n_patches=16, d_vision=192))
+    gen = torch.Generator().manual_seed(0)
+    params = T.init_params(cfg, gen, device="cpu")
+    gates = params["cross_blocks"]["gate"]
+    gates.copy_(0.5 + torch.rand(gates.shape, generator=gen))
+    key, shape = (("patches", (2, 16, 192)) if cfg.vlm
+                  else ("frames", (2, cfg.encdec.n_frames, cfg.d_model)))
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 45), generator=gen),
+             key: 0.1 * torch.randn(shape, generator=gen)}
+    want, want_cache = T.prefill(cfg, params, batch, cache_len=50)
+    before = fa_ops.FLASH_COUNTER.launches
+    got, cache = T.prefill(cfg, _to(params, cuda), _to(batch, cuda),
+                           cache_len=50)
+    torch.cuda.synchronize()
+    assert fa_ops.FLASH_COUNTER.launches - before == (4 if cfg.vlm else 2)
+    pairs = [(got, want)] + [(cache[k][leaf], want_cache[k][leaf])
+                             for k in want_cache for leaf in want_cache[k]]
+    assert len(pairs) == 5
+    for g, w in pairs:
+        bound = 1e-4 * max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=bound)
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -1013,7 +1050,8 @@ def _to(tree, device):
 # kernel's 4-byte copies) and 72 (9 column tiles of 8: its run-time
 # column count); the 2048-token prefills of zamba2-1.2b (32 heads of 64,
 # one per key/value head) and mistral-large-123b (96 heads, 12 per
-# key/value head, of 128)
+# key/value head, of 128), and whisper-tiny's 440-token decoder prefill
+# (6 heads of 64, one per key/value head)
 FLASH_SHAPES = [(1, 2, 2, 64, 16), (2, 4, 4, 128, 32), (1, 1, 1, 256, 64),
                 (1, 2, 2, 96, 16), (1, 32, 8, 2048, 128),
                 (1, 32, 8, 100, 128), (1, 32, 8, 1537, 128),
@@ -1022,7 +1060,7 @@ FLASH_SHAPES = [(1, 2, 2, 64, 16), (2, 4, 4, 128, 32), (1, 1, 1, 256, 64),
                 (1, 2, 1, 70, 40), (1, 8, 2, 127, 128), (1, 8, 2, 128, 128),
                 (1, 8, 2, 129, 128), (1, 8, 2, 2049, 128), (2, 4, 2, 150, 70),
                 (1, 6, 3, 193, 72), (1, 32, 32, 2048, 64),
-                (1, 96, 8, 2048, 128)]
+                (1, 96, 8, 2048, 128), (1, 6, 6, 440, 64)]
 
 
 def _flash_operands(gen, cuda, B, Hq, Hkv, S, D):

@@ -8,9 +8,9 @@ sliding-window variant, window 64) and the reduced codeqwen1.5-7b (as
 granite, with q/k/v biases and 4 key/value heads, one per query head)
 with JAX's `init_params(PRNGKey(0))` carried across by
 `interop.lm_params`.  The config, full-width tree and seeding tests run
-over every served config of the zoo (the hybrid and moe families'
-models are held in `tests/test_torch_hybrid.py` and
-`tests/test_torch_moe.py`).
+over every served config of the zoo (the hybrid, moe, vlm and audio
+families' models are held in `tests/test_torch_hybrid.py`,
+`tests/test_torch_moe.py` and `tests/test_torch_vlm_audio.py`).
 
 The port's prefill takes its kernel wrappers by default, which compute
 the plain versions on CPU tensors; the JAX prefill runs its jnp path
@@ -55,7 +55,8 @@ CODEQWEN = "codeqwen1.5-7b"
 ARCHS = [ARCH, DENSE, CODEQWEN]
 # every config of the zoo that the port serves (lm-100m trains)
 ZOO = [ARCH, DENSE, CODEQWEN, "minitron-4b", "mistral-large-123b",
-       "zamba2-1.2b", "phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b"]
+       "zamba2-1.2b", "phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b",
+       "llama-3.2-vision-11b", "whisper-tiny"]
 CPU = torch.device("cpu")
 
 
@@ -149,6 +150,11 @@ FULL_WIDTH = {
     "llama4-maverick-400b-a17b": (394_672_051_200,
                                   "['moe_blocks']['moe']['router']",
                                   (24, 5120, 128)),
+    "llama-3.2-vision-11b": (9_775_157_256,
+                             "['cross_blocks']['attn']['wk']",
+                             (8, 4096, 1024)),
+    "whisper-tiny": (61_085_956, "['enc_blocks']['mlp']['w_up']",
+                     (4, 384, 1536)),
 }
 
 
@@ -160,8 +166,10 @@ def test_init_params_tree_matches_jax_at_full_width(arch):
     49152), codeqwen1.5-7b (its q/k/v biases), minitron-4b (vocab
     256000), mistral-large-123b (88 layers, d_model 12288), zamba2-1.2b
     (38 Mamba2 layers and one shared block), phi3.5-moe (32 MoE layers
-    of 16 experts) and llama4-maverick (24 dense and 24 MoE layers of 128
-    experts)."""
+    of 16 experts), llama4-maverick (24 dense and 24 MoE layers of 128
+    experts), llama-3.2-vision-11b (8 groups of 4 self blocks and one
+    cross block over d_vision 4096) and whisper-tiny (4 encoder and 4
+    decoder layers, LayerNorm)."""
     want = jax.eval_shape(lambda: JT.init_params(j_get_config(arch),
                                                  jax.random.PRNGKey(0)))
     got = T.init_params(get_config(arch), None, device="meta")
@@ -177,7 +185,9 @@ def test_init_params_tree_matches_jax_at_full_width(arch):
 
 # the leaf whose draws each seeding test reads: N(0, 1) / sqrt(d_model)
 SEEDED = {"ssm": ("blocks", "mixer.w_in"), "hybrid": ("blocks", "mixer.w_in"),
-          "dense": ("blocks", "attn.wq"), "moe": ("moe_blocks", "moe.w_gate")}
+          "dense": ("blocks", "attn.wq"), "moe": ("moe_blocks", "moe.w_gate"),
+          "vlm": ("cross_blocks", "attn.wq"), "audio": ("enc_blocks",
+                                                        "attn.wq")}
 
 
 @pytest.mark.parametrize("arch", ZOO)
@@ -548,14 +558,35 @@ def test_rounding_of_the_attention_core_moves_deep_logits_inside_the_bound(
     assert int(plain.argmax()) == int(other.argmax())
 
 
-@pytest.mark.parametrize("family", ["vlm", "audio"])
-def test_unported_families_raise(family):
-    cfg = dataclasses.replace(get_config(DENSE).reduced(), arch_type=family)
-    params = T.init_params(get_config(DENSE).reduced(), None, device="meta")
-    with pytest.raises(NotImplementedError, match="§1 item 4"):
-        T.init_params(cfg, None, device="meta")
-    with pytest.raises(NotImplementedError, match="§1 item 4"):
-        T.prefill(cfg, params, {"tokens": torch.zeros((1, 4), dtype=int)})
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-tiny"])
+def test_vlm_and_audio_serve_on_meta_at_the_reference_shapes(arch):
+    """The vlm and audio families at full width on the meta device: a
+    prefill of 8 tokens (the plain attention: kernel 8 has no meta
+    route) with their stub patches or frames gives the logits and the
+    self and cross caches of JAX's `eval_shape` of its prefill, and a
+    decode step runs on that cache."""
+    cfg, jcfg = get_config(arch), j_get_config(arch)
+    B, S = 2, 8
+    stub = (("patches", (B, cfg.vlm.n_patches, cfg.vlm.d_vision)) if cfg.vlm
+            else ("frames", (B, cfg.encdec.n_frames, cfg.d_model)))
+    params = T.init_params(cfg, None, device="meta")
+    toks = torch.zeros((B, S), dtype=torch.int64, device="meta")
+    logits, cache = T.prefill(
+        cfg, params, {"tokens": toks, stub[0]: torch.empty(stub[1],
+                                                           device="meta")},
+        cache_len=S + 4, use_kernel=False)
+    j_logits, j_cache = jax.eval_shape(
+        lambda: JT.prefill(jcfg, JT.init_params(jcfg, jax.random.PRNGKey(0)),
+                           {"tokens": jnp.zeros((B, S), jnp.int32),
+                            stub[0]: jnp.zeros(stub[1])},
+                           compute_dtype=jnp.float32, cache_len=S + 4))
+    assert tuple(logits.shape) == j_logits.shape == (B, 1, cfg.vocab)
+    got = {k: tuple(v.shape) for k, v in _leaves(cache).items()}
+    assert got == {k: v.shape for k, v in _leaves(j_cache).items()}
+    assert got["cross.k"][2] == stub[1][1]
+    step, _ = T.decode_step(cfg, params, {"token": toks[:, :1], "pos": S},
+                            cache)
+    assert tuple(step.shape) == (B, 1, cfg.vocab)
 
 
 @pytest.mark.parametrize("knob", [{"attn_impl": "repeat"},

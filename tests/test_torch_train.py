@@ -410,6 +410,31 @@ def test_five_adamw_steps_match_reference(model):
     assert int(state.step) == 5
 
 
+def test_train_steps_leave_no_reference_cycle(model):
+    """A plain and a federated AdamW step free everything they allocate
+    when they return, with the cyclic garbage collector off: nothing is
+    left for it to find (a cycle through a tree walk once kept a step's
+    gradient leaves alive until the collector ran, a whole gradient a step
+    on the card)."""
+    import gc
+
+    _, _, cfg, _, p, _, b = model
+    mine = tree.tree_map(torch.clone, p)
+    opt = O.adamw(3e-4)
+    plain = steps.make_train_step(cfg, opt, compute_dtype=torch.float32,
+                                  remat=False)
+    fed = steps.make_fed_train_step(cfg, opt)
+    state = opt.init(mine)
+    gc.collect()
+    gc.disable()
+    try:
+        mine, state, _ = plain(mine, state, b)
+        mine, state, _ = fed(mine, state, b, torch.ones(2))
+        assert gc.collect() == 0
+    finally:
+        gc.enable()
+
+
 @pytest.mark.parametrize("seed", [0, 1, 7])
 def test_token_batches_equal_the_reference(seed):
     jit_ = j_token_batches(seed, batch=4, seq_len=32, vocab=100)
@@ -476,21 +501,33 @@ def test_train_main_refuses_what_is_not_ported():
     assert train.add_modality_stubs({"tokens": 0}, cfg) == {"tokens": 0}
     import dataclasses
     from repro_torch.configs import VLMSpec
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train.add_modality_stubs({}, dataclasses.replace(
-            cfg, vlm=VLMSpec(cross_every=2, n_patches=4, d_vision=8)))
+    vlm = dataclasses.replace(
+        cfg, vlm=VLMSpec(cross_every=2, n_patches=4, d_vision=8))
+    batch = train.add_modality_stubs(
+        {"tokens": torch.zeros((3, 5), dtype=torch.int64)}, vlm)
+    assert batch["patches"].shape == (3, 4, 8)
 
 
-@pytest.mark.parametrize("family", ["vlm", "audio"])
-def test_training_refuses_unported_families(family):
-    import dataclasses
-    cfg = dataclasses.replace(get_config("granite-8b").reduced(),
-                              arch_type=family)
-    params = T.init_params(get_config("granite-8b").reduced(), None,
-                           device="meta")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-             "targets": torch.zeros((1, 4), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="§1 item 4"):
-        T.forward_train(cfg, params, batch)
-    with pytest.raises(NotImplementedError, match="§1 item 4"):
-        T.loss_fn(cfg, params, batch)
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-tiny"])
+def test_vlm_and_audio_train_on_meta_at_the_reference_shapes(arch):
+    """`forward_train` and `loss_fn` of the vlm and audio families at full
+    width on the meta device, with their stub patches or frames: JAX's
+    `eval_shape` of the reference's logits, a scalar loss, and no aux."""
+    cfg, jcfg = get_config(arch), j_get_config(arch)
+    B, S = 2, 6
+    stub = (("patches", (B, cfg.vlm.n_patches, cfg.vlm.d_vision)) if cfg.vlm
+            else ("frames", (B, cfg.encdec.n_frames, cfg.d_model)))
+    params = T.init_params(cfg, None, device="meta")
+    batch = {"tokens": torch.zeros((B, S), dtype=torch.int64, device="meta"),
+             "targets": torch.zeros((B, S), dtype=torch.int64,
+                                    device="meta"),
+             stub[0]: torch.empty(stub[1], device="meta")}
+    logits, aux = T.forward_train(cfg, params, batch)
+    want = jax.eval_shape(lambda: JT.forward_train(
+        jcfg, JT.init_params(jcfg, jax.random.PRNGKey(0)),
+        {"tokens": jnp.zeros((B, S), jnp.int32),
+         stub[0]: jnp.zeros(stub[1])})[0])
+    assert tuple(logits.shape) == want.shape == (B, S, cfg.vocab)
+    assert logits.dtype == torch.float32 and aux == {}
+    loss, _ = T.loss_fn(cfg, params, batch)
+    assert loss.shape == () and loss.device.type == "meta"
