@@ -333,18 +333,42 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      group (5 of 40 layers), a few steps each: losses finite and falling,
      0 kernel launches, peak memory; each config's parameters freed
      before the next.
+ 25. the launch layer: (a) the dry run, `python -m
+     repro_torch.launch.dryrun --all --both-meshes`, plain and
+     `--optimized` (two processes started together): the 39
+     (arch x shape) combinations and the one skip on the 16 x 16 and
+     2 x 16 x 16 meshes of a fake world, every leaf a meta-device DTensor,
+     78 runs ok in each, whisper-tiny's train_4k argument bytes on 16 x 16
+     equal to XLA's 430,750,252, every run's per-device argument GiB and
+     each process's wall time; (b) in phases 12 and 21, on their weights:
+     granite-8b's 2048-token prefill with `attn_impl="repeat"` at a
+     float32 softmax and under `optimize_config(cfg, "prefill")` (whose
+     bf16 softmax the prefill's causal self-attention does not read, as
+     the reference's) — 36 kernel-8 launches each, logits `torch.equal`
+     to the grouped kernel prefill — and its full-sequence forward under
+     `optimize_config(cfg, "train")`, whose bf16 softmax takes the plain
+     expression (no launch), its last position within 2^-6 *
+     max(1, max|logit|), stated in advance, of the float32 prefill, the
+     greedy tokens printed; zamba2-1.2b's prefill under
+     `optimize_config(cfg, "prefill")` (`ssm.head_shard`): 38 kernel-7
+     and 6 kernel-8 launches, logits `torch.equal` to phase 21's; (c)
+     `launch.train --distributed` (lm-100m, 20 steps) with
+     COORDINATOR_ADDRESS=127.0.0.1:<free port>, NUM_PROCESSES=1 and
+     PROCESS_ID=0 over NCCL: losses equal to the same seed's run without
+     it, then a one-rank NCCL all-reduce and `sync_hosts`.
 
 The user tile cache is an empty temporary directory for the whole run,
 so `block="auto"` reads the committed `src/repro_torch/tune/
 defaults.json` alone, and each kernel's bound comes from
-`repro_torch.roofline.kernel_terms`.  Every run of phases 4-24 is
+`repro_torch.roofline.kernel_terms`.  Every run of phases 4-25 is
 counted from 0 just before it.  The kernels
 line's `launches` sums the driven runs: kernel 1 over phases 4, 14 (r = 2
 and 3), 16, 17 and 18 (the sweep, its solo runs, the served epochs and
 the per-session loop); kernel 2 over phases 4, 15, 16, 17 and 18's two
 `plan_sweep` calls; kernel 4 over phases 6, 15 and 18c; kernel 5 over
 the T = 3 runs of phases 7, 14, 16 and 17; kernel 7 over phases 11 and
-21; kernel 8 over phases 12 and 21-24.  Kernels 1-6 also carry the
+21 and phase 25's zamba2 prefill; kernel 8 over phases 12, 21-24 and
+phase 25's prefills.  Kernels 1-6 also carry the
 `tile` `"auto"` launched at the timed shape (`[0]`: a round gradient's
 own partition), and kernels 1, 2, 4, 5 and 6 `tuned`, phase 20's
 measured tuning of the kernel's family.
@@ -546,6 +570,17 @@ AUDIO_ARCH, AUDIO_PARAMS, AUDIO_PROMPT, AUDIO_NEW = (
     "whisper-tiny", 61_085_956, 440, 8)
 MODAL_LOGIT_RTOL = 1e-3
 VLM_TRAIN_LAYERS, MODAL_TRAIN_STEPS = 5, 12
+# phase 25: (b) the 2048-token prefills of phases 12 and 21 under the
+# dry run's settings; granite-8b's full-sequence forward with the bf16
+# softmax against its float32 kernel prefill within BF16_LOGIT_RTOL *
+# max(1, max|logit|), stated before the first run on the card: bf16
+# rounds each softmax weight by up to 2^-8, and on the CPU the reduced
+# granite-8b's bf16 and float32 softmaxes move its logits by 6.1e-3 of
+# max|logit| (tests/test_torch_launch.py, -s), so four such steps;
+# (c) `launch.train --distributed` at world size 1 over NCCL for
+# DIST_STEPS steps of lm-100m against the same run without it
+BF16_LOGIT_RTOL = 2.0 ** -6
+DIST_STEPS = 20
 # phase 19's reduced runs of the new families
 NEW_FAMILY_TRAIN_STEPS = 30
 RESOLVE_CALLS = 100_000  # memoized "auto" resolutions timed on the host
@@ -2180,14 +2215,93 @@ def dense_serve_phase(dev, card: str, expect, reset_counters,
                                            "kernel-8")},
                      expect, reset_counters, read_counters)
     check_against_greedy(cfg, params, run["done"], dev, card)
-    diff = check_kernel_prefill(
-        cfg, params, torch.as_tensor(prompts[-1], device=dev)[None], card,
-        "kernel 8", DENSE_LOGIT_RTOL)
+    toks = torch.as_tensor(prompts[-1], device=dev)[None]
+    diff = check_kernel_prefill(cfg, params, toks, card, "kernel 8",
+                                DENSE_LOGIT_RTOL)
     phase(f"serve [{card}]: {cfg.name} peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    optimized = dense_optimized_prefills(cfg, params, toks, card, expect,
+                                         reset_counters, read_counters)
     return {"launches": run["launches"]["causal_attention"],
             "run_s": run["run_s"], "tokens_per_s": run["tokens_per_s"],
-            "step_ms": run["step_ms"], "logit_diff": diff}
+            "step_ms": run["step_ms"], "logit_diff": diff,
+            "optimized": optimized}
+
+
+def counted_prefill(cfg, params, batch, reset_counters, read_counters):
+    """`transformer.prefill` with the launch counters set to 0 just
+    before and read just after; returns (logits, counts, ms)."""
+    from repro_torch.models import transformer as T
+
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    logits, _ = T.prefill(cfg, params, batch)
+    torch.cuda.synchronize()
+    return logits, read_counters(), 1e3 * (time.perf_counter() - t0)
+
+
+def dense_optimized_prefills(cfg, params, toks, card, expect,
+                             reset_counters, read_counters) -> dict:
+    """Phase 25 (b), granite-8b: the 2048-token prefill with
+    `attn_impl="repeat"` at a float32 softmax, and under
+    `optimize_config(cfg, "prefill")` (repeat and a bf16 softmax, which
+    the prefill's causal self-attention does not read, as the
+    reference's), each launching kernel 8 in every layer and
+    `torch.equal` to the grouped kernel prefill; the full-sequence
+    forward under `optimize_config(cfg, "train")`, whose bf16 softmax
+    takes the plain expression (no launch), its last position within
+    BF16_LOGIT_RTOL of the float32 prefill, greedy tokens printed.
+    Returns the kernel-8 launches."""
+    from repro_torch.launch.dryrun import optimize_config
+    from repro_torch.models import transformer as T
+
+    batch = {"tokens": toks}
+    base, _ = T.prefill(cfg, params, batch)
+    launches = 0
+    for label, run_cfg in (
+            ("attn_impl=repeat, float32 softmax",
+             dataclasses.replace(cfg, attn_impl="repeat")),
+            ("optimize_config(prefill): repeat, bf16 softmax",
+             optimize_config(cfg, "prefill"))):
+        logits, counts, ms = counted_prefill(run_cfg, params, batch,
+                                             reset_counters, read_counters)
+        equal = torch.equal(logits, base)
+        phase(f"optimized [{card}]: {cfg.name} {toks.shape[1]}-token "
+              f"prefill, {label}: {ms:.3f} ms, launches {counts}, logits "
+              f"torch.equal to the grouped kernel prefill {equal}")
+        check(counts == expect(causal_attention=cfg.n_layers),
+              f"{label}: unexpected launch counts {counts}")
+        check(equal, f"{label}: prefill logits differ from the grouped one")
+        launches += counts["causal_attention"]
+    opt = optimize_config(cfg, "train")
+    check(opt.softmax_dtype == "bf16" and opt.attn_impl == "repeat",
+          "optimize_config(train) sets no bf16 softmax")
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, _ = T.forward_train(opt, params, batch, use_kernel=True)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = read_counters()
+    last = logits[:, -1:]
+    diff = float((last - base).abs().max())
+    bound = BF16_LOGIT_RTOL * max(1.0, float(base.abs().max()))
+    tok, tok32 = int(last[0, -1].argmax()), int(base[0, -1].argmax())
+    phase(f"optimized [{card}]: {cfg.name} {toks.shape[1]}-token forward "
+          f"under optimize_config(train) (repeat, bf16 softmax, plain "
+          f"expression): {ms:.3f} ms, launches {counts}; last position vs "
+          f"the float32 kernel prefill max |logit difference| {diff:.3e} "
+          f"(max|logit| {float(base.abs().max()):.3f}; bound stated in "
+          f"advance {BF16_LOGIT_RTOL} * max(1, max|logit|) = {bound:.3e}); "
+          f"greedy token {tok} (float32 prefill {tok32})")
+    check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) ==
+          (1, toks.shape[1], cfg.vocab), "bf16 forward logits")
+    check(counts == expect(), f"the bf16 softmax launched {counts}")
+    check(diff <= bound, "bf16-softmax forward outside its bound")
+    del logits, last
+    return {"launches": launches, "bf16_diff": diff, "bf16_ms": ms}
 
 
 def free_card() -> None:
@@ -2249,9 +2363,12 @@ def hybrid_serve_phase(dev, card: str, expect, reset_counters,
          "causal_attention": (fa_ops.FLASH_COUNTER, uses, "kernel-8")},
         expect, reset_counters, read_counters)
     check_against_greedy(cfg, params, run["done"], dev, card)
-    diff = check_kernel_prefill(
-        cfg, params, torch.as_tensor(prompts[-1], device=dev)[None], card,
-        "kernels 7 and 8", HYBRID_LOGIT_RTOL)
+    toks = torch.as_tensor(prompts[-1], device=dev)[None]
+    diff = check_kernel_prefill(cfg, params, toks, card, "kernels 7 and 8",
+                                HYBRID_LOGIT_RTOL)
+    optimized = hybrid_optimized_prefill(cfg, params, toks, uses, card,
+                                         expect, reset_counters,
+                                         read_counters)
     peak = torch.cuda.max_memory_allocated()
     phase(f"serve [{card}]: {cfg.name} prefill ms of the "
           f"{SERVE_PROMPTS[-1]}-token prompt in the engine "
@@ -2261,7 +2378,32 @@ def hybrid_serve_phase(dev, card: str, expect, reset_counters,
     return {"launches": run["launches"], "run_s": run["run_s"],
             "tokens_per_s": run["tokens_per_s"], "step_ms": run["step_ms"],
             "prefill_ms": run["prefill_ms"], "logit_diff": diff,
-            "peak_bytes": peak}
+            "peak_bytes": peak, "optimized": optimized}
+
+
+def hybrid_optimized_prefill(cfg, params, toks, uses: int, card: str,
+                             expect, reset_counters, read_counters) -> dict:
+    """Phase 25 (b), zamba2-1.2b: the 2048-token prefill under
+    `optimize_config(cfg, "prefill")` (`ssm.head_shard`, a mesh hint):
+    kernels 7 and 8 as in phase 21 and logits `torch.equal` to its
+    kernel prefill.  Returns the launches by counter."""
+    from repro_torch.launch.dryrun import optimize_config
+    from repro_torch.models import transformer as T
+
+    batch = {"tokens": toks}
+    base, _ = T.prefill(cfg, params, batch)
+    opt = optimize_config(cfg, "prefill")
+    check(opt.ssm.head_shard, "optimize_config(prefill) sets no head_shard")
+    logits, counts, ms = counted_prefill(opt, params, batch, reset_counters,
+                                         read_counters)
+    equal = torch.equal(logits, base)
+    phase(f"optimized [{card}]: {cfg.name} {toks.shape[1]}-token prefill "
+          f"under optimize_config(prefill) (head_shard): {ms:.3f} ms, "
+          f"launches {counts}, logits torch.equal to phase 21's {equal}")
+    check(counts == expect(ssd_chunk=cfg.n_layers, causal_attention=uses),
+          f"head_shard prefill: unexpected launch counts {counts}")
+    check(equal, "head_shard prefill logits differ")
+    return {k: counts[k] for k in ("ssd_chunk", "causal_attention")}
 
 
 def dense_configs_phase(dev, card: str, expect, reset_counters,
@@ -2551,6 +2693,122 @@ def modal_phase(dev, card: str, expect, reset_counters,
         free_card()
     return {"configs": out, "launches": sum(
         out[a]["launches"] for a in (VLM_ARCH, AUDIO_ARCH))}
+
+
+def dryrun_phase(card: str) -> dict:
+    """Phase 25 (a): `python -m repro_torch.launch.dryrun --all
+    --both-meshes`, plain and `--optimized`, the two processes started
+    together (each lays its 39 combinations out on a fake world of 256
+    and one of 512 ranks, meta tensors only); 78 runs ok in each, the one
+    skip, whisper-tiny's train_4k argument bytes on 16 x 16 equal to
+    XLA's (430,750,252, `tests/test_torch_launch.py`); per-device
+    argument GiB of every run and each process's wall time printed."""
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    atexit.register(shutil.rmtree, out_dir, True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src")}
+    procs = {}
+    for label, extra in (("plain", []), ("optimized", ["--optimized"])):
+        out = os.path.join(out_dir, f"{label}.json")
+        log = open(os.path.join(out_dir, f"{label}.log"), "w")
+        procs[label] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--both-meshes", "--out", out] + extra, cwd=root, env=env,
+            stdout=log, stderr=subprocess.STDOUT), time.perf_counter(), out,
+            log)
+    results, walls = {}, {}
+    for label, (proc, t0, out, log) in procs.items():
+        rc = proc.wait(timeout=600)
+        walls[label] = time.perf_counter() - t0
+        log.close()
+        if rc != 0:
+            with open(log.name) as f:
+                print(f.read()[-2000:], file=sys.stderr)
+        check(rc == 0, f"the {label} dry run exited {rc}")
+        with open(out) as f:
+            results[label] = json.load(f)
+        runs = results[label]["runs"]
+        check(len(runs) == 78 and all(r["ok"] for r in runs.values()),
+              f"the {label} dry run did not lay out 78 runs")
+        check(results[label]["skips"] == {
+            "whisper-tiny|long_500k": "no sub-quadratic attention variant"},
+            f"the {label} dry run's skips")
+        phase(f"dry run [{card}] {label}: 78 runs ok, 1 skip "
+              f"(whisper-tiny|long_500k), {walls[label]:.2f} s wall for the "
+              f"process, {sum(r['seconds'] for r in runs.values()):.3f} s in "
+              f"lower_one")
+    whisper = results["plain"]["runs"]["whisper-tiny|train_4k|16x16"]
+    check(whisper["memory"]["argument_size"] == 430_750_252,
+          "whisper-tiny train_4k argument bytes differ from XLA's")
+    plain, opt = (results[k]["runs"] for k in ("plain", "optimized"))
+    combos = sorted({k.rsplit("|", 1)[0] for k in plain})
+    for combo in combos:
+        phase(f"dry run [{card}] {combo}: per-device argument GiB " + ", ".join(
+            f"{mesh} {plain[f'{combo}|{mesh}']['memory']['argument_size'] / 2**30:.3f}"
+            f" / optimized {opt[f'{combo}|{mesh}']['memory']['argument_size'] / 2**30:.3f}"
+            for mesh in ("16x16", "2x16x16")))
+    return {"walls": walls, "runs": {k: len(v["runs"])
+                                     for k, v in results.items()}}
+
+
+def distributed_phase(dev, card: str, expect, reset_counters,
+                      read_counters) -> dict:
+    """Phase 25 (c): `launch.train --distributed` (lm-100m, DIST_STEPS
+    steps) with COORDINATOR_ADDRESS=127.0.0.1:<free port>,
+    NUM_PROCESSES=1 and PROCESS_ID=0, over NCCL, against the same seed's
+    run without it: losses equal, no kernel launched, the group gone
+    after; then the bootstrap again with one NCCL all-reduce and
+    `sync_hosts`."""
+    import socket
+
+    from repro_torch.launch import distributed as D
+    from repro_torch.launch import train
+
+    def free_port() -> int:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    argv = ["--steps", str(DIST_STEPS), "--log-every", str(DIST_STEPS)]
+    plain = train.run(argv, device=dev)
+    env = {"COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}",
+           "NUM_PROCESSES": "1", "PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        reset_counters()
+        t0 = time.perf_counter()
+        run = train.run(argv + ["--distributed"], device=dev)
+        wall = time.perf_counter() - t0
+        counts = read_counters()
+    finally:
+        for k in env:
+            os.environ.pop(k)
+    same = run["losses"] == plain["losses"]
+    differ = [i for i, (a, b) in enumerate(zip(run["losses"],
+                                               plain["losses"])) if a != b]
+    phase(f"distributed [{card}]: launch.train --distributed, "
+          f"{DIST_STEPS} steps of {run['cfg'].name} in {wall:.2f} s, "
+          f"launches {counts}; losses equal to the run without it {same} "
+          f"(first loss {run['losses'][0]!r}, last {run['losses'][-1]!r}; "
+          f"steps that differ {differ})")
+    check(same, "the --distributed losses differ from the plain run's")
+    check(counts == expect(), f"training launched {counts}")
+    check(not torch.distributed.is_initialized(),
+          "launch.train left its process group")
+    check(D.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0) is False
+          and torch.distributed.get_backend() == "nccl",
+          "the bootstrap on the card is not NCCL")
+    try:
+        x = torch.full((), 3.0, device=dev)
+        torch.distributed.all_reduce(x)
+        D.sync_hosts()
+        torch.cuda.synchronize()
+        check(float(x) == 3.0 and D.is_coordinator(),
+              "a one-rank NCCL all-reduce")
+    finally:
+        torch.distributed.destroy_process_group()
+    phase(f"distributed [{card}]: NCCL world of 1: all-reduce ok")
+    return {"wall_s": wall, "losses_equal": same}
 
 
 def flash_operands(gen, dev, B, Hq, Hkv, S, D) -> tuple:
@@ -4121,12 +4379,27 @@ def main() -> int:
         f"{v['peak_bytes'] / 2**30:.3f} GiB"
         for k, v in modal["configs"].items() if k.startswith("train ")))
 
+    # -- 25. the launch layer ----------------------------------------------
+    free_card()
+    launch_dist = distributed_phase(dev, card, expect, reset_counters,
+                                    read_counters)
+    dry = dryrun_phase(card)
+    phase(f"phase 25 [{card}]: dry run " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in dry["walls"].items())
+        + f"; granite-8b repeat prefills {dense['optimized']['launches']} "
+        f"kernel-8 launches, bf16-softmax forward "
+        f"{dense['optimized']['bf16_ms']:.3f} ms at "
+        f"{dense['optimized']['bf16_diff']:.3e} from float32; zamba2-1.2b "
+        f"head_shard prefill {hybrid['optimized']}; --distributed "
+        f"{launch_dist['wall_s']:.2f} s")
+
     # launches on the driven paths: phase 4 and the new paths' runs
     # (kernel 1), phases 4, 15, 16 (kernel 2), 6 and 15 (kernel 4), 7, 14
     # and 16 at T = 3 (kernel 5), every counted run of phase 17, and
     # phase 18's sweep, solo, served and per-session-loop runs (kernel 1),
     # plan_sweep encodes (kernel 2) and served DP lane (kernel 4); the
-    # serve phases 11 and 21 (kernel 7), 12 and 21-24 (kernel 8)
+    # serve phases 11 and 21 (kernel 7), 12 and 21-24 (kernel 8), and
+    # phase 25's optimized prefills (kernels 7 and 8)
     driven = {
         "round_grad": launches["round_grad"] + sum(
             gradcode["launches"][f"r={r}"] for r in GC_REPLICATION)
@@ -4145,10 +4418,13 @@ def main() -> int:
         + gradcode["launches"][f"T={HIER_TIERS}"]
         + lowlat["hier_launches"]["tier_round_grad"]
         + sum(c["tier_round_grad"] for c in cfedl_counts),
-        "ssd_chunk": serve["launches"] + hybrid["launches"]["ssd_chunk"],
+        "ssd_chunk": serve["launches"] + hybrid["launches"]["ssd_chunk"]
+        + hybrid["optimized"]["ssd_chunk"],
         "causal_attention": dense["launches"]
         + hybrid["launches"]["causal_attention"] + dense_cfgs["launches"]
-        + moe["launches"] + modal["launches"]}
+        + moe["launches"] + modal["launches"]
+        + dense["optimized"]["launches"]
+        + hybrid["optimized"]["causal_attention"]}
     phase(f"launches on the driven paths: {driven}")
 
     label, m, d, ms, warm, plain, lib, bound_ms = records[0]

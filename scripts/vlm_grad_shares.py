@@ -1,0 +1,207 @@
+"""Where the vlm's float32 backward departs from the float64 one, block
+by block, in the port and in the JAX package.
+
+    PYTHONPATH=src python scripts/vlm_grad_shares.py
+
+The input of `tests/test_torch_vlm_audio.py::
+test_forward_loss_and_gradients_match_jax`: the reduced
+llama-3.2-vision-11b at 6 layers with cross_every 3 (two groups of two
+self blocks and one gated cross block), 16 patches of d_vision 192,
+JAX's `init_params(PRNGKey(0))` with every gate 0.5 + U(0, 1)
+(`default_rng(7)`), tokens `default_rng(0).integers(0, 512, (2, 13))`,
+patches 0.1 x N(0, 1) from `default_rng(1)`, on the CPU.
+
+Prints, as shares of `tests/test_torch_train.py`'s bound (rtol 1e-4 /
+atol 1e-6 * max(1, max|ref|)):
+  1. the cotangent of the loss at the input of every block (the head
+     first), port float32 and reference float32 against the reference's
+     float64, and port against reference float32;
+  2. each block's own backward: its VJP on the same float32 input and the
+     float64 cotangent at its output, rounded to float32;
+  3. the same for the parts of the first self block (its attention half,
+     its MLP half, its attention norm and its attention core alone).
+The blocks run one by one here (each package's block functions), so the
+reference's float32 numbers differ slightly from its scanned, jitted
+`loss_fn`'s.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.configs import get_config as j_get_config
+from repro.configs.base import VLMSpec as JVLMSpec
+from repro.models import layers as JL
+from repro.models import transformer as JT
+from repro_torch import interop
+from repro_torch.configs import VLMSpec, get_config
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+ARCH, LAYERS, CROSS_EVERY, N_PATCHES, D_VISION = (
+    "llama-3.2-vision-11b", 6, 3, 16, 192)
+
+
+def share(got, want) -> float:
+    bound = 1e-4 * np.abs(want) + 1e-6 * max(1.0, float(np.abs(want).max()))
+    return float((np.abs(got - want) / bound).max())
+
+
+def main() -> None:
+    torch.set_num_threads(2)
+    spec = dict(cross_every=CROSS_EVERY, n_patches=N_PATCHES,
+                d_vision=D_VISION)
+    jcfg = dataclasses.replace(j_get_config(ARCH).reduced(), n_layers=LAYERS,
+                               vlm=JVLMSpec(**spec))
+    cfg = dataclasses.replace(get_config(ARCH).reduced(), n_layers=LAYERS,
+                              vlm=VLMSpec(**spec))
+    jp = jax.tree.map(np.asarray, JT.init_params(jcfg, jax.random.PRNGKey(0)))
+    gate = jp["cross_blocks"]["gate"]
+    jp["cross_blocks"]["gate"] = (0.5 + np.random.default_rng(7).random(
+        gate.shape)).astype(np.float32)
+    toks = np.random.default_rng(0).integers(0, 512, (2, 13))
+    patches = (0.1 * np.random.default_rng(1).standard_normal(
+        (2, N_PATCHES, D_VISION))).astype(np.float32)
+    tok_in, tgt = toks[:, :-1], toks[:, 1:]
+    B, S = tok_in.shape
+    n_self = CROSS_EVERY - 1
+
+    def j_stages(params, dtype):
+        """[(name, x -> x)] of the blocks in order, and the head x ->
+        loss, in `dtype`."""
+        pos = jnp.broadcast_to(jnp.arange(S)[None], (B, S))
+        mem = jnp.asarray(patches, dtype)
+        out = []
+        for g in range(LAYERS // CROSS_EVERY):
+            for j in range(n_self):
+                i = g * n_self + j
+                bp = jax.tree.map(lambda a, i=i: a[i], params["blocks"])
+                out.append((f"self {i}", lambda x, bp=bp: JT._self_block(
+                    jcfg, bp, x, pos)))
+            cb = jax.tree.map(lambda a, g=g: a[g], params["cross_blocks"])
+            out.append((f"cross {g}", lambda x, cb=cb: JT._cross_block(
+                jcfg, cb, x, mem)))
+
+        def head(x):
+            logp = jax.nn.log_softmax(JT._unembed(jcfg, params, x), -1)
+            return -jnp.mean(jnp.take_along_axis(
+                logp, jnp.asarray(tgt)[..., None], -1))
+        return out, head
+
+    def j_cotangents(dtype):
+        params = jax.tree.map(lambda a: jnp.asarray(a, dtype), jp)
+        stages, head = j_stages(params, dtype)
+        x = params["embed"][jnp.asarray(tok_in)]
+        xs = [x]
+        for _, f in stages:
+            x = jax.jit(f)(x)
+            xs.append(x)
+        ct = jax.grad(head)(x)
+        cts = [ct]
+        for (_, f), xin in zip(reversed(stages), reversed(xs[:-1])):
+            ct = jax.vjp(f, xin)[1](ct)[0]
+            cts.append(ct)
+        return [np.asarray(c, np.float64) for c in reversed(cts)], xs
+
+    with jax.enable_x64(True):
+        c64, _ = j_cotangents(jnp.float64)
+    c32, x32 = j_cotangents(jnp.float32)
+
+    params = interop.lm_params(jp, torch.device("cpu"))
+    pos = torch.arange(S)[None].expand(B, S)
+    mem = torch.from_numpy(patches)
+    stages = []
+    for g, (selfs, cb) in enumerate(T._cross_groups(cfg, params)):
+        for j, bp in enumerate(selfs):
+            stages.append((f"self {g * n_self + j}", lambda x, bp=bp:
+                           T._self_block(cfg, bp, x, pos, False)[0]))
+        stages.append((f"cross {g}", lambda x, cb=cb:
+                       T._cross_block(cfg, cb, x, mem)))
+    x = params["embed"][torch.as_tensor(tok_in)].detach().requires_grad_()
+    xs, h = [x], x
+    for _, f in stages:
+        h = f(h)
+        h.retain_grad()
+        xs.append(h)
+    torch.mean(T.token_nll(T._unembed(cfg, params, h),
+                           torch.as_tensor(tgt))).backward()
+    cp = [t.grad.double().numpy() for t in xs]
+
+    names = [n for n, _ in stages] + ["head"]
+    print("1. cotangent at each input: port/f64, reference f32/f64, "
+          "port/reference f32")
+    for i, n in enumerate(names):
+        print(f"   input of {n:8s} {share(cp[i], c64[i]):.3f} "
+              f"{share(c32[i], c64[i]):.3f} {share(cp[i], c32[i]):.3f}")
+
+    def local(label, f64, f32, fp, xin, ct):
+        """One stage's VJP on float32 `xin` and cotangent `ct`."""
+        xin, ct = np.asarray(xin, np.float32), np.asarray(ct, np.float32)
+        want = np.asarray(jax.vjp(f64, jnp.asarray(xin, jnp.float64))[1](
+            jnp.asarray(ct, jnp.float64))[0])
+        ref = np.asarray(jax.vjp(jax.jit(f32), jnp.asarray(xin))[1](
+            jnp.asarray(ct))[0], np.float64)
+        xt = torch.tensor(xin, requires_grad=True)
+        fp(xt).backward(torch.from_numpy(ct))
+        got = xt.grad.double().numpy()
+        print(f"   {label:12s} {share(got, want):.3f} {share(ref, want):.3f} "
+              f"{share(got, ref):.3f}")
+
+    print("2. each block's own backward: port/f64, reference f32/f64, "
+          "port/reference f32")
+    with jax.enable_x64(True):
+        p64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), jp)
+        p32 = jax.tree.map(jnp.asarray, jp)
+        s64, _ = j_stages(p64, jnp.float64)
+        s32, _ = j_stages(p32, jnp.float32)
+        for k, ((name, f64), (_, f32), (_, fp)) in enumerate(
+                zip(s64, s32, stages)):
+            local(name, f64, f32, fp, x32[k], c64[k + 1])
+
+        print("3. the first self block's parts: port/f64, reference "
+              "f32/f64, port/reference f32")
+        heads = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                     head_dim=cfg.hd, theta=cfg.rope_theta)
+        jpos = jnp.broadcast_to(jnp.arange(S)[None], (B, S))
+        bp = T._cross_groups(cfg, params)[0][0][0]
+
+        def j_parts(params):
+            jb = jax.tree.map(lambda a: a[0], params["blocks"])
+            norm = lambda x: JL.apply_norm(jb["attn_norm"], x, "rms")  # noqa
+            core = lambda h: JL.self_attention(  # noqa
+                jb["attn"], h, jpos, **heads)
+            return {"attn half": lambda x: x + core(norm(x)),
+                    "mlp half": lambda x: x + JL.mlp(
+                        jb["mlp"], JL.apply_norm(jb["mlp_norm"], x, "rms")),
+                    "attn norm": norm, "attn core": core}
+        norm = lambda x: L.apply_norm(bp["attn_norm"], x, "rms")  # noqa
+        core = lambda h: L.self_attention(  # noqa
+            bp["attn"], h, pos, use_kernel=False, **heads)
+        port = {"attn half": lambda x: x + core(norm(x)),
+                "mlp half": lambda x: x + L.mlp(
+                    bp["mlp"], L.apply_norm(bp["mlp_norm"], x, "rms")),
+                "attn norm": norm, "attn core": core}
+        f64, f32 = j_parts(p64), j_parts(p32)
+        x0 = np.asarray(x32[0], np.float32)
+        xm = np.asarray(f64["attn half"](jnp.asarray(x0, jnp.float64)),
+                        np.float32)
+        ct_m = c64[1]
+        ct_a = np.asarray(jax.vjp(f64["mlp half"], jnp.asarray(
+            xm, jnp.float64))[1](jnp.asarray(ct_m))[0])
+        hn = np.asarray(f64["attn norm"](jnp.asarray(x0, jnp.float64)),
+                        np.float32)
+        ct_n = np.asarray(jax.vjp(f64["attn core"], jnp.asarray(
+            hn, jnp.float64))[1](jnp.asarray(ct_a))[0])
+        inputs = {"attn half": (x0, ct_a), "mlp half": (xm, ct_m),
+                  "attn norm": (x0, ct_n), "attn core": (hn, ct_a)}
+        for name, (xin, ct) in inputs.items():
+            print(f"   max|input| {np.abs(xin).max():.3g}:", end="")
+            local(name, f64[name], f32[name], port[name], xin, ct)
+
+
+if __name__ == "__main__":
+    main()

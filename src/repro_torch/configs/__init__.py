@@ -6,12 +6,20 @@
 import importlib
 
 from .base import (ArchConfig, EncDecSpec, HybridSpec, INPUT_SHAPES, MoESpec,
-                   SSMSpec, VLMSpec, get_config, list_archs, register)
+                   SSMSpec, VLMSpec, get_config, input_specs, list_archs,
+                   register)
 
 _MODULES = ["codeqwen15_7b", "granite_8b", "llama32_vision_11b",
             "llama4_maverick", "lm_100m", "mamba2_1p3b", "minitron_4b",
             "mistral_large_123b", "phi35_moe", "whisper_tiny",
             "zamba2_1p2b"]
+
+# the ten assigned architectures (lm-100m is an examples-only extra)
+ASSIGNED = [
+    "phi3.5-moe-42b-a6.6b", "codeqwen1.5-7b", "granite-8b", "zamba2-1.2b",
+    "mamba2-1.3b", "llama4-maverick-400b-a17b", "llama-3.2-vision-11b",
+    "mistral-large-123b", "minitron-4b", "whisper-tiny",
+]
 
 _loaded = False
 
@@ -25,6 +33,6 @@ def load_all() -> None:
         importlib.import_module(f"repro_torch.configs.{m}")
 
 
-__all__ = ["ArchConfig", "EncDecSpec", "HybridSpec", "INPUT_SHAPES",
-           "MoESpec", "SSMSpec", "VLMSpec", "get_config", "list_archs",
-           "register", "load_all"]
+__all__ = ["ASSIGNED", "ArchConfig", "EncDecSpec", "HybridSpec",
+           "INPUT_SHAPES", "MoESpec", "SSMSpec", "VLMSpec", "get_config",
+           "input_specs", "list_archs", "register", "load_all"]

@@ -6,15 +6,17 @@ Every ported architecture registers an `ArchConfig` via `register()`;
 launchers.  `reduced()` returns the family-preserving smoke-test variant
 (<= 2 layers, d_model <= 512, <= 4 experts) used by the CPU tests.  The
 dataclasses are plain copies of the reference's, field for field, so a
-config crosses between the two packages by its fields.
-
-`input_specs` (ShapeDtypeStruct stand-ins for the dry-run) is not ported:
-it waits for the dry-run port.
+config crosses between the two packages by its fields.  `input_specs`
+gives every model input of an assigned shape as a tensor on the meta
+device (the reference's ShapeDtypeStruct stand-ins): shapes and dtypes,
+no storage.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+import torch
 
 # ---------------------------------------------------------------------------
 # input shapes (assigned)
@@ -191,3 +193,43 @@ def _ensure_loaded() -> None:
     # import the config modules for their registration side effects
     from repro_torch import configs as _c  # noqa: F401
     _c.load_all()
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta-device stand-ins; never allocate)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, shape_name: str,
+                token_dtype: torch.dtype = torch.int32) -> dict:
+    """Meta-device tensors for every model input of the given shape.
+
+    train:   {tokens (B, S), targets (B, S)}  [+ modality stubs]
+    prefill: {tokens (B, S)}                  [+ modality stubs]
+    decode:  {token (B, 1), pos ()}; the cache's come from the model via
+             `repro_torch.models.transformer.cache_specs`.
+    The stubs are bf16: patches (B, n_patches, d_vision) for the vlm
+    family, frames (B, n_frames, d_model) for the audio family.
+    """
+    spec = INPUT_SHAPES[shape_name]
+    B, S = spec["global_batch"], spec["seq_len"]
+    kind = spec["kind"]
+
+    def sds(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    out: dict = {}
+    if kind == "train":
+        out["tokens"] = sds((B, S), token_dtype)
+        out["targets"] = sds((B, S), token_dtype)
+    elif kind == "prefill":
+        out["tokens"] = sds((B, S), token_dtype)
+    else:  # decode
+        out["token"] = sds((B, 1), token_dtype)
+        out["pos"] = sds((), torch.int32)
+    if cfg.vlm is not None:
+        out["patches"] = sds((B, cfg.vlm.n_patches, cfg.vlm.d_vision),
+                             torch.bfloat16)
+    if cfg.encdec is not None:
+        out["frames"] = sds((B, cfg.encdec.n_frames, cfg.d_model),
+                            torch.bfloat16)
+    return out

@@ -1,7 +1,11 @@
 """Launch layer (counterpart of `repro.launch`): the train and serve
 steps (`launch.steps`), the training command line (`launch.train`), the
-LM serving command line (`launch.serve`) and the federated serving one
-(`launch.fedserve`); the dry-run and the multi-host layer wait for
-ROADMAP.md §1 item 5.  The reference's lane mesh (`launch.mesh.make_lane_mesh`,
-`launch.sharding.lane_specs`) is not carried over: on one card it has
-size 1, and the sweep and serving engines run their lanes in turn."""
+LM serving command line (`launch.serve`), the federated serving one
+(`launch.fedserve`), the production meshes (`launch.mesh`), the sharding
+rules (`launch.sharding`), the multi-process bootstrap
+(`launch.distributed`) and the dry run on a fake 256- or 512-rank world
+(`launch.dryrun`).  Not carried over: the lane and shard meshes
+(`launch.mesh.make_lane_mesh`, `make_shard_mesh`,
+`launch.sharding.lane_specs`: on one card the engines run their lanes in
+turn and `fleet.solve_fleet` runs unsharded) and `launch.hlo_stats`,
+which parses XLA's HLO text (the port produces none)."""

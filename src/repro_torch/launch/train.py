@@ -14,9 +14,13 @@ reference's.
 Both modes compute in float32 without remat, as the reference's do.
 The vlm and audio families train on stub patches or frames drawn per
 step from the run's generator (`add_modality_stubs`).
-`--distributed` (the reference's multi-host bootstrap) raises: the launch
-layer is not ported (ROADMAP.md §1 item 5).  On the card the run ends
-with the peak of allocated device memory.
+`--distributed` starts `torch.distributed` from the cluster's
+environment (`launch.distributed.initialize_distributed`: NCCL for a run
+on the card, gloo for one on the CPU), prints the reference's
+`distributed:` line and trains as without it (the reference's step
+reads no collective either); the group is destroyed at the end of the
+run.  On the card the run ends with the peak of allocated device
+memory.
 """
 from __future__ import annotations
 
@@ -68,7 +72,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--clip-norm", type=float, default=0.0,
                     help="global-norm gradient clipping (0 = off)")
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-host training (not ported: raises)")
+                    help="initialize torch.distributed from the cluster env")
     ap.add_argument("--federated", action="store_true",
                     help="straggler-aware deadline-masked aggregation")
     ap.add_argument("--n-clients", type=int, default=8)
@@ -96,11 +100,23 @@ def run(argv=None, device: str | torch.device | None = None) -> dict:
     "fed" (the FedState or None), "n_params", "peak_bytes" (card only,
     else None), "args"}.  `device` overrides `--device`."""
     args = parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed: the multi-host launch layer is not ported "
-            "(ROADMAP.md §1 item 5)")
     dev = resolve_device(device if device is not None else args.device)
+    if not args.distributed:
+        return _train(args, dev)
+    from repro_torch.launch.distributed import (initialize_distributed,
+                                                world_size)
+    multi = initialize_distributed(
+        backend="nccl" if dev.type == "cuda" else "gloo")
+    try:
+        print(f"distributed: {world_size()} processes "
+              f"({'multi' if multi else 'single'}-host)")
+        return _train(args, dev)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _train(args: argparse.Namespace, dev: torch.device) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 

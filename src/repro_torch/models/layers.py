@@ -21,12 +21,24 @@ Differences from the reference:
   * `decode_self_attention` takes `pos` as an int or as a (B,) tensor,
     one absolute position per row, and writes the new K/V into the cache
     in place (the reference returns a new cache);
-  * only what the ported families use: no packed projections (`fused`),
-    no `impl="repeat"`, bf16 softmax or `seq_shard` (no config sets them;
-    `models.transformer` raises on them), and self-attention is roped.
-    Non-causal self-attention (the audio encoder's) and cross-attention
-    take the grouped expression with no mask, never kernel 8, which is
-    causal only: as in the reference, which reaches no kernel there.
+  * self-attention is always roped.  Non-causal self-attention (the
+    audio encoder's) and cross-attention take the plain expression with
+    no mask, never kernel 8, which is causal only: as in the reference,
+    which reaches no kernel there;
+  * the reference's `_seq_shard` (`attn_seq_shard`) has no counterpart:
+    it is a `with_sharding_constraint`, a hint to XLA's SPMD partitioner
+    that is a no-op off a mesh, and eager PyTorch on one card has no
+    partitioner to hint.
+
+The reference's `fused_proj` config field and the settings its dry
+run applies (`launch.dryrun.optimize_config`) are the reference's
+arithmetic: `fused` packs wk|wv
+into `wkv` (and bk|bv into `bkv`) and w_gate|w_up into `w_gu`, split
+again after the product; `impl="repeat"` copies each key/value head to
+its R query heads and takes (B, H, S, T) scores, the same function as
+the grouped one; a bf16 `softmax_dtype` rounds the scores to bf16 before
+the mask and takes the softmax in bf16 steps (`softmax_bf16`), the
+weights cast back to q's dtype.
 """
 from __future__ import annotations
 
@@ -80,34 +92,48 @@ def init_ln(d: int, dtype: torch.dtype, device: torch.device,
 def init_attention(gen: torch.Generator | None, d_model: int, n_heads: int,
                    n_kv_heads: int, head_dim: int, dtype: torch.dtype,
                    device: torch.device, stack: tuple[int, ...] = (),
-                   bias: bool = False,
-                   kv_input_dim: Optional[int] = None) -> dict:
+                   bias: bool = False, kv_input_dim: Optional[int] = None,
+                   fused: bool = False) -> dict:
     """QKVO projections, with zero `bq`/`bk`/`bv` biases when `bias`.
     `kv_input_dim` (default d_model) is the width K and V are projected
-    from: a cross-attention memory's."""
+    from: a cross-attention memory's.  `fused` packs K and V into one
+    (kv_in, 2 * Hkv * hd) `wkv` (and `bkv`), K's half first."""
     kv_in = kv_input_dim or d_model
+    kv_w = n_kv_heads * head_dim
     p = {
         "wq": dense_init(gen, d_model, n_heads * head_dim, dtype, device,
                          stack),
         "wo": dense_init(gen, n_heads * head_dim, d_model, dtype, device,
                          stack),
-        "wk": dense_init(gen, kv_in, n_kv_heads * head_dim, dtype, device,
-                         stack),
-        "wv": dense_init(gen, kv_in, n_kv_heads * head_dim, dtype, device,
-                         stack),
     }
+    if fused:
+        p["wkv"] = dense_init(gen, kv_in, 2 * kv_w, dtype, device, stack)
+    else:
+        p["wk"] = dense_init(gen, kv_in, kv_w, dtype, device, stack)
+        p["wv"] = dense_init(gen, kv_in, kv_w, dtype, device, stack)
     if bias:
-        for name, width in (("bq", n_heads), ("bk", n_kv_heads),
-                            ("bv", n_kv_heads)):
-            p[name] = torch.zeros((*stack, width * head_dim), dtype=dtype,
+        widths = ((("bq", n_heads * head_dim), ("bkv", 2 * kv_w)) if fused
+                  else (("bq", n_heads * head_dim), ("bk", kv_w),
+                        ("bv", kv_w)))
+        for name, width in widths:
+            p[name] = torch.zeros((*stack, width), dtype=dtype,
                                   device=device)
     return p
 
 
 def init_mlp(gen: torch.Generator | None, d_model: int, d_ff: int,
              dtype: torch.dtype, device: torch.device,
-             stack: tuple[int, ...] = (), act: str = "swiglu") -> dict:
+             stack: tuple[int, ...] = (), act: str = "swiglu",
+             fused: bool = False) -> dict:
+    """SwiGLU's w_gate, w_up and w_down (`fused`: w_gate|w_up packed into
+    one (d_model, 2 * d_ff) `w_gu`, the gate's half first), or GELU's
+    w_up and w_down."""
     if act == "swiglu":
+        if fused:
+            return {"w_gu": dense_init(gen, d_model, 2 * d_ff, dtype, device,
+                                       stack),
+                    "w_down": dense_init(gen, d_ff, d_model, dtype, device,
+                                         stack)}
         return {"w_gate": dense_init(gen, d_model, d_ff, dtype, device,
                                      stack),
                 "w_up": dense_init(gen, d_model, d_ff, dtype, device, stack),
@@ -143,10 +169,15 @@ def apply_norm(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def mlp(p: dict, x: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
-    """SwiGLU, or GELU in its tanh form (`jax.nn.gelu`'s default)."""
+    """SwiGLU (from the packed `w_gu` where the block has one), or GELU
+    in its tanh form (`jax.nn.gelu`'s default)."""
     if act == "swiglu":
-        h = F.silu(x @ p["w_gate"].to(x.dtype))
-        h = h * (x @ p["w_up"].to(x.dtype))
+        if "w_gu" in p:
+            g, u = torch.chunk(x @ p["w_gu"].to(x.dtype), 2, dim=-1)
+            h = F.silu(g) * u
+        else:
+            h = F.silu(x @ p["w_gate"].to(x.dtype))
+            h = h * (x @ p["w_up"].to(x.dtype))
     else:
         h = F.gelu(x @ p["w_up"].to(x.dtype), approximate="tanh")
     return h @ p["w_down"].to(x.dtype)
@@ -185,20 +216,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def _project_qkv(p: dict, x: torch.Tensor, kv_src: torch.Tensor,
                  n_heads: int, n_kv_heads: int, head_dim: int):
     """Q from x (B, S, D), K and V from kv_src (B, T, D_kv), all in
-    `x.dtype`."""
+    `x.dtype` (K and V split from one product where `wkv` packs them)."""
     q = x @ p["wq"].to(x.dtype)
-    k = kv_src @ p["wk"].to(x.dtype)
-    v = kv_src @ p["wv"].to(x.dtype)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+    k, v = _project_kv(p, kv_src, x.dtype)
     B, S = x.shape[:2]
     T = kv_src.shape[1]
     q = q.reshape(B, S, n_heads, head_dim)
     k = k.reshape(B, T, n_kv_heads, head_dim)
     v = v.reshape(B, T, n_kv_heads, head_dim)
     return q, k, v
+
+
+def _project_kv(p: dict, src: torch.Tensor, dtype: torch.dtype):
+    """(B, T, Hkv * hd) K and V of `src` in `dtype`, biased where the
+    block has biases."""
+    if "wkv" in p:
+        kv = src @ p["wkv"].to(dtype)
+        if "bkv" in p:
+            kv = kv + p["bkv"].to(dtype)
+        return torch.chunk(kv, 2, dim=-1)
+    k = src @ p["wk"].to(dtype)
+    v = src @ p["wv"].to(dtype)
+    if "bk" in p:
+        k = k + p["bk"].to(dtype)
+        v = v + p["bv"].to(dtype)
+    return k, v
 
 
 @functools.lru_cache(maxsize=None)
@@ -209,23 +253,65 @@ def _attn_scale(Dh: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(fa_ops.scale(Dh)).to(dtype))
 
 
+def softmax_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last dim of bf16 `x`, in the steps XLA compiles
+    `jax.nn.softmax` of a bf16 array to under `jax.jit`: x - max(x) and
+    its exp rounded to bf16, the sum taken over the float32 exps and
+    rounded to bf16, the quotient of the two bf16 values rounded once.
+    Bit-equal to the jitted reference on the same bf16 input, where
+    `torch.softmax` (float32 inside, one rounding) agrees at ~64% of the
+    weights and differs by up to 2^-8."""
+    e = torch.exp((x - x.amax(dim=-1, keepdim=True)).float())
+    total = e.sum(dim=-1, keepdim=True).to(torch.bfloat16)
+    return e.to(torch.bfloat16) / total
+
+
+def _softmax(scores: torch.Tensor, mask: Optional[torch.Tensor],
+             dtype: torch.dtype) -> torch.Tensor:
+    """Scores cast to `dtype` (float32 or bf16), masked with NEG_INF, and
+    their softmax over the keys."""
+    scores = scores.to(dtype)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    if dtype == torch.bfloat16:
+        return softmax_bf16(scores)
+    return torch.softmax(scores, dim=-1)
+
+
 def gqa_scores_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Grouped-query attention core (the reference's `impl="grouped"`).
+                     mask: Optional[torch.Tensor], impl: str = "grouped",
+                     softmax_dtype: torch.dtype = torch.float32
+                     ) -> torch.Tensor:
+    """Grouped-query attention core.
 
     q: (B, S, Hq, Dh), k/v: (B, T, Hkv, Dh), mask: broadcastable to
-    (B, Hkv, R, S, T), or plain (S, T).  Returns (B, S, Hq, Dh).  Scores
-    of q * 1/sqrt(Dh), masked with NEG_INF, float32 softmax."""
+    (B, Hkv, R, S, T) (grouped) / (B, Hq, S, T) (repeat), or plain
+    (S, T).  Returns (B, S, Hq, Dh).  Scores of q * 1/sqrt(Dh) in
+    `softmax_dtype`, masked with NEG_INF, softmax, weights in q's dtype.
+
+    impl="grouped": 5-D (B, G, R, S, T) scores, the key/value heads never
+    copied.  impl="repeat": K and V repeated to the Hq heads first, (B,
+    H, S, T) scores (a 5-D mask is reshaped to them); on a mesh the
+    reference picks it because Hq divides the model axis where G does
+    not, on one card it is the same function at R-fold the K/V bytes."""
     B, S, Hq, Dh = q.shape
     Hkv = k.shape[2]
     scale = _attn_scale(Dh, q.dtype)
     R = Hq // Hkv
+    if impl == "repeat":
+        if R > 1:
+            k = k.repeat_interleave(R, dim=2)
+            v = v.repeat_interleave(R, dim=2)
+        scores = torch.einsum("bshd,bthd->bhst", q * scale, k)
+        if mask is not None and mask.ndim == 5:
+            mask = mask.reshape(mask.shape[0], -1, *mask.shape[3:])
+        w = _softmax(scores, mask, softmax_dtype).to(q.dtype)
+        return torch.einsum("bhst,bthd->bshd", w, v)
+    if impl != "grouped":
+        raise ValueError(f"unknown attention impl {impl!r}")
     qg = q.reshape(B, S, Hkv, R, Dh)
     scores = torch.einsum("bsgrd,btgd->bgrst", qg * scale, k)
-    scores = scores.to(torch.float32)
-    if mask is not None:
-        scores = torch.where(mask, scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    w = _softmax(scores, mask, softmax_dtype).to(q.dtype)
     out = torch.einsum("bgrst,btgd->bsgrd", w, v)
     return out.reshape(B, S, Hq, Dh)
 
@@ -247,28 +333,37 @@ def self_attention(p: dict, x: torch.Tensor, positions: torch.Tensor, *,
                    n_heads: int, n_kv_heads: int, head_dim: int,
                    theta: float, causal: bool = True,
                    window: Optional[int] = None,
-                   return_kv: bool = False, use_kernel: bool = True):
+                   return_kv: bool = False, use_kernel: bool = True,
+                   impl: str = "grouped",
+                   softmax_dtype: torch.dtype = torch.float32):
     """Full-sequence self-attention with rope (training, encoder,
     prefill); causal unless `causal=False` (then unmasked, and `window`
     is not read).
 
-    Causal with no window and `use_kernel`, the core goes to
-    `kernels.flash_attn.ops.causal_attention` on transposed views of the
-    (B, S, H, Dh) projections (no copy); the output comes back as a view
-    of a (B, S, Hq, Dh) tensor.  With return_kv=True also returns the
+    Causal with no window, a float32 softmax and `use_kernel`, the core
+    goes to `kernels.flash_attn.ops.causal_attention` on transposed
+    views of the (B, S, H, Dh) projections (no copy); the output comes
+    back as a view of a (B, S, Hq, Dh) tensor.  That holds for either
+    `impl`: the repeated K/V of `impl="repeat"` give the same function
+    as the grouped ones, which the kernel reads in place.  A bf16
+    softmax, like a window, takes the plain expression
+    (`gqa_scores_apply`) on every device: kernel 8 counts as the
+    reference's `causal_attention` Pallas kernel, which has no bf16
+    softmax either.  With return_kv=True also returns the
     post-rope (k, v), which the prefill turns into the decode cache."""
     q, k, v = _project_qkv(p, x, x, n_heads, n_kv_heads, head_dim)
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
     B, S = x.shape[:2]
     if not causal:
-        out = gqa_scores_apply(q, k, v, None)
-    elif use_kernel and window is None:
+        out = gqa_scores_apply(q, k, v, None, impl, softmax_dtype)
+    elif use_kernel and window is None and softmax_dtype == torch.float32:
         out = fa_ops.causal_attention(q.transpose(1, 2), k.transpose(1, 2),
                                       v.transpose(1, 2)).transpose(1, 2)
     else:
         out = gqa_scores_apply(q, k, v,
-                               causal_mask(S, S, window, device=x.device))
+                               causal_mask(S, S, window, device=x.device),
+                               impl, softmax_dtype)
     out = out.reshape(B, S, -1) @ p["wo"].to(x.dtype)
     if return_kv:
         return out, (k, v)
@@ -309,18 +404,19 @@ def kv_to_cache(k: torch.Tensor, v: torch.Tensor,
 
 
 def cross_attention(p: dict, x: torch.Tensor, memory: torch.Tensor, *,
-                    n_heads: int, n_kv_heads: int,
-                    head_dim: int) -> torch.Tensor:
+                    n_heads: int, n_kv_heads: int, head_dim: int,
+                    impl: str = "grouped") -> torch.Tensor:
     """Cross-attention of x (B, S, D) over a memory sequence (B, T, D_kv):
-    no mask, no rope."""
+    no mask, no rope, a float32 softmax."""
     q, k, v = _project_qkv(p, x, memory, n_heads, n_kv_heads, head_dim)
-    out = gqa_scores_apply(q, k, v, None)
+    out = gqa_scores_apply(q, k, v, None, impl)
     return out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"].to(x.dtype)
 
 
 def cross_attention_cached(p: dict, x: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, n_heads: int, n_kv_heads: int,
-                           head_dim: int) -> torch.Tensor:
+                           head_dim: int,
+                           impl: str = "grouped") -> torch.Tensor:
     """Cross-attention against precomputed (B, T, Hkv, Dh) K/V (decode,
     and the prefill once the memory's K/V are projected)."""
     q = x @ p["wq"].to(x.dtype)
@@ -328,18 +424,14 @@ def cross_attention_cached(p: dict, x: torch.Tensor, k: torch.Tensor,
         q = q + p["bq"].to(x.dtype)
     B, S = x.shape[:2]
     q = q.reshape(B, S, n_heads, head_dim)
-    out = gqa_scores_apply(q, k, v, None)
+    out = gqa_scores_apply(q, k, v, None, impl)
     return out.reshape(B, S, -1) @ p["wo"].to(x.dtype)
 
 
 def project_cross_kv(p: dict, memory: torch.Tensor, *, n_kv_heads: int,
                      head_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
     """A memory's (B, T, Hkv, Dh) K and V, in `memory.dtype`."""
-    k = memory @ p["wk"].to(memory.dtype)
-    v = memory @ p["wv"].to(memory.dtype)
-    if "bk" in p:
-        k = k + p["bk"].to(memory.dtype)
-        v = v + p["bv"].to(memory.dtype)
+    k, v = _project_kv(p, memory, memory.dtype)
     B, T = memory.shape[:2]
     return (k.reshape(B, T, n_kv_heads, head_dim),
             v.reshape(B, T, n_kv_heads, head_dim))
@@ -360,7 +452,7 @@ def init_kv_cache(batch: int, cache_len: int, n_kv_heads: int, head_dim: int,
 def decode_self_attention(p: dict, x: torch.Tensor, cache: dict,
                           pos: int | torch.Tensor, *, n_heads: int,
                           n_kv_heads: int, head_dim: int, theta: float,
-                          window: Optional[int] = None
+                          window: Optional[int] = None, impl: str = "grouped"
                           ) -> tuple[torch.Tensor, dict]:
     """One-token decode: x (B, 1, D); `pos` is the absolute position of
     the new token, an int for every row or a (B,) tensor, one per row.
@@ -385,6 +477,6 @@ def decode_self_attention(p: dict, x: torch.Tensor, cache: dict,
     valid = j <= pos[:, None]
     if window is not None:
         valid = valid | (pos[:, None] >= cache_len)
-    out = gqa_scores_apply(q, ck, cv, valid[:, None, None, None, :])
+    out = gqa_scores_apply(q, ck, cv, valid[:, None, None, None, :], impl)
     out = out.reshape(B, 1, -1) @ p["wo"].to(x.dtype)
     return out, {"k": ck, "v": cv}

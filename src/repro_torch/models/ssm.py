@@ -27,7 +27,10 @@ Differences from the reference:
   * `mamba2_prefill` keeps the last d_conv - 1 conv inputs with zero
     left-padding for prompts shorter than that (the reference keeps
     fewer rows there; ROADMAP.md, R4).
-  * `head_shard=True` (mesh sharding of the heads) raises.
+  * `head_shard` is accepted and changes nothing: the reference's
+    `_shard_heads` is a `with_sharding_constraint`, a hint to XLA's SPMD
+    partitioner that is a no-op off a mesh, and eager PyTorch on one
+    card has no partitioner to hint.
   * The inter-chunk recurrence is a Python loop over the chunks in order.
 """
 from __future__ import annotations
@@ -68,10 +71,6 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     b, c: (B, S, G, N) with H % G == 0.
     Returns (y (B, S, H, P), h_final (B, H, P, N) float32).
     """
-    if head_shard:
-        raise NotImplementedError(
-            "head_shard (mesh sharding of the SSD heads) is not ported; "
-            "ROADMAP.md §1 item 5")
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     orig_s = S

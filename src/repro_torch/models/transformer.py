@@ -61,9 +61,20 @@ remainder of layers is not built (no config has one), and the cross
 path is dead at init: `gate` starts at 0 and tanh(0) scales the cross
 output to 0.
 
-The attention knobs no config sets and the launch layer's dry-run would
-(`attn_impl="repeat"`, a bf16 softmax, `fused_proj`, `attn_seq_shard`)
-raise `NotImplementedError` (ROADMAP.md §1 item 5).
+The settings of the reference's `launch.dryrun.optimize_config`, and
+its `fused_proj` field (which `optimize_config` does not set), are
+read from the config as the reference reads them: `fused_proj` packs
+the self blocks' (and the moe blocks' and the shared block's) K/V and
+gate/up projections, never the cross blocks'; `attn_impl` reaches every
+attention; `softmax_dtype` reaches the full-sequence
+forward (training, and the audio encoder in the prefill) but not the
+prefill's causal self-attention, which the reference takes in float32
+whatever the config (its `_self_block_prefill`), nor decode or
+cross-attention.  So a prefill under `optimize_config(cfg, "prefill")`
+keeps kernel 8 (`layers.self_attention`).  `attn_seq_shard` and
+`ssm.head_shard` are mesh hints that change nothing on one card, so
+`attn_seq_shard` is not read.
+`cache_specs` is `init_cache` on the meta device.
 """
 from __future__ import annotations
 
@@ -86,12 +97,6 @@ PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe", "vlm", "audio")
 def _require_ported(cfg: ArchConfig) -> None:
     if cfg.arch_type not in PORTED_FAMILIES:
         raise ValueError(f"unknown arch_type {cfg.arch_type!r} ({cfg.name})")
-    for knob, ported in (("attn_impl", "grouped"), ("softmax_dtype", "f32"),
-                         ("fused_proj", False), ("attn_seq_shard", False)):
-        if getattr(cfg, knob) != ported:
-            raise NotImplementedError(
-                f"{knob}={getattr(cfg, knob)!r} ({cfg.name}) is not ported "
-                "(ROADMAP.md §1 item 5)")
     if cfg.arch_type == "moe" and cfg.n_layers % cfg.moe.every:
         raise ValueError(f"{cfg.name}: the moe interleave needs n_layers "
                          f"divisible by every={cfg.moe.every}")
@@ -118,14 +123,14 @@ def _init_self_block(gen: Optional[torch.Generator], cfg: ArchConfig,
         "attn_norm": _norm_init(cfg, d, dtype, device, stack),
         "attn": L.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
                                  cfg.hd, dtype, device, stack,
-                                 bias=cfg.attn_bias),
+                                 bias=cfg.attn_bias, fused=cfg.fused_proj),
         "mlp_norm": _norm_init(cfg, d, dtype, device, stack),
     }
     if moe:
         p["moe"] = M.init_moe(gen, _moe_dims(cfg), dtype, device, stack)
     else:
         p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, dtype, device, stack,
-                              act=cfg.act)
+                              act=cfg.act, fused=cfg.fused_proj)
     return p
 
 
@@ -210,6 +215,10 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator],
         if at == "hybrid":
             p["shared_attn"] = _init_self_block(gen, cfg, dtype, dev)
     return p
+
+
+def _softmax_dtype(cfg: ArchConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.softmax_dtype == "bf16" else torch.float32
 
 
 def _vlm_layout(cfg: ArchConfig) -> tuple[int, int]:
@@ -325,13 +334,16 @@ def _self_block(cfg: ArchConfig, bp: dict, x: torch.Tensor,
     """One [attention + MLP or MoE FFN] block over the full sequence
     (unmasked with `causal=False`: the audio encoder's).  Returns (x, the
     MoE aux dict or None, and with return_kv the post-rope (k, v) for the
-    decode cache, else None)."""
+    decode cache, else None).  return_kv is the prefill's block, which
+    takes the softmax in float32, as the reference's
+    `_self_block_prefill`."""
     h = L.apply_norm(bp["attn_norm"], x, cfg.norm)
     attn = L.self_attention(
         bp["attn"], h, positions, n_heads=cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, theta=cfg.rope_theta,
         causal=causal, window=cfg.sliding_window if causal else None,
-        return_kv=return_kv, use_kernel=use_kernel)
+        return_kv=return_kv, use_kernel=use_kernel, impl=cfg.attn_impl,
+        softmax_dtype=torch.float32 if return_kv else _softmax_dtype(cfg))
     kv = None
     if return_kv:
         attn, kv = attn
@@ -351,7 +363,7 @@ def _cross_block(cfg: ArchConfig, bp: dict, x: torch.Tensor,
     h = L.apply_norm(bp["attn_norm"], x, cfg.norm)
     x = _gated(bp, x, L.cross_attention(
         bp["attn"], h, memory, n_heads=cfg.n_heads,
-        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd))
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, impl=cfg.attn_impl))
     h = L.apply_norm(bp["mlp_norm"], x, cfg.norm)
     return x + L.mlp(bp["mlp"], h, act=cfg.act)
 
@@ -362,7 +374,7 @@ def _cross_block_decode(cfg: ArchConfig, bp: dict, x: torch.Tensor,
     h = L.apply_norm(bp["attn_norm"], x, cfg.norm)
     x = _gated(bp, x, L.cross_attention_cached(
         bp["attn"], h, ck, cv, n_heads=cfg.n_heads,
-        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd))
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, impl=cfg.attn_impl))
     h = L.apply_norm(bp["mlp_norm"], x, cfg.norm)
     return x + L.mlp(bp["mlp"], h, act=cfg.act)
 
@@ -540,6 +552,14 @@ def init_cache(cfg: ArchConfig, batch_size: int, seq_len: int,
     return cache
 
 
+def cache_specs(cfg: ArchConfig, batch_size: int, seq_len: int,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The decode cache's tree of shapes and dtypes: `init_cache` on the
+    meta device, which allocates nothing (the reference's `cache_specs`,
+    a `jax.eval_shape` of its `init_cache`)."""
+    return init_cache(cfg, batch_size, seq_len, dtype=dtype, device="meta")
+
+
 def _mamba_cache_stack(cfg: ArchConfig, n: int, B: int, dtype: torch.dtype,
                        device: torch.device) -> dict:
     s = cfg.ssm
@@ -559,7 +579,7 @@ def _self_block_decode(cfg: ArchConfig, bp: dict, x: torch.Tensor,
     attn, new_cache = L.decode_self_attention(
         bp["attn"], h, cache_l, pos, n_heads=cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, theta=cfg.rope_theta,
-        window=cfg.sliding_window)
+        window=cfg.sliding_window, impl=cfg.attn_impl)
     x = x + attn
     h = L.apply_norm(bp["mlp_norm"], x, cfg.norm)
     y, _ = _ffn(cfg, bp, h, decode=True)

@@ -16,8 +16,10 @@ the real main path computes.  The reference's features (its
 Bounds:
   * `mec_total_cdf`, `sample_total_mec` and the epoch schedules:
     bit-equal (NumPy copies, the same generator draws);
-  * the MEC planner against the oracle at eps_rel 1e-4: loads and c
-    equal, t* within rtol 1e-3 (`tests/test_nonlinear.py`'s bound);
+  * the MEC planner against the oracle at eps_rel 1e-4: t* within rtol
+    1e-3 (`tests/test_nonlinear.py`'s bound), loads and c equal to the
+    oracle's allocation rule at the port's t*; at eps_rel 1e-12, loads
+    and c equal to the oracle's and t* within rtol 1e-9;
     `p_return` equal to `mec_total_cdf` at the plan;
   * `rff_features` on the reference's weights within atol 5e-6 of its
     `rff_map` and of its float64 oracle (`tests/test_nonlinear.py`);
@@ -48,7 +50,9 @@ from repro.data import one_vs_rest_targets as j_one_vs_rest_targets
 from repro.data import rff_map as j_rff_map
 from repro.data import rff_map_reference as j_rff_map_reference
 from repro.data.rff import _rff_weights as j_rff_weights
-from repro.plan.reference_schemes import solve_codedfedl_reference
+from repro.plan.reference import optimal_loads_loop
+from repro.plan.reference_schemes import (optimal_loads_mec_loop,
+                                          solve_codedfedl_reference)
 from repro.schemes.codedfedl import _RFF_FOLD as J_RFF_FOLD
 from repro.sim.network import wireless_fleet as j_wireless_fleet
 from repro_torch import api as t_api
@@ -146,18 +150,43 @@ def test_sample_total_mec_bit_equal(size):
 # the planner's mec_comm objective
 # ---------------------------------------------------------------------------
 
+def _mec_oracle_at(edge, server, sizes, kw, t):
+    """The oracle's allocation rule at deadline `t`: its MEC edge loads and
+    c (the fixed budget, or its server load under `c_up`)."""
+    loads, _ = optimal_loads_mec_loop(edge, sizes, t)
+    if "fixed_c" in kw:
+        return loads, int(kw["fixed_c"])
+    s_load, _ = optimal_loads_loop(server, np.array([kw["c_up"]]), t)
+    return loads, int(s_load[0])
+
+
 @settings(max_examples=8, deadline=None)
 @given(n=st.integers(2, 8), ell=st.integers(8, 60),
        mode=st.sampled_from(["free", "fixed"]), seed=st.integers(0, 10**6))
 def test_mec_planner_matches_oracle(n, ell, mode, seed):
     (je, js), (te, ts), sizes, kw = _problem(n, ell, mode, seed)
-    ref = solve_codedfedl_reference(je, js, sizes, eps_rel=1e-4, **kw)
-    got = solve_redundancy_batched(
-        [PlanRequest(te, ts, sizes, mec_comm=True, **kw)], eps_rel=1e-4,
-        device="cpu")[0]
-    np.testing.assert_array_equal(got.loads, ref.loads)
-    assert got.c == ref.c
+
+    def solve(eps_rel):
+        ref = solve_codedfedl_reference(je, js, sizes, eps_rel=eps_rel, **kw)
+        got = solve_redundancy_batched(
+            [PlanRequest(te, ts, sizes, mec_comm=True, **kw)],
+            eps_rel=eps_rel, device="cpu")[0]
+        return ref, got
+
+    ref, got = solve(1e-4)
     np.testing.assert_allclose(got.t_star, ref.t_star, rtol=1e-3)
+    # Each solve stops somewhere within eps_rel above the true t*, so a
+    # device whose best load switches inside that window gets one side
+    # from each (n=8, ell=42, free, seed 530313): at eps_rel 1e-4 the
+    # loads and c are the oracle's own rule at the port's t* ...
+    loads, c = _mec_oracle_at(je, js, sizes, kw, got.t_star)
+    np.testing.assert_array_equal(got.loads, loads)
+    assert got.c == c
+    # ... and with t* resolved to 1e-12 they are the oracle's whole solve
+    ref_t, got_t = solve(1e-12)
+    np.testing.assert_array_equal(got_t.loads, ref_t.loads)
+    assert got_t.c == ref_t.c
+    np.testing.assert_allclose(got_t.t_star, ref_t.t_star, rtol=1e-9)
     # the Eq.-17 weights see what the solve optimized
     np.testing.assert_array_equal(
         got.p_return[:-1], j_mec_total_cdf(je, got.loads, got.t_star))

@@ -1203,6 +1203,60 @@ def test_dense_prefill_on_the_card_matches_cpu(cuda):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=bound)
 
 
+def test_optimized_prefills_on_the_card(cuda):
+    """The settings of `launch.dryrun.optimize_config` on the card: the
+    reduced zamba2 at 5 layers under `head_shard` launches kernels 7 and
+    8 as without it (5 and 2) with logits `torch.equal`; the reduced
+    granite with `attn_impl="repeat"` at a float32 softmax takes kernel 8
+    in every layer, `torch.equal` to the grouped kernel prefill; its
+    full-sequence forward with the bf16 softmax launches no kernel and
+    lies within 2^-7 * max(1, max|logit|) of the same forward on the CPU
+    (`tests/test_torch_launch.py`'s bound: float32 scores that differ in
+    their last bit may round to bf16 values 2^-8 apart)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import optimize_config
+    from repro_torch.models import transformer as T
+
+    def launches():
+        return (ssd_ops.SSD_COUNTER.launches, fa_ops.FLASH_COUNTER.launches)
+
+    toks = torch.randint(0, 512, (2, 45),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks.to(cuda)}
+    hyb = dataclasses.replace(get_config("zamba2-1.2b").reduced(), n_layers=5)
+    params = _to(T.init_params(hyb, torch.Generator().manual_seed(0),
+                               device="cpu"), cuda)
+    base, _ = T.prefill(hyb, params, batch)
+    before = launches()
+    got, _ = T.prefill(optimize_config(hyb, "prefill"), params, batch)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(launches(), before)) == (5, 2)
+    assert torch.equal(got, base)
+
+    dense = get_config("granite-8b").reduced()
+    cpu_params = T.init_params(dense, torch.Generator().manual_seed(0),
+                               device="cpu")
+    params = _to(cpu_params, cuda)
+    base, _ = T.prefill(dense, params, batch)
+    before = launches()
+    got, _ = T.prefill(dataclasses.replace(dense, attn_impl="repeat"),
+                       params, batch)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(launches(), before)) == (
+        0, dense.n_layers)
+    assert torch.equal(got, base)
+    opt = optimize_config(dense, "train")
+    assert opt.softmax_dtype == "bf16"
+    before = launches()
+    with torch.inference_mode():
+        got, _ = T.forward_train(opt, params, batch, use_kernel=True)
+    torch.cuda.synchronize()
+    assert launches() == before
+    want, _ = T.forward_train(opt, cpu_params, {"tokens": toks})
+    bound = 2.0 ** -7 * max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got.cpu(), want, rtol=2.0 ** -7, atol=bound)
+
+
 def _sweep_sessions(cuda):
     from repro_torch.sim.network import paper_fleet
 

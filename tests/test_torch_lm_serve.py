@@ -594,6 +594,15 @@ def test_vlm_and_audio_serve_on_meta_at_the_reference_shapes(arch):
                                   {"fused_proj": True},
                                   {"attn_seq_shard": True}])
 def test_unported_attention_knobs_raise(knob):
+    """The dry run's attention settings, once refused, now build: the
+    port's tree on the meta device has the reference's leaves and shapes
+    (`fused_proj` packs `wkv` and `w_gu`; the others change no leaf).
+    The name is the one the test had while these knobs raised."""
     cfg = dataclasses.replace(get_config(DENSE).reduced(), **knob)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        T.init_params(cfg, None, device="meta")
+    jcfg = dataclasses.replace(j_get_config(DENSE).reduced(), **knob)
+    got = {k: tuple(v.shape)
+           for k, v in _leaves(T.init_params(cfg, None, device="meta")).items()}
+    want = jax.eval_shape(lambda: JT.init_params(jcfg, jax.random.PRNGKey(0)))
+    assert got == {k: v.shape for k, v in _leaves(want).items()}
+    assert ("blocks.attn.wkv" in got) == ("blocks.mlp.w_gu" in got) \
+        == bool(cfg.fused_proj)

@@ -206,8 +206,15 @@ def test_ssd_decode_step_matches_jax():
 
 
 def test_ssd_chunked_head_shard_is_not_ported():
+    """`head_shard`, a mesh hint once refused, changes nothing: the scan
+    with it is bit-equal to the scan without it, on both routes.  The
+    name is the one the test had while `head_shard` raised."""
     x, dt, a, b, c, _ = (torch.from_numpy(v)
                          for v in _scan_inputs(0, 1, 16, 4, 8, 2, 16))
-    with pytest.raises(NotImplementedError, match="head_shard"):
-        t_ssm.ssd_chunked(x, dt, a, b, c, chunk=16, head_shard=True)
+    for use_kernel in (True, False):
+        with_hint = t_ssm.ssd_chunked(x, dt, a, b, c, chunk=16,
+                                      use_kernel=use_kernel, head_shard=True)
+        without = t_ssm.ssd_chunked(x, dt, a, b, c, chunk=16,
+                                    use_kernel=use_kernel)
+        assert all(torch.equal(u, v) for u, v in zip(with_hint, without))
 
