@@ -356,22 +356,44 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      COORDINATOR_ADDRESS=127.0.0.1:<free port>, NUM_PROCESSES=1 and
      PROCESS_ID=0 over NCCL: losses equal to the same seed's run without
      it, then a one-rank NCCL all-reduce and `sync_hosts`.
+ 26. the coded-head probe: `python -m repro_torch.coded_head_probe`'s
+     `run` at full width and depth (granite-8b, 36 layers at d_model
+     4096, 12 clients x 64 sequences of 32 tokens, 300 epochs, c = 230):
+     exactly 36 kernel-8 launches (the backbone, all 768 sequences in
+     one batch), 12 kernel-2 (one parity encode a client, (230, 64,
+     4097)) and 600 kernel-1 (both heads at D = 4096), NMSE traces
+     finite and falling, the coding gain printed; client 0's kernel
+     features within 1e-3 * max(1, max|feature|) of the plain
+     backbone's; kernel 1 on the probe's rows within the float64 bound;
+     kernels 1 and 8 timed at the probe's shapes ((768, 4096) and (768,
+     32, 8, 32, 128)) with their plain versions, library calls and
+     bounds (the kernels line's `probe_shape`).  Phase 3 also holds
+     kernels 1, 4, 5 and 6 at 768 rows and D = 4096 and 8192 (the
+     residual pass) to the float64 bound.
+ 27. the lane and shard meshes over every local card (k =
+     `torch.cuda.device_count()`): 8 CodedFL lanes of phase 18's sweep
+     through `run_sweep` and `FedServeEngine(lane_width=4)` over the k
+     cards and over this one card, lanes bit-equal and 800 kernel-1
+     launches each; phase 9's 100 000-client `solve_fleet` over the
+     shard mesh, t*, c and loads equal to the one-card solve.  On a
+     machine with one card k = 1.
 
 The user tile cache is an empty temporary directory for the whole run,
 so `block="auto"` reads the committed `src/repro_torch/tune/
 defaults.json` alone, and each kernel's bound comes from
-`repro_torch.roofline.kernel_terms`.  Every run of phases 4-25 is
+`repro_torch.roofline.kernel_terms`.  Every run of phases 4-27 is
 counted from 0 just before it.  The kernels
 line's `launches` sums the driven runs: kernel 1 over phases 4, 14 (r = 2
-and 3), 16, 17 and 18 (the sweep, its solo runs, the served epochs and
-the per-session loop); kernel 2 over phases 4, 15, 16, 17 and 18's two
-`plan_sweep` calls; kernel 4 over phases 6, 15 and 18c; kernel 5 over
-the T = 3 runs of phases 7, 14, 16 and 17; kernel 7 over phases 11 and
-21 and phase 25's zamba2 prefill; kernel 8 over phases 12, 21-24 and
-phase 25's prefills.  Kernels 1-6 also carry the
-`tile` `"auto"` launched at the timed shape (`[0]`: a round gradient's
-own partition), and kernels 1, 2, 4, 5 and 6 `tuned`, phase 20's
-measured tuning of the kernel's family.
+and 3), 16, 17, 18 (the sweep, its solo runs, the served epochs and
+the per-session loop), 26 and 27; kernel 2 over phases 4, 15, 16, 17,
+18's two `plan_sweep` calls, 26 and 27's `plan_sweep`; kernel 4 over
+phases 6, 15 and 18c; kernel 5 over the T = 3 runs of phases 7, 14, 16
+and 17; kernel 7 over phases 11 and 21 and phase 25's zamba2 prefill;
+kernel 8 over phases 12, 21-24, phase 25's prefills and phase 26.
+Kernels 1-6 also carry the `tile` `"auto"` launched at the timed shape
+(`[0]`: a round gradient's own partition), and kernels 1, 2, 4, 5 and 6
+`tuned`, phase 20's measured tuning of the kernel's family; kernels 1
+and 8 `probe_shape`, phase 26's timing at the probe's shapes.
 
 Any failed check raises, so the exit code is non-zero.  The line before
 the last is the kernels' JSON record; the last line is
@@ -450,6 +472,25 @@ SSD_HYBRID_SHAPE = (1, 8, 256, 64, 64, 64)
 # by ~1e-6 of max: tests/test_torch_lm_serve.py,
 # test_rounding_of_the_attention_core_...)
 DENSE_ARCH, DENSE_PARAMS, DENSE_LOGIT_RTOL = "granite-8b", 8_254_689_280, 1e-3
+# phase 3: kernels 1, 4, 5 and 6 past the row-resident width (the
+# residual pass and the column-chunked launch) at the coded-head probe's
+# 12 x 64 rows and its 230 parity rows, D = granite-8b's d_model and
+# twice it, against the float64 bound as the §IV shapes are
+WIDE_ROWS, WIDE_PARITY, WIDE_DS = 768, 230, (4096, 8192)
+# phase 26: `python -m repro_torch.coded_head_probe` at full width and
+# depth (examples/coded_head_probe.py's 12 clients x 64 sequences of 32
+# tokens, 300 epochs, c = 230); its kernel-8 features of client 0
+# against the plain backbone's within PROBE_FEATURE_RTOL * max(1,
+# max|feature|), stated before the first run on the card (the
+# 2048-token granite-8b kernel prefill sat at 2.7e-5 of max|logit| from
+# the plain one, phase 12, and these hidden states feed the logits
+# linearly); the launches it must count
+PROBE_SEED, PROBE_FEATURE_RTOL = 0, 1e-3
+PROBE_LAUNCHES = {"causal_attention": 36, "encode": 12, "round_grad": 600}
+# phase 27: the lane and shard meshes over every local card: MESH_LANES
+# CodedFL lanes of phase 18's sweep for MESH_EPOCHS epochs, served
+# MESH_WIDTH a group, and phase 9's fleet-scale solve
+MESH_LANES, MESH_EPOCHS, MESH_WIDTH = 8, 100, 4
 # kernel 8's operands (B, Hq, Hkv, S, D): a 2048-token granite-8b prefill,
 # its 100- and 1537-token prompts, D = 64 (the reduced configs' head dim),
 # and one key/value head per query head (R = 1) and per three (R = 3);
@@ -3643,6 +3684,311 @@ def auto_tile(family: str, shape: tuple, dev) -> list:
                               dev))
 
 
+def check_wide_round_grads(dev, errs: dict) -> None:
+    """Phase 3's checks of kernels 1, 4, 5 and 6 past the row-resident
+    width: at WIDE_ROWS x D for D in WIDE_DS each kernel and its plain
+    version against the float64 bound (`held_to_float64`), a relaunch
+    bit-identical, the tier kernel at T = 1 and the least-squares kernel
+    `torch.equal` to the flat one.  Its own generator, so the other
+    checks' operands are the parent's."""
+    from repro_torch.kernels.round_grad import ops as rg_ops
+    from repro_torch.kernels.round_grad import ref as rg_ref
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    m, c = WIDE_ROWS, WIDE_PARITY
+    worst = 0.0
+    for d in WIDE_DS:
+        check(rg_ops._dispatch(dev).rg_residual_rows(m, d) == m,
+              f"D = {d} does not take the residual pass")
+        x = torch.randn((m, d), generator=gen, device=dev)
+        y = torch.randn((m,), generator=gen, device=dev)
+        w = torch.rand((m,), generator=gen, device=dev)
+        w[::7] = 0.0
+        beta = torch.randn((d,), generator=gen, device=dev)
+        xp = torch.randn((c, d), generator=gen, device=dev)
+        yp = torch.randn((c,), generator=gen, device=dev)
+        wp = torch.rand((c,), generator=gen, device=dev)
+        tier_of = torch.randint(0, HIER_TIERS, (m,), generator=gen,
+                                device=dev)
+        masks = (torch.arange(HIER_TIERS, device=dev)[:, None]
+                 == tier_of[None, :]).float()
+        calls = {
+            "round_grad": (lambda: rg_ops.masked_round_gradient(
+                x, y, w, beta), lambda: rg_ref.masked_round_gradient(
+                x, y, w, beta), (x, y, w, beta, None)),
+            "coded_round_grad": (lambda: rg_ops.coded_round_gradient(
+                x, y, w, xp, yp, wp, beta),
+                lambda: rg_ref.coded_round_gradient(x, y, w, xp, yp, wp,
+                                                    beta),
+                (torch.cat([x, xp]), torch.cat([y, yp]),
+                 torch.cat([w, wp]), beta, None)),
+            "tier_round_grad": (lambda: rg_ops.tier_masked_round_gradient(
+                x, y, w, masks, beta),
+                lambda: rg_ref.tier_masked_round_gradient(x, y, w, masks,
+                                                          beta),
+                (x, y, w, beta, masks)),
+            "lsq_gradient": (lambda: rg_ops.lsq_gradient(x, y, beta),
+                             lambda: rg_ref.lsq_gradient(x, y, beta),
+                             (x, y, None, beta, None))}
+        for name, (kernel, plain, exact) in calls.items():
+            got, again, want = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            xs, ys_, ws, bs, ms = exact
+            worst = max(worst, held_to_float64(
+                f"{name} ({m}, {d}) past the row-resident width", got, want,
+                xs, ys_, ws, bs, masks=ms))
+            check(torch.equal(got, again), f"{name} at D = {d} not "
+                  "deterministic")
+        one = rg_ops.tier_masked_round_gradient(
+            x, y, w, torch.ones((1, m), device=dev), beta)
+        flat = rg_ops.masked_round_gradient(x, y, w, beta)
+        lsq = rg_ops.lsq_gradient(x, y, beta)
+        flat1 = rg_ops.masked_round_gradient(x, y, None, beta)
+        torch.cuda.synchronize()
+        phase(f"  D = {d}: tier T=1 torch.equal to flat "
+              f"{torch.equal(one[0], flat)}; lsq torch.equal to flat at "
+              f"w = None {torch.equal(lsq, flat1)}")
+        check(torch.equal(one[0], flat), f"T = 1 != flat at D = {d}")
+        check(torch.equal(lsq, flat1), f"lsq != flat at D = {d}")
+    errs["round_grad_wide"] = worst
+
+
+def probe_phase(dev, card: str, expect, reset_counters,
+                read_counters) -> dict:
+    """Phase 26: `repro_torch.coded_head_probe.run` at full width and
+    depth with the launch counters from 0: kernel 8 in the frozen
+    backbone, kernel 2 on the 12 parity encodes, kernel 1 at D = 4096 in
+    both heads.  Then, outside the counted run: client 0's features
+    against the plain backbone's, kernel 1 on the probe's own rows
+    against the float64 bound, and kernels 1 and 8 timed at the probe's
+    shapes."""
+    from repro_torch import coded_head_probe as probe
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.flash_attn import ref as fa_ref
+    from repro_torch.kernels.round_grad import ops as rg_ops
+    from repro_torch.kernels.round_grad import ref as rg_ref
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    out = probe.run(device=dev, seed=PROBE_SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    cfg, reps = out["cfg"], out["reports"]
+    n, ell, d = out["feats"].shape
+    seq = out["tokens"].shape[-1]
+    check(cfg.name == DENSE_ARCH and cfg.n_layers == 36 and d == 4096,
+          "the probe's backbone is not granite-8b at full width and depth")
+    phase(f"probe [{card}]: {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}) features of {n} x {ell} sequences of "
+          f"{seq} tokens, {wall:.3f} s wall ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in out["seconds"].items())
+          + f"); peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"launches {launches}")
+    phase(f"probe [{card}]: uncoded head NMSE "
+          f"{reps['uncoded'].final_nmse():.3e} in "
+          f"{reps['uncoded'].times[-1]:.0f} s simulated; coded head NMSE "
+          f"{reps['cfl'].final_nmse():.3e} in {reps['cfl'].times[-1]:.0f} s "
+          f"simulated (c = {probe.FIXED_C}); coding gain to "
+          f"NMSE {out['target']:.3e}: {out['gain']:.3f}x")
+    check(launches == expect(**PROBE_LAUNCHES),
+          f"unexpected probe launch counts {launches}")
+    for rep in reps.values():
+        check(rep.nmse.shape == (probe.EPOCHS + 1,)
+              and bool(np.all(np.isfinite(rep.nmse)))
+              and rep.final_nmse() < rep.nmse[0],
+              f"probe {rep.label}: NMSE trace not finite or not falling")
+    check(bool(torch.isfinite(out["feats"]).all()), "probe features")
+    check(np.isfinite(out["gain"]), "the probe's coding gain is not finite")
+
+    # client 0's kernel features against the plain backbone's
+    params, toks = out["params"], out["tokens"]
+    before = read_counters()
+    plain = probe.probe_features(cfg, params, toks[:1], use_kernel=False)
+    check(read_counters() == before, "the plain backbone launched a kernel")
+    got = out["backbone_feats"][:1]
+    diff = float((got - plain).abs().max())
+    top = max(1.0, float(got.abs().max()))
+    phase(f"probe [{card}]: client 0's kernel-8 features against the plain "
+          f"backbone's: max |difference| {diff:.3e} (max|feature| "
+          f"{float(got.abs().max()):.3f}; bound stated in advance "
+          f"{PROBE_FEATURE_RTOL} * max(1, max|feature|) = "
+          f"{PROBE_FEATURE_RTOL * top:.3e})")
+    check(diff <= PROBE_FEATURE_RTOL * top,
+          "the probe's kernel features disagree with the plain backbone's")
+    del params, toks, plain, got
+    out.pop("params")
+    out.pop("tokens")
+    free_card()
+
+    # kernel 1 on the probe's rows (the uncoded head's round gradient at
+    # its final beta) against float64, then timed there
+    x = out["feats"].reshape(n * ell, d).contiguous()
+    y = out["ys"].reshape(n * ell).contiguous()
+    beta = torch.as_tensor(reps["uncoded"].beta, device=dev)
+    got = rg_ops.masked_round_gradient(x, y, None, beta)
+    want = rg_ref.masked_round_gradient(x, y, None, beta)
+    torch.cuda.synchronize()
+    err = held_to_float64(f"round_grad on the probe's rows ({n * ell}, {d})",
+                          got, want, x, y, None, beta)
+    cold = cold_copies((x, y, None, beta))
+    coef = (x @ beta - y).contiguous()
+    terms = kernel_terms("round_grad", (n * ell, d), weighted=False)
+    rg = {"shape": [n * ell, d], "launches": launches["round_grad"],
+          "max_abs_err": err,
+          "ms": time_ms(rg_ops.masked_round_gradient, cold),
+          "ms_l2_warm": time_ms(rg_ops.masked_round_gradient,
+                                [(x, y, None, beta)]),
+          "plain_ms": time_ms(rg_ref.masked_round_gradient, cold),
+          "library_ms": time_ms(torch.matmul, cold_copies((coef, x))),
+          "bound_ms": 1e3 * terms["bound_s"], "bound_by": terms["bound_by"],
+          "bytes": int(terms["bytes"])}
+    del cold
+    phase(f"time round_grad at the probe's shape ({n * ell}, {d}) w=None "
+          f"[{card}]: kernel {rg['ms']!r} ms (L2 warm {rg['ms_l2_warm']!r} "
+          f"ms), plain {rg['plain_ms']!r} ms, library r @ X "
+          f"{rg['library_ms']!r} ms, bound {rg['bound_ms']!r} ms "
+          f"({rg['bound_by']}, bytes {rg['bytes']})")
+
+    # kernel 8 at the backbone's shape: all 768 sequences of 32 tokens
+    shape = (n * ell, cfg.n_heads, cfg.n_kv_heads, seq, cfg.hd)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    ops = flash_operands(gen, dev, *shape)
+    got = fa_ops.causal_attention(*ops)
+    plain = fa_ref.causal_attention(*ops)
+    o64, bound = fa_ref.float64_reference_and_bound(*ops)
+    torch.cuda.synchronize()
+    ferr, ok = allclose_report(got, plain, 2e-4, 2e-4)
+    share = {name: bound_share(o, o64, bound)
+             for name, o in (("kernel", got), ("plain", plain))}
+    lib_err = float((sdpa_expanded(*ops) - got).abs().max())
+    del o64, bound, plain, got
+    phase(f"check causal_attention at the probe's shape {list(shape)}: "
+          f"max_abs_err vs plain {ferr:.3e}, within rtol 2e-4 / atol 2e-4 "
+          f"{ok}; against float64 {share['kernel']:.4f} (kernel) and "
+          f"{share['plain']:.4f} (plain) of the derived bound; library "
+          f"max |difference| {lib_err:.3e}")
+    check(ok and share["kernel"] <= 1.0 and share["plain"] <= 1.0,
+          "causal_attention at the probe's shape")
+    check(lib_err <= 2e-4, "the library call of kernel 8 at the probe's "
+          "shape disagrees with the kernel")
+    rep = shape[1] // shape[2]
+    backend = sdpa_backend(ops[0], ops[1].repeat_interleave(rep, 1),
+                           ops[2].repeat_interleave(rep, 1))
+    cold = cold_copies(ops)
+    terms = kernel_terms("causal_attention", shape)
+    fa = {"shape": list(shape), "launches": launches["causal_attention"],
+          "max_abs_err": ferr,
+          "ms": time_ms(fa_ops.causal_attention, cold),
+          "ms_l2_warm": time_ms(fa_ops.causal_attention, [ops]),
+          "plain_ms": time_ms(fa_ref.causal_attention, cold, calls=4),
+          "library_ms": time_ms(sdpa_expanded, cold, calls=4),
+          "library": "repeat_interleave + scaled_dot_product_attention"
+                     f"(is_causal) on {backend}",
+          "bound_ms": 1e3 * terms["bound_s"], "bound_by": terms["bound_by"],
+          "flops": int(terms["flops"]), "bytes": int(terms["bytes"])}
+    del cold, ops
+    phase(f"time causal_attention at the probe's shape {list(shape)} "
+          f"[{card}]: kernel {fa['ms']!r} ms (L2 warm {fa['ms_l2_warm']!r} "
+          f"ms), plain {fa['plain_ms']!r} ms, library {fa['library']} "
+          f"{fa['library_ms']!r} ms, bound {fa['bound_ms']!r} ms "
+          f"({fa['bound_by']}, flops {fa['flops']}, bytes {fa['bytes']})")
+    free_card()
+    return {"launches": launches, "wall_s": wall,
+            "seconds": out["seconds"], "gain": out["gain"],
+            "feature_diff": diff, "round_grad": rg, "causal_attention": fa}
+
+
+def mesh_phase(out, dev, card: str, expect, reset_counters, read_counters,
+               devices=None) -> dict:
+    """Phase 27: the lane and shard meshes over every local card (k =
+    `torch.cuda.device_count()` where `devices` is None): MESH_LANES
+    CodedFL lanes of phase 18's sweep through `run_sweep` and through
+    `FedServeEngine(lane_width=MESH_WIDTH)` over the k cards, and phase
+    9's 100 000-client `solve_fleet` over them, each against the same
+    call on this one card (lanes bit-equal, t*, c and loads equal)."""
+    from repro_torch.api import Session, make_strategy, plan_sweep, run_sweep
+    from repro_torch.fleet import solve_fleet
+    from repro_torch.launch.mesh import (lane_mesh_size, local_devices,
+                                         make_shard_mesh)
+    from repro_torch.plan import PlanRequest
+    from repro_torch.serving import FedServeEngine
+    from repro_torch.sim.network import mega_fleet, paper_fleet
+
+    devices = local_devices(dev) if devices is None else list(devices)
+    k = len(devices)
+    data = out["data"]
+    sessions = [
+        Session(make_strategy("cfl", key_seed=100 + i, fixed_c=SWEEP_C,
+                              include_upload_delay=False, use_kernel=True,
+                              label=f"cfl_nu={nu:.3f}"),
+                paper_fleet(float(nu), float(nu), seed=0), SWEEP_LR,
+                MESH_EPOCHS, seed=i, device=dev)
+        for i, nu in enumerate(np.linspace(0.0, 0.375, MESH_LANES))]
+    reset_counters()
+    states = plan_sweep(sessions, data)
+    plan_counts = read_counters()
+    walls, results, counts = {}, {}, {}
+    for label, devs in (("one card", [dev]), (f"{k} cards", devices)):
+        reset_counters()
+        t0 = time.perf_counter()
+        sweep = run_sweep(sessions, data, states=states, devices=devs)
+        for d_ in devs:
+            torch.cuda.synchronize(d_)
+        walls[f"sweep {label}"] = time.perf_counter() - t0
+        counts[f"sweep {label}"] = read_counters()
+        reset_counters()
+        t0 = time.perf_counter()
+        engine = FedServeEngine(data, lane_width=MESH_WIDTH, chunk=25,
+                                device=dev, devices=devs)
+        served = engine.serve(sessions, states=states)
+        walls[f"serve {label}"] = time.perf_counter() - t0
+        counts[f"serve {label}"] = read_counters()
+        results[label] = (sweep, served)
+    same = all(same_report(a, b)
+               for kind in (0, 1)
+               for a, b in zip(results["one card"][kind],
+                               results[f"{k} cards"][kind]))
+    phase(f"mesh [{card}]: {k} card(s) {[str(d_) for d_ in devices]}; "
+          f"{MESH_LANES} CodedFL lanes, {MESH_EPOCHS} epochs: sweep lane "
+          f"mesh {lane_mesh_size(MESH_LANES, devices)}, serve group mesh "
+          f"{lane_mesh_size(MESH_WIDTH, devices)} ({MESH_WIDTH} slots); "
+          f"lanes bit-equal to the one-card calls {same}; walls "
+          + ", ".join(f"{key} {v:.4f} s" for key, v in walls.items())
+          + f"; launches {counts}")
+    check(same, "a lane over the mesh differs from the one-card call")
+    check(plan_counts == expect(encode=MESH_LANES * data.n),
+          f"unexpected mesh plan_sweep launch counts {plan_counts}")
+    for key, c in counts.items():
+        check(c == expect(round_grad=MESH_LANES * MESH_EPOCHS),
+              f"unexpected {key} launch counts {c}")
+
+    fleet = mega_fleet(FLEET_N, d=FLEET_D, seed=0)
+    sizes = np.random.default_rng(1).integers(POINTS_LO, POINTS_HI + 1,
+                                              size=FLEET_N)
+    req = PlanRequest(edge=fleet.edge, server=fleet.server,
+                      data_sizes=sizes, c_up=FLEET_C_UP)
+    plans = {}
+    for label, devs in (("one card", [dev]), (f"{k} cards", devices)):
+        t0 = time.perf_counter()
+        plans[label] = solve_fleet(req, eps_rel=FLEET_EPS_REL, device=dev,
+                                   devices=devs)
+        walls[f"solve_fleet {label}"] = time.perf_counter() - t0
+    a, b = plans["one card"], plans[f"{k} cards"]
+    equal = a.t_star == b.t_star and a.c == b.c and \
+        bool(np.array_equal(a.loads, b.loads))
+    phase(f"mesh [{card}]: solve_fleet n={FLEET_N} over the shard mesh of "
+          f"{len(make_shard_mesh(devices))} card(s): t*, c and loads equal "
+          f"to the one-card solve {equal}; "
+          f"{walls['solve_fleet one card']:.4f} s one card, "
+          f"{walls[f'solve_fleet {k} cards']:.4f} s over the mesh")
+    check(equal, "solve_fleet over the shard mesh differs from one card")
+    return {"cards": k, "walls": walls,
+            "launches": {"encode": plan_counts["encode"], "round_grad": sum(
+                c["round_grad"] for c in counts.values())}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3861,6 +4207,8 @@ def main() -> int:
     ssd_inputs, ssd_hybrid_inputs = check_ssd_kernel(dev, gen, errs)
     # causal flash attention (kernel 8) at synthetic operands
     flash_inputs, flash_hybrid_inputs = check_flash_kernel(dev, gen, errs)
+    # kernels 1, 4, 5 and 6 past the row-resident width
+    check_wide_round_grads(dev, errs)
 
     counters = {"round_grad": rg_ops.COUNTER,
                 "coded_round_grad": rg_ops.CODED_COUNTER,
@@ -4393,24 +4741,38 @@ def main() -> int:
         f"head_shard prefill {hybrid['optimized']}; --distributed "
         f"{launch_dist['wall_s']:.2f} s")
 
+    # -- 26. the coded-head probe at full width ----------------------------
+    free_card()
+    probe = probe_phase(dev, card, expect, reset_counters, read_counters)
+    phase(f"phase 26 [{card}]: the probe {probe['wall_s']:.3f} s wall, "
+          f"coding gain {probe['gain']:.3f}x, launches {probe['launches']}")
+
+    # -- 27. the lane and shard meshes over every local card --------------
+    mesh = mesh_phase(out, dev, card, expect, reset_counters, read_counters)
+    phase(f"phase 27 [{card}]: {mesh['cards']} card(s); " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in mesh["walls"].items()))
+
     # launches on the driven paths: phase 4 and the new paths' runs
     # (kernel 1), phases 4, 15, 16 (kernel 2), 6 and 15 (kernel 4), 7, 14
     # and 16 at T = 3 (kernel 5), every counted run of phase 17, and
     # phase 18's sweep, solo, served and per-session-loop runs (kernel 1),
     # plan_sweep encodes (kernel 2) and served DP lane (kernel 4); the
     # serve phases 11 and 21 (kernel 7), 12 and 21-24 (kernel 8), and
-    # phase 25's optimized prefills (kernels 7 and 8)
+    # phase 25's optimized prefills (kernels 7 and 8); phase 26's probe
+    # (kernels 1, 2 and 8) and phase 27's mesh runs (kernels 1 and 2)
     driven = {
         "round_grad": launches["round_grad"] + sum(
             gradcode["launches"][f"r={r}"] for r in GC_REPLICATION)
         + lowlat["launches"]["round_grad"]
         + sum(c["round_grad"] for c in cfedl_counts)
         + sweep["launches"]["round_grad"]
-        + fedserve["launches"]["round_grad"],
+        + fedserve["launches"]["round_grad"]
+        + probe["launches"]["round_grad"] + mesh["launches"]["round_grad"],
         "encode": launches["encode"] + dp["launches"]["encode"]
         + lowlat["launches"]["encode"]
         + sum(c["encode"] for c in cfedl_counts)
-        + sweep["launches"]["encode"] + fedserve["launches"]["encode"],
+        + sweep["launches"]["encode"] + fedserve["launches"]["encode"]
+        + probe["launches"]["encode"] + mesh["launches"]["encode"],
         "coded_round_grad": scfl_launches["coded_round_grad"]
         + dp["launches"]["coded_round_grad"]
         + dp_serve["launches"]["coded_round_grad"],
@@ -4424,7 +4786,8 @@ def main() -> int:
         + hybrid["launches"]["causal_attention"] + dense_cfgs["launches"]
         + moe["launches"] + modal["launches"]
         + dense["optimized"]["launches"]
-        + hybrid["optimized"]["causal_attention"]}
+        + hybrid["optimized"]["causal_attention"]
+        + probe["launches"]["causal_attention"]}
     phase(f"launches on the driven paths: {driven}")
 
     label, m, d, ms, warm, plain, lib, bound_ms = records[0]
@@ -4436,7 +4799,9 @@ def main() -> int:
          "max_abs_err": errs["round_grad_coded"], "ms": ms,
          "plain_ms": plain, "bound_ms": bound_ms,
          "bound_by": kernel_terms("round_grad", (m, d))["bound_by"],
-         "library_ms": lib, "ms_l2_warm": warm, "shape": [m, d]},
+         "library_ms": lib, "ms_l2_warm": warm, "shape": [m, d],
+         "max_abs_err_wide": errs["round_grad_wide"],
+         "probe_shape": probe["round_grad"]},
         {"name": "encode_parity", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/encode.cu",
          "replaces": "src/repro/kernels/encode/encode.py:61",
@@ -4526,7 +4891,8 @@ def main() -> int:
          "library_gqa": f"scaled_dot_product_attention(enable_gqa) on "
                         f"{gqa_backend}",
          "ms_l2_warm": flash_warm, "shape": list(FLASH_SHAPE),
-         "hybrid_shape": hybrid_times["causal_attention"]},
+         "hybrid_shape": hybrid_times["causal_attention"],
+         "probe_shape": probe["causal_attention"]},
     ]
     # kernels 1-6: the tile block="auto" launched at the record's shape,
     # and phase 20's measured tuning of the kernel's family (kernel 3 has

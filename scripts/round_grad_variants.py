@@ -67,7 +67,7 @@ CTAS = "constexpr int kTargetCtas = 128;"
 REDUCERS = "constexpr int kMaxReducers = 32;"
 WAIT = "cp_async_wait_pending(stages - 2);"
 DOT = ("if (c < d) part[q % 4] = fma(xd[q * kVec + e], s_beta[c + e],\n"
-       "                                     part[q % 4]);")
+       "                                       part[q % 4]);")
 ACC = "acc[t][q] = fma(k[t], xd[q], acc[t][q]);"
 COPY = "cp_async<kVec>(stage + c, src + c);"
 THREADS = "constexpr int kThreads = 256;"
@@ -146,7 +146,7 @@ def launcher(path: Path, case: str, dev):
             part = torch.empty((n(m), d), dtype=torch.float64, device=dev)
             out = torch.empty(d, device=dev)
             check(fn(p(x), p(y), p(w), p(beta), p(part), p(out), p(counter),
-                     m, d, stream))
+                     m, d, 0, None, stream))
             return out
     elif case.startswith("tier"):
         fn = library_function(path, "rg_tier_round_gradient", sig)
@@ -157,7 +157,7 @@ def launcher(path: Path, case: str, dev):
                                device=dev)
             out = torch.empty((nt, d), device=dev)
             check(fn(p(x), p(y), p(w), p(masks), nt, p(beta), p(part),
-                     p(out), p(counter), m, d, stream))
+                     p(out), p(counter), m, d, 0, None, stream))
             return out
     elif case.startswith("coded"):
         fn = library_function(path, "rg_coded_round_gradient", sig)
@@ -168,7 +168,7 @@ def launcher(path: Path, case: str, dev):
                                device=dev)
             out = torch.empty(d, device=dev)
             check(fn(p(x), p(y), p(w), m, p(xp), p(yp), p(wp), c, p(beta),
-                     p(part), p(out), p(counter), d, stream))
+                     p(part), p(out), p(counter), d, 0, None, stream))
             return out
     else:
         fn = library_function(path, "rg_lsq_gradient", sig)
@@ -178,7 +178,7 @@ def launcher(path: Path, case: str, dev):
             part = torch.empty((n(m), d), dtype=torch.float64, device=dev)
             out = torch.empty(d, device=dev)
             check(fn(p(a), p(y), p(beta), p(part), p(out), p(counter), m, d,
-                     stream))
+                     0, None, stream))
             return out
     return run
 

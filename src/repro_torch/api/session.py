@@ -32,9 +32,14 @@ The host syncs once per call, after every lane is enqueued.
     # a whole sweep: one batched planning solve, one engine per bucket
     reports = run_sweep([session_a, session_b, ...], data)
 
-The reference splits a bucket's lanes over a device mesh
-(`launch.mesh.make_lane_mesh`); on one card that mesh has size 1, so the
-port runs the lanes in turn and has no mesh.
+A bucket's lanes are split evenly over the lane mesh
+(`launch.mesh.make_lane_mesh`: the largest count of the local cards
+that divides the bucket's lanes, as the reference's): each card gets
+one copy of the shared operands and of `beta_true`, its lanes' own
+operands and arrivals, and runs its lanes in turn.  A lane runs the same
+launches on the same values on any card, so its trace is the same at
+every mesh size.  The traces and final betas come back in one transfer
+per card, after every lane of the call is enqueued.
 """
 from __future__ import annotations
 
@@ -49,6 +54,8 @@ import torch
 
 from repro_torch.core import aggregation
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import local_devices, make_lane_mesh
+from repro_torch.launch.sharding import shard_lanes
 
 from .report import TraceReport
 from .strategy import EpochSchedule, Strategy, TrainData
@@ -174,35 +181,65 @@ def shared_operands(strategy: Strategy,
     return {k: dev[k] for k in keys}
 
 
+def _to(tree: Dict[str, torch.Tensor],
+        device: torch.device) -> Dict[str, torch.Tensor]:
+    """The tensors of a flat dict on `device` (no copy where they are)."""
+    return {k: v.to(device) for k, v in tree.items()}
+
+
 def _run_lane(step: Callable, dev: Dict[str, torch.Tensor],
               arr: Dict[str, torch.Tensor], lr: float,
-              data: TrainData, epochs: int) -> tuple:
-    """Enqueue one lane's epoch loop over its arrival tensors (already on
-    the device); returns its ((epochs+1,) NMSE trace, final beta) as
-    device tensors, unsynced."""
-    device, dtype = data.device, data.xs.dtype
+              data: TrainData, epochs: int, device: torch.device,
+              beta_true: torch.Tensor) -> tuple:
+    """Enqueue one lane's epoch loop on `device`, over its operands and
+    arrival tensors and `beta_true` (already there); returns its
+    ((epochs+1,) NMSE trace, final beta) as device tensors, unsynced."""
+    dtype = data.xs.dtype
     lr_t = torch.full((), lr, dtype=dtype, device=device)  # a fill, no copy
     beta = torch.zeros(data.model_dim, dtype=dtype, device=device)
     trace = torch.empty(epochs + 1, dtype=dtype, device=device)
-    trace[0] = aggregation.nmse(beta, data.beta_true)
+    trace[0] = aggregation.nmse(beta, beta_true)
     for e in range(epochs):
         arr_t = {k: v[e] for k, v in arr.items()}
-        beta, trace[e + 1] = step(beta, dev, lr_t, data.beta_true, arr_t)
+        beta, trace[e + 1] = step(beta, dev, lr_t, beta_true, arr_t)
     return trace, beta
 
 
-def _execute_lanes(entries: Sequence[tuple],
-                   data: TrainData) -> List[tuple]:
+def _read_back(pending: Sequence[tuple]) -> List[tuple]:
+    """Each lane's (trace, beta) device tensors as NumPy arrays, in one
+    transfer per device."""
+    by_device: Dict[torch.device, List[int]] = {}
+    for i, (trace, _) in enumerate(pending):
+        by_device.setdefault(trace.device, []).append(i)
+    out: List[Optional[tuple]] = [None] * len(pending)
+    for idxs in by_device.values():
+        flat = torch.cat([t for i in idxs for t in pending[i]]).cpu().numpy()
+        at = 0
+        for i in idxs:
+            n_t, n_b = (t.numel() for t in pending[i])
+            out[i] = (flat[at:at + n_t], flat[at + n_t:at + n_t + n_b])
+            at += n_t + n_b
+    return out  # type: ignore[return-value]
+
+
+def _execute_lanes(entries: Sequence[tuple], data: TrainData,
+                   devices: Optional[Sequence[torch.device]] = None
+                   ) -> List[tuple]:
     """Run every (session, state, schedule) lane through the sweep core.
 
     Lanes are grouped into shape buckets; each bucket fetches (or builds)
     its engine from the module cache, takes the shared operands from its
-    first lane and runs its lanes in turn.  Every lane's arrivals reach
-    the device before the first epoch is enqueued, so no copy waits on a
-    queued lane.  Returns each lane's ((epochs+1,) NMSE trace,
-    (model_dim,) final beta) as NumPy arrays, in order, after one sync."""
+    first lane, splits its lanes over its lane mesh (`make_lane_mesh`
+    over `devices`, default every card of the data's device type, the
+    data's first) and runs each card's lanes in turn.  Every lane's
+    arrivals reach its card before the first epoch is enqueued, so no
+    copy waits on a queued lane.  Returns each lane's ((epochs+1,) NMSE
+    trace, (model_dim,) final beta) as NumPy arrays, in order, read back
+    once per card."""
+    devices = local_devices(data.device) if devices is None \
+        else list(devices)
     devs: List[Dict[str, torch.Tensor]] = []
-    arrs: List[Dict[str, torch.Tensor]] = []
+    arrs: List[Dict[str, np.ndarray]] = []
     buckets: Dict[Hashable, List[int]] = {}
     for i, (sess, state, sched) in enumerate(entries):
         _check_device(sess, data)
@@ -211,25 +248,39 @@ def _execute_lanes(entries: Sequence[tuple],
         key = _bucket_key(sess.strategy, state, data, dev, arr)
         buckets.setdefault(key, []).append(i)
         devs.append(dev)
-        arrs.append({k: torch.as_tensor(v, device=data.device)
-                     for k, v in arr.items()})
+        arrs.append(arr)
+
+    # each lane's card, and its arrivals there before any epoch
+    placed: Dict[Hashable, list] = {}
+    arr_on: List[Optional[Dict[str, torch.Tensor]]] = [None] * len(entries)
+    for key, idxs in buckets.items():
+        mesh = make_lane_mesh(len(idxs), devices)
+        placed[key] = [(card, [idxs[j] for j in lanes])
+                       for card, lanes in shard_lanes(mesh, len(idxs))]
+        for card, lanes in placed[key]:
+            for i in lanes:
+                arr_on[i] = {k: torch.as_tensor(v, device=card)
+                             for k, v in arrs[i].items()}
 
     pending: List[Optional[tuple]] = [None] * len(entries)
     for key, idxs in buckets.items():
         sess0, state0, _ = entries[idxs[0]]
-        shared = shared_operands(sess0.strategy, devs[idxs[0]])
+        shared0 = shared_operands(sess0.strategy, devs[idxs[0]])
         engine = cache_engine(
             ("sweep", key),
             lambda: make_epoch_step(sess0.strategy, state0, data.m))
-        for i in idxs:
-            sess = entries[i][0]
-            lane_dev = {**devs[i], **shared}
-            pending[i] = _run_lane(engine, lane_dev, arrs[i], sess.lr, data,
-                                   sess.epochs)
-            # per-session mirror: introspection + lifetime of the session
-            sess._engines[("sweep", key)] = engine
-    return [(trace.cpu().numpy(), beta.cpu().numpy())
-            for trace, beta in pending]  # type: ignore[misc]
+        for card, lanes in placed[key]:
+            shared = _to(shared0, card)  # once per card
+            beta_true = data.beta_true.to(card)
+            for i in lanes:
+                sess = entries[i][0]
+                lane_dev = {**_to(devs[i], card), **shared}
+                pending[i] = _run_lane(engine, lane_dev, arr_on[i], sess.lr,
+                                       data, sess.epochs, card, beta_true)
+                # per-session mirror: introspection + lifetime of the
+                # session
+                sess._engines[("sweep", key)] = engine
+    return _read_back(pending)
 
 
 def _lane_report(session: "Session", state: Any, sched: EpochSchedule,
@@ -335,7 +386,9 @@ def plan_sweep(sessions: Sequence[Session], data: TrainData) -> List[Any]:
 
 def run_sweep(sessions: Sequence[Session], data: TrainData,
               rngs: Optional[Sequence[np.random.Generator]] = None,
-              states: Optional[Sequence[Any]] = None) -> List[TraceReport]:
+              states: Optional[Sequence[Any]] = None,
+              devices: Optional[Sequence[torch.device]] = None
+              ) -> List[TraceReport]:
     """Execute a whole sweep of sessions.
 
       1. planning — `plan_sweep` collects every session's allocation solve
@@ -345,7 +398,7 @@ def run_sweep(sessions: Sequence[Session], data: TrainData,
          `sample_epochs`) with a PER-LANE generator, so the draw order is
          a solo `Session.run`'s;
       3. training — lanes are grouped into shape buckets and each bucket
-         runs its lanes on one engine.
+         runs its lanes on one engine, split over the lane mesh.
 
     Per-lane results — NMSE trace, wall-clock times, `TraceReport.extras`
     — are bit-for-bit those of running each session solo with the same
@@ -354,6 +407,9 @@ def run_sweep(sessions: Sequence[Session], data: TrainData,
     rngs:   one generator per session (default: a fresh
             `np.random.default_rng(session.seed)` each, the solo default)
     states: pre-planned strategy states (e.g. from `plan_sweep`)
+    devices: the devices the lane mesh is made from (default: every card
+            of the data's device type, the data's first; see
+            `launch.mesh.make_lane_mesh`)
     """
     sessions = list(sessions)
     for sess in sessions:
@@ -375,6 +431,6 @@ def run_sweep(sessions: Sequence[Session], data: TrainData,
                          sess.strategy.sample_epochs)
         entries.append((sess, state,
                         sample(state, sess.fleet, sess.epochs, rng)))
-    results = _execute_lanes(entries, data)
+    results = _execute_lanes(entries, data, devices)
     return [_lane_report(sess, state, sched, trace, beta=beta)
             for (sess, state, sched), (trace, beta) in zip(entries, results)]

@@ -11,7 +11,10 @@ place of X.
 Two feature sources compose here:
 
   * a frozen backbone (`backbone_fn`, any torch callable on one client's
-    inputs), applied per client with `torch.func.vmap`;
+    inputs), applied per client with `torch.func.vmap`, or on all rows
+    in one call (`extract_features(..., batched=True)`; the entry point
+    `python -m repro_torch.coded_head_probe` takes a frozen granite-8b
+    backbone that way, kernel 8 in its attention);
   * `CodedFedL`'s random-Fourier-feature map (`d_feat=...`), which turns
     the head into Gaussian-kernel regression on the (backbone) features.
 
@@ -35,10 +38,20 @@ from repro_torch.schemes import CodedFedL
 from repro_torch.sim.network import FleetSpec
 
 
-def extract_features(backbone_fn: Callable, xs: torch.Tensor
-                     ) -> torch.Tensor:
-    """Apply a frozen backbone per client: xs (n, ell, ...) -> (n, ell, d)."""
-    return torch.func.vmap(backbone_fn)(xs)
+def extract_features(backbone_fn: Callable, xs: torch.Tensor,
+                     batched: bool = False) -> torch.Tensor:
+    """Apply a frozen backbone per client: xs (n, ell, ...) -> (n, ell, d).
+
+    batched=False maps `backbone_fn` over the clients with
+    `torch.func.vmap`.  batched=True calls it once on all n * ell rows,
+    (n * ell, ...) -> (n * ell, d): for a backbone that acts on each row
+    alone (a model over token sequences), and one that launches a CUDA
+    kernel through ctypes, which `vmap` cannot trace."""
+    if not batched:
+        return torch.func.vmap(backbone_fn)(xs)
+    n, ell = xs.shape[:2]
+    feats = backbone_fn(xs.reshape(n * ell, *xs.shape[2:]))
+    return feats.reshape(n, ell, *feats.shape[1:])
 
 
 def _feature_rows(strategy: CodedFedL, xs: torch.Tensor,

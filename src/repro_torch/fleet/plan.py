@@ -1,7 +1,7 @@
 """`solve_fleet` — the redundancy solve at fleet scale (1e5+ clients).
 
-The counterpart of `repro/fleet/plan.py`, in float64 torch on one
-device.  `plan.solve_redundancy_batched` evaluates the whole
+The counterpart of `repro/fleet/plan.py`, in float64 torch.
+`plan.solve_redundancy_batched` evaluates the whole
 `(t_grid, n, L)` expected-return tensor per deadline probe; at n = 1e5
 that tensor and its K-term retransmission mixture no longer fit a sane
 working set.  This solves the same problem with the same per-device
@@ -10,9 +10,12 @@ chunk-streamed: each probe evaluates `(t_grid, CHUNK, L)` slabs, one
 device chunk at a time, and sums the chunk partials in chunk order, so
 peak memory is O(t_grid * CHUNK * L) whatever n is.
 
-The reference shards the device axis over a mesh and `psum`s the shard
-sums; the port runs on one card, so there is one shard and no psum.  As
-there:
+The device chunks are split over the shard mesh
+(`launch.mesh.make_shard_mesh`: every card of the solve's device type,
+its device first), contiguous runs of chunks a card, as the reference
+shards the device axis; each card evaluates its chunks' partials, and
+the solve's device adds them in chunk order, the one-card order, so t*,
+c and the loads are the same at every mesh size.  As there:
 
   * everything is float64 (no float32 scout: its saturation pathology
     is what giant fleets hit), the K retransmission terms of
@@ -45,6 +48,7 @@ import torch
 from repro_torch.core.delay_model import total_cdf
 from repro_torch.core.redundancy import RedundancyPlan
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import local_devices, make_shard_mesh
 from repro_torch.plan.solver import (GRID_POINTS, MAX_DOUBLINGS, MAX_ROUNDS,
                                      PlanRequest, _k_terms,
                                      _shifted_exp_cdf)
@@ -64,9 +68,10 @@ def _pow2_bucket(value: int, floor: int = 8) -> int:
 
 def solve_fleet(request: PlanRequest, eps_rel: float = 1e-3,
                 grid_points: int = GRID_POINTS, chunk: int = CHUNK,
-                device=None) -> RedundancyPlan:
+                device=None, devices=None) -> RedundancyPlan:
     """Solve one fleet-scale redundancy problem, chunk-streamed, on
-    `device` (None: the CUDA device).
+    `device` (None: the CUDA device), its chunks over the shard mesh of
+    `devices` (default: every card of `device`'s type, `device` first).
 
     Takes the batched solver's `PlanRequest` and returns the same
     `RedundancyPlan`; see the module docstring for how it relates to
@@ -77,6 +82,8 @@ def solve_fleet(request: PlanRequest, eps_rel: float = 1e-3,
             "solve_fleet has no mec_comm objective (CodedFedL's MEC delay "
             "model); plan MEC requests with plan.solve_redundancy_batched")
     dev = resolve_device(device)
+    cards = make_shard_mesh(local_devices(dev) if devices is None
+                            else devices)
     req = request
     n = req.edge.n
     chunk = max(8, min(int(chunk), _pow2_bucket(n)))
@@ -118,6 +125,27 @@ def solve_fleet(request: PlanRequest, eps_rel: float = 1e-3,
     snap_ok = pmf_total >= 1.0 - _SNAP_TOL
     s_ok = ell_s <= srv_cap                                     # (Ls,)
 
+    # the shard mesh: card j owns a contiguous run of chunks, and holds
+    # their rows of the per-device terms and its own copy of the rest
+    n_chunks = n_pad // chunk
+    owner = [c * len(cards) // n_chunks for c in range(n_chunks)]
+    shards = {}
+    for j, card in enumerate(cards):
+        mine = [c for c in range(n_chunks) if owner[c] == j]
+        if not mine:
+            continue
+        rows = slice(mine[0] * chunk, (mine[-1] + 1) * chunk)
+        shards[j] = {
+            "lo": rows.start, "card": card,
+            **{k: v[rows].to(card) for k, v in (
+                ("shift", shift), ("gamma", gamma), ("load_ok", load_ok),
+                ("has_comm", has_comm), ("pmf", pmf),
+                ("pmf_total", pmf_total), ("snap_ok", snap_ok),
+                ("tau", tau))},
+            **{k: v.to(card) for k, v in (
+                ("ell_e", ell_e), ("ks", ks), ("one", one),
+                ("neg_inf", neg_inf))}}
+
     def server_returns(t: torch.Tensor) -> torch.Tensor:
         """Weighted server E[R(t; ell)].  t: (T',) -> (T', Ls)."""
         s = t[:, None] - ell_s[None, :] * srv_a
@@ -126,12 +154,15 @@ def solve_fleet(request: PlanRequest, eps_rel: float = 1e-3,
                           (t[:, None] >= 0.0).to(torch.float64))
         return torch.where(s_ok[None, :], srv_w * ell_s * cdf, neg_inf)
 
-    def chunk_returns(t: torch.Tensor, lo: int) -> torch.Tensor:
-        """Masked return grid of devices [lo, lo + chunk).  t: (T',) ->
-        (T', chunk, L): the streamed slab of the batched solver's
-        (t_grid, n, L) tensor."""
+    def chunk_returns(t: torch.Tensor, c: int) -> torch.Tensor:
+        """Masked return grid of chunk c's devices, on the card that owns
+        it.  t: (T',) on that card -> (T', chunk, L): the streamed slab of
+        the batched solver's (t_grid, n, L) tensor."""
+        sh = shards[owner[c]]
+        lo = c * chunk - sh["lo"]
         sl = slice(lo, lo + chunk)
-        shift_c, gamma_c = shift[sl], gamma[sl]
+        shift_c, gamma_c = sh["shift"][sl], sh["gamma"][sl]
+        ell_e, ks, pmf, tau = sh["ell_e"], sh["ks"], sh["pmf"], sh["tau"]
 
         def load_cdf(t_res):
             """(T', chunk) residual times -> (T', chunk, L) per-load CDF
@@ -141,7 +172,7 @@ def solve_fleet(request: PlanRequest, eps_rel: float = 1e-3,
                                        - shift_c[None])
             else:
                 cdf = torch.zeros(t_res.shape + (ell_e.shape[0],),
-                                  dtype=torch.float64, device=dev)
+                                  dtype=torch.float64, device=t.device)
                 for j in range(edge_chunks):
                     fq = (float(j) + 1.0) / edge_chunks
                     cdf = cdf + _shifted_exp_cdf(
@@ -151,21 +182,31 @@ def solve_fleet(request: PlanRequest, eps_rel: float = 1e-3,
                                (t_res[..., None] >= 0.0).to(torch.float64))
 
         mix = torch.zeros((t.shape[0], chunk, ell_e.shape[0]),
-                          dtype=torch.float64, device=dev)
+                          dtype=torch.float64, device=t.device)
         for i in range(ks.shape[0]):
             t_res = t[:, None] - ks[i] * tau[sl][None, :]
             mix = mix + pmf[sl][None, :, i, None] * load_cdf(t_res)
-        mix = torch.where((mix >= pmf_total[sl][None, :, None])
-                          & snap_ok[sl][None, :, None], one, mix)
+        mix = torch.where((mix >= sh["pmf_total"][sl][None, :, None])
+                          & sh["snap_ok"][sl][None, :, None], sh["one"], mix)
         nocomm = load_cdf(t[:, None].expand(t.shape[0], chunk))
-        mix = torch.where(has_comm[sl][None, :, None], mix, nocomm)
-        return torch.where(load_ok[sl][None], ell_e * mix, neg_inf)
+        mix = torch.where(sh["has_comm"][sl][None, :, None], mix, nocomm)
+        return torch.where(sh["load_ok"][sl][None], ell_e * mix,
+                           sh["neg_inf"])
+
+    def on_cards(t: torch.Tensor) -> dict:
+        """t on every card of the mesh."""
+        return {j: t.to(sh["card"]) for j, sh in shards.items()}
 
     def best_agg(t: torch.Tensor) -> torch.Tensor:
-        """(T',) aggregate best return over the fleet and the server."""
+        """(T',) aggregate best return over the fleet and the server: each
+        card's chunk partials, all enqueued, then added on the solve's
+        device in chunk order."""
+        t_on = on_cards(t)
+        parts = [chunk_returns(t_on[owner[c]], c).amax(dim=-1).sum(dim=-1)
+                 for c in range(n_chunks)]
         edge = torch.zeros_like(t)
-        for lo in range(0, n_pad, chunk):
-            edge = edge + chunk_returns(t, lo).amax(dim=-1).sum(dim=-1)
+        for part in parts:
+            edge = edge + part.to(dev)
         return edge + server_returns(t).amax(dim=-1)
 
     def agg_at(t: float) -> float:
@@ -199,12 +240,15 @@ def solve_fleet(request: PlanRequest, eps_rel: float = 1e-3,
 
     # --- extraction at t* ----------------------------------------------------
     t_vec = f64([t_star])
+    t_on = on_cards(t_vec)
     loads_c, best_sums = [], []
-    for lo in range(0, n_pad, chunk):
-        ev = chunk_returns(t_vec, lo)[0]                        # (chunk, L)
+    for c in range(n_chunks):
+        ev = chunk_returns(t_on[owner[c]], c)[0]                # (chunk, L)
         arg = torch.argmax(ev, dim=-1)                          # first max
         loads_c.append(arg)
         best_sums.append(ev.gather(-1, arg[:, None])[:, 0].sum())
+    loads_c = [arg.to(dev) for arg in loads_c]
+    best_sums = [total.to(dev) for total in best_sums]
     sv = server_returns(t_vec)[0]                               # (Ls,)
     s_load = int(torch.argmax(sv))
     agg = float(torch.stack(best_sums).sum() + sv[s_load])

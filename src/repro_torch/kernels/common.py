@@ -11,6 +11,7 @@ so what a lookup found is kept for the life of the process
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import os
@@ -83,6 +84,17 @@ class LaunchCounter:
     def reset(self) -> None:
         self.launches = 0
         self.tiles.clear()
+
+
+def on_card(device: torch.device):
+    """The context a launch through ctypes runs in: `device` made the
+    CUDA runtime's current device (a kernel launched onto a stream of
+    another card than the current one fails, and the wrappers launch on
+    their operands' card, which the lane and shard meshes spread over
+    every local card); a no-op for any other device type."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def refuse_grad(kernel: str, *operands) -> None:

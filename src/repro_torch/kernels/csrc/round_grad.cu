@@ -98,6 +98,20 @@
 //     the one fixed-order reduce.
 //   * Ragged edges (M not a multiple of the rows, D of 4 or 512) are
 //     masked in the kernel; nothing is padded on the host.
+//   * Any D.  The row-resident instances above stage whole rows, so a
+//     two-row ring a warp with four masks a row fits the CTA's shared
+//     memory up to D = resident_max_d() (3220).  A wider D takes two
+//     launches a call: `residual_kernel` forms each row's coefficient
+//     (x . beta - y) * w once, a warp dot over D in float64 (four
+//     partial sums a lane, the fixed xor-butterfly), into a float64 (M,)
+//     scratch; then the same warps, rings and reduce as above over about
+//     kTargetCtas CTAs in all (row ranges of ~rows * chunks /
+//     kTargetCtas rows), each CTA staging only its kChunk columns of a
+//     row and reading the row's coefficient from the scratch (`kWide`).
+//     Both launches are fixed-order and free of atomics on values; the
+//     sums stay float64 and are rounded once.  At D <= resident_max_d()
+//     nothing of this runs, so those results are the row-resident
+//     instances' bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -131,19 +145,25 @@ static_assert(kThreads % kRedItems == 0, "reducer threads");
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
 
 // Rows a CTA owns: the row tile `tile` where it is positive, else
-// ~rows / kTargetCtas, a multiple of the warps (warp w takes rows w, w +
-// kWarps, ...), a function of `rows` alone.
-int rows_per_cta(int rows, int tile) {
+// ~rows * chunks / kTargetCtas, a multiple of the warps (warp w takes
+// rows w, w + kWarps, ...), a function of `rows` and `chunks` alone.
+// The row-resident instances pass chunks = 1 (about kTargetCtas row
+// ranges, each run by every column chunk's CTA); the wide ones the
+// column chunks of D, so that a launch stays near kTargetCtas CTAs in
+// all, each warp streaming several rows, and never needs more partials
+// than chunks = 1 (the count `rg_num_ctas` sizes).
+int rows_per_cta(int rows, int tile, int chunks = 1) {
   if (tile > 0) return tile;
-  int r = (rows + kTargetCtas - 1) / kTargetCtas;
+  int64_t r = (static_cast<int64_t>(rows) * chunks + kTargetCtas - 1) /
+              kTargetCtas;
   r = (r + kWarps - 1) / kWarps * kWarps;
-  return r < kWarps ? kWarps : r;
+  return r < kWarps ? kWarps : static_cast<int>(r);
 }
 
 // CTAs over `rows` rows (one for an empty block, which adds a zero
 // partial).
-int ctas_for(int rows, int tile) {
-  const int rpc = rows_per_cta(rows, tile);
+int ctas_for(int rows, int tile, int chunks = 1) {
+  const int rpc = rows_per_cta(rows, tile, chunks);
   const int n = (rows + rpc - 1) / rpc;
   return n < 1 ? 1 : n;
 }
@@ -156,28 +176,53 @@ bool valid_tile(int tile) {
 
 int chunks_for(int d) { return (d + kChunk - 1) / kChunk; }
 
-// Floats of one ring stage: a row of X, then its y, w and `nm` tier
-// masks.
-__host__ __device__ inline int stage_floats(int d, int nm) {
-  return pad4(d) + pad4(2 + nm);
+// Floats of one ring stage: `width` columns of a row of X (all D, or a
+// wide CTA's kChunk), then its y, w and `nm` tier masks.
+__host__ __device__ inline int stage_floats(int width, int nm) {
+  return pad4(width) + pad4(2 + nm);
 }
 
-// Dynamic shared memory of one CTA, in floats: beta (float64) and each
-// warp's ring (which the warps' float64 sums, kWarps x min(d, kChunk),
-// reuse at the end).
-int smem_floats(int d, int nm, int stages) {
-  const int n = 2 * pad4(d) + kWarps * stages * stage_floats(d, nm);
+// Columns a ring stage holds, and floats of beta (float64) in shared
+// memory: the row-resident instances stage whole rows and hold beta; the
+// wide ones stage their kChunk columns and read coefficients instead.
+__host__ __device__ inline int stage_width(int d, bool wide) {
+  return wide ? kChunk : d;
+}
+__host__ __device__ inline int beta_floats(int d, bool wide) {
+  return wide ? 0 : 2 * pad4(d);
+}
+
+// Dynamic shared memory of one CTA, in floats: beta and each warp's ring
+// (which the warps' float64 sums, kWarps x min(d, kChunk), reuse at the
+// end).
+int smem_floats(int d, int nm, int stages, bool wide = false) {
+  const int n = beta_floats(d, wide) +
+                kWarps * stages * stage_floats(stage_width(d, wide), nm);
   return n < kThreads * 4 ? kThreads * 4 : n;  // the reduce's scratch
 }
 
 // Ring depth: as deep as shared memory allows, at most kMaxStages and the
 // rows of a warp, at least 2.  0: not even 2 fit.
-int ring_stages(int d, int nm, int rpc) {
+int ring_stages(int d, int nm, int rpc, bool wide = false) {
   int s = rpc / kWarps;
   s = s > kMaxStages ? kMaxStages : s < 2 ? 2 : s;
-  while (s >= 2 && smem_floats(d, nm, s) > kDynFloats) --s;
+  while (s >= 2 && smem_floats(d, nm, s, wide) > kDynFloats) --s;
   return s >= 2 ? s : 0;
 }
+
+// Largest D the row-resident instances take at any tier count: a two-row
+// ring a warp, each row carrying kMaxTiers masks.  Wider D takes the
+// residual pass and the wide instances.
+int resident_max_d() {
+  static const int limit = [] {
+    int d = 4 * kChunk * 2;
+    while (d > 0 && smem_floats(d, kMaxTiers, 2) > kDynFloats) --d;
+    return d;
+  }();
+  return limit;
+}
+
+bool is_wide(int d) { return d > resident_max_d(); }
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
@@ -262,21 +307,26 @@ struct Rows {
   int nm;                           // masks copied per row (0 or nt)
   int64_t row0, row_end;
   int d;
+  const double* res;                // wide: coefficients of these rows
 };
 
 // Start copying row `r` into ring stage `stage` (the calling warp's
-// lanes): X's row, then y, w and the masks.  One commit group; empty
-// when `r` is past the rows.
-template <int kVec>
+// lanes): X's row (columns [col0, col0 + len) of it, `width` floats
+// apart from the meta), then y, w and the masks (the masks alone where
+// the coefficients are read, kWide).  One commit group; empty when `r`
+// is past the rows.
+template <int kVec, bool kWide>
 __device__ __forceinline__ void issue_row(float* stage, int64_t r,
-                                          const Rows& rs, int lane) {
+                                          const Rows& rs, int lane, int col0,
+                                          int len, int width) {
   if (r < rs.row_end) {
-    const float* src = rs.x + r * rs.d;
-    for (int c = lane * kVec; c < rs.d; c += 32 * kVec)
+    const float* src = rs.x + r * rs.d + col0;
+    for (int c = lane * kVec; c < len; c += 32 * kVec)
       cp_async<kVec>(stage + c, src + c);
-    float* meta = stage + pad4(rs.d);
-    if (lane == 0) cp_async<1>(meta, rs.y + r);
-    if (lane == 1 && rs.w != nullptr) cp_async<1>(meta + 1, rs.w + r);
+    float* meta = stage + pad4(width);
+    if (!kWide && lane == 0) cp_async<1>(meta, rs.y + r);
+    if (!kWide && lane == 1 && rs.w != nullptr)
+      cp_async<1>(meta + 1, rs.w + r);
     for (int t = lane; t < rs.nm; t += 32)
       cp_async<1>(meta + 2 + t, rs.masks + t * rs.mask_stride + r);
   }
@@ -294,8 +344,9 @@ __device__ __forceinline__ void issue_row(float* stage, int64_t r,
 // with no barrier between warps.  Lane l sums columns col0 + (l + 32 q)
 // * kVec + e of each tier in registers (columns past D add exact zeros).
 // At the end the warps' sums are added in warp order into the CTA's
-// partial.
-template <int kNt, int kVec>
+// partial.  kWide: the ring holds only the CTA's columns (at stage
+// offset 0) and the row's coefficient is read from rs.res, not formed.
+template <int kNt, int kVec, bool kWide>
 __device__ __forceinline__ void stream_rows(const Rows& rs, int nt,
                                             const float* __restrict__ beta,
                                             int stages, double* dst,
@@ -303,74 +354,97 @@ __device__ __forceinline__ void stream_rows(const Rows& rs, int nt,
   constexpr int kQ = kLaneCols / kVec;  // register chunks a lane
   const int d = rs.d;
   const int col0 = blockIdx.y * kChunk;
-  const int sf = stage_floats(d, rs.nm);
+  const int width = stage_width(d, kWide);
+  const int sf = stage_floats(width, rs.nm);
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   extern __shared__ __align__(16) float smem[];
   double* s_beta = reinterpret_cast<double*>(smem);     // (d,)
-  float* ring = smem + 2 * pad4(d) + warp * stages * sf;  // this warp's
+  float* ring = smem + beta_floats(d, kWide) + warp * stages * sf;
+  // the columns a stage holds: the CTA's own (kWide) or the whole row
+  const int copy0 = kWide ? col0 : 0;
+  const int copy_len = kWide ? min(kChunk, d - col0) : d;
 
   const int64_t first = rs.row0 + warp;
   const int n_rows = rs.row_end > first ? static_cast<int>(
       (rs.row_end - first + kWarps - 1) / kWarps) : 0;
   for (int j = 0; j < stages - 1; ++j)
-    issue_row<kVec>(ring + j * sf, first + static_cast<int64_t>(j) * kWarps,
-                    rs, lane);
+    issue_row<kVec, kWide>(ring + j * sf,
+                           first + static_cast<int64_t>(j) * kWarps, rs,
+                           lane, copy0, copy_len, width);
 
   double acc[kNt][kLaneCols];
 #pragma unroll
   for (int t = 0; t < kNt; ++t)
 #pragma unroll
     for (int q = 0; q < kLaneCols; ++q) acc[t][q] = 0.0;
-  for (int i = tid; i < d; i += kThreads)
-    s_beta[i] = static_cast<double>(beta[i]);
+  if (!kWide)
+    for (int i = tid; i < d; i += kThreads)
+      s_beta[i] = static_cast<double>(beta[i]);
   __syncthreads();
 
   for (int j = 0; j < n_rows; ++j) {
     cp_async_wait_pending(stages - 2);  // this lane's copies of row j
     __syncwarp();  // every lane's; row j - 1 is consumed
-    issue_row<kVec>(ring + ((j + stages - 1) % stages) * sf,
-                    first + static_cast<int64_t>(j + stages - 1) * kWarps,
-                    rs, lane);
+    issue_row<kVec, kWide>(
+        ring + ((j + stages - 1) % stages) * sf,
+        first + static_cast<int64_t>(j + stages - 1) * kWarps, rs, lane,
+        copy0, copy_len, width);
     const float* row = ring + (j % stages) * sf;
-    const float* meta = row + pad4(d);
-    // the residual: this CTA's columns first (kept as float64 for the
-    // sums), then the other chunks' in order; four partial sums a lane
-    double part[4] = {0.0, 0.0, 0.0, 0.0};
+    const float* meta = row + pad4(width);
     double xd[kLaneCols];
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) {
-      const int c = col0 + (lane + 32 * q) * kVec;
-      float xv[kVec];
-      if (c < d) load_vec<kVec>(row + c, xv);
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        xd[q * kVec + e] = c < d ? static_cast<double>(xv[e]) : 0.0;
-        if (c < d) part[q % 4] = fma(xd[q * kVec + e], s_beta[c + e],
-                                     part[q % 4]);
-      }
-    }
-    for (int ch = 0; ch < static_cast<int>(gridDim.y); ++ch) {
-      if (ch == static_cast<int>(blockIdx.y)) continue;
+    double cf;
+    if constexpr (kWide) {
+      // the coefficient, formed by residual_kernel; this CTA's columns
 #pragma unroll
       for (int q = 0; q < kQ; ++q) {
-        const int c = ch * kChunk + (lane + 32 * q) * kVec;
-        if (c < d) {
-          float xv[kVec];
-          load_vec<kVec>(row + c, xv);
+        const int cl = (lane + 32 * q) * kVec;
+        float xv[kVec];
+        if (col0 + cl < d) load_vec<kVec>(row + cl, xv);
 #pragma unroll
-          for (int e = 0; e < kVec; ++e)
-            part[q % 4] = fma(static_cast<double>(xv[e]), s_beta[c + e],
-                              part[q % 4]);
+        for (int e = 0; e < kVec; ++e)
+          xd[q * kVec + e] = col0 + cl < d ? static_cast<double>(xv[e])
+                                           : 0.0;
+      }
+      cf = rs.res[first + static_cast<int64_t>(j) * kWarps];
+    } else {
+      // the residual: this CTA's columns first (kept as float64 for the
+      // sums), then the other chunks' in order; four partial sums a lane
+      double part[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const int c = col0 + (lane + 32 * q) * kVec;
+        float xv[kVec];
+        if (c < d) load_vec<kVec>(row + c, xv);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          xd[q * kVec + e] = c < d ? static_cast<double>(xv[e]) : 0.0;
+          if (c < d) part[q % 4] = fma(xd[q * kVec + e], s_beta[c + e],
+                                       part[q % 4]);
         }
       }
-    }
-    double dot = (part[0] + part[1]) + (part[2] + part[3]);
+      for (int ch = 0; ch < static_cast<int>(gridDim.y); ++ch) {
+        if (ch == static_cast<int>(blockIdx.y)) continue;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      dot += __shfl_xor_sync(0xffffffffu, dot, off);
-    const double cf = (dot - static_cast<double>(meta[0])) *
-                      (rs.w != nullptr ? static_cast<double>(meta[1]) : 1.0);
+        for (int q = 0; q < kQ; ++q) {
+          const int c = ch * kChunk + (lane + 32 * q) * kVec;
+          if (c < d) {
+            float xv[kVec];
+            load_vec<kVec>(row + c, xv);
+#pragma unroll
+            for (int e = 0; e < kVec; ++e)
+              part[q % 4] = fma(static_cast<double>(xv[e]), s_beta[c + e],
+                                part[q % 4]);
+          }
+        }
+      }
+      double dot = (part[0] + part[1]) + (part[2] + part[3]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      cf = (dot - static_cast<double>(meta[0])) *
+           (rs.w != nullptr ? static_cast<double>(meta[1]) : 1.0);
+    }
     double k[kNt];  // coef * mask, exact at mask 1.0f
 #pragma unroll
     for (int t = 0; t < kNt; ++t)
@@ -386,7 +460,8 @@ __device__ __forceinline__ void stream_rows(const Rows& rs, int nt,
 
   // the CTA's partial, tier by tier: the warps' sums added in warp order
   const int len = min(kChunk, d - col0);
-  double* s_part = reinterpret_cast<double*>(smem + 2 * pad4(d));  // rings
+  double* s_part =
+      reinterpret_cast<double*>(smem + beta_floats(d, kWide));  // rings
 #pragma unroll
   for (int t = 0; t < kNt; ++t) {
     if (t >= nt) break;
@@ -509,11 +584,67 @@ __device__ __forceinline__ void reduce_partials(
   }
 }
 
+// The wide instances' first launch: res[r] = (x_r . beta - y_r) * w_r
+// (w = 1 where w is nullptr) in float64 for the rows of x (m) and then of
+// xp (c; the coded variant's parity block, c = 0 elsewhere), one warp a
+// row, kResLoads loads of X in flight a lane.  Lane l forms columns
+// (l + 32 (kResLoads i + u)) * kVec + e in partial sum u % 4, i and u in
+// order; the four sums are added as (0 + 1) + (2 + 3) and then by the
+// fixed xor-butterfly: an order that depends on D alone.
+constexpr int kResWarps = 4;  // rows a CTA of residual_kernel
+constexpr int kResLoads = 8;  // loads of X in flight a lane
+template <int kVec>
+__global__ void __launch_bounds__(kResWarps * 32)
+residual_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                const float* __restrict__ w, int m,
+                const float* __restrict__ xp, const float* __restrict__ yp,
+                const float* __restrict__ wp, int c,
+                const float* __restrict__ beta, double* __restrict__ res,
+                int d) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kResWarps +
+                    threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= static_cast<int64_t>(m) + c) return;
+  const bool sys = r < m;
+  const int64_t i = sys ? r : r - m;
+  const float* row = (sys ? x : xp) + i * d;
+  constexpr int kStep = 32 * kVec;
+  double part[4] = {0.0, 0.0, 0.0, 0.0};
+  for (int c0 = lane * kVec; c0 < d; c0 += kResLoads * kStep) {
+    float xv[kResLoads][kVec], bv[kResLoads][kVec];
+#pragma unroll
+    for (int u = 0; u < kResLoads; ++u) {
+      if (c0 + u * kStep < d) {
+        load_vec<kVec>(row + c0 + u * kStep, xv[u]);
+        load_vec<kVec>(beta + c0 + u * kStep, bv[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kResLoads; ++u) {
+      if (c0 + u * kStep < d) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          part[u % 4] = fma(static_cast<double>(xv[u][e]),
+                            static_cast<double>(bv[u][e]), part[u % 4]);
+      }
+    }
+  }
+  double dot = (part[0] + part[1]) + (part[2] + part[3]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    dot += __shfl_xor_sync(0xffffffffu, dot, off);
+  if (lane == 0) {
+    const float* wr = sys ? w : wp;
+    res[r] = (dot - static_cast<double>((sys ? y : yp)[i])) *
+             (wr != nullptr ? static_cast<double>(wr[i]) : 1.0);
+  }
+}
+
 // Flat and tiered (nt <= kNt tiers): CTA (b, chunk) owns rows [b * rpc,
 // ...) of x and columns [chunk * kChunk, ...) of the partials, and writes
 // tier t's to partials[(t * n_ctas + b) * d]; the reducers sum them into
-// out (nt, d).
-template <int kNt, int kVec>
+// out (nt, d).  kWide: res holds the rows' coefficients.
+template <int kNt, int kVec, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 tier_round_grad_kernel(const float* __restrict__ x,
                        const float* __restrict__ y,
@@ -521,20 +652,23 @@ tier_round_grad_kernel(const float* __restrict__ x,
                        const float* __restrict__ masks, int nt,
                        const float* __restrict__ beta, double* partials,
                        float* __restrict__ out, unsigned* counter, int m,
-                       int d, int rpc, int stages, int max_red) {
+                       int d, int rpc, int stages, int max_red,
+                       const double* __restrict__ res) {
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rpc;
   const Rows rs{x, y, w, masks, m, masks != nullptr ? nt : 0, row0,
-                min(static_cast<int64_t>(m), row0 + rpc), d};
-  stream_rows<kNt, kVec>(rs, nt, beta, stages,
-                         partials + static_cast<int64_t>(blockIdx.x) * d,
-                         static_cast<int64_t>(gridDim.x) * d);
+                min(static_cast<int64_t>(m), row0 + rpc), d, res};
+  stream_rows<kNt, kVec, kWide>(
+      rs, nt, beta, stages, partials + static_cast<int64_t>(blockIdx.x) * d,
+      static_cast<int64_t>(gridDim.x) * d);
   reduce_partials<kVec == 4 ? 2 : 1>(partials, out, counter, gridDim.x,
                                      gridDim.x * gridDim.y, nt, d, max_red);
 }
 
 // Coded: CTAs [0, n_sys) own systematic rows (rpc_sys each), the rest
 // parity rows (rpc_par each); CTA b writes its partial to partials[b * d].
-template <int kVec>
+// kWide: res holds the m systematic rows' coefficients, then the c
+// parity rows'.
+template <int kVec, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 coded_round_grad_kernel(const float* __restrict__ x,
                         const float* __restrict__ y,
@@ -545,15 +679,16 @@ coded_round_grad_kernel(const float* __restrict__ x,
                         const float* __restrict__ beta, double* partials,
                         float* __restrict__ out, unsigned* counter, int d,
                         int rpc_sys, int rpc_par, int n_sys, int stages,
-                        int max_red) {
+                        int max_red, const double* __restrict__ res) {
   const int b = blockIdx.x;
   const bool sys = b < n_sys;
   const int rpc = sys ? rpc_sys : rpc_par;
   const int64_t row0 = static_cast<int64_t>(sys ? b : b - n_sys) * rpc;
   const Rows rs{sys ? x : xp, sys ? y : yp, sys ? w : wp, nullptr, 0, 0,
-                row0, min(static_cast<int64_t>(sys ? m : c), row0 + rpc), d};
-  stream_rows<1, kVec>(rs, 1, beta, stages,
-                       partials + static_cast<int64_t>(b) * d, 0);
+                row0, min(static_cast<int64_t>(sys ? m : c), row0 + rpc), d,
+                res == nullptr ? nullptr : sys ? res : res + m};
+  stream_rows<1, kVec, kWide>(rs, 1, beta, stages,
+                              partials + static_cast<int64_t>(b) * d, 0);
   reduce_partials<kVec == 4 ? 2 : 1>(partials, out, counter, gridDim.x,
                                      gridDim.x * gridDim.y, 1, d, max_red);
 }
@@ -594,47 +729,73 @@ cudaError_t prepare(Kernel kernel, int floats, int* max_red) {
 
 // kNt tiers a launch: 1 (kernel 1's instance) or up to kMaxTiers (the
 // run-time tier count); the instance does not change a tier's arithmetic.
-template <int kNt, int kVec>
+// kWide: res holds the coefficients (launch_residual has run).
+template <int kNt, int kVec, bool kWide>
 cudaError_t launch_tiers(const float* x, const float* y, const float* w,
                          const float* masks, int nt, const float* beta,
                          double* partials, float* out, unsigned* counter,
-                         int m, int d, int tile, cudaStream_t s) {
-  const int rpc = rows_per_cta(m, tile);
+                         int m, int d, int tile, const double* res,
+                         cudaStream_t s) {
+  const int ch = kWide ? chunks_for(d) : 1;  // the partition's chunks
+  const int rpc = rows_per_cta(m, tile, ch);
   const int nm = masks != nullptr ? nt : 0;
-  const int stages = ring_stages(d, nm, rpc);
+  const int stages = ring_stages(d, nm, rpc, kWide);
   if (stages == 0) return cudaErrorInvalidValue;
-  const int floats = smem_floats(d, nm, stages);
-  auto kernel = tier_round_grad_kernel<kNt, kVec>;
+  const int floats = smem_floats(d, nm, stages, kWide);
+  auto kernel = tier_round_grad_kernel<kNt, kVec, kWide>;
   int max_red = 1;
   const cudaError_t e = prepare(kernel, floats, &max_red);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(ctas_for(m, tile), chunks_for(d)), kThreads,
+  kernel<<<dim3(ctas_for(m, tile, ch), chunks_for(d)), kThreads,
            floats * sizeof(float), s>>>(x, y, w, masks, nt, beta, partials,
                                         out, counter, m, d, rpc, stages,
-                                        max_red);
+                                        max_red, res);
   return cudaGetLastError();
 }
 
-template <int kVec>
+template <int kVec, bool kWide>
 cudaError_t launch_coded(const float* x, const float* y, const float* w,
                          int m, const float* xp, const float* yp,
                          const float* wp, int c, const float* beta,
                          double* partials, float* out, unsigned* counter,
-                         int d, int tile, cudaStream_t s) {
+                         int d, int tile, const double* res,
+                         cudaStream_t s) {
   // one row tile for both blocks where it is given
-  const int rpc_sys = rows_per_cta(m, tile), rpc_par = rows_per_cta(c, tile);
-  const int n_sys = ctas_for(m, tile);
-  const int stages = ring_stages(d, 0, rpc_sys > rpc_par ? rpc_sys : rpc_par);
+  const int ch = kWide ? chunks_for(d) : 1;  // the partition's chunks
+  const int rpc_sys = rows_per_cta(m, tile, ch);
+  const int rpc_par = rows_per_cta(c, tile, ch);
+  const int n_sys = ctas_for(m, tile, ch);
+  const int stages = ring_stages(d, 0, rpc_sys > rpc_par ? rpc_sys : rpc_par,
+                                 kWide);
   if (stages == 0) return cudaErrorInvalidValue;
-  const int floats = smem_floats(d, 0, stages);
-  auto kernel = coded_round_grad_kernel<kVec>;
+  const int floats = smem_floats(d, 0, stages, kWide);
+  auto kernel = coded_round_grad_kernel<kVec, kWide>;
   int max_red = 1;
   const cudaError_t e = prepare(kernel, floats, &max_red);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(n_sys + ctas_for(c, tile), chunks_for(d)), kThreads,
+  kernel<<<dim3(n_sys + ctas_for(c, tile, ch), chunks_for(d)), kThreads,
            floats * sizeof(float), s>>>(x, y, w, m, xp, yp, wp, c, beta,
                                         partials, out, counter, d, rpc_sys,
-                                        rpc_par, n_sys, stages, max_red);
+                                        rpc_par, n_sys, stages, max_red,
+                                        res);
+  return cudaGetLastError();
+}
+
+// The wide instances' residual pass over the rows of x and then xp into
+// res (m + c float64).
+cudaError_t launch_residual(const float* x, const float* y, const float* w,
+                            int m, const float* xp, const float* yp,
+                            const float* wp, int c, const float* beta,
+                            double* res, int d, bool vec, cudaStream_t s) {
+  const int64_t rows = static_cast<int64_t>(m) + c;
+  if (rows == 0) return cudaSuccess;
+  const dim3 grid(static_cast<unsigned>((rows + kResWarps - 1) / kResWarps));
+  if (vec)
+    residual_kernel<4><<<grid, kResWarps * 32, 0, s>>>(x, y, w, m, xp, yp,
+                                                       wp, c, beta, res, d);
+  else
+    residual_kernel<1><<<grid, kResWarps * 32, 0, s>>>(x, y, w, m, xp, yp,
+                                                       wp, c, beta, res, d);
   return cudaGetLastError();
 }
 
@@ -645,32 +806,39 @@ extern "C" {
 // Rows of the (n_ctas, D) float64 partials scratch of the flat and tiered
 // variants (per tier) at the kernels' own partition; the coded variant
 // needs rg_num_ctas(m) + rg_num_ctas(c).  With a row tile the count is
-// ceil(m / tile) (at least 1) per block.
+// ceil(m / tile) (at least 1) per block.  The wide instances' partition
+// takes at most as many at any D.
 int rg_num_ctas(int m) { return ctas_for(m, 0); }
 
-// Largest D the kernels take at any tier count: a two-row ring a warp in
-// shared memory, each row carrying kMaxTiers masks.
-int rg_max_d() {
-  int d = 4 * kChunk * 2;
-  while (d > 0 && smem_floats(d, kMaxTiers, 2) > kDynFloats) --d;
-  return d;
-}
+// Float64 coefficients the residual scratch `res` of a call over `rows`
+// rows (m, or m + c for the coded variant) at this D holds: `rows` where
+// D > resident_max_d() (the wide instances), else 0 (res may be nullptr).
+int rg_residual_rows(int rows, int d) { return is_wide(d) ? rows : 0; }
 
 // x (m, d), y (m,), w (m,) or nullptr, masks (nt, m) or nullptr (one
 // partial, mask 1), beta (d,), out (nt, d): float32; partials (nt,
 // n_ctas, d): float64 scratch, n_ctas = rg_num_ctas(m) at tile 0, else
 // ceil(m / tile); counter: two zeroed uint32 that no launch on another
-// stream uses at the same time (each launch leaves the first at 0); all
-// contiguous, on the device of `stream`.  tile: rows a CTA owns, 0 for
-// the kernels' own partition.
+// stream uses at the same time (each launch leaves the first at 0); res:
+// rg_residual_rows(m, d) float64 scratch; all contiguous, on the device
+// of `stream`.  tile: rows a CTA owns, 0 for the kernels' own partition.
 int rg_tier_round_gradient(const float* x, const float* y, const float* w,
                            const float* masks, int nt, const float* beta,
                            double* partials, float* out, unsigned* counter,
-                           int m, int d, int tile, void* stream) {
+                           int m, int d, int tile, double* res,
+                           void* stream) {
   if (!valid_tile(tile)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = is_wide(d);
+  if (wide && res == nullptr && m > 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_ctas = ctas_for(m, tile);
+  const int n_ctas = ctas_for(m, tile, wide ? chunks_for(d) : 1);
   const bool vec = d % 4 == 0 && aligned16(x) && aligned16(beta);
+  if (wide) {  // the coefficients once, for every tier chunk
+    const cudaError_t e = launch_residual(x, y, w, m, nullptr, nullptr,
+                                          nullptr, 0, beta, res, d, vec, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   for (int t0 = 0; t0 < nt; t0 += kMaxTiers) {
     const int k = nt - t0 < kMaxTiers ? nt - t0 : kMaxTiers;
     const float* mk =
@@ -678,17 +846,33 @@ int rg_tier_round_gradient(const float* x, const float* y, const float* w,
     double* part = partials + static_cast<int64_t>(t0) * n_ctas * d;
     float* o = out + static_cast<int64_t>(t0) * d;
     // one tier: kernel 1's instance; more: the run-time tier count
-    const cudaError_t e =
-        k == 1 ? (vec ? launch_tiers<1, 4>(x, y, w, mk, k, beta, part, o,
-                                           counter, m, d, tile, s)
-                      : launch_tiers<1, 1>(x, y, w, mk, k, beta, part, o,
-                                           counter, m, d, tile, s))
-               : (vec ? launch_tiers<kMaxTiers, 4>(x, y, w, mk, k, beta,
+    cudaError_t e;
+    if (wide)
+      e = k == 1 ? (vec ? launch_tiers<1, 4, true>(x, y, w, mk, k, beta,
                                                    part, o, counter, m, d,
-                                                   tile, s)
-                      : launch_tiers<kMaxTiers, 1>(x, y, w, mk, k, beta,
+                                                   tile, res, s)
+                        : launch_tiers<1, 1, true>(x, y, w, mk, k, beta,
                                                    part, o, counter, m, d,
-                                                   tile, s));
+                                                   tile, res, s))
+                 : (vec ? launch_tiers<kMaxTiers, 4, true>(
+                              x, y, w, mk, k, beta, part, o, counter, m, d,
+                              tile, res, s)
+                        : launch_tiers<kMaxTiers, 1, true>(
+                              x, y, w, mk, k, beta, part, o, counter, m, d,
+                              tile, res, s));
+    else
+      e = k == 1 ? (vec ? launch_tiers<1, 4, false>(x, y, w, mk, k, beta,
+                                                    part, o, counter, m, d,
+                                                    tile, nullptr, s)
+                        : launch_tiers<1, 1, false>(x, y, w, mk, k, beta,
+                                                    part, o, counter, m, d,
+                                                    tile, nullptr, s))
+                 : (vec ? launch_tiers<kMaxTiers, 4, false>(
+                              x, y, w, mk, k, beta, part, o, counter, m, d,
+                              tile, nullptr, s)
+                        : launch_tiers<kMaxTiers, 1, false>(
+                              x, y, w, mk, k, beta, part, o, counter, m, d,
+                              tile, nullptr, s));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return 0;
@@ -698,9 +882,9 @@ int rg_tier_round_gradient(const float* x, const float* y, const float* w,
 int rg_masked_round_gradient(const float* x, const float* y, const float* w,
                              const float* beta, double* partials, float* out,
                              unsigned* counter, int m, int d, int tile,
-                             void* stream) {
+                             double* res, void* stream) {
   return rg_tier_round_gradient(x, y, w, nullptr, 1, beta, partials, out,
-                                counter, m, d, tile, stream);
+                                counter, m, d, tile, res, stream);
 }
 
 // Kernel 6, the least-squares gradient A^T (A beta - y) of the Pallas TPU
@@ -710,32 +894,47 @@ int rg_masked_round_gradient(const float* x, const float* y, const float* w,
 // same one-tier instance, row ranges and fixed-order reduce, so it is
 // bit-equal to rg_masked_round_gradient with w == nullptr.  It is bound
 // by bytes like the flat variant (one pass over A).  a (m, d), y (m,),
-// beta (d,), partials (n_ctas, d), out (d,), counter and tile as above.
+// beta (d,), partials (n_ctas, d), out (d,), counter, tile and res as
+// above.
 int rg_lsq_gradient(const float* a, const float* y, const float* beta,
                     double* partials, float* out, unsigned* counter, int m,
-                    int d, int tile, void* stream) {
+                    int d, int tile, double* res, void* stream) {
   return rg_tier_round_gradient(a, y, nullptr, nullptr, 1, beta, partials,
-                                out, counter, m, d, tile, stream);
+                                out, counter, m, d, tile, res, stream);
 }
 
 // x (m, d), y/w (m,) (w may be nullptr), xp (c, d), yp/wp (c,), beta
 // (d,), partials (n_ctas(m) + n_ctas(c), d) float64, out (d,), counter
-// as above; tile 0: each block at the kernels' own partition, else
-// `tile` rows a CTA in both blocks.
+// as above, res rg_residual_rows(m + c, d) float64; tile 0: each block
+// at the kernels' own partition, else `tile` rows a CTA in both blocks.
 int rg_coded_round_gradient(const float* x, const float* y, const float* w,
                             int m, const float* xp, const float* yp,
                             const float* wp, int c, const float* beta,
                             double* partials, float* out, unsigned* counter,
-                            int d, int tile, void* stream) {
+                            int d, int tile, double* res, void* stream) {
   if (!valid_tile(tile)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = is_wide(d);
+  if (wide && res == nullptr && m + c > 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = d % 4 == 0 && aligned16(x) && aligned16(xp) &&
                    aligned16(beta);
-  const cudaError_t e =
-      vec ? launch_coded<4>(x, y, w, m, xp, yp, wp, c, beta, partials, out,
-                            counter, d, tile, s)
-          : launch_coded<1>(x, y, w, m, xp, yp, wp, c, beta, partials, out,
-                            counter, d, tile, s);
+  cudaError_t e;
+  if (wide) {
+    e = launch_residual(x, y, w, m, xp, yp, wp, c, beta, res, d, vec, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = vec ? launch_coded<4, true>(x, y, w, m, xp, yp, wp, c, beta,
+                                    partials, out, counter, d, tile, res, s)
+            : launch_coded<1, true>(x, y, w, m, xp, yp, wp, c, beta,
+                                    partials, out, counter, d, tile, res, s);
+  } else {
+    e = vec ? launch_coded<4, false>(x, y, w, m, xp, yp, wp, c, beta,
+                                     partials, out, counter, d, tile,
+                                     nullptr, s)
+            : launch_coded<1, false>(x, y, w, m, xp, yp, wp, c, beta,
+                                     partials, out, counter, d, tile,
+                                     nullptr, s);
+  }
   return static_cast<int>(e);
 }
 

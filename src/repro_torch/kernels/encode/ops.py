@@ -38,8 +38,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (AUTO, LaunchCounter,
-                                       check_cuda_operand, refuse_grad,
-                                       resolve_block)
+                                        check_cuda_operand, on_card,
+                                        refuse_grad, resolve_block)
 
 from . import prng, ref
 
@@ -148,9 +148,10 @@ def encode_parity(g: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
     out = torch.empty((c, d), dtype=torch.float32, device=g.device)
     if c == 0 or d == 0 or ell == 0:
         return out.zero_()
-    status = lib.enc_encode_parity(
-        g.data_ptr(), w.data_ptr(), x.data_ptr(), out.data_ptr(), c, ell, d,
-        *tile, torch.cuda.current_stream(g.device).cuda_stream)
+    with on_card(g.device):
+        status = lib.enc_encode_parity(
+            g.data_ptr(), w.data_ptr(), x.data_ptr(), out.data_ptr(), c, ell,
+            d, *tile, torch.cuda.current_stream(g.device).cuda_stream)
     build.check_status(lib, status, "encode_parity")
     COUNTER.add(tile)
     return out
@@ -177,10 +178,11 @@ def _launch_prng(lib, key, w: torch.Tensor, x: torch.Tensor, c: int,
     if c == 0 or d == 0:
         return
     k0, k1 = prng.key_words(key)
-    status = lib.enc_encode_parity_prng(
-        k0, k1, w.data_ptr(), x.data_ptr(), out.data_ptr(), c, ell, d,
-        _KIND_CODES[kind], int(accumulate),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with on_card(x.device):
+        status = lib.enc_encode_parity_prng(
+            k0, k1, w.data_ptr(), x.data_ptr(), out.data_ptr(), c, ell, d,
+            _KIND_CODES[kind], int(accumulate),
+            torch.cuda.current_stream(x.device).cuda_stream)
     build.check_status(lib, status, "encode_parity_prng")
     PRNG_COUNTER.add(PRNG_BLOCK)
 

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import LaunchCounter, refuse_grad
+from repro_torch.kernels.common import LaunchCounter, on_card, refuse_grad
 
 from . import ref
 
@@ -107,9 +107,10 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         ops.append(t if t.stride(-1) == 1 else t.contiguous())
     o = torch.empty_like(ops[0])
     strides = [st for t in (*ops, o) for st in t.stride()[:3]]
-    status = lib.flash_attn_launch(
-        *(t.data_ptr() for t in ops), o.data_ptr(), B, Hq, Hkv, S, D,
-        *strides, scale(D), torch.cuda.current_stream(dev).cuda_stream)
+    with on_card(dev):
+        status = lib.flash_attn_launch(
+            *(t.data_ptr() for t in ops), o.data_ptr(), B, Hq, Hkv, S, D,
+            *strides, scale(D), torch.cuda.current_stream(dev).cuda_stream)
     build.check_status(lib, status, "flash_attn")
     FLASH_COUNTER.launches += 1
     return o.to(q.dtype)

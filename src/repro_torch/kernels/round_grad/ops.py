@@ -14,7 +14,10 @@ kernels have no backward; `common.refuse_grad`).  Each kernel has its own launch
 CTAs' float64 partials itself, in a fixed order, behind a ticket counter
 and a generation word: two zeroed int32 per (device, stream); every
 launch leaves the counter at 0.  The kernels sum in float64 and round
-once to float32.
+once to float32.  They take any D: past the widest D whose whole rows
+fit the CTA's ring (3220), a call runs a residual pass into a float64
+(M,) scratch (`rg_residual_rows`) before the column-chunked launch; at
+D up to it the call is the row-resident launch alone, bit for bit.
 
 Row tiles: each wrapper takes `block_m`, the rows a CTA owns (a positive
 multiple of 8, the CTA's warps), or 0 for the kernel's own partition
@@ -35,8 +38,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (AUTO, LaunchCounter,
-                                       check_cuda_operand, refuse_grad,
-                                       resolve_block)
+                                        check_cuda_operand, on_card,
+                                        refuse_grad, resolve_block)
 
 from . import ref
 
@@ -47,14 +50,14 @@ LSQ_COUNTER = LaunchCounter()
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES: build.Signatures = {
-    "rg_masked_round_gradient": ([_P] * 7 + [_I, _I, _I, _P], _I),
+    "rg_masked_round_gradient": ([_P] * 7 + [_I, _I, _I, _P, _P], _I),
     "rg_tier_round_gradient": ([_P] * 4 + [_I] + [_P] * 4
-                               + [_I, _I, _I, _P], _I),
+                               + [_I, _I, _I, _P, _P], _I),
     "rg_coded_round_gradient": ([_P] * 3 + [_I] + [_P] * 3 + [_I]
-                                + [_P] * 4 + [_I, _I, _P], _I),
-    "rg_lsq_gradient": ([_P] * 6 + [_I, _I, _I, _P], _I),
+                                + [_P] * 4 + [_I, _I, _P, _P], _I),
+    "rg_lsq_gradient": ([_P] * 6 + [_I, _I, _I, _P, _P], _I),
     "rg_num_ctas": ([_I], _I),
-    "rg_max_d": ([], _I),
+    "rg_residual_rows": ([_I, _I], _I),
 }
 
 # the CTA's warps (a row tile is a multiple of them) and the CTAs the
@@ -90,6 +93,14 @@ def _n_ctas(lib, rows: int, tile: int) -> int:
     return lib.rg_num_ctas(rows) if tile == 0 else max(1, -(-rows // tile))
 
 
+def _residuals(lib, rows: int, d: int, device: torch.device):
+    """The float64 row-coefficient scratch of a launch over `rows` rows at
+    this D: (rows,) where D is wider than the row-resident instances take
+    (the kernel then runs its residual pass first), else None."""
+    n = lib.rg_residual_rows(rows, d)
+    return torch.empty(n, dtype=torch.float64, device=device) if n else None
+
+
 def _dispatch(device: torch.device):
     """The loaded kernel library for `device`, or None for the CPU.
 
@@ -110,8 +121,6 @@ def _check_rows(lib, x: torch.Tensor, y: torch.Tensor,
         raise ValueError(
             f"{name} must be (M, D), got shape {tuple(x.shape)}")
     m, d = x.shape
-    if d > lib.rg_max_d():
-        raise ValueError(f"D={d} exceeds the kernel's limit {lib.rg_max_d()}")
     check_cuda_operand(name, x, (m, d), x.device)
     check_cuda_operand(f"y of {name}", y, (m,), x.device)
     check_cuda_operand("beta", beta, (d,), x.device)
@@ -162,12 +171,14 @@ def masked_round_gradient(x: torch.Tensor, y: torch.Tensor,
     out = torch.empty(d, dtype=torch.float32, device=x.device)
     if d == 0:
         return out
+    res = _residuals(lib, m, d, x.device)
     partials = torch.empty((_n_ctas(lib, m, tile), d), dtype=torch.float64,
                            device=x.device)
-    status = lib.rg_masked_round_gradient(
-        x.data_ptr(), y.data_ptr(), _ptr(w), beta.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), _ticket(x.device), m, d, tile,
-        _stream(x.device))
+    with on_card(x.device):
+        status = lib.rg_masked_round_gradient(
+            x.data_ptr(), y.data_ptr(), _ptr(w), beta.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), _ticket(x.device), m, d, tile,
+            _ptr(res), _stream(x.device))
     build.check_status(lib, status, "masked_round_gradient")
     COUNTER.add((tile,))
     return out
@@ -192,11 +203,14 @@ def lsq_gradient(a: torch.Tensor, y: torch.Tensor, beta: torch.Tensor,
     out = torch.empty(d, dtype=torch.float32, device=a.device)
     if d == 0:
         return out
+    res = _residuals(lib, m, d, a.device)
     partials = torch.empty((_n_ctas(lib, m, tile), d), dtype=torch.float64,
                            device=a.device)
-    status = lib.rg_lsq_gradient(
-        a.data_ptr(), y.data_ptr(), beta.data_ptr(), partials.data_ptr(),
-        out.data_ptr(), _ticket(a.device), m, d, tile, _stream(a.device))
+    with on_card(a.device):
+        status = lib.rg_lsq_gradient(
+            a.data_ptr(), y.data_ptr(), beta.data_ptr(), partials.data_ptr(),
+            out.data_ptr(), _ticket(a.device), m, d, tile, _ptr(res),
+            _stream(a.device))
     build.check_status(lib, status, "lsq_gradient")
     LSQ_COUNTER.add((tile,))
     return out
@@ -234,13 +248,15 @@ def coded_round_gradient(x: torch.Tensor, y: torch.Tensor,
     if d == 0:
         return out
     n_parts = _n_ctas(lib, m, tile) + _n_ctas(lib, c, tile)
+    res = _residuals(lib, m + c, d, x.device)
     partials = torch.empty((n_parts, d), dtype=torch.float64,
                            device=x.device)
-    status = lib.rg_coded_round_gradient(
-        x.data_ptr(), y.data_ptr(), _ptr(w), m, x_par.data_ptr(),
-        y_par.data_ptr(), w_par.data_ptr(), c, beta.data_ptr(),
-        partials.data_ptr(), out.data_ptr(), _ticket(x.device), d, tile,
-        _stream(x.device))
+    with on_card(x.device):
+        status = lib.rg_coded_round_gradient(
+            x.data_ptr(), y.data_ptr(), _ptr(w), m, x_par.data_ptr(),
+            y_par.data_ptr(), w_par.data_ptr(), c, beta.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), _ticket(x.device), d, tile,
+            _ptr(res), _stream(x.device))
     build.check_status(lib, status, "coded_round_gradient")
     CODED_COUNTER.add((tile,))
     return out
@@ -273,12 +289,14 @@ def tier_masked_round_gradient(x: torch.Tensor, y: torch.Tensor,
     out = torch.empty((nt, d), dtype=torch.float32, device=x.device)
     if d == 0:
         return out
+    res = _residuals(lib, m, d, x.device)
     partials = torch.empty((nt, _n_ctas(lib, m, tile), d),
                            dtype=torch.float64, device=x.device)
-    status = lib.rg_tier_round_gradient(
-        x.data_ptr(), y.data_ptr(), _ptr(w), tier_masks.data_ptr(), nt,
-        beta.data_ptr(), partials.data_ptr(), out.data_ptr(),
-        _ticket(x.device), m, d, tile, _stream(x.device))
+    with on_card(x.device):
+        status = lib.rg_tier_round_gradient(
+            x.data_ptr(), y.data_ptr(), _ptr(w), tier_masks.data_ptr(), nt,
+            beta.data_ptr(), partials.data_ptr(), out.data_ptr(),
+            _ticket(x.device), m, d, tile, _ptr(res), _stream(x.device))
     build.check_status(lib, status, "tier_masked_round_gradient")
     TIER_COUNTER.add((tile,))
     return out

@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (LaunchCounter, check_cuda_operand,
-                                       refuse_grad)
+                                        on_card, refuse_grad)
 
 from . import ref
 
@@ -96,9 +96,10 @@ def ssd_chunk(xc: torch.Tensor, dtc: torch.Tensor, da: torch.Tensor,
         check_cuda_operand(name, t, tuple(t.shape), dev)
     y = torch.empty((B, nc, Q, H, P), dtype=torch.float32, device=dev)
     states = torch.empty((B, nc, H, P, N), dtype=torch.float32, device=dev)
-    status = lib.ssd_chunk_launch(
-        *(t.data_ptr() for t in ops), y.data_ptr(), states.data_ptr(),
-        B, nc, Q, H, P, G, N, torch.cuda.current_stream(dev).cuda_stream)
+    with on_card(dev):
+        status = lib.ssd_chunk_launch(
+            *(t.data_ptr() for t in ops), y.data_ptr(), states.data_ptr(),
+            B, nc, Q, H, P, G, N, torch.cuda.current_stream(dev).cuda_stream)
     build.check_status(lib, status, "ssd_chunk")
     SSD_COUNTER.launches += 1
     return y, states

@@ -11,18 +11,26 @@ for the cards, so that the dry run (`launch.dryrun`) places meta-device
 shards on the production meshes in one process, as the reference
 compiles on placeholder host devices.
 
+The lane mesh and the shard mesh are plain lists of `torch.device`,
+the local cards (or devices) one process drives: `make_lane_mesh`
+splits a sweep's or a serving group's lanes evenly over `lane_mesh_size`
+of them (`api.run_sweep`, `serving.FedServeEngine`), `make_shard_mesh`
+spans them all for `fleet.solve_fleet`'s device axis.  The reference's
+meshes are `jax.sharding.Mesh`es under `shard_map`; here each device
+runs its share of the work in turn from this process, and the
+arithmetic of a lane or a shard is the same on every device, so no
+result depends on the mesh size.
+
 Not carried over: the TPU v5e constants (`PEAK_FLOPS_BF16`, `HBM_BW`,
-`ICI_BW`: the H100's rates live in `repro_torch.roofline`); the lane mesh
-(`make_lane_mesh`: on one card the engines run their lanes in turn) and
-the shard mesh (`make_shard_mesh`: on one card `fleet.solve_fleet` runs
-unsharded).
+`ICI_BW`: the H100's rates live in `repro_torch.roofline`).
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Sequence
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
@@ -96,6 +104,55 @@ def production_world(multi_pod: bool = False) -> Iterator[DeviceMesh]:
         dist.destroy_process_group()
 
 
+def local_devices(device=None) -> list[torch.device]:
+    """The devices of `device`'s type this process drives, `device`
+    first: every card (`torch.cuda.device_count()`) for a CUDA device
+    (None: the current card), the one device otherwise."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return [dev]
+    first = torch.cuda.current_device() if dev.index is None else dev.index
+    return [torch.device("cuda", first)] + [
+        torch.device("cuda", i) for i in range(torch.cuda.device_count())
+        if i != first]
+
+
+def lane_mesh_size(n_lanes: int,
+                   devices: Optional[Sequence[torch.device]] = None) -> int:
+    """Device count for a sweep's lane axis: the largest divisor of
+    `n_lanes` that fits the device count (`devices`, default
+    `local_devices()`).
+
+    Divisibility keeps the split even, as the reference's `shard_map`
+    requires: every device runs the same number of lanes.  A 16-lane
+    sweep over 4 devices uses all 4; a 5-lane sweep uses 1."""
+    if n_lanes < 1:
+        raise ValueError(f"n_lanes must be >= 1, got {n_lanes}")
+    n_dev = len(local_devices() if devices is None else devices)
+    return next(k for k in range(min(n_dev, n_lanes), 0, -1)
+                if n_lanes % k == 0)
+
+
+def make_lane_mesh(n_lanes: int,
+                   devices: Optional[Sequence[torch.device]] = None
+                   ) -> list[torch.device]:
+    """The lane (batch-of-sessions) mesh of a sweep: the first
+    `lane_mesh_size(n_lanes, devices)` of `devices` (default
+    `local_devices()`).  Each runs its lanes in turn on its own copies of
+    their operands, so the mesh size never changes a lane's
+    arithmetic."""
+    devices = local_devices() if devices is None else list(devices)
+    return devices[:lane_mesh_size(n_lanes, devices)]
+
+
+def make_shard_mesh(devices: Optional[Sequence[torch.device]] = None
+                    ) -> list[torch.device]:
+    """The mesh of a tensor-sharded solve: ALL of `devices` (default
+    `local_devices()`).  Unlike the lane mesh, its size does not adapt:
+    `fleet.solve_fleet` splits one problem's device axis over it."""
+    return local_devices() if devices is None else list(devices)
+
+
 def axis_sizes(mesh) -> dict[str, int]:
     """{axis name: size} of a DeviceMesh, or of a plain {name: size}
     dict standing in for one."""
@@ -111,5 +168,7 @@ def data_axes(mesh) -> tuple[str, ...]:
 
 
 __all__ = ["MULTI_POD_AXES", "MULTI_POD_SHAPE", "SINGLE_POD_AXES",
-           "SINGLE_POD_SHAPE", "axis_sizes", "data_axes", "make_host_mesh",
-           "make_production_mesh", "production_shape", "production_world"]
+           "SINGLE_POD_SHAPE", "axis_sizes", "data_axes", "lane_mesh_size",
+           "local_devices", "make_host_mesh", "make_lane_mesh",
+           "make_production_mesh", "make_shard_mesh", "production_shape",
+           "production_world"]

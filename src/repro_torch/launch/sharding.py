@@ -27,8 +27,12 @@ placements on a mesh, `shard_shape` gives a leaf's local shard shape,
 and `shard_meta` makes the meta-device DTensor of a leaf.  Trees of specs
 keep the parameter tree's dicts; `flatten_specs` lists them by path.
 
-Not carried over: `lane_specs` / `lane_shardings` (the lane mesh, see
-`launch.mesh`).
+The lane layout of the sweep and serving engines: `lane_specs` gives
+each leaf of stacked per-lane operands the reference's spec, its leading
+axis over "lanes"; on a lane mesh (a list of devices, `launch.mesh.
+make_lane_mesh`) `lane_shardings` turns each leaf's spec into the
+device and the range of lanes each device owns (`shard_lanes`), in
+place of the reference's `NamedSharding`.
 """
 from __future__ import annotations
 
@@ -219,6 +223,39 @@ def replicated(mesh, tree: Any) -> Any:
 
 
 # ---------------------------------------------------------------------------
+# the lane layout (in place of the reference's lane NamedShardings)
+# ---------------------------------------------------------------------------
+
+def lane_specs(tree: Any) -> Any:
+    """Specs splitting every leaf's leading axis over "lanes": axis 0 is
+    the session lane, everything behind it is per-lane state and stays
+    unsharded."""
+    return _map_with_path(
+        lambda path, leaf: ("lanes",) + (None,) * (leaf.ndim - 1), tree)
+
+
+def shard_lanes(mesh, n_lanes: int) -> list[tuple[torch.device, range]]:
+    """Lanes 0 .. n_lanes - 1 split evenly over the lane mesh (a list of
+    devices): [(device j, its contiguous range of lanes)], in mesh
+    order.  The mesh size must divide the lane count
+    (`launch.mesh.lane_mesh_size`)."""
+    k = len(mesh)
+    if k < 1 or n_lanes % k:
+        raise ValueError(f"{n_lanes} lanes do not split evenly over "
+                         f"{k} devices")
+    per = n_lanes // k
+    return [(dev, range(j * per, (j + 1) * per))
+            for j, dev in enumerate(mesh)]
+
+
+def lane_shardings(mesh, tree: Any) -> Any:
+    """For each leaf of `lane_specs(tree)` on a `make_lane_mesh` mesh:
+    the (device, range of lanes) pairs its leading axis splits into."""
+    return _map_with_path(lambda path, leaf: shard_lanes(
+        mesh, leaf.shape[0]), tree)
+
+
+# ---------------------------------------------------------------------------
 # specs on a DeviceMesh (in place of NamedSharding)
 # ---------------------------------------------------------------------------
 
@@ -276,6 +313,7 @@ def shard_meta(spec: tuple, leaf: torch.Tensor, mesh):
 
 
 __all__ = ["FSDP_ARCHS", "base_arch_name", "batch_shardings",
-           "cache_shardings", "flatten_specs", "opt_state_shardings",
-           "param_shardings", "param_spec", "placements", "replicated",
-           "shard_bytes", "shard_meta", "shard_shape"]
+           "cache_shardings", "flatten_specs", "lane_shardings", "lane_specs",
+           "opt_state_shardings", "param_shardings", "param_spec",
+           "placements", "replicated", "shard_bytes", "shard_lanes",
+           "shard_meta", "shard_shape"]

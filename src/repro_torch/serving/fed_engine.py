@@ -40,6 +40,14 @@ instead of running to the fixed epoch count.
     epoch pre-sampling, the operand layout and the arrival tensors'
     copy to the device happen in `submit_many`, so admitting a job into
     a freed slot enqueues no host-to-device copy.
+  * **The lane mesh.**  A group's slots are split evenly over its lane
+    mesh (`launch.mesh.make_lane_mesh(lane_width, devices)`, every card
+    of the engine's device type by default, the engine's first, as the
+    reference's): each card holds one copy of the group's shared
+    operands and `beta_true`, a lane admitted into one of its slots gets
+    its operands and arrivals copied there (card to card; none on the
+    engine's own card), and the predicates come back in one transfer per
+    card a group-epoch.
 
 The exit point lands on `TraceReport.extras["serve_exit_epoch"]` (with
 `serve_converged`, `serve_uid`), and a truncated run's durations,
@@ -67,13 +75,22 @@ from repro_torch.api.session import (_bucket_key, _check_device,
 from repro_torch.api.strategy import EpochSchedule
 from repro_torch.core import aggregation
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import local_devices, make_lane_mesh
+from repro_torch.launch.sharding import shard_lanes
 
 from .scheduler import ConvergenceCriterion, FifoScheduler, ServeRequest
 
 
 def _fired(hits: List[torch.Tensor]) -> np.ndarray:
-    """The live lanes' predicates, read back in one transfer."""
-    return torch.stack(hits).cpu().numpy()
+    """The live lanes' predicates, read back in one transfer per
+    device."""
+    out = np.zeros(len(hits), dtype=bool)
+    by_device: Dict[torch.device, List[int]] = {}
+    for i, hit in enumerate(hits):
+        by_device.setdefault(hit.device, []).append(i)
+    for idxs in by_device.values():
+        out[idxs] = torch.stack([hits[i] for i in idxs]).cpu().numpy()
+    return out
 
 
 @dataclasses.dataclass
@@ -94,11 +111,13 @@ class _Prepared:
 
 @dataclasses.dataclass
 class _Lane:
-    """One occupied slot: the lane's operands and its carry (beta, the
-    epoch counter, the previous NMSE, the trace, the stop flags)."""
+    """One occupied slot: the lane's operands and arrivals on its card
+    and its carry (beta, the epoch counter, the previous NMSE, the trace,
+    the stop flags)."""
 
     prep: _Prepared
     dev: Dict[str, torch.Tensor]
+    arr: Dict[str, torch.Tensor]
     lr: torch.Tensor
     nmse_target: torch.Tensor
     rel_delta: torch.Tensor
@@ -118,7 +137,17 @@ class _LaneGroup:
     def __init__(self, engine: "FedServeEngine", key: Hashable,
                  template: _Prepared):
         strategy = template.request.session.strategy
-        self.shared = shared_operands(strategy, template.dev)
+        shared = shared_operands(strategy, template.dev)
+        mesh = make_lane_mesh(engine.lane_width, engine.devices)
+        # each slot's card; the shared operands, beta_true and the t = 0
+        # probe once per card
+        self.cards = [card for card, lanes in shard_lanes(
+            mesh, engine.lane_width) for _ in lanes]
+        self.shared = {card: {k: v.to(card) for k, v in shared.items()}
+                       for card in mesh}
+        self.beta_true = {card: engine.data.beta_true.to(card)
+                          for card in mesh}
+        self.nmse0 = {card: engine._nmse0.to(card) for card in mesh}
         self.slots: List[Optional[_Lane]] = [None] * engine.lane_width
         self.step_fn = cache_engine(
             ("serve", key, engine.lane_width, engine.chunk),
@@ -137,29 +166,31 @@ class _LaneGroup:
 
     def admit(self, engine: "FedServeEngine", prep: _Prepared,
               slot: int) -> None:
-        data, dev = engine.data, engine.device
+        data, dev = engine.data, self.cards[slot]
         dtype = data.xs.dtype
         crit = prep.criterion
         epochs = int(np.asarray(prep.sched.durations).shape[0])
         trace = torch.zeros(epochs + 1, dtype=dtype, device=dev)
-        trace[0] = engine._nmse0
+        trace[0] = self.nmse0[dev]
         rel = -1.0 if crit.rel_delta is None else float(crit.rel_delta)
 
         def scalar(value):  # a fill, not a host-to-device copy
             return torch.full((), value, dtype=dtype, device=dev)
 
         self.slots[slot] = _Lane(
-            prep=prep, dev={**prep.dev, **self.shared},
+            prep=prep,
+            dev={**{k: v.to(dev) for k, v in prep.dev.items()},
+                 **self.shared[dev]},
+            arr={k: v.to(dev) for k, v in prep.arr.items()},
             lr=scalar(prep.request.session.lr),
             nmse_target=scalar(crit.nmse_target), rel_delta=scalar(rel),
             beta=torch.zeros(data.model_dim, dtype=dtype, device=dev),
-            prev=engine._nmse0.clone(), trace=trace)
+            prev=self.nmse0[dev].clone(), trace=trace)
 
     def step(self, engine: "FedServeEngine") -> List[_Lane]:
         """Advance every live lane by up to `chunk` epochs, each stopping
         the epoch its predicate fires or its budget runs out; returns
         (and frees) the finished lanes."""
-        beta_true = engine.data.beta_true
         lanes = [lane for lane in self.slots if lane is not None]
         for lane in lanes:
             lane.t_hi = min(lane.t + engine.chunk, lane.prep.budget)
@@ -170,9 +201,10 @@ class _LaneGroup:
                 break
             hits = []
             for lane in live:
-                arr_t = {k: v[lane.t] for k, v in lane.prep.arr.items()}
+                arr_t = {k: v[lane.t] for k, v in lane.arr.items()}
                 lane.beta, nm = self.step_fn(lane.beta, lane.dev, lane.lr,
-                                             beta_true, arr_t)
+                                             self.beta_true[lane.beta.device],
+                                             arr_t)
                 lane.t += 1
                 lane.trace[lane.t] = nm
                 # the early-exit predicate, on the device: the NMSE target
@@ -213,11 +245,15 @@ class FedServeEngine:
     max_groups: cap on the number of lane groups (None: no cap)
     device:     where the engine runs (None: the CUDA device, which must
                 exist); the data and every session must live there
+    devices:    the devices the groups' lane meshes are made from
+                (default: every card of `device`'s type, `device` first;
+                see `launch.mesh.make_lane_mesh`)
     """
 
     def __init__(self, data, *, lane_width: int = 4, chunk: int = 25,
                  criterion: ConvergenceCriterion = ConvergenceCriterion(),
-                 max_groups: Optional[int] = None, device=None):
+                 max_groups: Optional[int] = None, device=None,
+                 devices: Optional[Sequence[torch.device]] = None):
         if lane_width < 1:
             raise ValueError(f"lane_width must be >= 1, got {lane_width}")
         if chunk < 1:
@@ -227,6 +263,8 @@ class FedServeEngine:
             raise ValueError(f"data lives on {data.device}, the engine "
                              f"runs on {self.device}")
         self.data = data
+        self.devices = local_devices(self.device) if devices is None \
+            else list(devices)
         self.lane_width = lane_width
         self.chunk = chunk
         self.criterion = criterion

@@ -48,7 +48,7 @@ class _RowTileFamily:
     of the row count: the default, and the first candidate, so that a
     tie keeps it).  A row tile sets only the depth of the warps' rings,
     which the kernel lowers until they fit shared memory, so every tile
-    fits where the kernel runs at all (D up to `rg_max_d`)."""
+    fits at every D."""
 
     name = kernel = ""
 

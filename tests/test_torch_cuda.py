@@ -20,7 +20,9 @@ Bounds:
     after each launch (three calls in a row, and calls on two streams at
     once, each equal to its single-stream result).  D = 3000 takes a
     two-stage ring, D % 4 != 0 and misaligned views the 4-byte cp.async
-    instance; D = rg_max_d(), the widest admitted, runs at four tiers.
+    instance; the widest D of the row-resident instances runs at four
+    tiers, and D past it (4096, 8192, 4099 and one column past the
+    limit) takes the residual pass and the column-chunked launch.
     The coded and tier-masked kernels are held the same way, each tier
     partial and the coded sum against their float64 expressions with S
     summed over the rows that enter them.  The tier kernel at T = 1 with
@@ -263,35 +265,83 @@ def test_tier_kernel_single_tier_is_the_flat_kernel(cuda, m, d, weights):
     assert torch.equal(tiered[0], flat)
 
 
+def _resident_max_d(lib) -> int:
+    """The widest D the row-resident instances take (past it a call runs
+    the residual pass first: `rg_residual_rows` is then the row count)."""
+    d = 8192
+    while lib.rg_residual_rows(1, d):
+        d -= 1
+    return d
+
+
 @pytest.mark.parametrize("t", [1, 3, 4])
 def test_round_grad_kernels_at_the_widest_d(cuda, t):
-    """At D = rg_max_d(), the widest D the wrappers admit, the tier
-    kernel runs at T = 1, 3 and 4 (four masks a ring row, the most a
-    launch carries), the flat, least-squares and coded kernels run too,
-    each held to the float64 bound; one column more is refused."""
-    d = rg_ops._dispatch(cuda).rg_max_d()
-    assert d >= 3000
-    gen = torch.Generator(device=cuda).manual_seed(d + t)
-    x, y, w = _rg_operands(gen, cuda, 300, d, "random")
+    """At the widest D of the row-resident instances and one column past
+    it (the first D of the residual pass), the tier kernel runs at T = 1,
+    3 and 4 (four masks a ring row, the most a launch carries), the flat,
+    least-squares and coded kernels run too, each held to the float64
+    bound; no D is refused."""
+    lib = rg_ops._dispatch(cuda)
+    d0 = _resident_max_d(lib)
+    assert d0 >= 3000 and lib.rg_residual_rows(7, d0 + 1) == 7
+    for d in (d0, d0 + 1):
+        gen = torch.Generator(device=cuda).manual_seed(d + t)
+        x, y, w = _rg_operands(gen, cuda, 300, d, "random")
+        beta = torch.randn((d,), generator=gen, device=cuda)
+        tier_of = torch.randint(0, t, (300,), generator=gen, device=cuda)
+        masks = (torch.arange(t, device=cuda)[:, None]
+                 == tier_of[None, :]).float()
+        tiers = rg_ops.tier_masked_round_gradient(x, y, w, masks, beta)
+        flat = rg_ops.masked_round_gradient(x, y, w, beta)
+        lsq = rg_ops.lsq_gradient(x, y, beta)
+        coded = rg_ops.coded_round_gradient(x[:200], y[:200], w[:200],
+                                            x[200:], y[200:], w[200:], beta)
+        torch.cuda.synchronize()
+        _held_to_float64(f"tiers D={d}", tiers, x, y, w, beta, masks=masks)
+        _held_to_float64(f"flat D={d}", flat, x, y, w, beta)
+        _held_to_float64(f"lsq D={d}", lsq, x, y, None, beta)
+        _held_to_float64(f"coded D={d}", coded, x, y, w, beta)
+
+
+@pytest.mark.parametrize("m,d", [(768, 4096), (300, 8192), (37, 4099),
+                                 (1, 5000)])
+def test_round_grad_kernels_at_any_d(cuda, m, d):
+    """Past the row-resident width (the residual pass and the
+    column-chunked launch): kernels 1, 4, 5 (T = 1, 3 and 6: two launches
+    of tiers over one residual pass) and 6 against the float64 bound,
+    relaunches bit-identical, T = 1 `torch.equal` to the flat kernel and
+    the least-squares kernel to the flat one at w = None; D = 4099 takes
+    the 4-byte instance, and a misaligned view too."""
+    gen = torch.Generator(device=cuda).manual_seed(m + d)
+    x, y, w = _rg_operands(gen, cuda, m, d, "zero_rows")
     beta = torch.randn((d,), generator=gen, device=cuda)
-    tier_of = torch.randint(0, t, (300,), generator=gen, device=cuda)
-    masks = (torch.arange(t, device=cuda)[:, None]
-             == tier_of[None, :]).float()
-    tiers = rg_ops.tier_masked_round_gradient(x, y, w, masks, beta)
     flat = rg_ops.masked_round_gradient(x, y, w, beta)
-    lsq = rg_ops.lsq_gradient(x, y, beta)
-    coded = rg_ops.coded_round_gradient(x[:200], y[:200], w[:200],
-                                        x[200:], y[200:], w[200:], beta)
-    torch.cuda.synchronize()
-    _held_to_float64("tiers", tiers, x, y, w, beta, masks=masks)
+    again = rg_ops.masked_round_gradient(x, y, w, beta)
     _held_to_float64("flat", flat, x, y, w, beta)
+    _held_to_float64("plain", rg_ref.masked_round_gradient(x, y, w, beta),
+                     x, y, w, beta)
+    assert torch.equal(flat, again)
+    one = rg_ops.tier_masked_round_gradient(
+        x, y, w, torch.ones((1, m), device=cuda), beta)
+    assert torch.equal(one[0], flat)
+    lsq = rg_ops.lsq_gradient(x, y, beta)
+    assert torch.equal(lsq, rg_ops.masked_round_gradient(x, y, None, beta))
     _held_to_float64("lsq", lsq, x, y, None, beta)
-    _held_to_float64("coded", coded, x, y, w, beta)
-    wide = torch.zeros((8, d + 1), device=cuda)
-    with pytest.raises(ValueError):
-        rg_ops.tier_masked_round_gradient(
-            wide, y[:8], None, torch.ones((t, 8), device=cuda),
-            torch.zeros((d + 1,), device=cuda))
+    for t in (3, 6):
+        tier_of = torch.randint(0, t, (m,), generator=gen, device=cuda)
+        masks = (torch.arange(t, device=cuda)[:, None]
+                 == tier_of[None, :]).float()
+        tiers = rg_ops.tier_masked_round_gradient(x, y, w, masks, beta)
+        _held_to_float64(f"tiers T={t}", tiers, x, y, w, beta, masks=masks)
+    xp, yp, _ = _rg_operands(gen, cuda, 65, d, "none")
+    wp = torch.rand((65,), generator=gen, device=cuda)
+    coded = rg_ops.coded_round_gradient(x, y, w, xp, yp, wp, beta)
+    _held_to_float64("coded", coded, torch.cat([x, xp]),
+                     torch.cat([y, yp]), torch.cat([w, wp]), beta)
+    buf = torch.randn((m * d + 1,), generator=gen, device=cuda)
+    xv = buf[1:].view(m, d)  # 4-byte aligned only
+    _held_to_float64("misaligned", rg_ops.masked_round_gradient(
+        xv, y, w, beta), xv, y, w, beta)
 
 
 def _rg_calls(cuda, m=5632, d=500, seed=5):
@@ -1318,6 +1368,75 @@ def test_fed_serve_on_the_card_is_a_solo_prefix(cuda):
         t = rep.extras["serve_exit_epoch"]
         np.testing.assert_array_equal(rep.nmse, solo.nmse[:t + 1])
         np.testing.assert_array_equal(rep.times, solo.times[:t + 1])
+
+
+def test_lanes_and_shards_over_every_card_equal_one_card(cuda):
+    """The lane and shard meshes over every local card: a sweep's and a
+    serving engine's lanes and a fleet-scale plan equal the same calls on
+    this one card (on a one-card machine the meshes have size 1)."""
+    from repro_torch.fleet import solve_fleet
+    from repro_torch.launch.mesh import local_devices
+    from repro_torch.plan import PlanRequest
+    from repro_torch.serving import FedServeEngine
+    from repro_torch.sim.network import mega_fleet
+
+    cards = local_devices(cuda)
+    assert len(cards) == torch.cuda.device_count() and cards[0] == cuda
+    data, sessions = _sweep_sessions(cuda)
+    states = api.plan_sweep(sessions, data)
+    for run in (lambda devs: api.run_sweep(sessions, data, states=states,
+                                            devices=devs),
+                lambda devs: FedServeEngine(data, lane_width=2, device=cuda,
+                                            devices=devs).serve(
+                    sessions, states=states)):
+        for got, want in zip(run(cards), run([cuda])):
+            np.testing.assert_array_equal(got.nmse, want.nmse)
+            np.testing.assert_array_equal(got.beta, want.beta)
+    fleet = mega_fleet(5000, d=16, seed=1)
+    req = PlanRequest(edge=fleet.edge, server=fleet.server,
+                      data_sizes=np.full(5000, 12), c_up=256)
+    one = solve_fleet(req, chunk=512, device=cuda, devices=[cuda])
+    many = solve_fleet(req, chunk=512, device=cuda, devices=cards)
+    assert many.t_star == one.t_star and many.c == one.c
+    np.testing.assert_array_equal(many.loads, one.loads)
+
+
+def test_coded_head_probe_reduced_on_the_card_matches_cpu(cuda):
+    """`coded_head_probe.run` at reduced width on the card against the
+    CPU on the same weights and tokens: features within rtol 1e-4 / atol
+    1e-4 * max|CPU| (kernel 8 against the plain backbone), and exactly
+    the backbone's kernel-8 launches (one a layer), 12 encodes and 600
+    round gradients at D = d_model."""
+    from repro_torch import coded_head_probe as probe
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(probe.ARCH).reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device=torch.device("cpu"))
+    toks = torch.randint(0, cfg.vocab, (probe.N_CLIENTS, probe.ELL,
+                                        probe.SEQ),
+                         generator=torch.Generator().manual_seed(1))
+    want = probe.run(reduced=True, device="cpu", params=params, tokens=toks)
+    counters = (fa_ops.FLASH_COUNTER, enc_ops.COUNTER, rg_ops.COUNTER)
+    before = [c.launches for c in counters]
+    got = probe.run(reduced=True, device=cuda,
+                    params=_to_card(params, cuda),
+                    tokens=toks.to(cuda))
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [cfg.n_layers, probe.N_CLIENTS, 2 * probe.EPOCHS]
+    top = float(want["backbone_feats"].abs().max())
+    torch.testing.assert_close(got["backbone_feats"].cpu(),
+                               want["backbone_feats"], rtol=1e-4,
+                               atol=1e-4 * max(1.0, top))
+    for rep in got["reports"].values():
+        assert np.all(np.isfinite(rep.nmse)) and rep.nmse[-1] < rep.nmse[0]
+
+
+def _to_card(tree_, cuda):
+    return {k: _to_card(v, cuda) if isinstance(v, dict) else v.to(cuda)
+            for k, v in tree_.items()}
 
 
 def _train_leaves(params):

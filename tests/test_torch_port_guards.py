@@ -241,7 +241,7 @@ def test_kernel_route_never_computes_the_plain_version(monkeypatch, name):
     count."""
     call, entry, counter = RG_WRAPPERS[name]
     lib = mock.MagicMock()
-    lib.rg_max_d.return_value = 5810
+    lib.rg_residual_rows.return_value = 0
     lib.rg_num_ctas.side_effect = lambda m: -(-m // 16)
     getattr(lib, entry).return_value = 0
     monkeypatch.setattr(rg_ops, "_dispatch", lambda device: lib)
@@ -452,7 +452,7 @@ def test_row_tile_reaches_the_launch(monkeypatch, tile_cache):
     the kernel's own partition) and sizes the float64 partials; "auto"
     reads the cache; a tile that is not a multiple of 8 is refused."""
     lib = mock.MagicMock()
-    lib.rg_max_d.return_value = 5810
+    lib.rg_residual_rows.return_value = 0
     lib.rg_num_ctas.side_effect = lambda m: -(-m // 16)
     lib.rg_masked_round_gradient.return_value = 0
     lib.rg_coded_round_gradient.return_value = 0
@@ -584,7 +584,7 @@ def test_prng_fleet_launches_accumulate_in_client_order(monkeypatch):
 
 def test_lsq_route_never_computes_the_plain_version(monkeypatch):
     lib = mock.MagicMock()
-    lib.rg_max_d.return_value = 5810
+    lib.rg_residual_rows.return_value = 0
     lib.rg_num_ctas.side_effect = lambda m: -(-m // 16)
     lib.rg_lsq_gradient.return_value = 0
     assert cg_ops.COUNTER is rg_ops.LSQ_COUNTER
@@ -833,7 +833,7 @@ def test_kernel_route_refuses_operands_that_require_grad(monkeypatch, name):
     launches.  On the CPU the plain version stays differentiable."""
     ops, entry, call, operands = GRAD_WRAPPERS[name]
     lib = mock.MagicMock()
-    lib.rg_max_d.return_value = 5810
+    lib.rg_residual_rows.return_value = 0
     lib.rg_num_ctas.side_effect = lambda m: -(-m // 16)
     getattr(lib, entry).return_value = 0
     counters = [c for c in vars(ops).values()
