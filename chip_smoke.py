@@ -9,7 +9,9 @@ an H100, sm_90a).  Phases, each printed as it finishes:
   2. build every kernel source in `src/repro_torch/kernels/csrc/` (one
      `nvcc` per source, started together), print each kernel instance's
      `-Xptxas=-v` line (registers, static shared memory, spills) and
-     kernel 8's dynamic shared memory; kernel 8, kernel 2's
+     kernel 8's dynamic shared memory at D = 128 and 64 and the instance
+     each head size takes (the library's `flash_attn_instance` equal to
+     the wrapper's `instance`); kernel 8, kernel 2's
      `encode_kernel` and kernel 3's `encode_prng_kernel` instances, the
      round-gradient kernels (1, 4, 5, 6) and kernel 7's
      `ssd_chunk_kernel` instances must not spill (a library found built
@@ -157,7 +159,8 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      float32-FMA bound printed beside it; kernels 7 and 8 also at
      zamba2-1.2b's shapes (phase 3's operands), cold and warm, with their
      plain versions, library calls and bounds (the `hybrid_shape` of
-     their rows in the kernels line);
+     their rows in the kernels line), and kernel 8 at whisper-tiny's
+     decoder prefill (1, 6, 6, 440, 64) the same way (`whisper_shape`);
  14. gradient coding through the registry (`make_strategy("gradcode",
      r=...)`) on the §IV fleet and the quickstart's data, lr 0.0085, 600
      epochs: r = 2 and r = 3 each exactly 600 round-gradient launches at
@@ -369,7 +372,8 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      32, 8, 32, 128)) with their plain versions, library calls and
      bounds (the kernels line's `probe_shape`).  Phase 3 also holds
      kernels 1, 4, 5 and 6 at 768 rows and D = 4096 and 8192 (the
-     residual pass) to the float64 bound.
+     cluster route; kernel 4 at 8192 the residual pass and the
+     column-chunked launch) to the float64 bound.
  27. the lane and shard meshes over every local card (k =
      `torch.cuda.device_count()`): 8 CodedFL lanes of phase 18's sweep
      through `run_sweep` and `FedServeEngine(lane_width=4)` over the k
@@ -472,10 +476,11 @@ SSD_HYBRID_SHAPE = (1, 8, 256, 64, 64, 64)
 # by ~1e-6 of max: tests/test_torch_lm_serve.py,
 # test_rounding_of_the_attention_core_...)
 DENSE_ARCH, DENSE_PARAMS, DENSE_LOGIT_RTOL = "granite-8b", 8_254_689_280, 1e-3
-# phase 3: kernels 1, 4, 5 and 6 past the row-resident width (the
-# residual pass and the column-chunked launch) at the coded-head probe's
-# 12 x 64 rows and its 230 parity rows, D = granite-8b's d_model and
-# twice it, against the float64 bound as the §IV shapes are
+# phase 3: kernels 1, 4, 5 and 6 past the row-resident width (one launch
+# over clusters along D; kernel 4 at 8192 the residual pass and the
+# column-chunked launch) at the coded-head probe's 12 x 64 rows and its
+# 230 parity rows, D = granite-8b's d_model and twice it, against the
+# float64 bound as the §IV shapes are
 WIDE_ROWS, WIDE_PARITY, WIDE_DS = 768, 230, (4096, 8192)
 # phase 26: `python -m repro_torch.coded_head_probe` at full width and
 # depth (examples/coded_head_probe.py's 12 clients x 64 sequences of 32
@@ -2865,8 +2870,8 @@ def check_flash_kernel(dev, gen, errs: dict) -> tuple:
     of the float64 value (`kernels.flash_attn.ref.float64_reference_and_
     bound`, derived before the first run), within rtol 2e-4 / atol 2e-4
     of each other (`tests/test_kernels.py`), and a bit-identical
-    relaunch.  Returns the operands of granite's and of zamba2's serving
-    shapes."""
+    relaunch.  Returns the operands of granite's, zamba2's and
+    whisper-tiny's serving shapes."""
     from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.kernels.flash_attn import ref as fa_ref
 
@@ -2895,10 +2900,12 @@ def check_flash_kernel(dev, gen, errs: dict) -> tuple:
         check(ok, f"causal_attention {label} disagrees with plain")
         check(same, f"causal_attention {label} not deterministic")
         worst_err = max(worst_err, err)
-        if label in ("serving shape", "zamba2 serving shape"):
+        if label in ("serving shape", "zamba2 serving shape",
+                     "whisper-tiny serving shape"):
             out[label] = ops
     errs["causal_attention"] = worst_err
-    return out["serving shape"], out["zamba2 serving shape"]
+    return (out["serving shape"], out["zamba2 serving shape"],
+            out["whisper-tiny serving shape"])
 
 
 def sdpa_backend(q, k, v) -> str:
@@ -2945,8 +2952,6 @@ def time_hybrid_shapes(ssd_ops_, flash_ops_, card: str) -> dict:
     operands), cold and warm, their plain versions, the library calls of
     the serving shapes (held to the kernel first) and the bound of
     `roofline.kernel_terms`."""
-    from repro_torch.kernels.flash_attn import ops as fa_ops
-    from repro_torch.kernels.flash_attn import ref as fa_ref
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
 
@@ -2992,33 +2997,43 @@ def time_hybrid_shapes(ssd_ops_, flash_ops_, card: str) -> dict:
           f"{lib_err:.3e}), bound {r['bound_ms']!r} ms ({r['bound_by']}, "
           f"flops {r['flops']}, bytes {r['bytes']})")
 
-    shape = FLASH_HYBRID_SHAPE
+    out["causal_attention"] = time_flash(flash_ops_, FLASH_HYBRID_SHAPE,
+                                         "zamba2", card)
+    return out
+
+
+def time_flash(flash_ops_, shape, label: str, card: str) -> dict:
+    """Kernel 8 at `shape` (phase 3's operands of that shape), cold and
+    warm, its plain version, the library call (held to the kernel
+    first), the instance it takes and the bound of
+    `roofline.kernel_terms`."""
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.flash_attn import ref as fa_ref
+
     got = fa_ops.causal_attention(*flash_ops_)
     lib_err = float((sdpa_expanded(*flash_ops_) - got).abs().max())
-    check(lib_err <= 2e-4, "the library call of kernel 8 at zamba2's shape "
+    check(lib_err <= 2e-4, f"the library call of kernel 8 at {label}'s shape "
           f"disagrees with the kernel: {lib_err:.3e}")
     del got
     backend = sdpa_backend(*flash_ops_)
     cold = cold_copies(flash_ops_)
     terms = kernel_terms("causal_attention", shape)
-    out["causal_attention"] = {
-        "shape": list(shape),
-        "ms": time_ms(fa_ops.causal_attention, cold),
-        "ms_l2_warm": time_ms(fa_ops.causal_attention, [flash_ops_]),
-        "plain_ms": time_ms(fa_ref.causal_attention, cold, calls=4),
-        "library_ms": time_ms(sdpa_expanded, cold, calls=4),
-        "library": f"scaled_dot_product_attention(is_causal) on {backend}",
-        "bound_ms": 1e3 * terms["bound_s"], "bound_by": terms["bound_by"],
-        "flops": int(terms["flops"]), "bytes": int(terms["bytes"])}
+    r = {"shape": list(shape), "instance": fa_ops.instance(shape[4]),
+         "ms": time_ms(fa_ops.causal_attention, cold),
+         "ms_l2_warm": time_ms(fa_ops.causal_attention, [flash_ops_]),
+         "plain_ms": time_ms(fa_ref.causal_attention, cold, calls=4),
+         "library_ms": time_ms(sdpa_expanded, cold, calls=4),
+         "library": f"scaled_dot_product_attention(is_causal) on {backend}",
+         "bound_ms": 1e3 * terms["bound_s"], "bound_by": terms["bound_by"],
+         "flops": int(terms["flops"]), "bytes": int(terms["bytes"])}
     del cold
-    r = out["causal_attention"]
-    phase(f"time causal_attention {list(shape)} (zamba2) [{card}]: kernel "
-          f"{r['ms']!r} ms (L2 warm {r['ms_l2_warm']!r} ms), plain "
-          f"{r['plain_ms']!r} ms, library {r['library']} {r['library_ms']!r} "
-          f"ms (max |library - kernel| {lib_err:.3e}), bound "
-          f"{r['bound_ms']!r} ms ({r['bound_by']}, flops {r['flops']}, "
-          f"bytes {r['bytes']})")
-    return out
+    phase(f"time causal_attention {list(shape)} ({label}, the "
+          f"{r['instance']} instance) [{card}]: kernel {r['ms']!r} ms (L2 "
+          f"warm {r['ms_l2_warm']!r} ms), plain {r['plain_ms']!r} ms, "
+          f"library {r['library']} {r['library_ms']!r} ms (max |library - "
+          f"kernel| {lib_err:.3e}), bound {r['bound_ms']!r} ms "
+          f"({r['bound_by']}, flops {r['flops']}, bytes {r['bytes']})")
+    return r
 
 
 def ssd_library(xh, dth, dah, bh, ch):
@@ -3686,7 +3701,9 @@ def auto_tile(family: str, shape: tuple, dev) -> list:
 
 def check_wide_round_grads(dev, errs: dict) -> None:
     """Phase 3's checks of kernels 1, 4, 5 and 6 past the row-resident
-    width: at WIDE_ROWS x D for D in WIDE_DS each kernel and its plain
+    width (the cluster route; kernel 4 at D = 8192 the two-launch one, as
+    the library's `rg_route` and the wrapper's `route` both say): at
+    WIDE_ROWS x D for D in WIDE_DS each kernel and its plain
     version against the float64 bound (`held_to_float64`), a relaunch
     bit-identical, the tier kernel at T = 1 and the least-squares kernel
     `torch.equal` to the flat one.  Its own generator, so the other
@@ -3697,9 +3714,16 @@ def check_wide_round_grads(dev, errs: dict) -> None:
     gen = torch.Generator(device=dev).manual_seed(29)
     m, c = WIDE_ROWS, WIDE_PARITY
     worst = 0.0
+    lib = rg_ops._dispatch(dev)
     for d in WIDE_DS:
-        check(rg_ops._dispatch(dev).rg_residual_rows(m, d) == m,
-              f"D = {d} does not take the residual pass")
+        routes = {coded: rg_ops.ROUTES[lib.rg_route(d, coded)]
+                  for coded in (0, 1)}
+        phase(f"  D = {d}: route {routes[0]} (kernels 1, 5, 6), "
+              f"{routes[1]} (kernel 4)")
+        check(routes == {0: rg_ops.route(d), 1: rg_ops.route(d, coded=True)}
+              and routes[0] != "resident",
+              f"D = {d}: the library's routes {routes} are not the "
+              "wrapper's")
         x = torch.randn((m, d), generator=gen, device=dev)
         y = torch.randn((m,), generator=gen, device=dev)
         w = torch.rand((m,), generator=gen, device=dev)
@@ -4051,7 +4075,17 @@ def main() -> int:
           f"(empty), the committed defaults with {len(committed)} "
           f"cuda-sm90 entries")
     phase(f"  kernel 8 dynamic shared memory at D = {FLASH_SHAPE[4]}: "
-          f"{fa_ops.smem_bytes(FLASH_SHAPE[4])} bytes a CTA, two CTAs an SM")
+          f"{fa_ops.smem_bytes(FLASH_SHAPE[4])} bytes a CTA, two CTAs an SM; "
+          f"at D = 64 ({fa_ops.instance(64)} instance): "
+          f"{fa_ops.smem_bytes(64)} bytes a CTA, three CTAs an SM")
+    lib8 = fa_ops._dispatch(dev)
+    for d in (8, 40, 64, 70, 72, 128):
+        check(fa_ops.INSTANCES[lib8.flash_attn_instance(d, 1)]
+              == fa_ops.instance(d) and
+              fa_ops.INSTANCES[lib8.flash_attn_instance(d, 0)]
+              == fa_ops.instance(d, aligned=False),
+              f"kernel 8's library and wrapper disagree on D = {d}'s "
+              "instance")
     hmma = {}  # {kernel: HMMA count}, by its source and mangled name
     for kernel, name, function in (
             ("kernel 8", "flash_attn", ""),
@@ -4206,7 +4240,8 @@ def main() -> int:
     # the SSD intra-chunk step (kernel 7) at synthetic operands
     ssd_inputs, ssd_hybrid_inputs = check_ssd_kernel(dev, gen, errs)
     # causal flash attention (kernel 8) at synthetic operands
-    flash_inputs, flash_hybrid_inputs = check_flash_kernel(dev, gen, errs)
+    flash_inputs, flash_hybrid_inputs, flash_whisper_inputs = \
+        check_flash_kernel(dev, gen, errs)
     # kernels 1, 4, 5 and 6 past the row-resident width
     check_wide_round_grads(dev, errs)
 
@@ -4627,7 +4662,10 @@ def main() -> int:
           f"pipes {flash_bound_fp32!r} ms)")
     hybrid_times = time_hybrid_shapes(ssd_hybrid_inputs, flash_hybrid_inputs,
                                       card)
-    del ssd_hybrid_inputs, flash_hybrid_inputs
+    whisper_time = time_flash(flash_whisper_inputs,
+                              FLASH_CASES["whisper-tiny serving shape"],
+                              "whisper-tiny", card)
+    del ssd_hybrid_inputs, flash_hybrid_inputs, flash_whisper_inputs
     phase(f"serve [{card}]: granite-8b engine {dense['tokens_per_s']:.2f} "
           f"tokens/s, decode step median {dense['step_ms']:.3f} ms; "
           f"mamba2-1.3b engine {serve['tokens_per_s']:.2f} tokens/s, "
@@ -4892,6 +4930,7 @@ def main() -> int:
                         f"{gqa_backend}",
          "ms_l2_warm": flash_warm, "shape": list(FLASH_SHAPE),
          "hybrid_shape": hybrid_times["causal_attention"],
+         "whisper_shape": whisper_time,
          "probe_shape": probe["causal_attention"]},
     ]
     # kernels 1-6: the tile block="auto" launched at the record's shape,

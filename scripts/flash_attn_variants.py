@@ -1,6 +1,7 @@
 """Time variants of the causal flash-attention kernel (kernel 8) on one GPU.
 
-    python3 scripts/flash_attn_variants.py [--only NAME,NAME]
+    python3 scripts/flash_attn_variants.py [--only NAME,NAME] [--shape B,Hq,Hkv,S,D]
+    python3 scripts/flash_attn_variants.py --parent OLD.cu
 
 Builds `src/repro_torch/kernels/csrc/flash_attn.cu` and variants of it,
 each made by replacing some lines of the source (one `nvcc` per variant
@@ -8,7 +9,7 @@ through `kernels.build.start_nvcc`, all started together, into
 `build/flash_attn_variants/`; each line must occur once in the source,
 except the `tf32::split(` calls, which `no_split` and `cvt_rna` replace
 at all their occurrences; anything else stops the script), and times each at the serving shape of
-granite-8b, (B, Hq, Hkv, S, D) = (1, 32, 8, 2048, 128):
+granite-8b, (B, Hq, Hkv, S, D) = (1, 32, 8, 2048, 128), or at `--shape`:
 
   * kernel      — the source as it is;
   * plain_tf32  — one TF32 product per float32 product (big.big) in both
@@ -27,8 +28,12 @@ granite-8b, (B, Hq, Hkv, S, D) = (1, 32, 8, 2048, 128):
   * keys32      — 32-key K/V tiles (the shared tiles shrink to 69 KB);
   * keys32_3cta — 32-key tiles at three CTAs an SM (at most 170
                   registers a thread);
-  * runtime_nd  — D's column-tile count read at run time at D = 128 too
-                  (the instance other head sizes take);
+  * runtime_nd  — D's column-tile count read at run time at D = 128 and
+                  64 too (the instance other head sizes take);
+  * narrow_2cta — the D = 64 instance planned for two CTAs an SM, as
+                  D = 128's (at most 255 registers a thread);
+  * narrow_4cta — the D = 64 instance planned for four CTAs an SM (at
+                  most 128 registers a thread);
   * cvt_rna     — the splits by `cvt.rna.tf32.f32` instead of the integer
                   rounding of `tf32::rna` (the same results for finite
                   values: its difference from the kernel must be 0).
@@ -42,6 +47,21 @@ Time: CUDA events around 20 back-to-back launches on the same operands
 each variant's registers (ptxas), its time, and its largest difference
 from the unmodified kernel.
 
+With `--parent OLD.cu` (an earlier `csrc/flash_attn.cu`, e.g. the
+parent commit's unpacked into a git-ignored directory: `git show
+HEAD~1:src/repro_torch/kernels/csrc/flash_attn.cu >
+build/parent/flash_attn.cu`), the variants are skipped: OLD.cu and the
+current source are built side by side and compared at zamba2-1.2b's
+(1, 32, 32, 2048, 64), whisper-tiny's (1, 6, 6, 440, 64) and granite-8b's
+(1, 32, 8, 2048, 128) prefill shapes: the current result `torch.equal` to
+the earlier one's (the script fails otherwise), both within the float64
+bound of `kernels.flash_attn.ref.float64_reference_and_bound`, cold
+times (operands rotated over copies larger than twice the L2) in the
+order earlier, current, current, earlier, the library call of
+`chip_smoke.py` (`repeat_interleave` where heads are grouped, then
+`scaled_dot_product_attention(is_causal=True)`) and the bound of
+`repro_torch.roofline.kernel_terms`.
+
 Beside them, the rate of the instruction the kernel is built on: a kernel
 whose warps issue nothing but `mma.sync.aligned.m16n8k8` TF32 products
 (`tf32::mma` of `csrc/mma_tf32.cuh`) into `chains` independent
@@ -52,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import re
 import sys
 from pathlib import Path
@@ -73,8 +94,9 @@ PROB = "s[j][e] = expf(s[j][e] - m[e >> 1]);"
 SPLIT = "tf32::split("
 KK_UNROLL = "#pragma unroll 2\n"
 BK = "constexpr int kBk = 64; "
-BOUNDS = "__launch_bounds__(kThreads, 2)"
-FULL = "const bool full = (D + 7) / 8 == kMaxNd;"
+INSTANCE = "const int inst = instance(D, vec);"
+NARROW_BOUNDS = "__launch_bounds__(kThreads, kNd == kNarrowNd ? 3 : 2)"
+BOUNDS = NARROW_BOUNDS
 SOFTMAX_FIRST = "      const bool masked = t0 + kBk - 1 > r0 || t0 + kBk > S;\n"
 SOFTMAX_LAST = ("        for (int e = 0; e < 4; ++e) acc[j][e] *= "
                 "alpha[e >> 1];\n")
@@ -95,7 +117,9 @@ VARIANTS = {
     "keys32": {BK: "constexpr int kBk = 32; "},
     "keys32_3cta": {BK: "constexpr int kBk = 32; ",
                     BOUNDS: "__launch_bounds__(kThreads, 3)"},
-    "runtime_nd": {FULL: "const bool full = false;"},
+    "runtime_nd": {INSTANCE: "const int inst = 0;"},
+    "narrow_2cta": {NARROW_BOUNDS: "__launch_bounds__(kThreads, 2)"},
+    "narrow_4cta": {NARROW_BOUNDS: NARROW_BOUNDS.replace("? 3", "? 4")},
     "cvt_rna": {SPLIT: "cvt_split(",
                 INCLUDE: INCLUDE + r"""
 __device__ __forceinline__ uint32_t cvt_rna(float x) {
@@ -167,14 +191,99 @@ def mma_rates(stream) -> None:
                   f"TFLOP/s", flush=True)
 
 
+PARENT_SHAPES = {"zamba2-1.2b": (1, 32, 32, 2048, 64),
+                 "whisper-tiny": (1, 6, 6, 440, 64),
+                 "granite-8b": (1, 32, 8, 2048, 128)}
+L2_BYTES = 50 * 2**20
+
+
+def parent_report(parent: Path) -> bool:
+    """The current source against `parent` at PARENT_SHAPES (see the
+    module docstring); True when every result is equal and bounded."""
+    from repro_torch.kernels.flash_attn import ref
+    from repro_torch.roofline import kernel_terms
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in (("parent", parent),
+                      ("current", build.CSRC / "flash_attn.cu")):
+        lib = OUT / f"lib{name}_pair.so"
+        procs[name] = (build.start_nvcc(src, lib), lib)
+    fns = {}
+    for name, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name} failed to build:\n{log}")
+        fns[name] = library_function(lib, "flash_attn_launch",
+                                     ops._SIGNATURES)
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(30)
+    ok = True
+    for label, (B, Hq, Hkv, S, D) in PARENT_SHAPES.items():
+        q, k, v = (torch.randn((B, h, S, D), generator=gen, device=dev)
+                   for h in (Hq, Hkv, Hkv))
+
+        def call(name, q, k, v):
+            out = torch.empty_like(q)
+            strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+            if fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), B, Hq, Hkv, S, D, *strides,
+                         ops.scale(D), stream) != 0:
+                raise RuntimeError(f"{name} launch failed")
+            return out
+
+        def library(q, k, v):
+            rep = Hq // Hkv
+            if rep > 1:
+                k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True)
+
+        old, new = call("parent", q, k, v), call("current", q, k, v)
+        o64, bound = ref.float64_reference_and_bound(q, k, v)
+        torch.cuda.synchronize()
+        share = {n: float(((o.double() - o64).abs() / bound).max())
+                 for n, o in (("earlier", old), ("current", new))}
+        lib_err = float((library(q, k, v) - new).abs().max())
+        equal = torch.equal(old, new)
+        ok &= equal and max(share.values()) <= 1.0
+        del o64, bound
+        n = -(-2 * L2_BYTES // (4 * (q.numel() + 2 * k.numel()))) + 1
+        copies = [(q.clone(), k.clone(), v.clone()) for _ in range(n)]
+        cyc = itertools.cycle(copies)
+        times = [median_ms(lambda: call(name, *next(cyc)))[0]
+                 for name in ("parent", "current", "current", "parent")]
+        lib_ms = median_ms(lambda: library(*next(cyc)), calls=4)[0]
+        terms = kernel_terms("causal_attention", (B, Hq, Hkv, S, D))
+        print(f"{label} (B, Hq, Hkv, S, D) = {(B, Hq, Hkv, S, D)}: instance "
+              f"{ops.instance(D)}; torch.equal to the earlier build {equal}; "
+              f"float64-bound share earlier {share['earlier']:.4f}, current "
+              f"{share['current']:.4f}; cold us earlier, current, current, "
+              f"earlier " + ", ".join(f"{1e3 * t:.3f}" for t in times)
+              + f"; library {1e3 * lib_ms!r} us (max |library - kernel| "
+              f"{lib_err:.3e}); bound {1e6 * terms['bound_s']!r} us "
+              f"({terms['bound_by']})", flush=True)
+        del copies, cyc
+    return ok
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--only", default=",".join(VARIANTS))
-    names = parser.parse_args().only.split(",")
+    parser.add_argument("--shape", default=",".join(map(str, SHAPE)),
+                        help="B,Hq,Hkv,S,D of the timed operands")
+    parser.add_argument("--parent", type=Path, default=None)
+    args = parser.parse_args()
+    names = args.only.split(",")
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
     print_card()
+    if args.parent is not None:
+        ok = parent_report(args.parent)
+        print(f"flash_attn parent comparison ok {ok}", flush=True)
+        return 0 if ok else 1
     libs = {}
     built = build_variants("flash_attn", {n: VARIANTS[n] for n in names}, OUT,
                            every=frozenset({SPLIT}))
@@ -188,7 +297,7 @@ def main() -> int:
               flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    B, Hq, Hkv, S, D = SHAPE
+    B, Hq, Hkv, S, D = map(int, args.shape.split(","))
     q, k, v = (torch.randn((B, h, S, D), generator=gen, device=dev)
                for h in (Hq, Hkv, Hkv))
     strides = [st for t in (q, k, v, q) for st in t.stride()[:3]]

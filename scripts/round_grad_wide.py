@@ -4,24 +4,30 @@ past the row-resident width, on one GPU.
     python3 scripts/round_grad_wide.py [--parent OLD.cu] [--calls 40]
 
 With `--parent`, OLD.cu (an earlier `csrc/round_grad.cu`, for example the
-parent commit's from `git archive`, whose C entry points take no residual
-scratch) and the current source are compiled side by side, and at the
-shapes `chip_smoke.py` drives (phase 3's operands: the flat kernel at
-(5632, 500) with weights and (7200, 500) without, the coded kernel at
-7200 + 2016 rows, the tier kernel at T = 3 and 8, the least-squares
-kernel at (2016, 500); and D = 3000 and the widest row-resident D) each
-result of the current build must be `torch.equal` to the earlier one's.
-Each case is then timed cold (operands rotated over copies larger than
-twice the L2) in the order earlier, current, current, earlier.
+parent commit's from `git archive`; a source whose C entry points take no
+residual scratch, as before any D was taken, is called without it) and
+the current source are compiled side by side, and at the shapes
+`chip_smoke.py` drives (phase 3's operands: the flat kernel at (5632,
+500) with weights and (7200, 500) without, the coded kernel at 7200 +
+2016 rows, the tier kernel at T = 3 and 8, the least-squares kernel at
+(2016, 500); and D = 3000 and the widest row-resident D) each result of
+the current build must be `torch.equal` to the earlier one's.  Each case
+is then timed cold (operands rotated over copies larger than twice the
+L2) in the order earlier, current, current, earlier.
 
-Then, for the current build past the row-resident width (768 rows: the
-coded-head probe's 12 x 64 clients at granite-8b's D = 4096; and D =
-8192): each kernel and its plain float32 version against the float64
-expression within rtol 1e-3 + 1e-6 * S (chip_smoke's bound, S the summed
-|terms|), with the share of the bound each reaches, and the cold times
-of the kernel, the plain version, the library product (coef @ X) and the
+Then, past the row-resident width (768 rows: the coded-head probe's 12 x
+64 clients at granite-8b's D = 4096, 230 parity rows; and D = 8192):
+kernels 1, 4, 5 (T = 3) and 6 of the current build (and of the earlier
+one, with `--parent`), and the plain float32 version, against the
+float64 expression within rtol 1e-3 + 1e-6 * S (chip_smoke's bound, S
+the summed |terms|), with the share of the bound each reaches, and the
+cold times of the kernel (earlier, current, current, earlier with
+`--parent`), the plain version, the library product (coef @ X) and the
 bound of `repro_torch.roofline.kernel_terms`.  Needs a CUDA card (sm_90a)
-and `nvcc`.
+and `nvcc`.  To run it against the parent commit, unpack the parent's source into a git-ignored directory first, e.g.
+`git show HEAD~1:src/repro_torch/kernels/csrc/round_grad.cu >
+build/parent/round_grad.cu`, then `python3 scripts/round_grad_wide.py
+--parent build/parent/round_grad.cu`.
 """
 from __future__ import annotations
 
@@ -66,14 +72,14 @@ def compile_pair(parent: Path | None) -> dict[str, ctypes.CDLL]:
             raise RuntimeError(f"{name} failed to build:\n{log}")
         libs[name] = ctypes.CDLL(str(lib))
         libs[name].rg_num_ctas.argtypes = [ctypes.c_int]
-        if name == "current":
+        scratch = hasattr(libs[name], "rg_residual_rows")
+        if scratch:
             libs[name].rg_residual_rows.argtypes = [ctypes.c_int] * 2
         for entry in ENTRIES:
             args, res = ops._SIGNATURES[entry]
             fn = getattr(libs[name], entry)
-            # the earlier entry points take no residual scratch pointer
-            fn.argtypes = args if name == "current" else args[:-2] + \
-                args[-1:]
+            # entry points from before any D take no residual scratch
+            fn.argtypes = args if scratch else args[:-2] + args[-1:]
             fn.restype = res
     return libs
 
@@ -83,18 +89,22 @@ def caller(lib: ctypes.CDLL, name: str, dev):
     each at the kernels' own partition (tile 0)."""
     counter = torch.zeros(2, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    current = name == "current"
+    current = hasattr(lib, "rg_residual_rows")  # takes the scratch
 
     def p(t):
         return None if t is None else t.data_ptr()
 
-    def scratch(rows, d):
-        n = lib.rg_residual_rows(rows, d) if current else 0
+    def scratch(rows, d, coded):
+        rows_of = lib.rg_residual_rows
+        if coded and hasattr(lib, "rg_coded_residual_rows"):
+            rows_of = lib.rg_coded_residual_rows
+            rows_of.argtypes = [ctypes.c_int] * 2
+        n = rows_of(rows, d) if current else 0
         return (torch.empty(n, dtype=torch.float64, device=dev),) \
             if n else (None,)
 
-    def tail(rows, d):  # (tile, [res,] stream)
-        return (0,) + (tuple(p(t) for t in scratch(rows, d))
+    def tail(rows, d, coded=False):  # (tile, [res,] stream)
+        return (0,) + (tuple(p(t) for t in scratch(rows, d, coded))
                        if current else ()) + (stream,)
 
     def check(status, what):
@@ -128,7 +138,7 @@ def caller(lib: ctypes.CDLL, name: str, dev):
         out = torch.empty(d, device=dev)
         check(lib.rg_coded_round_gradient(
             p(x), p(y), p(w), m, p(xp), p(yp), p(wp), c, p(beta), p(part),
-            p(out), p(counter), d, *tail(m + c, d)), "coded")
+            p(out), p(counter), d, *tail(m + c, d, coded=True)), "coded")
         return out
 
     def lsq(a, y, beta):
@@ -207,9 +217,11 @@ def share_of_bound(got, x, y, w, beta, masks=None) -> float:
     return float((err / (1e-3 * exact.abs() + 1e-6 * scale)).max())
 
 
-def wide_report(dev, calls: int) -> bool:
+def wide_report(dev, calls: int, builds: dict | None) -> bool:
     """Kernels 1, 4, 5 and 6 at D = 4096 and 8192 against float64 and
-    plain, with cold times; True when every one is inside the bound."""
+    plain, with cold times (of both builds in turns where `builds` holds
+    {"parent": calls, "current": calls} from `caller`); True when every
+    one is inside the bound."""
     gen = torch.Generator(device=dev).manual_seed(1)
     ok = True
     for m, d in ((768, 4096), (768, 8192)):
@@ -225,12 +237,13 @@ def wide_report(dev, calls: int) -> bool:
                  == tier_of[None, :]).float()
         coef = ((x @ beta - y) * w).contiguous()
         cases = {
-            "kernel 1": (ops.masked_round_gradient,
+            "kernel 1": ("flat", ops.masked_round_gradient,
                          ref.masked_round_gradient, (x, y, w, beta),
                          ("round_grad", (m, d)),
                          lambda c, xs: c @ xs, (coef, x),
                          dict(x=x, y=y, w=w, beta=beta)),
-            "kernel 4": (ops.coded_round_gradient, ref.coded_round_gradient,
+            "kernel 4": ("coded", ops.coded_round_gradient,
+                         ref.coded_round_gradient,
                          (x, y, w, xp, yp, wp, beta),
                          ("coded_round_grad", (m, 230, d)),
                          lambda c, xs: c @ xs,
@@ -238,39 +251,51 @@ def wide_report(dev, calls: int) -> bool:
                           torch.cat([x, xp])),
                          dict(x=torch.cat([x, xp]), y=torch.cat([y, yp]),
                               w=torch.cat([w, wp]), beta=beta)),
-            "kernel 5": (ops.tier_masked_round_gradient,
+            "kernel 5": ("tier", ops.tier_masked_round_gradient,
                          ref.tier_masked_round_gradient,
                          (x, y, w, masks, beta),
                          ("tier_round_grad", (m, d, 3)),
                          lambda c, xs: c @ xs,
                          ((coef[None, :] * masks).contiguous(), x),
                          dict(x=x, y=y, w=w, beta=beta, masks=masks)),
-            "kernel 6": (ops.lsq_gradient, ref.lsq_gradient, (x, y, beta),
-                         ("coded_grad", (m, d)), lambda c, xs: c @ xs,
+            "kernel 6": ("lsq", ops.lsq_gradient, ref.lsq_gradient,
+                         (x, y, beta), ("coded_grad", (m, d)),
+                         lambda c, xs: c @ xs,
                          ((x @ beta - y).contiguous(), x),
                          dict(x=x, y=y, w=None, beta=beta)),
         }
-        for name, (kfn, pfn, operands, (family, shape), lib_fn, lib_ops,
-                   exact) in cases.items():
+        for name, (kind, kfn, pfn, operands, (family, shape), lib_fn,
+                   lib_ops, exact) in cases.items():
             got, plain = kfn(*operands), pfn(*operands)
             again = kfn(*operands)
+            old = builds["parent"][kind](*operands) if builds else None
             torch.cuda.synchronize()
             k_share = share_of_bound(got, **exact)
             p_share = share_of_bound(plain, **exact)
+            o_share = share_of_bound(old, **exact) if builds else 0.0
             terms = kernel_terms(family, shape)
-            k_ms = cold_ms(kfn, operands, calls)
+            if builds:
+                k_times = [cold_ms(builds[n][kind], operands, calls)
+                           for n in ("parent", "current", "current",
+                                     "parent")]
+                times = ("cold us earlier, current, current, earlier "
+                         + ", ".join(f"{1e3 * t:.3f}" for t in k_times))
+            else:
+                times = f"cold kernel {1e3 * cold_ms(kfn, operands, calls)!r} us"
             p_ms = cold_ms(pfn, operands, calls)
             l_ms = cold_ms(lib_fn, lib_ops, calls)
-            inside = k_share <= 1.0 and p_share <= 1.0 and \
+            inside = max(k_share, p_share, o_share) <= 1.0 and \
                 torch.equal(got, again)
             ok &= inside
-            print(f"{name} {shape}: float64-bound share kernel {k_share:.3e}"
-                  f", plain {p_share:.3e}; max |kernel - plain| "
+            print(f"{name} {shape} (route "
+                  f"{ops.route(d, coded=kind == 'coded')}): float64-bound "
+                  f"share kernel {k_share:.3e}"
+                  + (f", earlier build {o_share:.3e}" if builds else "")
+                  + f", plain {p_share:.3e}; max |kernel - plain| "
                   f"{float((got - plain).abs().max()):.3e}; relaunch "
-                  f"bit-identical {torch.equal(got, again)}; cold kernel "
-                  f"{1e3 * k_ms!r} us, plain {1e3 * p_ms!r} us, library "
-                  f"coef @ X {1e3 * l_ms!r} us, bound "
-                  f"{1e6 * terms['bound_s']!r} us ({terms['bound_by']}, "
+                  f"bit-identical {torch.equal(got, again)}; {times}; plain "
+                  f"{1e3 * p_ms!r} us, library coef @ X {1e3 * l_ms!r} us, "
+                  f"bound {1e6 * terms['bound_s']!r} us ({terms['bound_by']}, "
                   f"{int(terms['bytes'])} bytes)", flush=True)
     return ok
 
@@ -286,12 +311,10 @@ def main() -> int:
     print_card()
     dev = resolve_device("cuda")
     ok = True
+    calls = None
     if args.parent is not None:
         libs = compile_pair(args.parent)
-        lib = libs["current"]
-        widest = 8192
-        while lib.rg_residual_rows(1, widest):
-            widest -= 1
+        widest = ops.RESIDENT_MAX_D
         print(f"widest row-resident D {widest}", flush=True)
         calls = {name: caller(lib_, name, dev) for name, lib_ in libs.items()}
         for label, (kind, operands) in driven_cases(dev, widest).items():
@@ -305,7 +328,7 @@ def main() -> int:
             print(f"{label}: torch.equal to the earlier build {equal}; cold "
                   f"us earlier, current, current, earlier "
                   + ", ".join(f"{1e3 * t:.3f}" for t in times), flush=True)
-    ok &= wide_report(dev, args.calls)
+    ok &= wide_report(dev, args.calls, calls)
     print(f"round_grad_wide ok {ok}", flush=True)
     return 0 if ok else 1
 

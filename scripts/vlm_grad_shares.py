@@ -19,10 +19,19 @@ atol 1e-6 * max(1, max|ref|)):
   2. each block's own backward: its VJP on the same float32 input and the
      float64 cotangent at its output, rounded to float32;
   3. the same for the parts of the first self block (its attention half,
-     its MLP half, its attention norm and its attention core alone).
-The blocks run one by one here (each package's block functions), so the
-reference's float32 numbers differ slightly from its scanned, jitted
-`loss_fn`'s.
+     its MLP half, its attention norm and its attention core alone);
+  4. the embedding leaf of the whole gradient, as the test computes it
+     (`launch.steps.value_and_grad` of `loss_fn` against the jitted
+     `jax.value_and_grad` of the reference's, and its float64 gradient
+     under `jax.enable_x64`), for the port as it is and for a variant
+     whose self blocks' attention core (scores, softmax, P.V and their
+     backward) runs in float64, its output rounded once to float32 (the
+     causal cores of `models.layers.gqa_scores_apply`, swapped in this
+     process only): shares against float64 and against the reference's
+     float32 gradient.
+The blocks of 1-3 run one by one here (each package's block functions),
+so the reference's float32 numbers there differ slightly from its
+scanned, jitted `loss_fn`'s, which 4 uses.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro_torch import interop
 from repro_torch.configs import VLMSpec, get_config
+from repro_torch.launch import steps
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -201,6 +211,60 @@ def main() -> None:
         for name, (xin, ct) in inputs.items():
             print(f"   max|input| {np.abs(xin).max():.3g}:", end="")
             local(name, f64[name], f32[name], port[name], xin, ct)
+
+
+    whole_gradient(jcfg, cfg, jp, toks, patches)
+
+
+def float64_causal_core(q, k, v, mask, impl="grouped",
+                        softmax_dtype=torch.float32):
+    """`gqa_scores_apply` with a masked (causal) core in float64: q, k, v
+    widened, scores, softmax and P.V in float64 (their backward too), the
+    output rounded once to q's dtype.  Unmasked cores (the cross blocks)
+    are the plain float32 expression."""
+    if mask is None:
+        return _GQA(q, k, v, mask, impl, softmax_dtype)
+    return _GQA(q.double(), k.double(), v.double(), mask, impl,
+                torch.float64).to(q.dtype)
+
+
+_GQA = L.gqa_scores_apply
+
+
+def whole_gradient(jcfg, cfg, jp, toks, patches) -> None:
+    """Section 4: the embedding leaf of the whole gradient."""
+    tokens = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    jb = {k: jnp.asarray(v, jnp.int32) for k, v in tokens.items()}
+    jb["patches"] = jnp.asarray(patches)
+    b = {k: torch.as_tensor(v, dtype=torch.int64) for k, v in tokens.items()}
+    b["patches"] = torch.from_numpy(patches)
+    _, j32 = jax.jit(jax.value_and_grad(
+        lambda q, bb: (JT.loss_fn(jcfg, q, bb)[0],
+                       JT.forward_train(jcfg, q, bb)[0]),
+        has_aux=True))(jp, jb)
+    j32 = np.asarray(j32["embed"], np.float64)
+    with jax.enable_x64(True):
+        to64 = lambda a: (jnp.asarray(np.asarray(a), jnp.float64)  # noqa
+                          if np.asarray(a).dtype == np.float32 else a)
+        g64 = np.asarray(jax.jit(jax.grad(lambda q, bb: JT.loss_fn(
+            jcfg, q, bb, compute_dtype=jnp.float64)[0]))(
+                jax.tree.map(to64, jp), jax.tree.map(to64, jb))["embed"])
+    params = interop.lm_params(jp, torch.device("cpu"))
+    print("4. the embedding leaf of the whole gradient: against the "
+          "reference's float64, against its float32")
+    print(f"   reference float32      {share(j32, g64):.3f}")
+    for label, core in (("port", _GQA),
+                        ("port, f64 self cores", float64_causal_core)):
+        L.gqa_scores_apply = core
+        try:
+            _, _, grads = steps.value_and_grad(
+                lambda q: T.loss_fn(cfg, q, b), params)
+        finally:
+            L.gqa_scores_apply = _GQA
+        got = grads["embed"].double().numpy()
+        print(f"   {label:22s} {share(got, g64):.3f} {share(got, j32):.3f}"
+              f" (|port - reference f32| {np.linalg.norm(got - j32):.3e})",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -38,6 +38,17 @@
 //     softmax, which leave the tensor cores idle, overlap the other CTA's
 //     products.  With one CTA of 8 warps an SM, every warp in the same
 //     phase, the softmax's latency stood in the products' way.
+//   * Head size 64 (zamba2-1.2b, whisper-tiny) has its own compile-time
+//     instance (kNarrowNd column tiles) planned for three CTAs an SM: its
+//     loops over D have fixed counts and its accumulators half of D =
+//     128's (142 registers a thread, at most 170 allowed; 54,272 bytes
+//     of shared memory a CTA), where the run-time-D instance that D = 64
+//     took before keeps D = 128's register plan (198) and holds two.  At
+//     D = 64 the products are half of D = 128's while each tile's softmax
+//     and barriers stay, so the third CTA an SM is what overlaps them.
+//     Two m16 row tiles a warp (each K and V split feeding two products)
+//     measured no faster at zamba2's shape and slower at whisper-tiny's
+//     (`scripts/flash_attn_variants.py`, PERF.md).
 //   * Each warp splits the K and V elements of its fragments as it reads
 //     them, from raw float32 tiles: a split of every tile once per CTA
 //     into shared memory doubles the bytes each fragment load reads and
@@ -100,6 +111,7 @@ constexpr int kBq = 16 * kWarps;  // query rows of a CTA, 16 per warp
 constexpr int kBk = 64;           // keys of a K/V tile
 constexpr int kSt = kBk / 8;      // score n-tiles a warp holds
 constexpr int kMaxNd = 16;        // 8-wide column tiles of D <= 128
+constexpr int kNarrowNd = 8;      // those of D in 57..64 (head size 64)
 constexpr float kNegInf = -1e30f;
 
 struct Strides {
@@ -188,10 +200,10 @@ __device__ __forceinline__ float sum16(const float (&s)[kSt][4], int e) {
   return x[0];
 }
 
-// kNd: the 8-wide column tiles of D, fixed at compile time (16: D in
-// 121..128), or 0 for a count read at run time.
+// kNd: the 8-wide column tiles of D, fixed at compile time (kMaxNd: D in
+// 121..128; kNarrowNd: D in 57..64), or 0 for a count read at run time.
 template <bool kVec, int kNd>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kNd == kNarrowNd ? 3 : 2)
 flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
                   Strides sq, Strides sk, Strides sv, Strides so, int S,
@@ -406,6 +418,17 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// The instance a call takes: 1 the D = 128 one (nd = kMaxNd), 2 the
+// head-size-64 one (nd = kNarrowNd), both with 16-byte copies (vec);
+// 0 the run-time-D instance (any other D, or a view that takes 4-byte
+// copies).  The compile-time instances compute what the run-time one
+// computes, in the same order: their results are its bit for bit.
+int instance(int D, bool vec) {
+  const int nd = (D + 7) / 8;
+  if (!vec) return 0;
+  return nd == kMaxNd ? 1 : nd == kNarrowNd ? 2 : 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -434,11 +457,14 @@ int flash_attn_launch(const float* q, const float* k, const float* v,
                    aligned16(v) &&
                    ((q_b | q_h | q_s | k_b | k_h | k_s | v_b | v_h | v_s) &
                     3) == 0;
-  const bool full = (D + 7) / 8 == kMaxNd;
+  const int inst = instance(D, vec);
   cudaError_t e;
-  if (vec && full)
+  if (inst == 1)
     e = launch<true, kMaxNd>(q, k, v, o, B, Hq, S, D, rep, sq, sk, sv, so,
                              scale, st);
+  else if (inst == 2)
+    e = launch<true, kNarrowNd>(q, k, v, o, B, Hq, S, D, rep, sq, sk, sv,
+                                so, scale, st);
   else if (vec)
     e = launch<true, 0>(q, k, v, o, B, Hq, S, D, rep, sq, sk, sv, so, scale,
                         st);
@@ -454,5 +480,10 @@ int flash_attn_smem_bytes(int D) {
   return D > 0 && D <= 8 * kMaxNd ? static_cast<int>(smem_bytes((D + 7) / 8))
                                   : -1;
 }
+
+// The instance flash_attn_launch takes at head size D with 16-byte copies
+// (vec != 0) or 4-byte ones: 1 D = 128's, 2 D = 64's, 0 the run-time-D
+// one.
+int flash_attn_instance(int D, int vec) { return instance(D, vec != 0); }
 
 }  // extern "C"

@@ -100,18 +100,48 @@
 //     masked in the kernel; nothing is padded on the host.
 //   * Any D.  The row-resident instances above stage whole rows, so a
 //     two-row ring a warp with four masks a row fits the CTA's shared
-//     memory up to D = resident_max_d() (3220).  A wider D takes two
-//     launches a call: `residual_kernel` forms each row's coefficient
-//     (x . beta - y) * w once, a warp dot over D in float64 (four
-//     partial sums a lane, the fixed xor-butterfly), into a float64 (M,)
-//     scratch; then the same warps, rings and reduce as above over about
-//     kTargetCtas CTAs in all (row ranges of ~rows * chunks /
-//     kTargetCtas rows), each CTA staging only its kChunk columns of a
-//     row and reading the row's coefficient from the scratch (`kWide`).
-//     Both launches are fixed-order and free of atomics on values; the
-//     sums stay float64 and are rounded once.  At D <= resident_max_d()
-//     nothing of this runs, so those results are the row-resident
-//     instances' bit for bit.
+//     memory up to D = resident_max_d() (3220).  Past it, up to
+//     kMaxCluster column chunks (D <= 8192), one launch over thread-block
+//     clusters reads X once (`cluster_round_grad_kernel`, route kCluster):
+//     a cluster of ceil(D / kChunk) CTAs along D owns a row range (the
+//     partition of ~rows * chunks / kTargetCtas rows, or the row tile),
+//     one CTA a kChunk-column chunk.  Each warp stages its chunk of its
+//     rows, `batch` rows at a time (all of them where they fit, else
+//     kBatch rows with the next batch in flight), by one bulk copy a row
+//     completing on an mbarrier (cp.async.bulk; 4-byte cp.async where X
+//     is not 16-byte aligned or D % 4 != 0), forms each row's partial dot
+//     over its chunk (float64, four partial sums a lane, the fixed
+//     xor-butterfly) into its own shared memory, then, after one cluster
+//     barrier a batch, lane s reads row s's partial dots of every rank
+//     through distributed shared memory and adds them in float64 in rank
+//     order, so every CTA of the cluster forms the same coefficient
+//     (x . beta - y) * w bits with no round trip to device memory.  The
+//     chunk is still resident: coef * mask_t * x goes into the same
+//     float64 sums, the warps' sums into the CTA's partial, and the
+//     partials through the fixed-order sums of the reduce above, with
+//     tickets taken a cluster at a time: the last cluster to take one is
+//     the only reducer (one column a thread, all of its partials' loads
+//     in flight), so no CTA ever waits on another cluster, and no waiting
+//     reducer can hold the SMs that a cluster still to run needs, whatever
+//     the grid (a cap on waiters from cudaOccupancyMaxActiveClusters
+//     would not do: CTAs become resident a whole cluster at a time, so
+//     one waiter can keep a cluster from a GPC).  The dot slots are
+//     double-buffered: a rank overwrites slot k % 2 only
+//     after the barrier of batch k + 1, which every CTA reaches after
+//     reading batch k's.  A wider D (more chunks than kMaxCluster) takes
+//     two launches a call: `residual_kernel` forms each row's coefficient
+//     (x . beta - y) * w once, a warp dot over D in float64 (four partial
+//     sums a lane, the fixed xor-butterfly), into a float64 (M,) scratch;
+//     then the same warps, rings and reduce as above over about
+//     kTargetCtas CTAs in all, each CTA staging only its kChunk columns of
+//     a row and reading the row's coefficient from the scratch (`kWide`).
+//     The coded variant takes clusters up to kPortableCluster CTAs only
+//     (D <= 4096) and the two-launch route past it.  Every path is
+//     fixed-order and free of atomics on values; the sums stay float64
+//     and are rounded once.  The route is a function of D and the
+//     variant (`route`; the wrapper's `route` mirrors it).  At D <=
+//     resident_max_d() nothing of this runs, so those results are the
+//     row-resident instances' bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -128,6 +158,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxStages = 4;         // depth of each warp's ring
 constexpr int kTargetCtas = 128;      // the row partition aims at this many
+constexpr int kClusterCtas = 112;     // the cluster route's partition aims at
 constexpr int kLaneCols = 16;         // columns a lane sums, per tier
 constexpr int kChunk = 32 * kLaneCols;  // columns a CTA sums (blockIdx.y)
 constexpr int kMaxTiers = 4;          // tiers a launch sums
@@ -137,6 +168,10 @@ constexpr int kRedBatch = 8;          // partials a reducer thread loads at once
 constexpr int kMaxReducers = 32;      // CTAs that sum the partials, at most
 // the dynamic shared memory one CTA may use (227 KB less the static)
 constexpr int kDynFloats = (232448 - 64) / 4;
+constexpr int kMaxCluster = 16;       // column chunks of the cluster route
+constexpr int kPortableCluster = 8;   // past it, a non-portable cluster size
+constexpr int kWholeRows = 12;        // a warp's rows staged in one batch
+constexpr int kBatch = 4;             // else rows a batch, two in flight
 static_assert(kMaxStages >= 2 && kMaxStages <= 8, "ring depth");
 static_assert(kThreads % kRedItems == 0, "reducer threads");
 
@@ -145,25 +180,28 @@ static_assert(kThreads % kRedItems == 0, "reducer threads");
 __host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
 
 // Rows a CTA owns: the row tile `tile` where it is positive, else
-// ~rows * chunks / kTargetCtas, a multiple of the warps (warp w takes
-// rows w, w + kWarps, ...), a function of `rows` and `chunks` alone.
+// ~rows * chunks / target, a multiple of the warps (warp w takes rows w,
+// w + kWarps, ...), a function of `rows` and `chunks` alone.  The cluster
+// route aims at kClusterCtas: at 768 rows and D = 4096, 14 clusters of 8,
+// which an H100 holds at once at four tiers a launch (one CTA an SM; it
+// holds 15) as at one.
 // The row-resident instances pass chunks = 1 (about kTargetCtas row
 // ranges, each run by every column chunk's CTA); the wide ones the
 // column chunks of D, so that a launch stays near kTargetCtas CTAs in
 // all, each warp streaming several rows, and never needs more partials
 // than chunks = 1 (the count `rg_num_ctas` sizes).
-int rows_per_cta(int rows, int tile, int chunks = 1) {
+int rows_per_cta(int rows, int tile, int chunks = 1,
+                 int target = kTargetCtas) {
   if (tile > 0) return tile;
-  int64_t r = (static_cast<int64_t>(rows) * chunks + kTargetCtas - 1) /
-              kTargetCtas;
+  int64_t r = (static_cast<int64_t>(rows) * chunks + target - 1) / target;
   r = (r + kWarps - 1) / kWarps * kWarps;
   return r < kWarps ? kWarps : static_cast<int>(r);
 }
 
 // CTAs over `rows` rows (one for an empty block, which adds a zero
 // partial).
-int ctas_for(int rows, int tile, int chunks = 1) {
-  const int rpc = rows_per_cta(rows, tile, chunks);
+int ctas_for(int rows, int tile, int chunks = 1, int target = kTargetCtas) {
+  const int rpc = rows_per_cta(rows, tile, chunks, target);
   const int n = (rows + rpc - 1) / rpc;
   return n < 1 ? 1 : n;
 }
@@ -222,7 +260,40 @@ int resident_max_d() {
   return limit;
 }
 
-bool is_wide(int d) { return d > resident_max_d(); }
+// How a call at this D runs: the row-resident instances, one launch over
+// clusters along D, or the residual pass and the column-chunked launch.
+// The coded variant takes clusters up to the portable size only: its two
+// blocks' row ranges round up to 8 clusters of 16 CTAs at (768 + 230,
+// 8192), of which an H100 holds 7 at once, and there it ran slower than
+// the two-launch route (PERF.md).
+enum Route { kResident = 0, kCluster = 1, kTwoLaunch = 2 };
+
+Route route(int d, bool coded = false) {
+  if (d <= resident_max_d()) return kResident;
+  return chunks_for(d) <= (coded ? kPortableCluster : kMaxCluster)
+             ? kCluster : kTwoLaunch;
+}
+
+// The cluster route's staging: rows a warp stages a batch and the batches
+// in flight (1: all of the warp's rows at once; 2: kBatch rows while the
+// next kBatch land), from the rows a CTA owns.
+void cluster_batches(int rpc, int* batch, int* bufs) {
+  const int rows = (rpc + kWarps - 1) / kWarps;
+  *batch = rows <= kWholeRows ? rows : kBatch;
+  *bufs = rows <= kWholeRows ? 1 : 2;
+}
+
+// Floats of a cluster CTA's rings (kWarps x bufs x batch stages of kChunk
+// columns), which the warps' float64 sums reuse at the end; then the two
+// dot slots (float64, kWarps x batch each) and one mbarrier a stage.
+__host__ __device__ inline int cluster_ring_floats(int batch, int bufs) {
+  const int ring = kWarps * bufs * batch * kChunk;
+  return ring > 2 * kWarps * kChunk ? ring : 2 * kWarps * kChunk;
+}
+int cluster_smem_floats(int batch, int bufs) {
+  return cluster_ring_floats(batch, bufs) + 4 * kWarps * batch +
+         2 * kWarps * bufs * batch;
+}
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
@@ -297,6 +368,65 @@ __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
   return v;
 }
 
+// -- the cluster route's helpers -------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of shared::cta address `addr` in CTA `rank`.
+__device__ __forceinline__ uint32_t map_to(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ double ld_cluster_f64(uint32_t addr) {
+  double v;
+  asm volatile("ld.shared::cluster.f64 %0, [%1];\n"
+               : "=d"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// Every thread of the cluster meets here: what each wrote to any CTA's
+// shared memory before is visible to all after.
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of barrier `bar` completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// global `src` to shared `dst`, completing on the mbarrier `bar`, which
+// this call arms (one arrival and the bytes).
+__device__ __forceinline__ void bulk_row(float* dst, const float* src,
+                                         uint32_t bytes, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
 // The rows [row0, row_end) of (x, y, w, masks) one CTA streams.
 struct Rows {
   const float* __restrict__ x;
@@ -331,6 +461,40 @@ __device__ __forceinline__ void issue_row(float* stage, int64_t r,
       cp_async<1>(meta + 2 + t, rs.masks + t * rs.mask_stride + r);
   }
   cp_async_commit();
+}
+
+// The CTA's partial over columns [col0, col0 + kChunk), tier by tier: the
+// warps' float64 sums `acc` (lane l holding columns col0 + (l + 32 q) *
+// kVec + e) added in warp order through `s_part` (kWarps x kChunk doubles
+// of shared memory no warp reads any more) into dst + t * dst_stride.
+template <int kNt, int kVec>
+__device__ __forceinline__ void cta_partial(
+    const double (&acc)[kNt][kLaneCols], int nt, int d, int col0,
+    double* s_part, double* dst, int64_t dst_stride) {
+  constexpr int kQ = kLaneCols / kVec;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int len = min(kChunk, d - col0);
+#pragma unroll
+  for (int t = 0; t < kNt; ++t) {
+    if (t >= nt) break;
+    __syncthreads();  // the rings, or the last tier's sums, are consumed
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const int cl = (lane + 32 * q) * kVec;
+      if (col0 + cl < d) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          s_part[warp * len + cl + e] = acc[t][q * kVec + e];
+      }
+    }
+    __syncthreads();
+    for (int cl = tid; cl < len; cl += kThreads) {
+      double v = s_part[cl];
+      for (int g = 1; g < kWarps; ++g) v += s_part[g * len + cl];
+      dst[t * dst_stride + col0 + cl] = v;
+    }
+  }
 }
 
 // Streams the CTA's rows and writes its float64 partials of `nt` tiers
@@ -457,31 +621,10 @@ __device__ __forceinline__ void stream_rows(const Rows& rs, int nt,
         acc[t][q] = fma(k[t], xd[q], acc[t][q]);
   }
   cp_async_wait<0>();
-
-  // the CTA's partial, tier by tier: the warps' sums added in warp order
-  const int len = min(kChunk, d - col0);
-  double* s_part =
-      reinterpret_cast<double*>(smem + beta_floats(d, kWide));  // rings
-#pragma unroll
-  for (int t = 0; t < kNt; ++t) {
-    if (t >= nt) break;
-    __syncthreads();  // the rings, or the last tier's sums, are consumed
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) {
-      const int cl = (lane + 32 * q) * kVec;
-      if (col0 + cl < d) {
-#pragma unroll
-        for (int e = 0; e < kVec; ++e)
-          s_part[warp * len + cl + e] = acc[t][q * kVec + e];
-      }
-    }
-    __syncthreads();
-    for (int cl = tid; cl < len; cl += kThreads) {
-      double v = s_part[cl];
-      for (int g = 1; g < kWarps; ++g) v += s_part[g * len + cl];
-      dst[t * dst_stride + col0 + cl] = v;
-    }
-  }
+  cta_partial<kNt, kVec>(
+      acc, nt, d, col0,
+      reinterpret_cast<double*>(smem + beta_floats(d, kWide)),  // rings
+      dst, dst_stride);
 }
 
 // After every CTA of the launch (n_tickets of them) has written its
@@ -581,6 +724,67 @@ __device__ __forceinline__ void reduce_partials(
         out[static_cast<int64_t>(t) * d + c + e] = static_cast<float>(s[e]);
     }
     __syncthreads();
+  }
+}
+
+// The cluster route's reduce, after each CTA has written its partials:
+// the same fixed-order sums as reduce_partials (the subsets b mod
+// kRedSubsets, each in order of b, then the subsets in order), rounded
+// once to float32.  Tickets are taken a cluster at a time (n_parts
+// clusters of gridDim.y CTAs): one cluster barrier once every CTA has
+// written and fenced its partial (after it no rank reads another rank's
+// dots), rank 0 takes the ticket and stores it in every rank's shared
+// memory, a second barrier.  The last cluster to take one knows every
+// partial is written: its CTAs are the only reducers, rank r summing
+// columns r, r + gridDim.y, ... of each kThreads-column slice of out (nt,
+// d), one column a thread with kRedSubsets of its partials' loads in
+// flight, and rank 0 resets the counter for the next launch.  No reducer
+// waits on another cluster, so no CTA holds an SM that a cluster still
+// to run needs, whatever the grid.
+__device__ __forceinline__ void reduce_cluster_partials(
+    const double* partials, float* __restrict__ out, unsigned* counter,
+    int n_parts, int nt, int d) {
+  __shared__ unsigned s_ticket;
+  const uint32_t rank = cluster_rank();
+  const int ch = static_cast<int>(gridDim.y);
+  __syncthreads();  // the CTA's partial is written
+  if (threadIdx.x == 0) __threadfence();  // and visible before the ticket
+  cluster_barrier();  // every CTA of the cluster has written its partial
+  if (rank == 0 && threadIdx.x == 0) {
+    __threadfence();  // (cumulative) the cluster's partials, then the ticket
+    const unsigned ticket = atomicAdd(counter, 1u);
+    if (ticket + 1 == static_cast<unsigned>(n_parts)) {
+      __threadfence();  // every other cluster's partials, before ours
+      atomicExch(counter, 0u);
+    }
+    for (int r = 0; r < ch; ++r)
+      asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(
+                       map_to(smem_addr(&s_ticket), r)), "r"(ticket)
+                   : "memory");
+  }
+  cluster_barrier();  // every rank holds the ticket
+  if (s_ticket + 1 != static_cast<unsigned>(n_parts)) return;
+  const int cols = nt * d;
+  for (int f = (static_cast<int>(rank) * kThreads) + threadIdx.x; f < cols;
+       f += ch * kThreads) {
+    const int t = f / d, c = f - t * d;
+    const double* p = partials + static_cast<int64_t>(t) * n_parts * d + c;
+    double sub[kRedSubsets];
+#pragma unroll
+    for (int k = 0; k < kRedSubsets; ++k) sub[k] = 0.0;
+    for (int b0 = 0; b0 < n_parts; b0 += kRedSubsets) {
+      double v[kRedSubsets];
+#pragma unroll
+      for (int k = 0; k < kRedSubsets; ++k)
+        v[k] = b0 + k < n_parts ? __ldcg(p + static_cast<int64_t>(b0 + k) * d)
+                                : 0.0;
+#pragma unroll
+      for (int k = 0; k < kRedSubsets; ++k) sub[k] += v[k];
+    }
+    double sum = sub[0];
+#pragma unroll
+    for (int k = 1; k < kRedSubsets; ++k) sum += sub[k];
+    out[f] = static_cast<float>(sum);
   }
 }
 
@@ -693,6 +897,209 @@ coded_round_grad_kernel(const float* __restrict__ x,
                                      gridDim.x * gridDim.y, 1, d, max_red);
 }
 
+// The cluster route's staging of batch k of a warp's rows: row j = k *
+// batch + s (s < batch) of the warp, where it has one, into stage (k %
+// bufs) * batch + s of its ring: columns [col0, col0 + len) by one bulk
+// copy on the stage's mbarrier (kVec 4), or 4-byte cp.async by each lane
+// of its own columns, one commit group a batch (kVec 1).
+template <int kVec>
+__device__ __forceinline__ void issue_batch(float* ring, uint64_t* bar,
+                                            const Rows& rs, int64_t first,
+                                            int rows, int k, int batch,
+                                            int bufs, int lane, int col0,
+                                            int len) {
+  for (int s = 0; s < batch; ++s) {
+    const int j = k * batch + s;
+    if (j >= rows) break;
+    const int slot = (k % bufs) * batch + s;
+    const float* src = rs.x + (first + static_cast<int64_t>(j) * kWarps) *
+                                  rs.d + col0;
+    if constexpr (kVec == 4) {
+      if (lane == 0)
+        bulk_row(ring + slot * kChunk, src, 4u * len, smem_addr(bar + slot));
+    } else {
+      for (int c = lane; c < len; c += 32)
+        cp_async<1>(ring + slot * kChunk + c, src + c);
+    }
+  }
+  if constexpr (kVec == 1) cp_async_commit();
+}
+
+// The cluster route (csrc note "Any D"): flat and tiered (nt <= kNt tiers,
+// masks (nt, m) or nullptr; c = 0, n_sys = gridDim.x) or coded (nt = 1;
+// blocks [0, n_sys) own systematic rows, the rest parity rows).  Cluster
+// b (blockIdx.x) owns a row range, its CTA of rank blockIdx.y the columns
+// [blockIdx.y * kChunk, ...), and writes tier t's partial to
+// partials[(t * gridDim.x + b) * d]; the reducers sum them into out (nt,
+// d).  Every CTA of a cluster runs the same batches (warp 0's rows set
+// their count), so the cluster barriers match.  Planned for one CTA an
+// SM (at 768 rows and D = 4096 its stages take 112 KB of shared memory).
+template <int kNt, int kVec>
+__global__ void __launch_bounds__(kThreads)
+cluster_round_grad_kernel(const float* __restrict__ x,
+                          const float* __restrict__ y,
+                          const float* __restrict__ w,
+                          const float* __restrict__ masks, int nt, int m,
+                          const float* __restrict__ xp,
+                          const float* __restrict__ yp,
+                          const float* __restrict__ wp, int c, int n_sys,
+                          int rpc_sys, int rpc_par,
+                          const float* __restrict__ beta, double* partials,
+                          float* __restrict__ out, unsigned* counter, int d,
+                          int batch, int bufs) {
+  constexpr int kQ = kLaneCols / kVec;  // register chunks a lane
+  const int b = blockIdx.x;
+  const bool sys = b < n_sys;
+  const int rpc = sys ? rpc_sys : rpc_par;
+  const int64_t row0 = static_cast<int64_t>(sys ? b : b - n_sys) * rpc;
+  const Rows rs{sys ? x : xp, sys ? y : yp, sys ? w : wp, masks, m,
+                masks != nullptr ? nt : 0, row0,
+                min(static_cast<int64_t>(sys ? m : c), row0 + rpc), d,
+                nullptr};
+  const int ch = static_cast<int>(gridDim.y);
+  const int col0 = blockIdx.y * kChunk;
+  const int len = min(kChunk, d - col0);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  extern __shared__ __align__(16) float smem[];
+  double* s_dot = reinterpret_cast<double*>(
+      smem + cluster_ring_floats(batch, bufs));  // [2][kWarps][batch]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(s_dot + 2 * kWarps * batch) +
+                  warp * bufs * batch;
+  float* ring = smem + warp * bufs * batch * kChunk;
+
+  const int64_t first = rs.row0 + warp;
+  const int rows = rs.row_end > first ? static_cast<int>(
+      (rs.row_end - first + kWarps - 1) / kWarps) : 0;
+  const int rows0 = rs.row_end > rs.row0 ? static_cast<int>(
+      (rs.row_end - rs.row0 + kWarps - 1) / kWarps) : 0;
+  const int n_batches = (rows0 + batch - 1) / batch;
+
+  if (kVec == 4 && lane == 0) {
+    for (int i = 0; i < bufs * batch; ++i) mbar_init(smem_addr(bar + i));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+  for (int k = 0; k < bufs && k < n_batches; ++k)
+    issue_batch<kVec>(ring, bar, rs, first, rows, k, batch, bufs, lane, col0,
+                      len);
+  // beta of the lane's columns, as float64, in registers
+  double bd[kLaneCols];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int cl = (lane + 32 * q) * kVec;
+    float bv[kVec];
+    if (cl < len) load_vec<kVec>(beta + col0 + cl, bv);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+      bd[q * kVec + e] = cl < len ? static_cast<double>(bv[e]) : 0.0;
+  }
+  double acc[kNt][kLaneCols];
+#pragma unroll
+  for (int t = 0; t < kNt; ++t)
+#pragma unroll
+    for (int q = 0; q < kLaneCols; ++q) acc[t][q] = 0.0;
+  __syncthreads();
+
+  for (int k = 0; k < n_batches; ++k) {
+    const int buf = k % bufs;
+    double* dots = s_dot + ((k & 1) * kWarps + warp) * batch;
+    // lane s holds row s's y, w and masks
+    const int js = k * batch + lane;
+    const bool mine = lane < batch && js < rows;
+    float ys = 0.f, ws = 1.f, ms[kNt];
+#pragma unroll
+    for (int t = 0; t < kNt; ++t) ms[t] = 1.f;
+    if (mine) {
+      const int64_t r = first + static_cast<int64_t>(js) * kWarps;
+      ys = rs.y[r];
+      if (rs.w != nullptr) ws = rs.w[r];
+#pragma unroll
+      for (int t = 0; t < kNt; ++t)
+        if (t < rs.nm) ms[t] = rs.masks[t * rs.mask_stride + r];
+    }
+    if constexpr (kVec == 1) {  // this lane's copies of the batch
+      if (bufs == 2 && k + 1 < n_batches) cp_async_wait<1>();
+      else cp_async_wait<0>();
+    }
+    // each row's partial dot over the chunk
+    for (int s = 0; s < batch && k * batch + s < rows; ++s) {
+      const float* row = ring + (buf * batch + s) * kChunk;
+      if constexpr (kVec == 4)
+        mbar_wait(smem_addr(bar + buf * batch + s), (k / bufs) & 1);
+      double part[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const int cl = (lane + 32 * q) * kVec;
+        if (col0 + cl < d) {
+          float xv[kVec];
+          load_vec<kVec>(row + cl, xv);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e)
+            part[q % 4] = fma(static_cast<double>(xv[e]), bd[q * kVec + e],
+                              part[q % 4]);
+        }
+      }
+      double dot = (part[0] + part[1]) + (part[2] + part[3]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (lane == 0) dots[s] = dot;
+    }
+    cluster_barrier();  // every rank's dots of the batch are written
+    // lane s: row s's coefficient, its ranks' dots added in rank order
+    double cf = 0.0;
+    if (mine) {
+      const uint32_t a = smem_addr(dots + lane);
+      double v[kMaxCluster];
+#pragma unroll
+      for (int rk = 0; rk < kMaxCluster; ++rk)
+        if (rk < ch) v[rk] = ld_cluster_f64(map_to(a, rk));
+      double dot = v[0];
+#pragma unroll
+      for (int rk = 1; rk < kMaxCluster; ++rk)
+        if (rk < ch) dot += v[rk];
+      cf = (dot - static_cast<double>(ys)) *
+           (rs.w != nullptr ? static_cast<double>(ws) : 1.0);
+    }
+    for (int s = 0; s < batch && k * batch + s < rows; ++s) {
+      const double cs = __shfl_sync(0xffffffffu, cf, s);
+      double kt[kNt];  // coef * mask, exact at mask 1.0f
+#pragma unroll
+      for (int t = 0; t < kNt; ++t) {
+        const float mt = __shfl_sync(0xffffffffu, ms[t], s);
+        kt[t] = rs.nm > 0 && t < nt ? cs * static_cast<double>(mt) : cs;
+      }
+      const float* row = ring + (buf * batch + s) * kChunk;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const int cl = (lane + 32 * q) * kVec;
+        float xv[kVec];
+        if (col0 + cl < d) load_vec<kVec>(row + cl, xv);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const double xd = col0 + cl < d ? static_cast<double>(xv[e]) : 0.0;
+#pragma unroll
+          for (int t = 0; t < kNt; ++t)
+            acc[t][q * kVec + e] = fma(kt[t], xd, acc[t][q * kVec + e]);
+        }
+      }
+    }
+    __syncwarp();  // the batch's stages are consumed
+    if (k + bufs < n_batches) {
+      if constexpr (kVec == 4)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      issue_batch<kVec>(ring, bar, rs, first, rows, k + bufs, batch, bufs,
+                        lane, col0, len);
+    }
+  }
+  // the rings (no other rank reads them) hold the warps' sums
+  cta_partial<kNt, kVec>(acc, nt, d, col0, reinterpret_cast<double*>(smem),
+                         partials + static_cast<int64_t>(b) * d,
+                         static_cast<int64_t>(gridDim.x) * d);
+  reduce_cluster_partials(partials, out, counter, gridDim.x, nt, d);
+}
+
 // Sets the kernel's dynamic shared memory to `floats` floats and returns
 // in *max_red the reducers a launch of it may have: a quarter of the CTAs
 // of it that the current device holds at once, at least one (see the
@@ -781,6 +1188,62 @@ cudaError_t launch_coded(const float* x, const float* y, const float* w,
   return cudaGetLastError();
 }
 
+// The cluster route's launch configuration over row blocks of m
+// (rpc_sys rows a CTA) and then c rows (rpc_par; c = 0 for the flat and
+// tiered variants): a cluster of chunks_for(d) CTAs along D a row range.
+// Sets the kernel's shared memory and, past kPortableCluster CTAs, its
+// non-portable cluster size; `attr` holds the cluster dimension.
+template <int kNt, int kVec>
+cudaError_t cluster_config(int m, int c, int rpc_sys, int rpc_par, int d,
+                           cudaStream_t s, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr, int* batch, int* bufs) {
+  const int ch = chunks_for(d);
+  cluster_batches(rpc_sys > rpc_par ? rpc_sys : rpc_par, batch, bufs);
+  const int bytes = cluster_smem_floats(*batch, *bufs) *
+                    static_cast<int>(sizeof(float));
+  auto kernel = cluster_round_grad_kernel<kNt, kVec>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && ch > kPortableCluster)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  if (e != cudaSuccess) return e;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(ctas_for(m, rpc_sys) +
+                          (c > 0 ? ctas_for(c, rpc_par) : 0), ch);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = bytes;
+  cfg->stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = ch;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int kNt, int kVec>
+cudaError_t launch_cluster(const float* x, const float* y, const float* w,
+                           const float* masks, int nt, int m,
+                           const float* xp, const float* yp,
+                           const float* wp, int c, int rpc_sys, int rpc_par,
+                           const float* beta, double* partials, float* out,
+                           unsigned* counter, int d, cudaStream_t s) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int batch = 0, bufs = 0;
+  cudaError_t e = cluster_config<kNt, kVec>(m, c, rpc_sys, rpc_par, d, s,
+                                            &cfg, &attr, &batch, &bufs);
+  if (e != cudaSuccess) return e;
+  e = cudaLaunchKernelEx(&cfg, cluster_round_grad_kernel<kNt, kVec>, x, y,
+                         w, masks, nt, m, xp, yp, wp, c,
+                         ctas_for(m, rpc_sys), rpc_sys, rpc_par, beta,
+                         partials, out, counter, d, batch, bufs);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 // The wide instances' residual pass over the rows of x and then xp into
 // res (m + c float64).
 cudaError_t launch_residual(const float* x, const float* y, const float* w,
@@ -810,10 +1273,48 @@ extern "C" {
 // takes at most as many at any D.
 int rg_num_ctas(int m) { return ctas_for(m, 0); }
 
+// The route of a call at this D (`route`): 0 the row-resident instances,
+// 1 one launch over clusters along D, 2 the residual pass and the
+// column-chunked launch; coded != 0 for the coded variant.
+int rg_route(int d, int coded) {
+  return static_cast<int>(route(d, coded != 0));
+}
+
+// The clusters of the cluster route's launch over m rows at this D and
+// tier count (the float4 instance, the kernels' own partition) that the
+// current device holds at once (cudaOccupancyMaxActiveClusters), or a
+// negative CUDA error; 0 where D takes another route.  For reports.
+int rg_cluster_capacity(int m, int d, int nt) {
+  if (route(d) != kCluster) return 0;
+  const int ch = chunks_for(d);
+  const int rpc = rows_per_cta(m, 0, ch, kClusterCtas);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int batch = 0, bufs = 0, clusters = 0;
+  cudaError_t e = nt == 1
+      ? cluster_config<1, 4>(m, 0, rpc, 0, d, nullptr, &cfg, &attr, &batch,
+                             &bufs)
+      : cluster_config<kMaxTiers, 4>(m, 0, rpc, 0, d, nullptr, &cfg, &attr,
+                                     &batch, &bufs);
+  if (e == cudaSuccess)
+    e = nt == 1 ? cudaOccupancyMaxActiveClusters(
+                      &clusters, cluster_round_grad_kernel<1, 4>, &cfg)
+                : cudaOccupancyMaxActiveClusters(
+                      &clusters, cluster_round_grad_kernel<kMaxTiers, 4>,
+                      &cfg);
+  return e == cudaSuccess ? clusters : -static_cast<int>(e);
+}
+
 // Float64 coefficients the residual scratch `res` of a call over `rows`
-// rows (m, or m + c for the coded variant) at this D holds: `rows` where
-// D > resident_max_d() (the wide instances), else 0 (res may be nullptr).
-int rg_residual_rows(int rows, int d) { return is_wide(d) ? rows : 0; }
+// rows at this D holds: `rows` on the two-launch route of the flat and
+// tiered variants, else 0 (res may be nullptr); rg_coded_residual_rows
+// for the coded one (rows = m + c).
+int rg_residual_rows(int rows, int d) {
+  return route(d) == kTwoLaunch ? rows : 0;
+}
+int rg_coded_residual_rows(int rows, int d) {
+  return route(d, true) == kTwoLaunch ? rows : 0;
+}
 
 // x (m, d), y (m,), w (m,) or nullptr, masks (nt, m) or nullptr (one
 // partial, mask 1), beta (d,), out (nt, d): float32; partials (nt,
@@ -828,11 +1329,15 @@ int rg_tier_round_gradient(const float* x, const float* y, const float* w,
                            int m, int d, int tile, double* res,
                            void* stream) {
   if (!valid_tile(tile)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool wide = is_wide(d);
+  const Route rt = route(d);
+  const bool wide = rt == kTwoLaunch;
   if (wide && res == nullptr && m > 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_ctas = ctas_for(m, tile, wide ? chunks_for(d) : 1);
+  const int ch = rt == kResident ? 1 : chunks_for(d);
+  const int target = rt == kCluster ? kClusterCtas : kTargetCtas;
+  const int n_ctas = ctas_for(m, tile, ch, target);
+  const int rpc = rows_per_cta(m, tile, ch, target);
   const bool vec = d % 4 == 0 && aligned16(x) && aligned16(beta);
   if (wide) {  // the coefficients once, for every tier chunk
     const cudaError_t e = launch_residual(x, y, w, m, nullptr, nullptr,
@@ -847,7 +1352,20 @@ int rg_tier_round_gradient(const float* x, const float* y, const float* w,
     float* o = out + static_cast<int64_t>(t0) * d;
     // one tier: kernel 1's instance; more: the run-time tier count
     cudaError_t e;
-    if (wide)
+    if (rt == kCluster)
+      e = k == 1 ? (vec ? launch_cluster<1, 4>(x, y, w, mk, k, m, nullptr,
+                                               nullptr, nullptr, 0, rpc, 0,
+                                               beta, part, o, counter, d, s)
+                        : launch_cluster<1, 1>(x, y, w, mk, k, m, nullptr,
+                                               nullptr, nullptr, 0, rpc, 0,
+                                               beta, part, o, counter, d, s))
+                 : (vec ? launch_cluster<kMaxTiers, 4>(
+                              x, y, w, mk, k, m, nullptr, nullptr, nullptr,
+                              0, rpc, 0, beta, part, o, counter, d, s)
+                        : launch_cluster<kMaxTiers, 1>(
+                              x, y, w, mk, k, m, nullptr, nullptr, nullptr,
+                              0, rpc, 0, beta, part, o, counter, d, s));
+    else if (wide)
       e = k == 1 ? (vec ? launch_tiers<1, 4, true>(x, y, w, mk, k, beta,
                                                    part, o, counter, m, d,
                                                    tile, res, s)
@@ -905,22 +1423,34 @@ int rg_lsq_gradient(const float* a, const float* y, const float* beta,
 
 // x (m, d), y/w (m,) (w may be nullptr), xp (c, d), yp/wp (c,), beta
 // (d,), partials (n_ctas(m) + n_ctas(c), d) float64, out (d,), counter
-// as above, res rg_residual_rows(m + c, d) float64; tile 0: each block
-// at the kernels' own partition, else `tile` rows a CTA in both blocks.
+// as above, res rg_coded_residual_rows(m + c, d) float64; tile 0: each block
+// at the kernels' own partition (on the cluster route one row count a
+// CTA for both, from m + c rows), else `tile` rows a CTA in both blocks.
 int rg_coded_round_gradient(const float* x, const float* y, const float* w,
                             int m, const float* xp, const float* yp,
                             const float* wp, int c, const float* beta,
                             double* partials, float* out, unsigned* counter,
                             int d, int tile, double* res, void* stream) {
   if (!valid_tile(tile)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool wide = is_wide(d);
+  const Route rt = route(d, true);
+  const bool wide = rt == kTwoLaunch;
   if (wide && res == nullptr && m + c > 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = d % 4 == 0 && aligned16(x) && aligned16(xp) &&
                    aligned16(beta);
   cudaError_t e;
-  if (wide) {
+  if (rt == kCluster) {
+    // one row count a CTA for both blocks, from all their rows: the
+    // launch stays near kClusterCtas CTAs, as the flat one
+    const int rpc = rows_per_cta(m + c, tile, chunks_for(d), kClusterCtas);
+    e = vec ? launch_cluster<1, 4>(x, y, w, nullptr, 1, m, xp, yp, wp, c,
+                                   rpc, rpc, beta, partials, out, counter, d,
+                                   s)
+            : launch_cluster<1, 1>(x, y, w, nullptr, 1, m, xp, yp, wp, c,
+                                   rpc, rpc, beta, partials, out, counter, d,
+                                   s);
+  } else if (wide) {
     e = launch_residual(x, y, w, m, xp, yp, wp, c, beta, res, d, vec, s);
     if (e != cudaSuccess) return static_cast<int>(e);
     e = vec ? launch_coded<4, true>(x, y, w, m, xp, yp, wp, c, beta,

@@ -43,7 +43,27 @@ _SIGNATURES: build.Signatures = {
     "flash_attn_launch": ([_P] * 4 + [_I] * 5 + [_L] * 12
                           + [ctypes.c_float, _P], _I),
     "flash_attn_smem_bytes": ([_I], _I),
+    "flash_attn_instance": ([_I, _I], _I),
 }
+INSTANCES = ("run-time D", "D = 128", "D = 64")  # flash_attn_instance's 0-2
+
+
+def instance(d: int, aligned: bool = True) -> str:
+    """The compiled instance of the kernel a call at head size D takes, a
+    pure function of D and the copies (`aligned`: D % 4 == 0 and every
+    base and batch, head and row stride of q, k, v a multiple of 4
+    floats, so 16-byte copies), mirrored by the library's
+    `flash_attn_instance`: "D = 128" for D in 121..128 (16 column tiles
+    of 8, two CTAs an SM), "D = 64" for D in 57..64 (8 tiles, three CTAs
+    an SM), both aligned; else "run-time D" (the column tile count read
+    at run time, 4-byte copies where not aligned).  Every instance
+    computes the same sums in the same order: the result of a call is
+    the run-time instance's bit for bit."""
+    nd = -(-d // 8)
+    if not aligned:
+        return INSTANCES[0]
+    return INSTANCES[1] if nd == 16 else INSTANCES[2] if nd == 8 \
+        else INSTANCES[0]
 
 
 def _dispatch(device: torch.device):

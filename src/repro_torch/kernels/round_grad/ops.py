@@ -14,10 +14,13 @@ kernels have no backward; `common.refuse_grad`).  Each kernel has its own launch
 CTAs' float64 partials itself, in a fixed order, behind a ticket counter
 and a generation word: two zeroed int32 per (device, stream); every
 launch leaves the counter at 0.  The kernels sum in float64 and round
-once to float32.  They take any D: past the widest D whose whole rows
-fit the CTA's ring (3220), a call runs a residual pass into a float64
-(M,) scratch (`rg_residual_rows`) before the column-chunked launch; at
-D up to it the call is the row-resident launch alone, bit for bit.
+once to float32.  They take any D, by the route `route` states: up to
+the widest D whose whole rows fit the CTA's ring (3220) the row-resident
+launch; past it, up to 16 column chunks of 512 (D <= 8192; the coded
+kernel to D <= 4096), one launch over thread-block clusters along D
+that reads X once; wider, a residual pass into a float64 (M,) scratch
+before the column-chunked launch (the only route that takes the
+scratch).
 
 Row tiles: each wrapper takes `block_m`, the rows a CTA owns (a positive
 multiple of 8, the CTA's warps), or 0 for the kernel's own partition
@@ -58,12 +61,47 @@ _SIGNATURES: build.Signatures = {
     "rg_lsq_gradient": ([_P] * 6 + [_I, _I, _I, _P, _P], _I),
     "rg_num_ctas": ([_I], _I),
     "rg_residual_rows": ([_I, _I], _I),
+    "rg_route": ([_I, _I], _I),
+    "rg_cluster_capacity": ([_I, _I, _I], _I),
 }
 
 # the CTA's warps (a row tile is a multiple of them) and the CTAs the
 # kernels' own partition aims at (csrc/round_grad.cu: kWarps, kTargetCtas)
 WARPS = 8
 TARGET_CTAS = 128
+# the routes past the row-resident width (csrc/round_grad.cu:
+# resident_max_d(), kChunk, kMaxCluster, kPortableCluster)
+RESIDENT_MAX_D = 3220
+CHUNK = 512
+MAX_CLUSTER = 16
+PORTABLE_CLUSTER = 8
+ROUTES = ("resident", "cluster", "two_launch")  # rg_route's 0, 1, 2
+
+
+def route(d: int, coded: bool = False) -> str:
+    """How a call over D columns runs on the card, a pure function of D
+    and the variant (`coded`: the coded kernel), mirrored by the
+    library's `rg_route`:
+
+    * "resident": D <= 3220, whole rows in each warp's ring;
+    * "cluster": up to 16 column chunks of 512 (D <= 8192; the coded
+      kernel up to 8, D <= 4096), one launch of clusters of
+      ceil(D / 512) CTAs along D that reads X once (a cluster past 8
+      CTAs is a non-portable size, which the H100 runs);
+    * "two_launch": wider, the residual pass into a float64 (M,) scratch
+      and the column-chunked launch.
+
+    The coded kernel's bound is 8 chunks because at 768 + 230 rows and
+    D = 8192 its clusters of 16 ran slower than the two-launch route on
+    an H100 (the card holds 7 such clusters at once; the two blocks take
+    8).  Tier count and alignment choose no route: more than four tiers
+    run in launches of four on every route, and a view that is not
+    16-byte aligned (or D % 4 != 0) takes each route's 4-byte copies."""
+    if d <= RESIDENT_MAX_D:
+        return "resident"
+    chunks = -(-d // CHUNK)
+    return "cluster" if chunks <= (PORTABLE_CLUSTER if coded
+                                   else MAX_CLUSTER) else "two_launch"
 
 
 def rows_per_cta(m: int) -> int:
@@ -93,12 +131,14 @@ def _n_ctas(lib, rows: int, tile: int) -> int:
     return lib.rg_num_ctas(rows) if tile == 0 else max(1, -(-rows // tile))
 
 
-def _residuals(lib, rows: int, d: int, device: torch.device):
+def _residuals(rows: int, d: int, device: torch.device,
+               coded: bool = False):
     """The float64 row-coefficient scratch of a launch over `rows` rows at
-    this D: (rows,) where D is wider than the row-resident instances take
-    (the kernel then runs its residual pass first), else None."""
-    n = lib.rg_residual_rows(rows, d)
-    return torch.empty(n, dtype=torch.float64, device=device) if n else None
+    this D: (rows,) on the two-launch route (the kernel then runs its
+    residual pass first), else None."""
+    if route(d, coded=coded) != "two_launch" or rows == 0:
+        return None
+    return torch.empty(rows, dtype=torch.float64, device=device)
 
 
 def _dispatch(device: torch.device):
@@ -171,7 +211,7 @@ def masked_round_gradient(x: torch.Tensor, y: torch.Tensor,
     out = torch.empty(d, dtype=torch.float32, device=x.device)
     if d == 0:
         return out
-    res = _residuals(lib, m, d, x.device)
+    res = _residuals(m, d, x.device)
     partials = torch.empty((_n_ctas(lib, m, tile), d), dtype=torch.float64,
                            device=x.device)
     with on_card(x.device):
@@ -203,7 +243,7 @@ def lsq_gradient(a: torch.Tensor, y: torch.Tensor, beta: torch.Tensor,
     out = torch.empty(d, dtype=torch.float32, device=a.device)
     if d == 0:
         return out
-    res = _residuals(lib, m, d, a.device)
+    res = _residuals(m, d, a.device)
     partials = torch.empty((_n_ctas(lib, m, tile), d), dtype=torch.float64,
                            device=a.device)
     with on_card(a.device):
@@ -248,7 +288,7 @@ def coded_round_gradient(x: torch.Tensor, y: torch.Tensor,
     if d == 0:
         return out
     n_parts = _n_ctas(lib, m, tile) + _n_ctas(lib, c, tile)
-    res = _residuals(lib, m + c, d, x.device)
+    res = _residuals(m + c, d, x.device, coded=True)
     partials = torch.empty((n_parts, d), dtype=torch.float64,
                            device=x.device)
     with on_card(x.device):
@@ -289,7 +329,7 @@ def tier_masked_round_gradient(x: torch.Tensor, y: torch.Tensor,
     out = torch.empty((nt, d), dtype=torch.float32, device=x.device)
     if d == 0:
         return out
-    res = _residuals(lib, m, d, x.device)
+    res = _residuals(m, d, x.device)
     partials = torch.empty((nt, _n_ctas(lib, m, tile), d),
                            dtype=torch.float64, device=x.device)
     with on_card(x.device):

@@ -21,8 +21,11 @@ Bounds:
     once, each equal to its single-stream result).  D = 3000 takes a
     two-stage ring, D % 4 != 0 and misaligned views the 4-byte cp.async
     instance; the widest D of the row-resident instances runs at four
-    tiers, and D past it (4096, 8192, 4099 and one column past the
-    limit) takes the residual pass and the column-chunked launch.
+    tiers, and D past it (3600, 3601, 4096, 4099, 5000, 8192 and one
+    column past the limit) takes one launch over thread-block clusters
+    along D (the coded kernel past D = 4096 the residual pass and the
+    column-chunked launch), whose route the library's `rg_route` and the
+    wrapper's `route` must state alike.
     The coded and tier-masked kernels are held the same way, each tier
     partial and the coded sum against their float64 expressions with S
     summed over the rows that enter them.  The tier kernel at T = 1 with
@@ -266,10 +269,10 @@ def test_tier_kernel_single_tier_is_the_flat_kernel(cuda, m, d, weights):
 
 
 def _resident_max_d(lib) -> int:
-    """The widest D the row-resident instances take (past it a call runs
-    the residual pass first: `rg_residual_rows` is then the row count)."""
+    """The widest D the row-resident instances take (past it the library's
+    `rg_route` says another route)."""
     d = 8192
-    while lib.rg_residual_rows(1, d):
+    while lib.rg_route(d, 0) != 0:
         d -= 1
     return d
 
@@ -277,13 +280,13 @@ def _resident_max_d(lib) -> int:
 @pytest.mark.parametrize("t", [1, 3, 4])
 def test_round_grad_kernels_at_the_widest_d(cuda, t):
     """At the widest D of the row-resident instances and one column past
-    it (the first D of the residual pass), the tier kernel runs at T = 1,
+    it (the first D of the cluster route), the tier kernel runs at T = 1,
     3 and 4 (four masks a ring row, the most a launch carries), the flat,
     least-squares and coded kernels run too, each held to the float64
     bound; no D is refused."""
     lib = rg_ops._dispatch(cuda)
     d0 = _resident_max_d(lib)
-    assert d0 >= 3000 and lib.rg_residual_rows(7, d0 + 1) == 7
+    assert d0 >= 3000 and rg_ops.ROUTES[lib.rg_route(d0 + 1, 0)] == "cluster"
     for d in (d0, d0 + 1):
         gen = torch.Generator(device=cuda).manual_seed(d + t)
         x, y, w = _rg_operands(gen, cuda, 300, d, "random")
@@ -303,15 +306,26 @@ def test_round_grad_kernels_at_the_widest_d(cuda, t):
         _held_to_float64(f"coded D={d}", coded, x, y, w, beta)
 
 
-@pytest.mark.parametrize("m,d", [(768, 4096), (300, 8192), (37, 4099),
+# (m, D) past the row-resident width: the coded-head probe's 768 rows at
+# granite-8b's d_model and twice it (clusters of 8 and of 16 CTAs; the
+# coded kernel at 8192 the two-launch route), ragged D in (3220, 4096]
+# (3600: 8 chunks, the last of 16 columns; 4099 and 3601: the 4-byte
+# instance) and a single row
+@pytest.mark.parametrize("m,d", [(768, 4096), (300, 8192), (768, 8192),
+                                 (37, 4099), (768, 3600), (300, 3601),
                                  (1, 5000)])
 def test_round_grad_kernels_at_any_d(cuda, m, d):
-    """Past the row-resident width (the residual pass and the
-    column-chunked launch): kernels 1, 4, 5 (T = 1, 3 and 6: two launches
-    of tiers over one residual pass) and 6 against the float64 bound,
-    relaunches bit-identical, T = 1 `torch.equal` to the flat kernel and
-    the least-squares kernel to the flat one at w = None; D = 4099 takes
-    the 4-byte instance, and a misaligned view too."""
+    """Past the row-resident width (the cluster route; the coded kernel
+    at D = 5000 and 8192 the two-launch one, as the library's `rg_route`
+    and the wrapper's `route` both say): kernels 1, 4, 5 (T = 1, 3 and 6:
+    two launches of tiers) and 6 against the float64 bound, relaunches
+    bit-identical, T = 1 `torch.equal` to the flat kernel and the
+    least-squares kernel to the flat one at w = None; D = 4099 and 3601
+    take the 4-byte instance, and a misaligned view too."""
+    lib = rg_ops._dispatch(cuda)
+    for coded in (False, True):
+        assert rg_ops.ROUTES[lib.rg_route(d, int(coded))] \
+            == rg_ops.route(d, coded=coded) != "resident"
     gen = torch.Generator(device=cuda).manual_seed(m + d)
     x, y, w = _rg_operands(gen, cuda, m, d, "zero_rows")
     beta = torch.randn((d,), generator=gen, device=cuda)
@@ -344,13 +358,30 @@ def test_round_grad_kernels_at_any_d(cuda, m, d):
         xv, y, w, beta), xv, y, w, beta)
 
 
-def _rg_calls(cuda, m=5632, d=500, seed=5):
-    """Each round-gradient kernel on one set of operands at the §IV
-    shape, as {name: call}."""
+def test_routes_and_instances_match_the_libraries(cuda):
+    """The library's `rg_route` is the wrapper's `route` at every D to
+    20000 (both variants), and kernel 8's `flash_attn_instance` the
+    wrapper's `instance` at every head size."""
+    lib = rg_ops._dispatch(cuda)
+    for d in list(range(1, 9000, 7)) + [3220, 3221, 4096, 4097, 8192, 8193,
+                                        20000]:
+        for coded in (False, True):
+            assert rg_ops.ROUTES[lib.rg_route(d, int(coded))] \
+                == rg_ops.route(d, coded=coded), (d, coded)
+    fl = fa_ops._dispatch(cuda)
+    for d in range(1, fa_ops.MAX_D + 1):
+        for vec in (True, False):
+            assert fa_ops.INSTANCES[fl.flash_attn_instance(d, int(vec))] \
+                == fa_ops.instance(d, aligned=vec), (d, vec)
+
+
+def _rg_calls(cuda, m=5632, d=500, seed=5, c=2016):
+    """Each round-gradient kernel on one set of operands (at the §IV
+    shape by default), as {name: call}."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
     x, y, w = _rg_operands(gen, cuda, m, d, "zero_rows")
-    xp, yp, _ = _rg_operands(gen, cuda, 2016, d, "none")
-    wp = torch.rand((2016,), generator=gen, device=cuda)
+    xp, yp, _ = _rg_operands(gen, cuda, c, d, "none")
+    wp = torch.rand((c,), generator=gen, device=cuda)
     beta = torch.randn((d,), generator=gen, device=cuda)
     tier_of = torch.randint(0, 3, (m,), generator=gen, device=cuda)
     masks = (torch.arange(3, device=cuda)[:, None]
@@ -365,22 +396,28 @@ def _rg_calls(cuda, m=5632, d=500, seed=5):
     }
 
 
+# (m, D, c): the §IV shape, and the coded-head probe's on the cluster route
+RELAUNCH_SHAPES = [(5632, 500, 2016), (768, 4096, 230)]
+
+
+@pytest.mark.parametrize("m,d,c", RELAUNCH_SHAPES)
 @pytest.mark.parametrize("kernel", ["flat", "coded", "tier", "lsq"])
-def test_round_grad_kernels_relaunch_bit_identical(cuda, kernel):
+def test_round_grad_kernels_relaunch_bit_identical(cuda, kernel, m, d, c):
     """Three calls in a row, bit-identical: the in-launch reduce's ticket
     counter is back at 0 after each launch."""
-    call = _rg_calls(cuda)[kernel]
+    call = _rg_calls(cuda, m=m, d=d, c=c)[kernel]
     outs = [call() for _ in range(3)]
     torch.cuda.synchronize()
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
+@pytest.mark.parametrize("m,d,c", RELAUNCH_SHAPES)
 @pytest.mark.parametrize("kernel", ["flat", "coded", "tier", "lsq"])
-def test_round_grad_kernels_on_two_streams(cuda, kernel):
+def test_round_grad_kernels_on_two_streams(cuda, kernel, m, d, c):
     """Two calls at once on two streams (each stream held by a sleep
     kernel, then released together), each `torch.equal` to its result on
     one stream: the two launches take separate ticket counters."""
-    calls = [_rg_calls(cuda, seed=s)[kernel] for s in (5, 6)]
+    calls = [_rg_calls(cuda, m=m, d=d, c=c, seed=s)[kernel] for s in (5, 6)]
     alone = [call() for call in calls]
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream(cuda) for _ in calls]
@@ -1164,12 +1201,19 @@ def _wide_rows(t):
     return out
 
 
-# (layout, B, Hq, Hkv, S, D): views that take the 4-byte copies at a D the
-# 16-byte ones would take (a base off a 16-byte boundary, an odd row
-# stride), and q and k scaled x6, so that scores reach ~100, at the
-# serving shape, at D = 64 and at D = 16
+# (layout, B, Hq, Hkv, S, D): views that take the 4-byte copies (the
+# run-time-D instance) at a D the 16-byte ones would take (a base off a
+# 16-byte boundary, an odd row stride), so the D = 128 and D = 64
+# instances are held `torch.equal` to it, the latter at every D = 64 shape
+# of chip_smoke.py's FLASH_CASES (the reduced configs', zamba2-1.2b's and
+# whisper-tiny's); and q and k scaled x6, so that scores reach ~100, at
+# the serving shape, at D = 64 and at D = 16
 FLASH_LAYOUTS = [("misaligned", 1, 4, 2, 129, 72),
                  ("misaligned", 1, 8, 2, 300, 128),
+                 ("misaligned", 1, 32, 8, 2048, 128),
+                 ("misaligned", 2, 4, 2, 77, 64),
+                 ("misaligned", 1, 32, 32, 2048, 64),
+                 ("misaligned", 1, 6, 6, 440, 64),
                  ("wide rows", 2, 4, 2, 100, 64),
                  ("x6", 1, 32, 8, 2048, 128), ("x6", 1, 4, 1, 257, 64),
                  ("x6", 1, 3, 3, 129, 16)]
