@@ -10,8 +10,9 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      `nvcc` per source, started together), print each kernel instance's
      `-Xptxas=-v` line (registers, static shared memory, spills) and
      kernel 8's dynamic shared memory at D = 128 and 64 and the instance
-     each head size takes (the library's `flash_attn_instance` equal to
-     the wrapper's `instance`); kernel 8, kernel 2's
+     each head size and sequence length take (the
+     library's `flash_attn_instance` equal to the wrapper's `instance`);
+     kernel 8 (its short-sequence instances too), kernel 2's
      `encode_kernel` and kernel 3's `encode_prng_kernel` instances, the
      round-gradient kernels (1, 4, 5, 6) and kernel 7's
      `ssd_chunk_kernel` instances must not spill (a library found built
@@ -58,13 +59,16 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      S, D) = (1, 32, 8, 2048, 128), at S = 100 and 1537, at D = 64, at
      one and three query heads per key/value head, and at the 2048-token
      prefills of zamba2-1.2b (1, 32, 32, 2048, 64) and mistral-large-123b
-     (1, 96, 8, 2048, 128), and whisper-tiny's 440-token decoder prefill
-     (1, 6, 6, 440, 64) (llama-3.2-vision-11b's is granite's): kernel and
-     plain
+     (1, 96, 8, 2048, 128), whisper-tiny's 440-token decoder prefill
+     (1, 6, 6, 440, 64) (llama-3.2-vision-11b's is granite's), and, on
+     the short-sequence instance, the coded-head probe's backbone (768,
+     32, 8, 32, 128) and two ragged short shapes: kernel and plain
      version both within the float32 rounding bound of the float64 value
      (`kernels.flash_attn.ref.float64_reference_and_bound`, derived
      before the first run), within rtol 2e-4 / atol 2e-4 of each other
-     (`tests/test_kernels.py`), relaunches bit-identical;
+     (`tests/test_kernels.py`), relaunches bit-identical, and the short
+     instance `torch.equal` to the D = 128 / D = 64 instance on the same
+     rows;
   4. the main path: `repro_torch.quickstart.run` — the §IV plan, the
      encode through the kernel, 600 uncoded and 600 coded epochs — with
      the launch counters set to 0 just before it and read just after;
@@ -159,8 +163,14 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      float32-FMA bound printed beside it; kernels 7 and 8 also at
      zamba2-1.2b's shapes (phase 3's operands), cold and warm, with their
      plain versions, library calls and bounds (the `hybrid_shape` of
-     their rows in the kernels line), and kernel 8 at whisper-tiny's
-     decoder prefill (1, 6, 6, 440, 64) the same way (`whisper_shape`);
+     their rows in the kernels line), kernel 8 at whisper-tiny's
+     decoder prefill (1, 6, 6, 440, 64) the same way (`whisper_shape`)
+     and at phase 22's prefills of codeqwen1.5-7b (32 heads, 32
+     key/value heads) and minitron-4b (24, 8) at 100 and 2048 tokens and
+     mistral-large-123b's (96, 8) at 2048 (`dense_shapes`, each with its
+     launches on the driven paths), and kernel 3 at one launch of phase
+     9's fleet-scale encode (128, 8, 33) (`fleet_shape`, with phase 9's
+     launches);
  14. gradient coding through the registry (`make_strategy("gradcode",
      r=...)`) on the §IV fleet and the quickstart's data, lr 0.0085, 600
      epochs: r = 2 and r = 3 each exactly 600 round-gradient launches at
@@ -299,13 +309,15 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      through `ServeEngine(n_slots=2, max_seq=2112)` over prompts of 100
      and 2048 tokens, 8 new tokens each (32 kernel-8 launches per
      prefill, none in decode), tokens equal to `greedy_generate`'s, the
-     kernel prefill against the plain one as in phase 12;
+     kernel prefill against the plain one as in phase 12 (32 launches,
+     counted);
      mistral-large-123b's full-width tree on the meta device
      (122,610,069,504 parameters, JAX's `eval_shape` total), and on the
      card at full width cut to 4 of its 88 layers (6,341,898,240
      parameters): one 2048-token kernel prefill against the plain one (4
      launches) and a greedy 8-token generation (4 launches); each
-     config's parameters freed before the next;
+     config's parameters freed before the next; kernel 8's launches in
+     these counted runs, by shape;
  23. the moe path: phi3.5-moe at full width cut to 4 of its 32 layers
      (5,463,904,256 parameters; 41,872,527,360 at full depth, on the
      meta device) through `ServeEngine(n_slots=4, max_seq=2112)` over
@@ -363,7 +375,8 @@ an H100, sm_90a).  Phases, each printed as it finishes:
      `run` at full width and depth (granite-8b, 36 layers at d_model
      4096, 12 clients x 64 sequences of 32 tokens, 300 epochs, c = 230):
      exactly 36 kernel-8 launches (the backbone, all 768 sequences in
-     one batch), 12 kernel-2 (one parity encode a client, (230, 64,
+     one batch), every one on the short-sequence instance by the
+     counter's record of instances, 12 kernel-2 (one parity encode a client, (230, 64,
      4097)) and 600 kernel-1 (both heads at D = 4096), NMSE traces
      finite and falling, the coding gain printed; client 0's kernel
      features within 1e-3 * max(1, max|feature|) of the plain
@@ -397,7 +410,8 @@ kernel 8 over phases 12, 21-24, phase 25's prefills and phase 26.
 Kernels 1-6 also carry the `tile` `"auto"` launched at the timed shape
 (`[0]`: a round gradient's own partition), and kernels 1, 2, 4, 5 and 6
 `tuned`, phase 20's measured tuning of the kernel's family; kernels 1
-and 8 `probe_shape`, phase 26's timing at the probe's shapes.
+and 8 `probe_shape`, phase 26's timing at the probe's shapes (kernel
+8's with the instance it takes and its launches by instance).
 
 Any failed check raises, so the exit code is non-zero.  The line before
 the last is the kernels' JSON record; the last line is
@@ -409,6 +423,7 @@ from __future__ import annotations
 import atexit
 import dataclasses
 import gc
+import itertools
 import json
 import os
 import re
@@ -501,9 +516,12 @@ MESH_LANES, MESH_EPOCHS, MESH_WIDTH = 8, 100, 4
 # and one key/value head per query head (R = 1) and per three (R = 3);
 # the 2048-token prefills of zamba2-1.2b (phase 21: 32 heads of 64, one
 # per key/value head, the kernel's run-time-D instance) and of
-# mistral-large-123b (phase 22: 12 query heads per key/value head), and
+# mistral-large-123b (phase 22: 12 query heads per key/value head),
 # whisper-tiny's decoder prefill (phase 24: 6 heads of 64, one per
-# key/value head)
+# key/value head), the coded-head probe's backbone (phase 26: 768
+# sequences of 32 tokens, the short-sequence instance) and two ragged short
+# ones (12 query heads a key/value head over 27 rows, so warp tiles hold
+# rows of two heads and the last chunk is part full; D = 64 at 19 rows)
 FLASH_SHAPE = (1, 32, 8, 2048, 128)
 FLASH_HYBRID_SHAPE = (1, 32, 32, 2048, 64)
 FLASH_CASES = {"serving shape": FLASH_SHAPE,
@@ -515,7 +533,19 @@ FLASH_CASES = {"serving shape": FLASH_SHAPE,
                "zamba2 serving shape": FLASH_HYBRID_SHAPE,
                "mistral-large serving shape": (1, 96, 8, 2048, 128),
                # phase 24's AUDIO_PROMPT-token whisper-tiny prefill
-               "whisper-tiny serving shape": (1, 6, 6, 440, 64)}
+               "whisper-tiny serving shape": (1, 6, 6, 440, 64),
+               "probe shape": (768, 32, 8, 32, 128),
+               "short ragged": (3, 12, 1, 27, 128),
+               "short D = 64": (5, 6, 2, 19, 64)}
+# kernel 8 timed at the other driven prefill shapes (phase 22's prompts),
+# {label: (B, Hq, Hkv, S, D)}; each one's launches are phase 22's counter
+# reads at that shape
+FLASH_DENSE_TIMED = {
+    "codeqwen1.5-7b, 100 tokens": (1, 32, 32, 100, 128),
+    "codeqwen1.5-7b, 2048 tokens": (1, 32, 32, 2048, 128),
+    "minitron-4b, 100 tokens": (1, 24, 8, 100, 128),
+    "minitron-4b, 2048 tokens": (1, 24, 8, 2048, 128),
+    "mistral-large-123b, 2048 tokens": (1, 96, 8, 2048, 128)}
 # phase 14: GradientCodingFL at the replication factors of
 # benchmarks/ablation_baselines.py
 GC_REPLICATION = (2, 3)
@@ -1028,7 +1058,7 @@ def fleet_scale_phase(dev, reset_counters, read_counters) -> dict:
     w = torch.rand((ENC_CLIENTS, ENC_ELL), generator=gen, device=dev) + 0.5
     key = prng.prng_key(3)
     topo = FleetTopology.uniform(ENC_CLIENTS, ENC_TIERS)
-    encodes = {}
+    encodes, prng_launches = {}, 0
     for label, fn in (("tiered", lambda: encode_fleet_tiered(
             key, xs, ys, w, ENC_C, topo)),
             ("flat", lambda: enc_ops.encode_fleet_prng(key, xs, ys, w,
@@ -1045,6 +1075,7 @@ def fleet_scale_phase(dev, reset_counters, read_counters) -> dict:
                          "encode_prng": ENC_CLIENTS},
               f"unexpected fleet-scale encode launch counts {counts}")
         encodes[label + "_s"] = secs
+        prng_launches += counts["encode_prng"]
     acc, scale = plain_composite(key, xs, ys, w, ENC_C)
     flat = torch.cat([encodes["flat"][0], encodes["flat"][1][:, None]], 1)
     bound = 2e-4 * float(acc.abs().max())
@@ -1084,7 +1115,56 @@ def fleet_scale_phase(dev, reset_counters, read_counters) -> dict:
     check(growth <= GROWTH_CEIL, f"round scheduling grew {growth:.2f}x")
     return {"plan_s": plan_s, "tiered_s": encodes["tiered_s"],
             "flat_s": encodes["flat_s"], "small_s": small_s,
-            "large_s": large_s, "growth": growth}
+            "large_s": large_s, "growth": growth,
+            "prng_launches": prng_launches}
+
+
+def time_prng_fleet_shape(dev, gen, card: str) -> dict:
+    """Kernel 3 at one launch of phase 9's fleet-scale encode: a client's
+    (ENC_C, ENC_ELL, FLEET_D + 1) normal parity, labels as the last
+    column, the calls rotating over ENC_CLIENTS clients' operands as the
+    encode does (together 0.3 MB: the rotation is L2-warm, and copies of
+    a client's 1 KB past twice the L2 would be ~10^5); a single client's
+    operands beside it, its plain version, the library product on a
+    materialized G (held to the kernel first) and the bound of
+    `roofline.kernel_terms`."""
+    from repro_torch.kernels.encode import ops as enc_ops
+    from repro_torch.kernels.encode import prng
+    from repro_torch.kernels.encode import ref as enc_ref
+
+    c, ell, d1 = ENC_C, ENC_ELL, FLEET_D + 1
+    key = prng.split_keys(prng.prng_key(3), ENC_CLIENTS)[0]
+    clients = [(torch.rand((ell,), generator=gen, device=dev) + 0.5,
+                torch.randn((ell, d1), generator=gen, device=dev))
+               for _ in range(ENC_CLIENTS)]
+
+    def kernel(w_, x_):
+        return enc_ops.encode_parity_prng(key, w_, x_, c, "normal")
+
+    def plain(w_, x_):
+        return enc_ref.encode_parity_prng(key, w_, x_, c, "normal")
+
+    g = prng.generator_values(key, c, ell, "normal", device=dev)
+    w, x = clients[0]
+    got = kernel(w, x)
+    lib_err = float((g @ (w[:, None] * x) - got).abs().max())
+    check(lib_err <= 2e-4 * max(1.0, float(got.abs().max())),
+          f"the library product of kernel 3 at the fleet-scale shape "
+          f"disagrees with the kernel: {lib_err:.3e}")
+    terms = kernel_terms("encode_prng", (c, ell, d1))
+    r = {"shape": [c, ell, d1], "ms": time_ms(kernel, clients),
+         "ms_one_client": time_ms(kernel, clients[:1]),
+         "plain_ms": time_ms(plain, clients[:8], calls=4),
+         "library_ms": time_ms(lambda g_, w_, x_: g_ @ (w_[:, None] * x_),
+                               [(g, *op) for op in clients]),
+         "bound_ms": 1e3 * terms["bound_s"], "bound_by": terms["bound_by"]}
+    phase(f"time encode_prng normal at the fleet-scale shape ({c}, {ell}, "
+          f"{d1}) [{card}]: kernel {r['ms']!r} ms over {ENC_CLIENTS} "
+          f"clients' operands (one client's {r['ms_one_client']!r} ms), "
+          f"plain {r['plain_ms']!r} ms, library G @ (w X) on a "
+          f"materialized G {r['library_ms']!r} ms (max |library - kernel| "
+          f"{lib_err:.3e}), bound {r['bound_ms']!r} ms ({r['bound_by']})")
+    return r
 
 
 def legacy_phase(out, dev, reset_counters, read_counters) -> dict:
@@ -2016,7 +2096,8 @@ def run_engine(cfg, params, prompts, dev, card: str, kernels: dict,
     name to (counter, launches per prefill, printed name): each of them
     exactly that often in every prefill, never in decode, and no other
     kernel.  Prints prefill ms per request, decode ms per engine step and
-    tokens/s; returns the run's numbers, "launches" by counter name."""
+    tokens/s; returns the run's numbers, "launches" by counter name and
+    "prefill_launches" by prompt length and counter name."""
     from repro_torch.serving import Request, ServeEngine
 
     reqs = [Request(uid=i, prompt=p, max_new_tokens=new)
@@ -2104,7 +2185,11 @@ def run_engine(cfg, params, prompts, dev, card: str, kernels: dict,
                                        for name in kernels},
             "run_s": run_s, "tokens_per_s": new_tokens / run_s,
             "step_ms": step_ms,
-            "prefill_ms": {lengths[u]: ms for u, (ms, _) in prefill.items()}}
+            "prefill_ms": {lengths[u]: ms for u, (ms, _) in prefill.items()},
+            "prefill_launches": {
+                n: {name: sum(c[name] for u, (_, c) in prefill.items()
+                              if lengths[u] == n) for name in kernels}
+                for n in set(lengths)}}
 
 
 def check_against_greedy(cfg, params, done, dev, card: str,
@@ -2458,12 +2543,19 @@ def dense_configs_phase(dev, card: str, expect, reset_counters,
     through `ServeEngine`, then mistral-large-123b at full width on the
     meta device and cut in depth on the card; each config's parameters
     freed before the next.  Returns each run's numbers and kernel 8's
-    launches over the phase."""
+    launches over the phase's counted runs (the engine's, the kernel
+    prefills held against the plain ones, mistral's generation), in all
+    and by (B, Hq, Hkv, S, D)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.launch.serve import greedy_generate
 
-    out, launches = {}, 0
+    out, by_shape = {}, {}
+
+    def counted(cfg, seq, n):
+        shape = (1, cfg.n_heads, cfg.n_kv_heads, seq, cfg.hd)
+        by_shape[shape] = by_shape.get(shape, 0) + n
+
     for arch, n_want in DENSE_CONFIGS.items():
         cfg = get_config(arch)
         phase(f"serve [{card}]: {cfg.name}: {cfg.n_layers} layers, d_model "
@@ -2479,15 +2571,21 @@ def dense_configs_phase(dev, card: str, expect, reset_counters,
                                   "kernel-8")},
             expect, reset_counters, read_counters, slots=DENSE_SLOTS,
             new=DENSE_NEW)
+        for seq, n in run["prefill_launches"].items():
+            counted(cfg, seq, n["causal_attention"])
         check_against_greedy(cfg, params, run["done"], dev, card,
                              new=DENSE_NEW)
+        reset_counters()
         diff = check_kernel_prefill(
             cfg, params, torch.as_tensor(prompts[-1], device=dev)[None],
             card, "kernel 8", DENSE_LOGIT_RTOL)
+        counts = read_counters()
+        check(counts == expect(causal_attention=cfg.n_layers),
+              f"the {cfg.name} kernel prefill launched {counts}")
+        counted(cfg, len(prompts[-1]), counts["causal_attention"])
         peak = torch.cuda.max_memory_allocated()
         phase(f"serve [{card}]: {cfg.name} peak device memory "
               f"{peak / 2**30:.3f} GiB")
-        launches += run["launches"]["causal_attention"]
         out[arch] = {"run_s": run["run_s"], "step_ms": run["step_ms"],
                      "tokens_per_s": run["tokens_per_s"],
                      "prefill_ms": run["prefill_ms"], "logit_diff": diff,
@@ -2516,14 +2614,17 @@ def dense_configs_phase(dev, card: str, expect, reset_counters,
     reset_counters()
     diff = check_kernel_prefill(cut, params, toks, card, "kernel 8",
                                 DENSE_LOGIT_RTOL)
-    check(read_counters() == expect(causal_attention=MISTRAL_LAYERS),
+    counts = read_counters()
+    check(counts == expect(causal_attention=MISTRAL_LAYERS),
           "the cut mistral prefill did not launch kernel 8 once a layer")
+    counted(cut, toks.shape[1], counts["causal_attention"])
     reset_counters()
     gen_toks, t_pre, st = greedy_generate(cut, params, toks, DENSE_NEW, {},
                                           device=dev)
     counts = read_counters()
     check(counts == expect(causal_attention=MISTRAL_LAYERS),
           f"the cut mistral generation launched {counts}")
+    counted(cut, toks.shape[1], counts["causal_attention"])
     new = gen_toks[0, toks.shape[1]:]
     check(bool(((new >= 0) & (new < cut.vocab)).all()),
           "a token outside the vocabulary")
@@ -2533,13 +2634,15 @@ def dense_configs_phase(dev, card: str, expect, reset_counters,
           f"{1e3 * t_pre:.3f} ms, decode median "
           f"{1e3 * statistics.median(st):.3f} ms a token; peak device "
           f"memory {peak / 2**30:.3f} GiB")
-    launches += 2 * MISTRAL_LAYERS
     out[MISTRAL_ARCH] = {"logit_diff": diff, "prefill_s": t_pre,
                          "step_ms": 1e3 * statistics.median(st),
                          "peak_bytes": peak}
     del params
     free_card()
-    return {"configs": out, "launches": launches}
+    phase(f"serve [{card}]: kernel 8's launches in phase 22's counted runs "
+          f"by (B, Hq, Hkv, S, D): {by_shape}")
+    return {"configs": out, "launches": sum(by_shape.values()),
+            "by_shape": by_shape}
 
 
 def moe_serve_phase(dev, card: str, expect, reset_counters,
@@ -2870,8 +2973,11 @@ def check_flash_kernel(dev, gen, errs: dict) -> tuple:
     of the float64 value (`kernels.flash_attn.ref.float64_reference_and_
     bound`, derived before the first run), within rtol 2e-4 / atol 2e-4
     of each other (`tests/test_kernels.py`), and a bit-identical
-    relaunch.  Returns the operands of granite's, zamba2's and
-    whisper-tiny's serving shapes."""
+    relaunch; a shape the short-sequence instance takes also `torch.equal`
+    to the D = 128 / D = 64 instance on the same rows (the operands
+    extended past SHORT_MAX_S take it, and no row reads a later key).
+    Returns the operands of granite's, zamba2's and whisper-tiny's serving
+    shapes."""
     from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.kernels.flash_attn import ref as fa_ref
 
@@ -2885,6 +2991,21 @@ def check_flash_kernel(dev, gen, errs: dict) -> tuple:
         torch.cuda.synchronize()
         err, ok = allclose_report(got, plain, 2e-4, 2e-4)
         same = torch.equal(got, again)
+        B, Hq, Hkv, S, D = shape
+        inst = fa_ops.instance(D, s=S)
+        if inst.startswith("short"):
+            longer = [torch.cat([t, torch.randn(
+                (B, t.shape[1], fa_ops.SHORT_MAX_S + 1, D), generator=gen,
+                device=dev)], 2) for t in ops]
+            long_eq = torch.equal(
+                fa_ops.causal_attention(*longer)[:, :, :S], got)
+            del longer
+            phase(f"check causal_attention {label}: the {inst} instance "
+                  f"torch.equal to the "
+                  f"{fa_ops.instance(D, s=S + fa_ops.SHORT_MAX_S + 1)} "
+                  f"instance on the same rows {long_eq}")
+            check(long_eq, f"causal_attention {label}: the short instance "
+                  "differs from the long one")
         share = {name: bound_share(o, o64, bound)
                  for name, o in (("kernel", got), ("plain", plain))}
         del o64, bound, plain
@@ -3015,15 +3136,20 @@ def time_flash(flash_ops_, shape, label: str, card: str) -> dict:
     check(lib_err <= 2e-4, f"the library call of kernel 8 at {label}'s shape "
           f"disagrees with the kernel: {lib_err:.3e}")
     del got
-    backend = sdpa_backend(*flash_ops_)
+    B, Hq, Hkv, S, D = shape
+    rep = Hq // Hkv  # the backend of the expanded call that is timed
+    backend = sdpa_backend(flash_ops_[0],
+                           *(t.repeat_interleave(rep, 1)
+                             for t in flash_ops_[1:]))
     cold = cold_copies(flash_ops_)
     terms = kernel_terms("causal_attention", shape)
-    r = {"shape": list(shape), "instance": fa_ops.instance(shape[4]),
+    r = {"shape": list(shape), "instance": fa_ops.instance(D, s=S),
          "ms": time_ms(fa_ops.causal_attention, cold),
          "ms_l2_warm": time_ms(fa_ops.causal_attention, [flash_ops_]),
          "plain_ms": time_ms(fa_ref.causal_attention, cold, calls=4),
          "library_ms": time_ms(sdpa_expanded, cold, calls=4),
-         "library": f"scaled_dot_product_attention(is_causal) on {backend}",
+         "library": ("repeat_interleave + " if rep > 1 else "")
+                    + f"scaled_dot_product_attention(is_causal) on {backend}",
          "bound_ms": 1e3 * terms["bound_s"], "bound_by": terms["bound_by"],
          "flops": int(terms["flops"]), "bytes": int(terms["bytes"])}
     del cold
@@ -3818,6 +3944,15 @@ def probe_phase(dev, card: str, expect, reset_counters,
           f"NMSE {out['target']:.3e}: {out['gain']:.3f}x")
     check(launches == expect(**PROBE_LAUNCHES),
           f"unexpected probe launch counts {launches}")
+    by_instance = {fa_ops.INSTANCES[code]: n
+                   for (code,), n in fa_ops.FLASH_COUNTER.tiles.items()}
+    want = {fa_ops.instance(cfg.hd, s=seq):
+            PROBE_LAUNCHES["causal_attention"]}
+    phase(f"probe [{card}]: kernel 8's launches by the instance its "
+          f"library reports {by_instance}")
+    check(by_instance == want and next(iter(want)).startswith("short"),
+          f"the probe's kernel-8 launches did not all take the short "
+          f"instance: {by_instance}")
     for rep in reps.values():
         check(rep.nmse.shape == (probe.EPOCHS + 1,)
               and bool(np.all(np.isfinite(rep.nmse)))
@@ -3903,6 +4038,7 @@ def probe_phase(dev, card: str, expect, reset_counters,
     cold = cold_copies(ops)
     terms = kernel_terms("causal_attention", shape)
     fa = {"shape": list(shape), "launches": launches["causal_attention"],
+          "instance": fa_ops.instance(shape[4], s=seq),
           "max_abs_err": ferr,
           "ms": time_ms(fa_ops.causal_attention, cold),
           "ms_l2_warm": time_ms(fa_ops.causal_attention, [ops]),
@@ -3914,11 +4050,12 @@ def probe_phase(dev, card: str, expect, reset_counters,
           "flops": int(terms["flops"]), "bytes": int(terms["bytes"])}
     del cold, ops
     phase(f"time causal_attention at the probe's shape {list(shape)} "
-          f"[{card}]: kernel {fa['ms']!r} ms (L2 warm {fa['ms_l2_warm']!r} "
+          f"(the {fa['instance']} instance) [{card}]: kernel {fa['ms']!r} ms (L2 warm {fa['ms_l2_warm']!r} "
           f"ms), plain {fa['plain_ms']!r} ms, library {fa['library']} "
           f"{fa['library_ms']!r} ms, bound {fa['bound_ms']!r} ms "
           f"({fa['bound_by']}, flops {fa['flops']}, bytes {fa['bytes']})")
     free_card()
+    fa["launches_by_instance"] = {k[0]: n for k, n in by_instance.items()}
     return {"launches": launches, "wall_s": wall,
             "seconds": out["seconds"], "gain": out["gain"],
             "feature_diff": diff, "round_grad": rg, "causal_attention": fa}
@@ -4056,7 +4193,7 @@ def main() -> int:
     phase(f"build: {time.perf_counter() - t0:.2f} s wall for "
           + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in built.items()))
     # the kernels that must not spill: {source: instance-name prefixes}
-    no_spill = {"flash_attn": ("flash_attn_kernel",),
+    no_spill = {"flash_attn": ("flash_attn_kernel", "short_attn_kernel"),
                 "encode": ("encode_kernel", "encode_prng_kernel"),
                 "round_grad": ("",), "ssd": ("ssd_chunk_kernel",)}
     for name, info in built.items():
@@ -4079,13 +4216,13 @@ def main() -> int:
           f"at D = 64 ({fa_ops.instance(64)} instance): "
           f"{fa_ops.smem_bytes(64)} bytes a CTA, three CTAs an SM")
     lib8 = fa_ops._dispatch(dev)
-    for d in (8, 40, 64, 70, 72, 128):
-        check(fa_ops.INSTANCES[lib8.flash_attn_instance(d, 1)]
-              == fa_ops.instance(d) and
-              fa_ops.INSTANCES[lib8.flash_attn_instance(d, 0)]
-              == fa_ops.instance(d, aligned=False),
-              f"kernel 8's library and wrapper disagree on D = {d}'s "
-              "instance")
+    for d, s in itertools.product((8, 40, 64, 70, 72, 128),
+                                  (1, 15, 16, 32, 33, 63, 64, 65, 2048)):
+        check(all(fa_ops.INSTANCES[lib8.flash_attn_instance(d, vec, s)]
+                  == fa_ops.instance(d, aligned=bool(vec), s=s)
+                  for vec in (0, 1)),
+              f"kernel 8's library and wrapper disagree on the instance of "
+              f"D = {d}, S = {s}")
     hmma = {}  # {kernel: HMMA count}, by its source and mangled name
     for kernel, name, function in (
             ("kernel 8", "flash_attn", ""),
@@ -4666,6 +4803,15 @@ def main() -> int:
                               FLASH_CASES["whisper-tiny serving shape"],
                               "whisper-tiny", card)
     del ssd_hybrid_inputs, flash_hybrid_inputs, flash_whisper_inputs
+    # kernel 8 at the other driven prefill shapes, kernel 3 at the
+    # fleet-scale encode's
+    dense_times = {}
+    for label, shape in FLASH_DENSE_TIMED.items():
+        ops = flash_operands(gen, dev, *shape)
+        dense_times[label] = time_flash(ops, shape, label, card)
+        del ops
+    prng_fleet = time_prng_fleet_shape(dev, gen, card)
+    prng_fleet["launches"] = fleet_scale["prng_launches"]
     phase(f"serve [{card}]: granite-8b engine {dense['tokens_per_s']:.2f} "
           f"tokens/s, decode step median {dense['step_ms']:.3f} ms; "
           f"mamba2-1.3b engine {serve['tokens_per_s']:.2f} tokens/s, "
@@ -4740,6 +4886,10 @@ def main() -> int:
     # -- 22. the other dense configs ---------------------------------------
     dense_cfgs = dense_configs_phase(dev, card, expect, reset_counters,
                                      read_counters)
+    for label, shape in FLASH_DENSE_TIMED.items():
+        check(shape in dense_cfgs["by_shape"],
+              f"phase 22 launched kernel 8 at no {label} shape {shape}")
+        dense_times[label]["launches"] = dense_cfgs["by_shape"][shape]
 
     # -- 23. the moe family ------------------------------------------------
     moe = moe_serve_phase(dev, card, expect, reset_counters, read_counters)
@@ -4886,7 +5036,7 @@ def main() -> int:
          "ms_l2_warm": prng_rec["normal"]["warm"],
          "bernoulli": {k: prng_rec["bernoulli"][k] for k in
                        ("ms", "warm", "plain", "lib", "bound")},
-         "shape": prng_shape},
+         "shape": prng_shape, "fleet_shape": prng_fleet},
         {"name": "lsq_gradient", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/round_grad.cu",
          "replaces": "src/repro/kernels/coded_grad/coded_grad.py:53",
@@ -4931,7 +5081,8 @@ def main() -> int:
          "ms_l2_warm": flash_warm, "shape": list(FLASH_SHAPE),
          "hybrid_shape": hybrid_times["causal_attention"],
          "whisper_shape": whisper_time,
-         "probe_shape": probe["causal_attention"]},
+         "probe_shape": probe["causal_attention"],
+         "dense_shapes": dense_times},
     ]
     # kernels 1-6: the tile block="auto" launched at the record's shape,
     # and phase 20's measured tuning of the kernel's family (kernel 3 has

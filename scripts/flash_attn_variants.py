@@ -8,8 +8,11 @@ each made by replacing some lines of the source (one `nvcc` per variant
 through `kernels.build.start_nvcc`, all started together, into
 `build/flash_attn_variants/`; each line must occur once in the source,
 except the `tf32::split(` calls, which `no_split` and `cvt_rna` replace
-at all their occurrences; anything else stops the script), and times each at the serving shape of
-granite-8b, (B, Hq, Hkv, S, D) = (1, 32, 8, 2048, 128), or at `--shape`:
+at all their occurrences, and the products and the score loop's unroll,
+which the variants change in the long and short instances alike; anything
+else stops the script), and times each at the serving shape of
+granite-8b, (B, Hq, Hkv, S, D) = (1, 32, 8, 2048, 128), or at `--shape`
+(the coded-head probe's is 768,32,8,32,128):
 
   * kernel      — the source as it is;
   * plain_tf32  — one TF32 product per float32 product (big.big) in both
@@ -34,6 +37,9 @@ granite-8b, (B, Hq, Hkv, S, D) = (1, 32, 8, 2048, 128), or at `--shape`:
                   D = 128's (at most 255 registers a thread);
   * narrow_4cta — the D = 64 instance planned for four CTAs an SM (at
                   most 128 registers a thread);
+  * no_short    — no short-sequence instance: S <= 64 takes the D = 128
+                  or D = 64 instance (its difference from the kernel must
+                  be 0);
   * cvt_rna     — the splits by `cvt.rna.tf32.f32` instead of the integer
                   rounding of `tf32::rna` (the same results for finite
                   values: its difference from the kernel must be 0).
@@ -53,7 +59,10 @@ HEAD~1:src/repro_torch/kernels/csrc/flash_attn.cu >
 build/parent/flash_attn.cu`), the variants are skipped: OLD.cu and the
 current source are built side by side and compared at zamba2-1.2b's
 (1, 32, 32, 2048, 64), whisper-tiny's (1, 6, 6, 440, 64) and granite-8b's
-(1, 32, 8, 2048, 128) prefill shapes: the current result `torch.equal` to
+(1, 32, 8, 2048, 128) prefill shapes, granite's 100- and 1537-token
+prompts, one and three query heads a key/value head, and short sequences
+(the coded-head probe's (768, 32, 8, 32, 128), S = 64, D = 64, one and
+twelve query heads a key/value head): the current result `torch.equal` to
 the earlier one's (the script fails otherwise), both within the float64
 bound of `kernels.flash_attn.ref.float64_reference_and_bound`, cold
 times (operands rotated over copies larger than twice the L2) in the
@@ -94,9 +103,12 @@ PROB = "s[j][e] = expf(s[j][e] - m[e >> 1]);"
 SPLIT = "tf32::split("
 KK_UNROLL = "#pragma unroll 2\n"
 BK = "constexpr int kBk = 64; "
-INSTANCE = "const int inst = instance(D, vec);"
-NARROW_BOUNDS = "__launch_bounds__(kThreads, kNd == kNarrowNd ? 3 : 2)"
+INSTANCE = "const int inst = instance(D, vec, S);"
+NARROW_BOUNDS = ("__launch_bounds__(kThreads, kNd == kNarrowNd ? 3 : 2)\n"
+                 "flash_attn_kernel(")
 BOUNDS = NARROW_BOUNDS
+SHORT_RULE = ("  if (S <= kShortMaxS) return (nd == kMaxNd ? 3 : 5) + "
+              "(S > 32 ? 1 : 0);\n")
 SOFTMAX_FIRST = "      const bool masked = t0 + kBk - 1 > r0 || t0 + kBk > S;\n"
 SOFTMAX_LAST = ("        for (int e = 0; e < 4; ++e) acc[j][e] *= "
                 "alpha[e >> 1];\n")
@@ -116,10 +128,11 @@ VARIANTS = {
     "unroll4": {KK_UNROLL: "#pragma unroll 4\n"},
     "keys32": {BK: "constexpr int kBk = 32; "},
     "keys32_3cta": {BK: "constexpr int kBk = 32; ",
-                    BOUNDS: "__launch_bounds__(kThreads, 3)"},
+                    BOUNDS: BOUNDS.replace("kNd == kNarrowNd ? 3 : 2", "3")},
     "runtime_nd": {INSTANCE: "const int inst = 0;"},
-    "narrow_2cta": {NARROW_BOUNDS: "__launch_bounds__(kThreads, 2)"},
+    "narrow_2cta": {NARROW_BOUNDS: NARROW_BOUNDS.replace("? 3 : 2", "? 2 : 2")},
     "narrow_4cta": {NARROW_BOUNDS: NARROW_BOUNDS.replace("? 3", "? 4")},
+    "no_short": {SHORT_RULE: ""},
     "cvt_rna": {SPLIT: "cvt_split(",
                 INCLUDE: INCLUDE + r"""
 __device__ __forceinline__ uint32_t cvt_rna(float x) {
@@ -193,7 +206,17 @@ def mma_rates(stream) -> None:
 
 PARENT_SHAPES = {"zamba2-1.2b": (1, 32, 32, 2048, 64),
                  "whisper-tiny": (1, 6, 6, 440, 64),
-                 "granite-8b": (1, 32, 8, 2048, 128)}
+                 "granite-8b": (1, 32, 8, 2048, 128),
+                 "100-token prompt": (1, 32, 8, 100, 128),
+                 "1537-token prompt": (1, 32, 8, 1537, 128),
+                 "R = 1": (1, 8, 8, 300, 128),
+                 "R = 3": (1, 12, 4, 257, 128),
+                 "probe": (768, 32, 8, 32, 128),
+                 "probe, R = 1": (768, 32, 32, 32, 128),
+                 "S = 64": (192, 32, 8, 64, 128),
+                 "S = 64, R = 1": (192, 32, 32, 64, 128),
+                 "D = 64, S = 32": (768, 32, 8, 32, 64),
+                 "D = 64, S = 45, R = 12": (64, 12, 1, 45, 64)}
 L2_BYTES = 50 * 2**20
 
 
@@ -229,7 +252,7 @@ def parent_report(parent: Path) -> bool:
             strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
             if fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          out.data_ptr(), B, Hq, Hkv, S, D, *strides,
-                         ops.scale(D), stream) != 0:
+                         ops.scale(D), stream, None) != 0:
                 raise RuntimeError(f"{name} launch failed")
             return out
 
@@ -243,8 +266,12 @@ def parent_report(parent: Path) -> bool:
         old, new = call("parent", q, k, v), call("current", q, k, v)
         o64, bound = ref.float64_reference_and_bound(q, k, v)
         torch.cuda.synchronize()
-        share = {n: float(((o.double() - o64).abs() / bound).max())
-                 for n, o in (("earlier", old), ("current", new))}
+        share = {}
+        for n, o in (("earlier", old), ("current", new)):
+            err = (o.double() - o64).abs()  # 0 / 0 (an exact 0) counts 0
+            share[n] = float(torch.where(bound > 0, err / bound,
+                                         torch.where(err > 0, torch.inf,
+                                                     0.0)).max())
         lib_err = float((library(q, k, v) - new).abs().max())
         equal = torch.equal(old, new)
         ok &= equal and max(share.values()) <= 1.0
@@ -257,7 +284,8 @@ def parent_report(parent: Path) -> bool:
         lib_ms = median_ms(lambda: library(*next(cyc)), calls=4)[0]
         terms = kernel_terms("causal_attention", (B, Hq, Hkv, S, D))
         print(f"{label} (B, Hq, Hkv, S, D) = {(B, Hq, Hkv, S, D)}: instance "
-              f"{ops.instance(D)}; torch.equal to the earlier build {equal}; "
+              f"{ops.instance(D, s=S)}; torch.equal to the earlier build "
+              f"{equal}; "
               f"float64-bound share earlier {share['earlier']:.4f}, current "
               f"{share['current']:.4f}; cold us earlier, current, current, "
               f"earlier " + ", ".join(f"{1e3 * t:.3f}" for t in times)
@@ -286,15 +314,21 @@ def main() -> int:
         return 0 if ok else 1
     libs = {}
     built = build_variants("flash_attn", {n: VARIANTS[n] for n in names}, OUT,
-                           every=frozenset({SPLIT}))
+                           every=frozenset({SPLIT, SCORE_MMA, OUT_MMA,
+                                            KK_UNROLL}))
     for name, (lib, log) in built.items():
-        print(f"{name}: registers {re.findall(r'Used (\d+) registers', log)}",
-              flush=True)
+        regs = re.findall(r"entry function '\w*?\d+([a-z_]+_kernel)"
+                          r"I((?:L[a-z]\d+E)+)E.*?Used (\d+) registers", log,
+                          re.S)
+        print(f"{name}: registers " + ", ".join(
+            f"{fn}<{args}> {n}" for fn, args, n in regs), flush=True)
         libs[name] = lib
     if "kernel" in libs:
-        print("SASS of the D = 128 instance: " + opcode_histogram(
-            libs["kernel"], "flash_attn_kernelILb1ELi16E"),
-              flush=True)
+        for label, mangled in (("D = 128", "flash_attn_kernelILb1ELi16E"),
+                               ("short, D = 128, 32 keys",
+                                "short_attn_kernelILi16ELi4E")):
+            print(f"SASS of the {label} instance: " + opcode_histogram(
+                libs["kernel"], mangled), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     B, Hq, Hkv, S, D = map(int, args.shape.split(","))
@@ -309,7 +343,8 @@ def main() -> int:
 
         def launch():
             if fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  B, Hq, Hkv, S, D, *strides, ops.scale(D), stream) != 0:
+                  B, Hq, Hkv, S, D, *strides, ops.scale(D), stream,
+                  None) != 0:
                 raise RuntimeError(f"{name} launch failed")
 
         launch()

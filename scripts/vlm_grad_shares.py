@@ -27,8 +27,13 @@ atol 1e-6 * max(1, max|ref|)):
      whose self blocks' attention core (scores, softmax, P.V and their
      backward) runs in float64, its output rounded once to float32 (the
      causal cores of `models.layers.gqa_scores_apply`, swapped in this
-     process only): shares against float64 and against the reference's
-     float32 gradient.
+     process only), and for two variants whose first self block's whole
+     attention half (its norm, the Q/K/V and output projections and the
+     core, forward and backward) runs in float64: (a) its output rounded
+     once to float32 and added to the float32 residual, (b) added to the
+     residual in float64 and the sum rounded once (`T._self_block`
+     swapped in this process only): shares against float64 and against
+     the reference's float32 gradient.
 The blocks of 1-3 run one by one here (each package's block functions),
 so the reference's float32 numbers there differ slightly from its
 scanned, jitted `loss_fn`'s, which 4 uses.
@@ -229,6 +234,41 @@ def float64_causal_core(q, k, v, mask, impl="grouped",
 
 
 _GQA = L.gqa_scores_apply
+_SELF_BLOCK = T._self_block
+
+
+def _float64(tree):
+    if isinstance(tree, dict):
+        return {k: _float64(v) for k, v in tree.items()}
+    return tree.double()
+
+
+def float64_attention_half(w0: torch.Tensor, residual_f64: bool):
+    """`T._self_block` with the attention half of the block whose query
+    projection equals `w0` (self block 0) in float64: its norm, the
+    Q/K/V and output projections and the core (scores, softmax and P.V
+    in float64), forward and backward; the half's output is rounded once,
+    before the float32 residual add (`residual_f64` False) or with it,
+    the residual added in float64 (True).  Every other block, and the
+    prefill's block, is the port's."""
+    def block(cfg, bp, x, positions, use_kernel, return_kv=False,
+              causal=True):
+        if return_kv or not torch.equal(bp["attn"]["wq"], w0):
+            return _SELF_BLOCK(cfg, bp, x, positions, use_kernel, return_kv,
+                               causal)
+        h = L.apply_norm(_float64(bp["attn_norm"]), x.double(), cfg.norm)
+        attn = L.self_attention(
+            _float64(bp["attn"]), h, positions, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, theta=cfg.rope_theta,
+            causal=causal, window=cfg.sliding_window if causal else None,
+            use_kernel=False, impl=cfg.attn_impl,
+            softmax_dtype=torch.float64)
+        x = ((x.double() + attn).to(x.dtype) if residual_f64
+             else x + attn.to(x.dtype))
+        h = L.apply_norm(bp["mlp_norm"], x, cfg.norm)
+        y, aux = T._ffn(cfg, bp, h)
+        return x + y, aux, None
+    return block
 
 
 def whole_gradient(jcfg, cfg, jp, toks, patches) -> None:
@@ -253,16 +293,22 @@ def whole_gradient(jcfg, cfg, jp, toks, patches) -> None:
     print("4. the embedding leaf of the whole gradient: against the "
           "reference's float64, against its float32")
     print(f"   reference float32      {share(j32, g64):.3f}")
-    for label, core in (("port", _GQA),
-                        ("port, f64 self cores", float64_causal_core)):
-        L.gqa_scores_apply = core
+    w0 = params["blocks"]["attn"]["wq"][0]
+    for label, core, block in (
+            ("port", _GQA, _SELF_BLOCK),
+            ("port, f64 self cores", float64_causal_core, _SELF_BLOCK),
+            ("port, f64 attn half 0 (a)", _GQA,
+             float64_attention_half(w0, residual_f64=False)),
+            ("port, f64 attn half 0 (b)", _GQA,
+             float64_attention_half(w0, residual_f64=True))):
+        L.gqa_scores_apply, T._self_block = core, block
         try:
             _, _, grads = steps.value_and_grad(
                 lambda q: T.loss_fn(cfg, q, b), params)
         finally:
-            L.gqa_scores_apply = _GQA
+            L.gqa_scores_apply, T._self_block = _GQA, _SELF_BLOCK
         got = grads["embed"].double().numpy()
-        print(f"   {label:22s} {share(got, g64):.3f} {share(got, j32):.3f}"
+        print(f"   {label:26s} {share(got, g64):.3f} {share(got, j32):.3f}"
               f" (|port - reference f32| {np.linalg.norm(got - j32):.3e})",
               flush=True)
 

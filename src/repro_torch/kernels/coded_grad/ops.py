@@ -10,4 +10,8 @@ wrapper's own launch counter (`round_grad.ops.LSQ_COUNTER`).
 from repro_torch.kernels.round_grad.ops import LSQ_COUNTER as COUNTER
 from repro_torch.kernels.round_grad.ops import lsq_gradient
 
-__all__ = ["COUNTER", "lsq_gradient"]
+from . import ref
+
+__all__ = ["COUNTER", "lsq_gradient", "reference"]
+
+reference = ref.lsq_gradient  # the plain oracle, the reference's name

@@ -70,8 +70,9 @@ def resolve_block(family: str, shape: tuple[int, ...], block, default,
 class LaunchCounter:
     """Plain-integer count of kernel launches, bumped by a wrapper only
     where it launches its kernel (never on the plain CPU path), and the
-    launches by tile (`tiles`: {tile as the C entry point took it:
-    launches}; `(0,)` is a round-gradient kernel's own partition)."""
+    launches by tile (`tiles`: {tile as the C entry point took it, or
+    chose it and reports it: launches}; `(0,)` is a round-gradient
+    kernel's own partition, kernel 8's key its compiled instance)."""
 
     launches: int = 0
     tiles: dict = dataclasses.field(default_factory=dict)

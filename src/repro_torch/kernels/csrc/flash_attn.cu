@@ -88,6 +88,52 @@
 //     --use_fast_math); every sum in a fixed order, so two launches on the
 //     same inputs are bit-identical.  Any S, D <= 128.
 //
+// Short sequences (short_attn_kernel).  The coded-head probe runs
+// granite-8b's backbone on 768 sequences of 32 tokens: (B, Hq, Hkv, S, D)
+// = (768, 32, 8, 32, 128).  There the kernel above is bound by neither
+// bytes (1.007 GB of q, k, v and o, 300 us at 3.35 TB/s) nor operations
+// (6.64 GFLOP, ~40 us at the 3xTF32 rate) but by latency and waste: a CTA
+// per (b, query head, 64-row tile) is 24,576 CTAs whose tiles are half
+// empty (S = 32: two of four warps hold no row and sit through every
+// barrier), half of each live warp's score n-tiles and P.V k-steps lie
+// past S, each key/value head's K and V are read once for each of its four
+// query heads, and V is only asked for after K has landed.  So:
+//   * A work item is one key/value head's query group (b, kv): its
+//     rep = Hq / Hkv heads x S rows all read the same K and V, and only
+//     each row's causal limit differs.  The group's rep S rows are packed
+//     into one stack, packed row pm being head kv rep + pm / S at position
+//     pm % S, and cut into chunks of 64 rows, one CTA of four warps each
+//     (16 rows a warp, as above): every warp tile is full but the last of
+//     a group, a tile may hold rows of two heads, and the CTAs of a group
+//     are launched next to each other, so its K and V come from device
+//     memory about once (a later chunk finds them in L2).  Grid (Hkv x
+//     chunks, B): the probe's 12,288 CTAs of full tiles.
+//   * S <= 64: one key tile of 32 keys (S <= 32, 4 score n-tiles) or 64
+//     (8), fixed at compile time with the column tiles (D = 128 or D = 64);
+//     no online rescaling (one tile: the running max starts at -1e30).
+//   * K, the chunk's Q rows and V are all in flight at once, three
+//     cp.async commit groups in that order; the scores wait for K and Q,
+//     P.V for V.  Q is scaled as its fragments are read (__fmul_rn, the
+//     same rounding as the stored c q above).  With Q by plain loads
+//     issued after V's copy, the scores waited behind V as well: the
+//     probe's shape took 714 us, and at S = 64 the short instance was
+//     slower than the one above (556 against 480 us; cold, on an H100,
+//     `scripts/flash_attn_variants.py --parent`).
+//   * What overlaps one CTA's copies is the products of the other CTAs
+//     on its SM: at D = 128 and S <= 32, 136 registers a thread and
+//     69,120 bytes of shared memory a CTA hold three (two at S <= 64); at
+//     D = 64 more.
+//   * Taken at S <= 64 with 16-byte copies and D in 121..128 or 57..64,
+//     for every rep: at each such shape measured it was the faster (at
+//     rep = 1 a tile of S <= 32 is still half empty, but the n-tiles past
+//     32 keys are gone); everything else takes the instances above,
+//     unchanged.
+// Each packed row runs the k-steps, mask, max and sum trees and P.V of
+// the instance above on its single key tile, leaving out only n-tiles
+// and k-steps whose keys are all past S (a max is exact, a masked
+// probability is 0 and its products add 0), so the short instances'
+// results are the D = 128 and D = 64 instances' bit for bit.
+//
 // The split's error.  A product term leaves out at most about 12 u |a||b|
 // (u = 2^-24); each MMA adds to its accumulator with an error of at most
 // about 2 u of the partial sum (tensor cores truncate inside an MMA: Fasi,
@@ -112,6 +158,7 @@ constexpr int kBk = 64;           // keys of a K/V tile
 constexpr int kSt = kBk / 8;      // score n-tiles a warp holds
 constexpr int kMaxNd = 16;        // 8-wide column tiles of D <= 128
 constexpr int kNarrowNd = 8;      // those of D in 57..64 (head size 64)
+constexpr int kShortMaxS = 64;    // the short instances' longest sequence
 constexpr float kNegInf = -1e30f;
 
 struct Strides {
@@ -152,16 +199,16 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src,
   }
 }
 
-// Start the copy of `rows` (<= kBk) rows of D floats at `src` (row stride
-// `ss`) into a kBk-row shared tile as one commit group; rows past `rows`
-// are zero-filled.
-template <bool kVec>
+// Start the copy of `rows` (<= kRows) rows of D floats at `src` (row
+// stride `ss`) into a kRows-row shared tile as one commit group; rows past
+// `rows` are zero-filled.
+template <bool kVec, int kRows = kBk>
 __device__ __forceinline__ void copy_tile(float* dst, const float* src,
                                           int64_t ss, int rows, int D,
                                           int ld) {
   constexpr int w = kVec ? 4 : 1;
   const int per_row = D / w;
-  for (int e = threadIdx.x; e < kBk * per_row; e += kThreads) {
+  for (int e = threadIdx.x; e < kRows * per_row; e += kThreads) {
     const int r = e / per_row, c = (e - r * per_row) * w;
     const bool in = r < rows;
     cp_async<kVec>(dst + r * ld + c, src + (in ? r * ss + c : 0), in);
@@ -176,25 +223,29 @@ __device__ __forceinline__ void tile_landed() {
   __syncthreads();
 }
 
-// Row max and row sum over a quad's 16 values of one row, in a fixed tree
-// order.
-__device__ __forceinline__ float max16(const float (&s)[kSt][4], int e) {
-  float x[kSt];
+// Row max and row sum over a quad's 2 kN values of one row (kN score
+// n-tiles), in a fixed tree order.  With kN = 4 the trees are those of
+// kN = 8 with the upper four n-tiles left out: a max is exact, and those
+// tiles' probabilities are 0, which adds nothing (x + 0 = x).
+template <int kN>
+__device__ __forceinline__ float row_max(const float (&s)[kN][4], int e) {
+  float x[kN];
 #pragma unroll
-  for (int j = 0; j < kSt; ++j) x[j] = fmaxf(s[j][e], s[j][e + 1]);
+  for (int j = 0; j < kN; ++j) x[j] = fmaxf(s[j][e], s[j][e + 1]);
 #pragma unroll
-  for (int w = kSt / 2; w > 0; w /= 2)
+  for (int w = kN / 2; w > 0; w /= 2)
 #pragma unroll
     for (int j = 0; j < w; ++j) x[j] = fmaxf(x[j], x[j + w]);
   return x[0];
 }
 
-__device__ __forceinline__ float sum16(const float (&s)[kSt][4], int e) {
-  float x[kSt];
+template <int kN>
+__device__ __forceinline__ float row_sum(const float (&s)[kN][4], int e) {
+  float x[kN];
 #pragma unroll
-  for (int j = 0; j < kSt; ++j) x[j] = s[j][e] + s[j][e + 1];
+  for (int j = 0; j < kN; ++j) x[j] = s[j][e] + s[j][e + 1];
 #pragma unroll
-  for (int w = kSt / 2; w > 0; w /= 2)
+  for (int w = kN / 2; w > 0; w /= 2)
 #pragma unroll
     for (int j = 0; j < w; ++j) x[j] = x[j] + x[j + w];
   return x[0];
@@ -315,7 +366,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float alpha[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        float mx = fmaxf(m[i], max16(s, 2 * i));
+        float mx = fmaxf(m[i], row_max(s, 2 * i));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
         alpha[i] = expf(m[i] - mx);
@@ -335,7 +386,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
           }
       }
 #pragma unroll
-      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum16(s, 2 * i);
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + row_sum(s, 2 * i);
 #pragma unroll
       for (int j = 0; j < kMaxNd; ++j)
 #pragma unroll
@@ -414,6 +465,210 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
   return cudaGetLastError();
 }
 
+// The short-sequence instance: S <= 8 kKt keys, one key/value head's
+// query group packed into the rows of a CTA (see the header).  kNd as
+// flash_attn_kernel's compile-time instances (kMaxNd or kNarrowNd); kKt
+// the score n-tiles of the one key tile (4: S <= 32, 8: S <= 64).  The
+// grid is (Hkv x chunks, B); chunk c of key/value head kv holds packed rows
+// kBq c .. kBq c + kBq - 1 of the group's rep S rows, packed row pm being
+// query head kv rep + pm / S at position pm % S.
+template <int kNd, int kKt>
+__global__ void __launch_bounds__(kThreads, kNd == kNarrowNd ? 3 : 2)
+short_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  Strides sq, Strides sk, Strides sv, Strides so, int S,
+                  int D, int rep, float scale) {
+  constexpr int nd = kNd, keys = 8 * kKt;
+  constexpr int ld = qk_stride(nd), ldv = v_stride(nd);
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [kBq][ld] Q rows
+  float* ks = qs + kBq * ld;                    // [keys][ld] K rows
+  float* vs = ks + keys * ld;                   // [keys][ldv] V rows
+
+  const int M = rep * S;  // the group's packed rows
+  const int n_chunks = (M + kBq - 1) / kBq;
+  const int kv = blockIdx.x / n_chunks, b = blockIdx.y;
+  const int m0 = (blockIdx.x - kv * n_chunks) * kBq;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  // K, the chunk's Q rows and V in flight together, three commit groups
+  // in that order: the scores wait for the first two only.  Q rows past
+  // the group's M are zero-filled; Q is scaled as its fragments are read.
+  copy_tile<true, keys>(ks, k + b * sk.b + kv * sk.h, sk.s, S, D, ld);
+  const float* qb = q + b * sq.b;
+  const int per_row = D / 4;
+  for (int e = tid; e < kBq * per_row; e += kThreads) {
+    const int r = e / per_row, c = (e - r * per_row) * 4, pm = m0 + r;
+    const bool in = pm < M;
+    const int h = kv * rep + pm / S, i = pm - (pm / S) * S;
+    cp_async<true>(qs + r * ld + c, in ? qb + h * sq.h + i * sq.s + c : qb,
+                   in);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  copy_tile<true, keys>(vs, v + b * sv.b + kv * sv.h, sv.s, S, D, ldv);
+  // columns D .. 8 nd - 1 of the Q, K and V tiles stay zero
+  const int pad = 8 * nd - D;
+  for (int e = tid; e < (kBq + keys) * pad; e += kThreads) {
+    const int r = e / pad, c = D + e - r * pad;
+    qs[r * ld + c] = 0.f;  // the K tile follows Q's rows
+    if (r < keys) vs[r * ldv + c] = 0.f;
+  }
+
+  // K and Q in place (V may still be in flight)
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  __syncthreads();
+
+  const int r0 = m0 + 16 * warp;  // the warp's first packed row
+  const bool active = r0 < M;
+  // the positions of this thread's two rows (0 for a row past M: it keeps
+  // key 0 and is not stored)
+  int pos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pm = r0 + g + 8 * i;
+    pos[i] = pm < M ? pm % S : 0;
+  }
+
+  // s = (c Q) K^T over this warp's 16 rows and the tile's keys; k-step kk
+  // takes columns 8 kk + (2t, 2t + 1) as (t, t + 4)
+  float s[kKt][4];
+#pragma unroll
+  for (int j = 0; j < kKt; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  float l[2] = {0.f, 0.f};
+  if (active) {
+#pragma unroll 2
+    for (int kk = 0; kk < nd; ++kk) {
+      const float* qa = qs + (16 * warp + g) * ld + 8 * kk + 2 * t;
+      const float2 q_g = *reinterpret_cast<const float2*>(qa);
+      const float2 q_g8 = *reinterpret_cast<const float2*>(qa + 8 * ld);
+      // c q rounded once, as the other instances store it (__fmul_rn: no
+      // contraction into the split's subtraction)
+      uint32_t a_big[4], a_small[4];
+      tf32::split(__fmul_rn(q_g.x, scale), a_big[0], a_small[0]);
+      tf32::split(__fmul_rn(q_g8.x, scale), a_big[1], a_small[1]);
+      tf32::split(__fmul_rn(q_g.y, scale), a_big[2], a_small[2]);
+      tf32::split(__fmul_rn(q_g8.y, scale), a_big[3], a_small[3]);
+#pragma unroll
+      for (int j = 0; j < kKt; ++j) {
+        const float2 kb = *reinterpret_cast<const float2*>(
+            ks + (8 * j + g) * ld + 8 * kk + 2 * t);
+        uint32_t b_big[2], b_small[2];
+        tf32::split(kb.x, b_big[0], b_small[0]);
+        tf32::split(kb.y, b_big[1], b_small[1]);
+        tf32::mma3(s[j], a_big, a_small, b_big, b_small);
+      }
+    }
+
+    // element (j, e) is position pos[e / 2], key 8 j + 2 t + e % 2 (a key
+    // past S lies past every position); one key tile, so the running max
+    // starts at -1e30 and no sum is rescaled
+#pragma unroll
+    for (int j = 0; j < kKt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = 8 * j + 2 * t + (e & 1);
+        if (key > pos[e >> 1]) s[j][e] = kNegInf;
+      }
+    float m[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = fmaxf(kNegInf, row_max(s, 2 * i));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      m[i] = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    }
+#pragma unroll
+    for (int j = 0; j < kKt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = 8 * j + 2 * t + (e & 1);
+        s[j][e] = key > pos[e >> 1]
+                      ? 0.f  // a masked probability is 0 outright
+                      : expf(s[j][e] - m[e >> 1]);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = row_sum(s, 2 * i);
+  }
+
+  // V in place
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  if (!active) return;
+
+  // acc = P V; k-step kk takes keys 8 kk + (2t, 2t + 1) as (t, t + 4)
+  float acc[nd][4];
+#pragma unroll
+  for (int j = 0; j < nd; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kKt; ++kk) {
+    uint32_t a_big[4], a_small[4];
+    tf32::split(s[kk][0], a_big[0], a_small[0]);
+    tf32::split(s[kk][2], a_big[1], a_small[1]);
+    tf32::split(s[kk][1], a_big[2], a_small[2]);
+    tf32::split(s[kk][3], a_big[3], a_small[3]);
+    const float* vb = vs + (8 * kk + 2 * t) * ldv + g;
+#pragma unroll
+    for (int j = 0; j < nd; ++j) {
+      uint32_t b_big[2], b_small[2];
+      tf32::split(vb[8 * j], b_big[0], b_small[0]);
+      tf32::split(vb[ldv + 8 * j], b_big[1], b_small[1]);
+      tf32::mma3(acc[j], a_big, a_small, b_big, b_small);
+    }
+  }
+
+  // the quad's four partial sums of each row, in a fixed order
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pm = r0 + g + 8 * i;
+    if (pm >= M) continue;
+    const int h = kv * rep + pm / S;
+    const float den = fmaxf(l[i], 1e-30f);
+    float* orow = o + b * so.b + h * so.h + pos[i] * so.s;
+#pragma unroll
+    for (int j = 0; j < nd; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * j + 2 * t + e;
+        if (d < D) orow[d] = acc[j][2 * i + e] / den;
+      }
+  }
+}
+
+__host__ __device__ constexpr size_t short_smem_bytes(int nd, int kt) {
+  return sizeof(float) *
+         ((kBq + 8 * kt) * qk_stride(nd) + 8 * kt * v_stride(nd));
+}
+
+template <int kNd, int kKt>
+cudaError_t launch_short(const float* q, const float* k, const float* v,
+                         float* o, int B, int Hkv, int S, int D, int rep,
+                         Strides sq, Strides sk, Strides sv, Strides so,
+                         float scale, cudaStream_t st) {
+  constexpr size_t smem = short_smem_bytes(kNd, kKt);
+  auto* kernel = short_attn_kernel<kNd, kKt>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  const int n_chunks = (rep * S + kBq - 1) / kBq;
+  kernel<<<dim3(Hkv * n_chunks, B), kThreads, smem, st>>>(
+      q, k, v, o, sq, sk, sv, so, S, D, rep, scale);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -421,12 +676,16 @@ bool aligned16(const void* p) {
 // The instance a call takes: 1 the D = 128 one (nd = kMaxNd), 2 the
 // head-size-64 one (nd = kNarrowNd), both with 16-byte copies (vec);
 // 0 the run-time-D instance (any other D, or a view that takes 4-byte
-// copies).  The compile-time instances compute what the run-time one
-// computes, in the same order: their results are its bit for bit.
-int instance(int D, bool vec) {
+// copies); at S <= kShortMaxS with 16-byte copies and nd = kMaxNd or
+// kNarrowNd the short instances, 3 and 4 (D = 128 at S <= 32 and at
+// 33..64), 5 and 6 (D = 64 the same).  The compile-time instances compute
+// what the run-time one computes, in the same order: their results are
+// its bit for bit.
+int instance(int D, bool vec, int S) {
   const int nd = (D + 7) / 8;
-  if (!vec) return 0;
-  return nd == kMaxNd ? 1 : nd == kNarrowNd ? 2 : 0;
+  if (!vec || (nd != kMaxNd && nd != kNarrowNd)) return 0;
+  if (S <= kShortMaxS) return (nd == kMaxNd ? 3 : 5) + (S > 32 ? 1 : 0);
+  return nd == kMaxNd ? 1 : 2;
 }
 
 }  // namespace
@@ -438,13 +697,15 @@ extern "C" {
 // (in elements; the last dimension contiguous).  Hkv divides Hq; every
 // extent > 0, D <= 128, B and Hq <= 65535; otherwise it returns
 // cudaErrorInvalidValue.  `scale` multiplies q (1/sqrt(D) in float32).
+// Where `chosen` is not null, the instance launched is written there (the
+// codes of flash_attn_instance).
 int flash_attn_launch(const float* q, const float* k, const float* v,
                       float* o, int B, int Hq, int Hkv, int S, int D,
                       long long q_b, long long q_h, long long q_s,
                       long long k_b, long long k_h, long long k_s,
                       long long v_b, long long v_h, long long v_s,
                       long long o_b, long long o_h, long long o_s,
-                      float scale, void* stream) {
+                      float scale, void* stream, int* chosen) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || S <= 0 || D <= 0 ||
       D > 8 * kMaxNd || Hq % Hkv != 0 || B > 65535 || Hq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -457,7 +718,8 @@ int flash_attn_launch(const float* q, const float* k, const float* v,
                    aligned16(v) &&
                    ((q_b | q_h | q_s | k_b | k_h | k_s | v_b | v_h | v_s) &
                     3) == 0;
-  const int inst = instance(D, vec);
+  const int inst = instance(D, vec, S);
+  if (chosen != nullptr) *chosen = inst;
   cudaError_t e;
   if (inst == 1)
     e = launch<true, kMaxNd>(q, k, v, o, B, Hq, S, D, rep, sq, sk, sv, so,
@@ -465,6 +727,18 @@ int flash_attn_launch(const float* q, const float* k, const float* v,
   else if (inst == 2)
     e = launch<true, kNarrowNd>(q, k, v, o, B, Hq, S, D, rep, sq, sk, sv,
                                 so, scale, st);
+  else if (inst == 3)
+    e = launch_short<kMaxNd, 4>(q, k, v, o, B, Hkv, S, D, rep, sq, sk, sv,
+                                so, scale, st);
+  else if (inst == 4)
+    e = launch_short<kMaxNd, 8>(q, k, v, o, B, Hkv, S, D, rep, sq, sk, sv,
+                                so, scale, st);
+  else if (inst == 5)
+    e = launch_short<kNarrowNd, 4>(q, k, v, o, B, Hkv, S, D, rep, sq, sk,
+                                   sv, so, scale, st);
+  else if (inst == 6)
+    e = launch_short<kNarrowNd, 8>(q, k, v, o, B, Hkv, S, D, rep, sq, sk,
+                                   sv, so, scale, st);
   else if (vec)
     e = launch<true, 0>(q, k, v, o, B, Hq, S, D, rep, sq, sk, sv, so, scale,
                         st);
@@ -481,9 +755,13 @@ int flash_attn_smem_bytes(int D) {
                                   : -1;
 }
 
-// The instance flash_attn_launch takes at head size D with 16-byte copies
-// (vec != 0) or 4-byte ones: 1 D = 128's, 2 D = 64's, 0 the run-time-D
-// one.
-int flash_attn_instance(int D, int vec) { return instance(D, vec != 0); }
+// The instance flash_attn_launch takes at head size D and S rows, with
+// 16-byte copies (vec != 0) or 4-byte ones: 0 the run-time-D one, 1
+// D = 128's, 2 D = 64's, 3-6 the short ones (D = 128 at S <= 32 and
+// S <= 64, D = 64 the same).  The number of query heads a key/value head
+// does not enter: at every one measured the rule's choice was the faster.
+int flash_attn_instance(int D, int vec, int S) {
+  return instance(D, vec != 0, S);
+}
 
 }  // extern "C"

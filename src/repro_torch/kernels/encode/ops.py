@@ -287,3 +287,9 @@ def encode_fleet(keys, xs: torch.Tensor, ys: torch.Tensor,
         block = _encode_tile((c, ell, d), block, xs.device)
     return encode_fleet_streamed(g_source, xs, ys, weights, c,
                                  partial(encode_parity, block=block))
+
+
+# the plain oracles under the reference's names (`repro.kernels.encode.ops`)
+generator_values = prng.generator_values
+reference = ref.encode_parity
+reference_fleet = ref.encode_fleet

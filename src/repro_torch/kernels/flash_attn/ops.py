@@ -7,7 +7,8 @@ launch the kernel on the current stream or raise.  There is no fallback
 from a CUDA tensor to the plain version, and a CUDA call with an operand
 that requires grad raises (the kernel has no backward, so its output
 would cut the gradient; `common.refuse_grad`).  `FLASH_COUNTER` counts
-the launches.
+the launches, and by the instance the library reports launching
+(`tiles`: {(code, an index into INSTANCES): launches}).
 
 q is (B, Hq, S, D) and k, v are (B, Hkv, S, D) with Hkv dividing Hq:
 query head h reads key/value head h // (Hq / Hkv), so a model's grouped
@@ -39,31 +40,40 @@ MAX_D = 128
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES: build.Signatures = {
-    # q, k, v, o, B, Hq, Hkv, S, D, 4 x (b, h, s) strides, scale, stream
+    # q, k, v, o, B, Hq, Hkv, S, D, 4 x (b, h, s) strides, scale, stream,
+    # out: the instance launched
     "flash_attn_launch": ([_P] * 4 + [_I] * 5 + [_L] * 12
-                          + [ctypes.c_float, _P], _I),
+                          + [ctypes.c_float, _P, ctypes.POINTER(_I)], _I),
     "flash_attn_smem_bytes": ([_I], _I),
-    "flash_attn_instance": ([_I, _I], _I),
+    "flash_attn_instance": ([_I] * 3, _I),
 }
-INSTANCES = ("run-time D", "D = 128", "D = 64")  # flash_attn_instance's 0-2
+# flash_attn_instance's 0-6
+INSTANCES = ("run-time D", "D = 128", "D = 64", "short, D = 128, 32 keys",
+             "short, D = 128, 64 keys", "short, D = 64, 32 keys",
+             "short, D = 64, 64 keys")
+SHORT_MAX_S = 64  # the short instances' longest sequence (kShortMaxS)
 
 
-def instance(d: int, aligned: bool = True) -> str:
-    """The compiled instance of the kernel a call at head size D takes, a
-    pure function of D and the copies (`aligned`: D % 4 == 0 and every
-    base and batch, head and row stride of q, k, v a multiple of 4
-    floats, so 16-byte copies), mirrored by the library's
-    `flash_attn_instance`: "D = 128" for D in 121..128 (16 column tiles
-    of 8, two CTAs an SM), "D = 64" for D in 57..64 (8 tiles, three CTAs
-    an SM), both aligned; else "run-time D" (the column tile count read
-    at run time, 4-byte copies where not aligned).  Every instance
-    computes the same sums in the same order: the result of a call is
-    the run-time instance's bit for bit."""
+def instance(d: int, aligned: bool = True, s: int | None = None) -> str:
+    """The compiled instance of the kernel a call at head size D and S
+    rows takes, a pure function of its arguments (`aligned`: D % 4 == 0
+    and every base and batch, head and row stride of q, k, v a multiple
+    of 4 floats, so 16-byte copies; `s=None`: a sequence longer than
+    SHORT_MAX_S), mirrored by the library's `flash_attn_instance`.
+    Aligned, D in 121..128 (16 column tiles of 8) or 57..64 (8 tiles)
+    takes a short instance at S <= SHORT_MAX_S (32 keys at S <= 32, else
+    64; one key/value head's query group packed into a CTA's rows,
+    however many query heads it holds), else "D = 128" (two CTAs an SM)
+    or "D = 64" (three); every other call takes "run-time D" (the column
+    tile count read at run time, 4-byte copies where not aligned).  Every
+    instance computes the same sums in the same order: the result of a
+    call is the run-time instance's bit for bit."""
     nd = -(-d // 8)
-    if not aligned:
+    if not aligned or nd not in (8, 16):
         return INSTANCES[0]
-    return INSTANCES[1] if nd == 16 else INSTANCES[2] if nd == 8 \
-        else INSTANCES[0]
+    if s is not None and s <= SHORT_MAX_S:
+        return INSTANCES[(3 if nd == 16 else 5) + (s > 32)]
+    return INSTANCES[1 if nd == 16 else 2]
 
 
 def _dispatch(device: torch.device):
@@ -127,10 +137,15 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         ops.append(t if t.stride(-1) == 1 else t.contiguous())
     o = torch.empty_like(ops[0])
     strides = [st for t in (*ops, o) for st in t.stride()[:3]]
+    chosen = ctypes.c_int(-1)
     with on_card(dev):
         status = lib.flash_attn_launch(
             *(t.data_ptr() for t in ops), o.data_ptr(), B, Hq, Hkv, S, D,
-            *strides, scale(D), torch.cuda.current_stream(dev).cuda_stream)
+            *strides, scale(D), torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.byref(chosen))
     build.check_status(lib, status, "flash_attn")
-    FLASH_COUNTER.launches += 1
+    FLASH_COUNTER.add((chosen.value,))
     return o.to(q.dtype)
+
+
+reference = ref.causal_attention  # the plain oracle, the reference's name

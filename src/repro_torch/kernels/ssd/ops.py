@@ -103,3 +103,6 @@ def ssd_chunk(xc: torch.Tensor, dtc: torch.Tensor, da: torch.Tensor,
     build.check_status(lib, status, "ssd_chunk")
     SSD_COUNTER.launches += 1
     return y, states
+
+
+reference = ref.ssd_chunk_reference  # the plain oracle, the reference's name

@@ -78,6 +78,14 @@ Bounds:
     group and with per-head B and C.  A chunk one row past the kernel's
     256 is refused before a launch.  A reduced mamba2 prefill on the card within
     rtol 1e-4 / atol 1e-4 * max|ref| of the CPU one, one launch per layer.
+  * causal attention (kernel 8): kernel and plain version both within the
+    float64 rounding bound of `kernels.flash_attn.ref.float64_reference_
+    and_bound`, within rtol 2e-4 / atol 2e-4 of each other, relaunches
+    bit-identical; the short-sequence instances (S <= 64) at S = 1 to 64
+    and 1 to 12 query heads a key/value head, and at the coded-head
+    probe's (768, 32, 8, 32, 128) in the model's layout, also `torch.equal`
+    to the D = 128 / D = 64 instance on the same rows and to the run-time-D
+    instance of a misaligned view.
   * the hybrid and moe families: the reduced zamba2-1.2b at 5 layers
     (two uses of the shared block) and the reduced phi3.5-moe and
     llama4-maverick, prefilled on the card through kernels 7 and 8
@@ -361,7 +369,8 @@ def test_round_grad_kernels_at_any_d(cuda, m, d):
 def test_routes_and_instances_match_the_libraries(cuda):
     """The library's `rg_route` is the wrapper's `route` at every D to
     20000 (both variants), and kernel 8's `flash_attn_instance` the
-    wrapper's `instance` at every head size."""
+    wrapper's `instance` at every head size and short and long
+    sequences."""
     lib = rg_ops._dispatch(cuda)
     for d in list(range(1, 9000, 7)) + [3220, 3221, 4096, 4097, 8192, 8193,
                                         20000]:
@@ -371,8 +380,12 @@ def test_routes_and_instances_match_the_libraries(cuda):
     fl = fa_ops._dispatch(cuda)
     for d in range(1, fa_ops.MAX_D + 1):
         for vec in (True, False):
-            assert fa_ops.INSTANCES[fl.flash_attn_instance(d, int(vec))] \
-                == fa_ops.instance(d, aligned=vec), (d, vec)
+            for s in (1, 15, 16, 31, 32, 33, 63, 64, 65, 100, 2048):
+                got = fl.flash_attn_instance(d, int(vec), s)
+                assert fa_ops.INSTANCES[got] == fa_ops.instance(
+                    d, aligned=vec, s=s), (d, vec, s)
+            assert fa_ops.INSTANCES[fl.flash_attn_instance(
+                d, int(vec), 2048)] == fa_ops.instance(d, aligned=vec)
 
 
 def _rg_calls(cuda, m=5632, d=500, seed=5, c=2016):
@@ -1270,6 +1283,86 @@ def test_flash_kernel_checks_operands(cuda):
                                    v.bfloat16().float())
     assert got.dtype == torch.bfloat16
     assert torch.equal(got, want.bfloat16())
+
+
+# kernel 8's short instances (S <= 64, D = 128 or 64, 16-byte copies):
+# (B, Hq, Hkv, S, D) over the sequence lengths at and around the 16-row
+# warp tile and the 32- and 64-key tiles, 1 to 12 query heads a key/value
+# head (packed rows of two heads in one warp tile, a ragged last chunk)
+SHORT_FLASH_SHAPES = [(2, 2 * rep, 2, s, d) for d in (64, 128)
+                      for s in (1, 15, 16, 33, 63, 64)
+                      for rep in (1, 2, 4, 8, 12)]
+PROBE_FLASH_SHAPE = (768, 32, 8, 32, 128)
+
+
+def _longer(t, extra):
+    """`t` (B, H, S, D) with `extra` more N(0, 1) rows after its S."""
+    tail = torch.randn((*t.shape[:2], extra, t.shape[3]), device=t.device,
+                       generator=torch.Generator(t.device).manual_seed(9))
+    return torch.cat([t, tail], 2)
+
+
+def _instances_launched(fn, *args):
+    """fn(*args) and the kernel-8 instances it launched, by the counter's
+    record (`FLASH_COUNTER.tiles`)."""
+    before = dict(fa_ops.FLASH_COUNTER.tiles)
+    out = fn(*args)
+    names = [fa_ops.INSTANCES[key[0]]
+             for key, n in fa_ops.FLASH_COUNTER.tiles.items()
+             for _ in range(n - before.get(key, 0))]
+    return out, names
+
+
+def _equal_to_the_long_instance(q, k, v, got):
+    """`got`, a short instance's result, against the D = 128 or D = 64
+    instance on the same rows: the operands extended to S + 65 rows take
+    it, and a row's causal result reads no later key, so its first S
+    rows must be `got` bit for bit."""
+    S, D = q.shape[2:]
+    long_ops = [_longer(t, 65) for t in (q, k, v)]
+    assert fa_ops.instance(D, s=S + 65) in ("D = 128", "D = 64")
+    assert torch.equal(fa_ops.causal_attention(*long_ops)[:, :, :S], got)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", SHORT_FLASH_SHAPES)
+def test_short_flash_instance_at_its_edges(cuda, B, Hq, Hkv, S, D):
+    """The short instances within the float64 bound, within rtol 2e-4 of
+    the plain version and bit-identical across two launches; `torch.equal`
+    to the D = 128 / D = 64 instance on the same rows and to the run-time-D
+    instance, which a misaligned view takes."""
+    assert fa_ops.instance(D, s=S).startswith("short")
+    assert fa_ops.instance(D, aligned=False, s=S) == "run-time D"
+    gen = torch.Generator(device=cuda).manual_seed(B + Hq + S + D)
+    q, k, v = _flash_operands(gen, cuda, B, Hq, Hkv, S, D)
+    _hold_flash(q, k, v)
+    got, names = _instances_launched(fa_ops.causal_attention, q, k, v)
+    assert names == [fa_ops.instance(D, s=S)]
+    _equal_to_the_long_instance(q, k, v, got)
+    views = [_misaligned(t) for t in (q, k, v)]
+    out, names = _instances_launched(fa_ops.causal_attention, *views)
+    assert names == ["run-time D"] and torch.equal(out, got)
+
+
+def test_short_flash_instance_at_the_probe_shape(cuda):
+    """The coded-head probe's backbone shape, (768, 32, 8, 32, 128), in the
+    model's layout (transposed views of (B, S, H, D) projections, read in
+    place): within the float64 bound and rtol 2e-4 of plain, two launches
+    bit-identical, the output with q's strides, and `torch.equal` to the
+    D = 128 instance on the same rows (contiguous operands give the same
+    bits)."""
+    B, Hq, Hkv, S, D = PROBE_FLASH_SHAPE
+    assert fa_ops.instance(D, s=S) == "short, D = 128, 32 keys"
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    qm, km, vm = (torch.randn((B, S, h, D), generator=gen, device=cuda)
+                  for h in (Hq, Hkv, Hkv))
+    views = [t.transpose(1, 2) for t in (qm, km, vm)]
+    _hold_flash(*views)
+    got, names = _instances_launched(fa_ops.causal_attention, *views)
+    assert names == ["short, D = 128, 32 keys"]
+    assert got.stride() == views[0].stride()
+    contiguous = [t.contiguous() for t in views]
+    assert torch.equal(fa_ops.causal_attention(*contiguous), got)
+    _equal_to_the_long_instance(*contiguous, got)
 
 
 def test_dense_prefill_on_the_card_matches_cpu(cuda):

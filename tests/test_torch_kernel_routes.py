@@ -4,7 +4,9 @@
 gradient of D columns takes on the card (the row-resident instances, one
 launch over thread-block clusters along D, or the residual pass and the
 column-chunked launch), and `repro_torch.kernels.flash_attn.ops.instance`
-which compiled instance of kernel 8 a head size takes.  Both are pure
+which compiled instance of kernel 8 a head size and a sequence length
+take, and the kernel-8 wrapper records the instance its library reports
+launching.  Both are pure
 functions of their arguments, mirrored by the libraries' `rg_route` and
 `flash_attn_instance` (held equal to them on the card in
 `tests/test_torch_cuda.py`); here they are held to the constants of the
@@ -89,6 +91,7 @@ def test_instance_constants_mirror_the_source():
     assert _constant("flash_attn", "kMaxNd") == 16
     assert _constant("flash_attn", "kNarrowNd") == 8
     assert fa_ops.MAX_D == 8 * _constant("flash_attn", "kMaxNd")
+    assert fa_ops.SHORT_MAX_S == _constant("flash_attn", "kShortMaxS")
 
 
 @pytest.mark.parametrize("d,want", [
@@ -102,3 +105,70 @@ def test_flash_instance(d, want):
     view that takes 4-byte copies, the run-time-D instance."""
     assert fa_ops.instance(d) == want
     assert fa_ops.instance(d, aligned=False) == "run-time D"
+
+
+@pytest.mark.parametrize("d,s,want", [
+    (128, 1, "short, D = 128, 32 keys"),
+    (128, 15, "short, D = 128, 32 keys"),
+    (128, 32, "short, D = 128, 32 keys"),
+    (124, 32, "short, D = 128, 32 keys"),
+    (128, 33, "short, D = 128, 64 keys"),
+    (128, 64, "short, D = 128, 64 keys"),
+    (128, 65, "D = 128"), (128, 2048, "D = 128"),
+    (64, 16, "short, D = 64, 32 keys"),
+    (60, 63, "short, D = 64, 64 keys"),
+    (64, 100, "D = 64"), (72, 32, "run-time D"),
+    (40, 1, "run-time D"), (8, 64, "run-time D")])
+def test_flash_short_instance(d, s, want):
+    """At S <= 64 the head sizes of the two compile-time instances take
+    the short ones (32 keys up to S = 32, else 64); a longer S the D = 128
+    / D = 64 instance; any view that takes 4-byte copies the run-time-D
+    one; every other head size the run-time-D one whatever S."""
+    assert fa_ops.instance(d, s=s) == want
+    assert fa_ops.instance(d, aligned=False, s=s) == "run-time D"
+    if s > fa_ops.SHORT_MAX_S:
+        assert fa_ops.instance(d, s=s) == fa_ops.instance(d)
+
+
+@pytest.mark.parametrize("code", [0, 3, 6])
+def test_flash_counter_records_the_instance_the_library_reports(
+        monkeypatch, code):
+    """The wrapper records, by its code, the instance `flash_attn_launch`
+    writes to its last argument (a stub library here, the kernel route
+    forced for CPU tensors), whatever the operands' shape; a failed
+    launch records nothing."""
+    from unittest import mock
+
+    def launch(*args):
+        args[-1]._obj.value = code
+        return status
+
+    lib = mock.MagicMock()
+    lib.flash_attn_launch.side_effect = launch
+    monkeypatch.setattr(fa_ops, "_dispatch", lambda device: lib)
+    monkeypatch.setattr(fa_ops.torch.cuda, "current_stream",
+                        lambda device: mock.MagicMock(cuda_stream=0))
+    q, k, v = (torch.zeros((1, h, 10, 8)) for h in (4, 2, 2))
+    before = dict(fa_ops.FLASH_COUNTER.tiles)
+    status = 0
+    fa_ops.causal_attention(q, k, v)
+    status = 700  # a CUDA error code
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa_ops.causal_attention(q, k, v)
+    after = dict(fa_ops.FLASH_COUNTER.tiles)
+    assert after.pop((code,)) == before.pop((code,), 0) + 1
+    assert after == before
+
+
+def test_flash_instance_names_mirror_the_source():
+    """INSTANCES in the order of the library's codes: the dispatch of
+    `flash_attn_launch` launches codes 3 to 6 as the short instances of
+    D = 128 and D = 64 at 4 and 8 score n-tiles (32 and 64 keys)."""
+    text = (build.CSRC / "flash_attn.cu").read_text()
+    launched = {code: (nd, int(kt)) for code, nd, kt in re.findall(
+        r"inst == (\d)\)\s+e = launch_short<(k\w+), (\d)>", text)}
+    assert launched == {"3": ("kMaxNd", 4), "4": ("kMaxNd", 8),
+                        "5": ("kNarrowNd", 4), "6": ("kNarrowNd", 8)}
+    for code, (nd, kt) in launched.items():
+        assert fa_ops.INSTANCES[int(code)] == (
+            f"short, D = {128 if nd == 'kMaxNd' else 64}, {8 * kt} keys")
